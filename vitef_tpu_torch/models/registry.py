@@ -1,0 +1,85 @@
+"""Model factory. Counterpart of ``vitef_tpu/models/registry.py`` (:31-66, :144-187).
+
+:func:`build_model` takes the JAX package's flat config dicts. Ported
+implementations: ``"vit"`` and ``"transformer"``; the others raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import logging
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from ..ops.common import use_true_fp32
+from .transformer import Transformer, TransformerConfig
+
+logger = logging.getLogger(__name__)
+
+_UNPORTED = ("gpt2", "patchtst", "llama", "moe")
+
+
+def _build_config(cls, config: dict[str, Any]):
+    """Instantiate dataclass ``cls`` from ``config``; unknown keys warn and are
+    dropped, as the JAX package's ``build_with_type_check`` does."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    for key in config.keys() - names:
+        logger.warning("unknown field %r for %s (ignored)", key, cls.__name__)
+    return cls(**{k: v for k, v in config.items() if k in names})
+
+
+@dataclass
+class Model:
+    """Model bundle: the module (which holds the parameters), its config and name."""
+
+    module: Transformer
+    config: TransformerConfig
+    name: str
+
+    def apply(self, x: torch.Tensor, **kw):
+        return self.module(x, **kw)
+
+    @functools.cached_property
+    def eval_step(self):
+        """``(x, y) -> (batch_acc, batch_loss)`` under ``torch.inference_mode``."""
+        from ..parallel.train_step import make_eval_step
+
+        return make_eval_step(self.apply)
+
+
+def build_model(config: dict[str, Any], *, device,
+                generator: torch.Generator | None = None) -> Model:
+    """Build a model on ``device`` from a flat dict config.
+
+    Parameters are drawn on the CPU from ``generator`` (default: seeded with
+    ``config["seed"]``, else 0) and then moved to ``device``. The module is
+    put in eval mode. On CUDA, float32 matmuls are set to full float32
+    (:func:`~vitef_tpu_torch.ops.common.use_true_fp32`).
+    """
+    config = dict(config)
+    implementation = config.pop("implementation", "vit")
+    seed = config.pop("seed", 0)
+    if generator is None:
+        generator = torch.Generator().manual_seed(seed)
+    device = torch.device(device)
+    if device.type == "cuda":
+        use_true_fp32()
+
+    impl = implementation.lower()
+    if impl == "vit":
+        from .vit import ViTConfig, build_vit
+
+        cfg = _build_config(ViTConfig, config)
+        module, tcfg, name = build_vit(cfg, device=device, generator=generator)
+    elif impl == "transformer":
+        cfg = tcfg = _build_config(TransformerConfig, config)
+        module, name = Transformer(cfg, device=device, generator=generator), "transformer"
+    elif impl in _UNPORTED:
+        raise NotImplementedError(f"implementation {implementation!r} is not ported yet")
+    else:
+        raise ValueError(f"Implementation {implementation} not found.")
+
+    return Model(module=module.eval(), config=tcfg, name=name)

@@ -1,0 +1,380 @@
+"""Encoder transformer as ``nn.Module``s. Counterpart of ``vitef_tpu/models/transformer.py``.
+
+:class:`TransformerConfig` has the JAX package's field names and
+``__post_init__`` derivations (:58-236), so one config dict builds both
+packages. The modules (:426-843) keep the JAX package's parameter names, so
+``blocks.0.attn.qkv_mat.weight`` names the same tensor in both, and its
+numerics:
+
+- linear weights are stored in the torch layout (out, in) and in float32;
+  each matmul casts them to the compute dtype, and its output and bias add
+  are in the compute dtype;
+- the residual stream is in the compute dtype (bfloat16 on the card);
+- hybrid image patching replaces the token embedding by the identity, the
+  cls token is prepended, then ``pos_emb[:, :l]`` is added;
+- 'gelu' is the exact erf in float32 and the tanh approximation in bfloat16;
+- classification reads the CLS token and returns float32 logits.
+
+Ported: the ViT geometry (computer-vision hybrid patching, learned absolute
+positions, multi-head attention, mlp FFN, layer norm, classification head),
+forward only. The other options of the config raise ``NotImplementedError``.
+Dropout is not applied: this port runs inference only so far.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import multi_head_attention
+from .norms import build_norm
+from .patching import extract_patches_chw, image_patch_dims
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class TransformerConfig:
+    """The JAX package's TransformerConfig: same fields, same derivations."""
+
+    # Data parameters
+    image_dim: tuple = (3, 224, 224)
+    length: int = 512
+
+    # Patching parameters
+    patch_type: str | None = None  # None | computer_vision | time_series
+    image_patch: str = "hybrid"  # raw | hybrid
+    patch_size: int = 16
+    stride: int = 8
+
+    # Embedding parameters
+    vocab_size: int = -1
+    emb_type: str = "dict"  # dict | linear
+    emb_dim: int = -1
+    pos_emb: bool = True
+    freeze_pos: bool = False
+    seq_len: int = -1
+    emb_dropout: float | None = None
+
+    # Attention parameters
+    n_heads: int = -1
+    attn_bias: bool = False
+    attn_dropout: float | None = None
+    flash: bool = True  # use the fused kernel path (verbose takes the plain one)
+    causal: bool = False
+    n_kv_heads: int = -1
+    pos_emb_type: str = "learned"
+    rope_theta: float = 10000.0
+
+    # Feed-forward parameters
+    activation: str = "gelu"
+    ffn_dim: int | None = None
+    ffn_bias: bool = False
+    ffn_dropout: float | None = None
+    ffn_type: str = "mlp"
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_lb_coef: float = 0.0
+    moe_z_coef: float = 0.0
+
+    # Transformer block parameters
+    norm: str = "layer"  # batch | layer | rms
+    norm_bias: bool = False
+    norm_eps: float = 1e-5
+    pre_norm: bool = True
+
+    # Transformer parameters
+    n_layers: int = -1
+    dropout: float = 0.0
+
+    # Task-specific parameters
+    cls_token: bool = False
+    output_type: str = "sequence_to_sequence"
+    weight_tying: bool = True
+    output_dropout: float | None = None
+    n_classes: int = -1
+    forecasting_horizon: int = -1
+
+    # Execution knobs
+    compute_dtype: str = "float32"  # activation dtype: float32 | bfloat16
+    attn_impl: str = "auto"  # auto | kernel | plain (or the JAX names pallas | xla)
+    norm_impl: str = "auto"
+    moe_impl: str = "auto"
+    moe_capacity_factor: float | None = None
+    remat: bool = False
+
+    # Derived (filled in __post_init__)
+    n_patches: int = field(default=-1)
+    patch_dim: int = field(default=-1)
+
+    def __post_init__(self):
+        if self.ffn_dim is None:
+            self.ffn_dim = 4 * self.emb_dim
+        for name in ("emb_dropout", "attn_dropout", "ffn_dropout", "output_dropout"):
+            if getattr(self, name) is None:
+                setattr(self, name, self.dropout)
+        if isinstance(self.image_dim, list):
+            self.image_dim = tuple(self.image_dim)
+        if self.patch_type:
+            pt = self.patch_type.lower()
+            if pt == "computer_vision":
+                self.n_patches, self.patch_dim = image_patch_dims(
+                    self.image_dim, self.patch_size)
+            elif pt == "time_series":
+                self.n_patches = (self.length - self.patch_size) // self.stride + 2
+                self.patch_dim = self.patch_size
+            else:
+                raise ValueError(f"Unknown patch_type {self.patch_type!r}")
+            self.seq_len = self.n_patches
+            self.vocab_size = self.patch_dim
+        if self.cls_token:
+            self.seq_len = self.seq_len + 1
+        if self.emb_dim > 0 and self.n_heads > 0:
+            assert self.emb_dim % self.n_heads == 0, (
+                "Embedding dimension must be divisible by number of heads.")
+        if self.n_kv_heads < 0:
+            self.n_kv_heads = self.n_heads
+        if self.n_heads > 0:
+            assert self.n_heads % self.n_kv_heads == 0, (
+                "n_heads must be a multiple of n_kv_heads (GQA groups)")
+        pe = self.pos_emb_type.lower()
+        if pe not in ("learned", "rope"):
+            raise ValueError(f"Unknown pos_emb_type {self.pos_emb_type!r}")
+        if pe == "rope":
+            self.pos_emb = False
+        if self.ffn_type.lower() not in ("mlp", "swiglu"):
+            raise ValueError(f"Unknown ffn_type {self.ffn_type!r}")
+        if self.n_experts:
+            if self.n_experts < 0:
+                raise ValueError("n_experts must be >= 0")
+            if not 0 < self.moe_top_k <= self.n_experts:
+                raise ValueError("moe_top_k must be in [1, n_experts]")
+
+    @property
+    def hybrid_identity_emb(self) -> bool:
+        """Hybrid CV patching replaces token_emb by identity."""
+        return bool(self.patch_type
+                    and self.patch_type.lower() == "computer_vision"
+                    and self.image_patch.lower() == "hybrid")
+
+    def cdtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+
+def _check_ported(cfg: TransformerConfig) -> None:
+    """Raise for the options whose modules are not ported yet."""
+    unported = {
+        "patching other than computer_vision hybrid": not cfg.hybrid_identity_emb,
+        "grouped-query attention": cfg.n_kv_heads != cfg.n_heads,
+        "rotary positions": cfg.pos_emb_type.lower() != "learned",
+        "swiglu FFN": cfg.ffn_type.lower() != "mlp",
+        "mixture of experts": bool(cfg.n_experts),
+        f"output_type={cfg.output_type!r}": cfg.output_type.lower() != "classification",
+    }
+    missing = [name for name, hit in unported.items() if hit]
+    if missing:
+        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+    if cfg.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+
+
+# ---------------------------------------------------------------------------
+# Layers. Init follows torch defaults: Linear U(±1/√fan_in), cls/pos N(0, 1),
+# norms ones/zeros; every draw comes from the generator passed in, on the CPU,
+# so a seed gives the same weights on every device.
+# ---------------------------------------------------------------------------
+
+
+def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
+    return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+class Linear(nn.Module):
+    """Linear layer: float32 ``weight`` (out, in) and ``bias`` (out,), applied in
+    the compute dtype."""
+
+    def __init__(self, fan_in: int, fan_out: int, bias: bool, *,
+                 device: torch.device, generator: torch.Generator):
+        super().__init__()
+        bound = 1.0 / math.sqrt(fan_in)
+        self.weight = nn.Parameter(_uniform((fan_out, fan_in), bound, generator).to(device))
+        self.bias = (nn.Parameter(_uniform((fan_out,), bound, generator).to(device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+        out = F.linear(x.to(compute_dtype), self.weight.to(compute_dtype))
+        if self.bias is not None:
+            out = out + self.bias.to(compute_dtype)
+        return out
+
+
+def _gelu_dtype_aware(x):
+    """Exact erf gelu in float32 (parity paths), tanh approximation in bfloat16."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+
+
+_ACTIVATIONS = {
+    "gelu": _gelu_dtype_aware,
+    "gelu_exact": lambda x: F.gelu(x, approximate="none"),
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "leaky_relu": F.leaky_relu,
+    "elu": F.elu,
+    "softplus": F.softplus,
+}
+
+
+def get_activation(name: str):
+    fn = _ACTIVATIONS.get(name.lower())
+    if fn is None:
+        raise ValueError(f"Unknown activation function {name!r}")
+    return fn
+
+
+class Embedding(nn.Module):
+    """Patch -> (identity token_emb) -> cls prepend -> + pos_emb."""
+
+    def __init__(self, cfg: TransformerConfig, *, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        fan_in = cfg.image_dim[0] * cfg.patch_size**2
+        self.patching = nn.ModuleDict(
+            {"conv": Linear(fan_in, cfg.emb_dim, True, device=device, generator=generator)})
+        e = cfg.emb_dim
+        self.cls_token = (nn.Parameter(torch.randn((1, 1, e), generator=generator).to(device))
+                          if cfg.cls_token else None)
+        self.pos_emb = (nn.Parameter(
+            torch.randn((1, cfg.seq_len, e), generator=generator).to(device))
+            if cfg.pos_emb else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.cfg.cdtype()
+        out = self.patching["conv"](extract_patches_chw(x.to(cd), self.cfg.patch_size), cd)
+        if self.cls_token is not None:
+            cls = self.cls_token.to(cd).expand(out.shape[0], 1, -1)
+            out = torch.cat([cls, out], dim=1)
+        if self.pos_emb is not None:
+            out = out + self.pos_emb[:, :out.shape[1]].to(cd)
+        return out
+
+
+class Attention(nn.Module):
+    """Fused-qkv multi-head attention + output projection."""
+
+    def __init__(self, cfg: TransformerConfig, *, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        e = cfg.emb_dim
+        self.qkv_mat = Linear(e, 3 * e, cfg.attn_bias, device=device, generator=generator)
+        self.output = Linear(e, e, cfg.attn_bias, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, verbose: bool = False):
+        cfg = self.cfg
+        return multi_head_attention(
+            x, self.qkv_mat.weight, self.qkv_mat.bias,
+            self.output.weight, self.output.bias,
+            n_heads=cfg.n_heads, causal=cfg.causal,
+            impl=cfg.attn_impl if cfg.flash else "plain",
+            verbose=verbose, compute_dtype=cfg.cdtype())
+
+
+class FeedForward(nn.Module):
+    """fc1 -> activation -> fc2."""
+
+    def __init__(self, cfg: TransformerConfig, *, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.activation = get_activation(cfg.activation)
+        self.fc1 = Linear(cfg.emb_dim, cfg.ffn_dim, cfg.ffn_bias,
+                          device=device, generator=generator)
+        self.fc2 = Linear(cfg.ffn_dim, cfg.emb_dim, cfg.ffn_bias,
+                          device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.cfg.cdtype()
+        return self.fc2(self.activation(self.fc1(x, cd)), cd)
+
+
+class Block(nn.Module):
+    """Pre- or post-norm transformer block."""
+
+    def __init__(self, cfg: TransformerConfig, *, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        e = cfg.emb_dim
+        self.attn_norm = build_norm(e, cfg.norm_bias, cfg.norm, cfg.norm_eps, device=device)
+        self.attn = Attention(cfg, device=device, generator=generator)
+        self.ffn_norm = build_norm(e, cfg.norm_bias, cfg.norm, cfg.norm_eps, device=device)
+        self.ffn = FeedForward(cfg, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, verbose: bool = False):
+        att = None
+        if self.cfg.pre_norm:
+            out = self.attn(self.attn_norm(x), verbose=verbose)
+            if verbose:
+                out, att = out
+            out = x + out
+            out = out + self.ffn(self.ffn_norm(out))
+        else:
+            out = self.attn(x, verbose=verbose)
+            if verbose:
+                out, att = out
+            out = self.attn_norm(x + out)
+            out = self.ffn_norm(out + self.ffn(out))
+        return (out, att) if verbose else out
+
+
+class ClassificationOutput(nn.Module):
+    """Final norm, CLS token, head; float32 logits."""
+
+    def __init__(self, cfg: TransformerConfig, *, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.output_layer = nn.ModuleDict({
+            "norm": build_norm(cfg.emb_dim, cfg.norm_bias, cfg.norm, cfg.norm_eps,
+                               device=device),
+            "head": Linear(cfg.emb_dim, cfg.n_classes, True, device=device,
+                           generator=generator),
+        })
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.output_layer["norm"](x)[:, 0, :]
+        return self.output_layer["head"](out, self.cfg.cdtype()).float()
+
+
+class Transformer(nn.Module):
+    """Embedding -> blocks -> classification head.
+
+    ``forward(x, verbose=True)`` also returns the stacked
+    (n_layers, N, h, L, L) attention weights, computed on the plain path.
+    """
+
+    def __init__(self, cfg: TransformerConfig, *, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.embedding = Embedding(cfg, device=device, generator=generator)
+        self.blocks = nn.ModuleList(
+            [Block(cfg, device=device, generator=generator) for _ in range(cfg.n_layers)])
+        self.output = ClassificationOutput(cfg, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, verbose: bool = False):
+        out = self.embedding(x)
+        attentions = []
+        for block in self.blocks:
+            out = block(out, verbose=verbose)
+            if verbose:
+                out, att = out
+                attentions.append(att)
+        logits = self.output(out)
+        if verbose:
+            return logits, torch.stack(attentions)
+        return logits

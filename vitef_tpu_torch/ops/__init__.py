@@ -1,0 +1,9 @@
+from .attention import (  # noqa: F401
+    attention_reference,
+    fused_mha_packed,
+    multi_head_attention,
+    packed_mha_reference,
+    packed_mha_supported,
+)
+from .common import resolve_impl, use_true_fp32  # noqa: F401
+from .layernorm import layer_norm  # noqa: F401

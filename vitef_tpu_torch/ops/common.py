@@ -1,0 +1,60 @@
+"""Shared op policy: which implementation runs, and what float32 means.
+
+Counterpart of ``vitef_tpu/ops/common.py`` (``best_precision`` :9-18,
+``resolve_impl`` :21-59).
+"""
+
+from __future__ import annotations
+
+import torch
+
+# The JAX package's names for the two implementations, accepted so that one
+# config dict builds both packages.
+_ALIASES = {"pallas": "kernel", "xla": "plain"}
+# float32 attention at this length or longer takes the kernel on CUDA.
+_KERNEL_MIN_SEQ = 512
+
+
+def use_true_fp32() -> None:
+    """Make float32 matmuls and convolutions run in full float32 on the card.
+
+    The JAX package runs every float32 matmul at HIGHEST precision
+    (``best_precision``); its float32 path is the parity and analysis path.
+    On CUDA, PyTorch may route float32 matmuls (``torch.backends.cuda.matmul
+    .allow_tf32``) and convolutions (``torch.backends.cudnn.allow_tf32``, True
+    by default) through TF32, which keeps about three decimal digits. This
+    sets both flags to False. They are process-wide settings of PyTorch;
+    bfloat16 work is unaffected.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_impl(impl: str, device: torch.device, *, seq_len: int | None = None,
+                 dtype: torch.dtype | None = None) -> str:
+    """Resolve ``impl`` to ``"kernel"`` (a hand-written CUDA kernel) or ``"plain"``.
+
+    ``"auto"`` is one policy:
+
+    - a tensor that is not on a CUDA device takes the plain PyTorch path;
+    - on CUDA, bfloat16 attention (``seq_len`` and ``dtype`` given) takes the
+      kernel;
+    - on CUDA, float32 attention below L=512 takes the plain
+      path, as in the JAX package: float32 is the parity/analysis path;
+    - norms (no ``seq_len``) take the plain path.
+
+    ``"kernel"`` and ``"plain"`` (or the JAX names ``"pallas"`` and ``"xla"``)
+    pick one explicitly.
+    """
+    impl = _ALIASES.get(impl, impl)
+    if impl == "auto":
+        if torch.device(device).type != "cuda":
+            return "plain"
+        if seq_len is not None and dtype == torch.bfloat16:
+            return "kernel"
+        if seq_len is not None and seq_len >= _KERNEL_MIN_SEQ:
+            return "kernel"
+        return "plain"
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown impl {impl!r}; choose auto/kernel/plain")
+    return impl
