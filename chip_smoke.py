@@ -8,14 +8,26 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``:
 Phases (each raises on failure, so the run exits non-zero):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the inference path from ``vitef_tpu_torch/ops/csrc``;
-3. kernel phase: the packed-MHA kernel against its plain PyTorch version
+2. build every CUDA kernel from ``vitef_tpu_torch/ops/csrc`` (one ``nvcc`` per
+   source, all at once), printing the seconds and ptxas registers/spills;
+3. K1 phase: the packed-MHA forward kernel against its plain PyTorch version
    (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths,
-   and both timed at the ViT-B/16 shape;
-4. slice phase: ViT-B/16 in bfloat16 (random weights from a seed) classifies
-   a synthetic test set through the port's loader and ``run_evaluation``;
-   every attention call must launch the kernel, none may take the plain path;
-5. cross-check: the same model's logits through the plain attention path.
+   both timed at the ViT-B/16 shape;
+4. K2 phase: the packed-MHA backward kernel likewise, plus bit-identical
+   outputs over two launches;
+5. K10 phase: the train augment kernel against its plain version at batch
+   512, both timed;
+6. eval slice: ViT-B/16 in bfloat16 (random weights from a seed) classifies a
+   synthetic test set through the port's loader and ``run_evaluation``;
+   every attention call must launch K1, none may take the plain path;
+7. eval cross-check: the same model's logits through the plain attention path;
+8. train slice: ViT-B/16 finetunes with ``bench.py``'s protocol (batch 512 as
+   2 x 256 accumulation, SGD momentum 0.9, lr 0.01, cosine schedule with
+   warmup 100, clip 1.0) from the port's train loader; K1, K2 and K10 must
+   carry every step and no plain version may run; then the device-only rate
+   on a device-resident raw batch, and a torch.profiler split of one step;
+9. train cross-check: one microbatch's gradients through the kernel path and
+   the plain path, and a loss that falls over 20 steps on one fixed batch.
 
 The second-to-last line is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``.
@@ -23,18 +35,24 @@ The second-to-last line is a JSON object describing each kernel; the last is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import time
+from collections import Counter
 
+import numpy as np
 import torch
 
-from vitef_tpu_torch.data.images import build_loader
+from vitef_tpu_torch.data.images import build_loader, build_train_val_loader, make_iterable
+from vitef_tpu_torch.data.images import transforms as T
 from vitef_tpu_torch.eval import run_evaluation
 from vitef_tpu_torch.models import build_model
 from vitef_tpu_torch.ops import _build
 from vitef_tpu_torch.ops import attention as A
+from vitef_tpu_torch.optim import build_optimizer, build_scheduler
+from vitef_tpu_torch.parallel import auto_grad_acc, init_train_state, make_train_step
 
 VIT_B16 = {"implementation": "vit", "model_name": "base", "patch_size": 16,
            "image_dim": (3, 224, 224), "finetuning": True, "n_classes": 10,
@@ -45,9 +63,28 @@ N_HEADS, EMB = 12, 768
 VIT_SHAPE = (256, 197)                       # (N, L) of ViT-B/16 at batch 256
 EDGE_SHAPES = [(8, 1), (8, 17), (8, 64), (8, 65), (8, 577)]
 
-# The kernel's bf16 output against the float32 plain version on the same bf16
-# inputs: bf16 rounding of the output alone is ~2^-8 of |value|.
+KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment")
+N_CLASSES = VIT_B16["n_classes"]
+
+# A kernel's bf16 output against the float32 plain version on the same bf16
+# inputs: bf16 rounding of the output alone is ~2^-8 of |value| (K10's values
+# reach 2.64, so ~1e-2). K2's bias gradient sums N·L rows of its rounded
+# dqkv, so it is held relative to its largest entry.
 KERNEL_MAX_ABS, KERNEL_MEAN_ABS = 2e-2, 2e-3
+DB_MAX_REL = 1e-2
+
+# Train slice: bench.py's protocol (bench.py:54-111).
+TRAIN_DATA = {"dataset_name": "synthetic-4096", "batch_size": 512, "val_batch_size": 256,
+              "size": 224, "compute_dtype": "bfloat16", "seed": 0}
+OPTIMIZER = {"optimizer": "sgd", "lr": 0.01, "momentum": 0.9}
+SCHEDULER = {"scheduler": "cosine", "warmup": 100}
+TRAIN_STEPS, WARMUP_STEPS, TIMED_STEPS = 1000, 3, 10
+AUTO_MICROBATCH = 256   # the app's default split: 512 -> 2 x 256
+GRAD_CLIP = 1.0
+# Gradients of one microbatch, kernel path vs plain path, both bf16 through 12
+# layers (the eval logits already differ by ~1.2e-2): relative L2 bound.
+GRAD_REL_L2 = 5e-2
+FIXED_BATCH, FIXED_STEPS = 64, 20
 # Whole-model logits, kernel path vs plain attention path, both bf16: the two
 # attention paths round to bf16 at different places (the kernel keeps q + bias
 # and the probabilities in float32), and 12 residual blocks compound each
@@ -74,6 +111,52 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+@contextlib.contextmanager
+def counting(module, *names):
+    """Replace each function ``module.<name>`` by a wrapper that records its
+    calls; yields the list of recorded names and restores the originals."""
+    calls, originals = [], {name: getattr(module, name) for name in names}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name, fn in originals.items():
+        setattr(module, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def no_plain_versions():
+    """Record every call of the three plain versions (of K1, K2 and K10)."""
+    with counting(A, "attention_reference", "packed_mha_bwd_reference") as calls, \
+            counting(T, "augment_train_reference") as aug_calls:
+        yield calls, aug_calls
+
+
+def build_phase() -> None:
+    t0 = time.perf_counter()
+    _build.build(KERNELS)
+    print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}:", line.strip())
+
+
+def in_turns(kernel, plain, iters: int = 20) -> tuple[float, float, list[float]]:
+    """(kernel ms, plain ms, all four times), timed plain, kernel, kernel, plain."""
+    times = [cuda_ms(plain, iters), cuda_ms(kernel, iters), cuda_ms(kernel, iters),
+             cuda_ms(plain, iters)]
+    return min(times[1:3]), min(times[0], times[3]), times
+
+
 def kernel_phase(device) -> dict:
     gen = torch.Generator().manual_seed(0)
     worst = 0.0
@@ -97,14 +180,95 @@ def kernel_phase(device) -> dict:
 
     qkv, bias = vit_inputs
     with torch.inference_mode():
-        kernel = lambda: A.fused_mha_packed(qkv, N_HEADS, bias=bias)  # noqa: E731
-        plain = lambda: A.packed_mha_reference(qkv, N_HEADS, bias=bias)  # noqa: E731
-        # in turns: plain, kernel, kernel, plain
-        times = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
-    ms, plain_ms = min(times[1:3]), min(times[0], times[3])
+        ms, plain_ms, times = in_turns(lambda: A.fused_mha_packed(qkv, N_HEADS, bias=bias),
+                                       lambda: A.packed_mha_reference(qkv, N_HEADS, bias=bias))
     print(f"K1 at N={VIT_SHAPE[0]} L={VIT_SHAPE[1]} E={EMB} h={N_HEADS}: kernel "
           f"{times[1]:.4f}/{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def k2_phase(device) -> dict:
+    """K2 against the float32 plain backward on the same bf16 inputs."""
+    gen = torch.Generator().manual_seed(2)
+    worst = 0.0
+    for n, l in [VIT_SHAPE, *EDGE_SHAPES]:
+        qkv = (torch.randn(n, l, 3 * EMB, generator=gen) * 0.5).to(device, torch.bfloat16)
+        bias = (torch.randn(3 * EMB, generator=gen) * 0.1).to(device, torch.bfloat16)
+        g = torch.randn(n, l, EMB, generator=gen).to(device, torch.bfloat16)
+        dqkv, db = A.packed_mha_bwd(qkv, bias, g, N_HEADS)
+        again = A.packed_mha_bwd(qkv, bias, g, N_HEADS)
+        ref_dqkv, ref_db = A.packed_mha_bwd_reference(qkv.float(), bias.float(), g.float(),
+                                                      N_HEADS)
+        torch.cuda.synchronize()
+        diff = (dqkv.float() - ref_dqkv).abs()
+        max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        db_max, db_scale = (db.float() - ref_db).abs().max().item(), ref_db.abs().max().item()
+        identical = torch.equal(dqkv, again[0]) and torch.equal(db, again[1])
+        print(f"K2 packed_mha_bwd N={n} L={l}: dqkv max|d|={max_abs:.3e} "
+              f"mean|d|={mean_abs:.3e}; db max|d|={db_max:.3e} (max|db|={db_scale:.3f}); "
+              f"two launches bit-identical: {identical}")
+        if not (tuple(dqkv.shape) == (n, l, 3 * EMB) and db.dtype == bias.dtype
+                and math.isfinite(max_abs) and max_abs <= KERNEL_MAX_ABS
+                and mean_abs <= KERNEL_MEAN_ABS and db_max <= DB_MAX_REL * db_scale):
+            raise AssertionError(f"K2 disagrees with its plain version at N={n} L={l}")
+        if not identical:
+            raise AssertionError(f"K2 is not deterministic at N={n} L={l}")
+        worst = max(worst, max_abs)
+        if (n, l) == VIT_SHAPE:
+            vit_inputs = (qkv, bias, g)
+
+    # What the kernel does not take raises on CUDA; nothing falls back.
+    too_long = (torch.zeros(1, 786, 3 * EMB, dtype=torch.bfloat16, device=device), None,
+             torch.zeros(1, 786, EMB, dtype=torch.bfloat16, device=device))
+    refused = [(NotImplementedError, lambda: A.packed_mha_bwd(*vit_inputs, N_HEADS,
+                                                               causal=True)),
+               (NotImplementedError, lambda: A.packed_mha_bwd(*too_long, N_HEADS)),
+               (TypeError, lambda: A.packed_mha_bwd(vit_inputs[0].float(), *vit_inputs[1:],
+                                                    N_HEADS))]
+    launches = A.packed_mha_bwd.launches
+    for error, call in refused:
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"K2's wrapper did not raise {error.__name__}")
+    if A.packed_mha_bwd.launches != launches:
+        raise AssertionError("K2's wrapper launched on an input it does not take")
+    print("K2 wrapper raises for the causal mode, L=786 and float32 input")
+
+    qkv, bias, g = vit_inputs
+    ms, plain_ms, times = in_turns(
+        lambda: A.packed_mha_bwd(qkv, bias, g, N_HEADS),
+        lambda: A.packed_mha_bwd_reference(qkv, bias, g, N_HEADS))
+    print(f"K2 at N={VIT_SHAPE[0]} L={VIT_SHAPE[1]} E={EMB} h={N_HEADS}: kernel "
+          f"{times[1]:.4f}/{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def k10_phase(device) -> dict:
+    """K10 against its float32 plain version at batch 512, 32x32 -> 224."""
+    rng = np.random.default_rng(10)
+    n = TRAIN_DATA["batch_size"]
+    raw = torch.from_numpy(rng.integers(0, 256, size=(n, 32, 32, 3), dtype=np.uint8)).to(device)
+    boxes, flips = T.sample_crop_batch(rng, n, 32, 32)
+    boxes, flips = torch.from_numpy(boxes).to(device), torch.from_numpy(flips).to(device)
+    out = T.augment_train_device(raw, boxes, flips, size=224, compute_dtype=torch.bfloat16)
+    ref = T.augment_train_reference(raw, boxes, flips, 224)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref).abs()
+    max_abs, mean_abs = diff.max().item(), diff.mean().item()
+    print(f"K10 train_augment N={n} 32x32->224: max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} "
+          f"(max|ref|={ref.abs().max().item():.3f})")
+    if not (tuple(out.shape) == (n, 3, 224, 224) and math.isfinite(max_abs)
+            and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
+        raise AssertionError("K10 disagrees with its plain version")
+    ms, plain_ms, times = in_turns(
+        lambda: T.augment_train_device(raw, boxes, flips, size=224,
+                                       compute_dtype=torch.bfloat16),
+        lambda: T.augment_train_reference(raw, boxes, flips, 224, torch.bfloat16))
+    print(f"K10 at N={n}: kernel {times[1]:.4f}/{times[2]:.4f} ms, "
+          f"plain {times[0]:.4f}/{times[3]:.4f} ms")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
 
 
 def slice_phase(device):
@@ -116,23 +280,13 @@ def slice_phase(device):
     model.eval_step((x, torch.zeros(len(x), dtype=torch.long, device=device)))  # warm-up
     torch.cuda.synchronize()
 
-    plain_calls = []
-    attention_reference = A.attention_reference
-
-    def counted_reference(*args, **kwargs):
-        plain_calls.append(1)
-        return attention_reference(*args, **kwargs)
-
-    A.attention_reference = counted_reference
-    try:
+    with counting(A, "attention_reference") as plain_calls:
         A.fused_mha_packed.launches = 0
         t0 = time.perf_counter()
         metrics = run_evaluation(model, loader)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = A.fused_mha_packed.launches
-    finally:
-        A.attention_reference = attention_reference
 
     n_images = len(loader) * EVAL_DATA["batch_size"]
     print(f"eval: {metrics} over {len(loader)} batches of {EVAL_DATA['batch_size']}; "
@@ -182,6 +336,184 @@ def cross_check(model, x):
         raise AssertionError("kernel-path logits disagree with the plain path")
 
 
+def train_phase(model, device):
+    """bench.py's finetune through the port: the train loader (K10), 2 x 256
+    accumulation (K1 forward, K2 backward), clip, SGD, cosine schedule.
+    Returns the main path's launch counts, a device-only step and the
+    train dataset."""
+    schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
+    optimizer, scheduler = build_optimizer(OPTIMIZER, model.module, schedule=schedule)
+    batch = TRAIN_DATA["batch_size"]
+    grad_acc = auto_grad_acc(batch, AUTO_MICROBATCH)
+    step_fn = make_train_step(grad_acc_steps=grad_acc, schedule=schedule,
+                              base_lr=OPTIMIZER["lr"], grad_clip=GRAD_CLIP)
+    state = init_train_state(model, optimizer, scheduler)
+    np.random.seed(0)  # the train/val split, as the app seeds it
+    train_loader, _ = build_train_val_loader(TRAIN_DATA, device=device)
+    batches = make_iterable(train_loader)
+    print(f"train: batch {batch} as {grad_acc} x {batch // grad_acc} "
+          f"(auto_microbatch={AUTO_MICROBATCH}); {len(train_loader)} batches per epoch")
+
+    for _ in range(WARMUP_STEPS):
+        step_fn(state, next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    counters = (A.fused_mha_packed, A.packed_mha_bwd, T.augment_train_device)
+    with no_plain_versions() as (plain_calls, aug_calls):
+        for counter in counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        history = []
+        for _ in range(TIMED_STEPS):
+            history.append((state.step, step_fn(state, next(batches))))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+
+    for step, metrics in history:
+        loss, norm, lr = metrics["loss"].item(), metrics["grad_norm"].item(), metrics["lr"]
+        want_lr = OPTIMIZER["lr"] * step / SCHEDULER["warmup"]  # inside the warmup
+        if not (math.isfinite(loss) and math.isfinite(norm) and abs(lr - want_lr) <= 1e-12):
+            raise AssertionError(f"step {step}: loss {loss}, grad_norm {norm}, lr {lr} "
+                                 f"(want {want_lr})")
+    print(f"train steps {history[0][0]}..{history[-1][0]}: loss "
+          f"{history[0][1]['loss'].item():.4f} -> {history[-1][1]['loss'].item():.4f}, "
+          f"grad_norm {history[-1][1]['grad_norm'].item():.4f}, lr {history[-1][1]['lr']:.6f}")
+    want = model.config.n_layers * grad_acc * TIMED_STEPS
+    print(f"train launches over {TIMED_STEPS} steps: {launches} (K1 and K2 want {want}, "
+          f"K10 {TIMED_STEPS}); plain calls {dict(Counter(plain_calls + aug_calls))}")
+    if launches["fused_mha_packed"] != want or launches["packed_mha_bwd"] != want \
+            or launches["augment_train_device"] != TIMED_STEPS:
+        raise AssertionError("the train path did not go through every kernel every step")
+    if plain_calls or aug_calls:
+        raise AssertionError(f"plain versions ran on CUDA: {Counter(plain_calls + aug_calls)}")
+    loader_rate = batch * TIMED_STEPS / seconds
+    print(f"ViT-B/16 bf16 train, loader included: {loader_rate:.2f} img/s "
+          f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {batch}); peak memory "
+          f"{peak_gib:.3f} GiB (torch.cuda.max_memory_allocated)")
+
+    # Device-only: a device-resident raw batch, boxes drawn on the host per
+    # step, augment + step (bench.py:main).
+    host_rng = np.random.default_rng(0)
+    raw = torch.from_numpy(host_rng.integers(0, 256, size=(batch, 32, 32, 3),
+                                             dtype=np.uint8)).to(device)
+    y = torch.from_numpy(host_rng.integers(0, N_CLASSES, size=(batch,))).to(device)
+
+    def one_step():
+        boxes, flips = T.sample_crop_batch(host_rng, batch, 32, 32)
+        x = T.augment_train_device(raw, torch.from_numpy(boxes).to(device),
+                                   torch.from_numpy(flips).to(device), size=224,
+                                   compute_dtype=torch.bfloat16)
+        return step_fn(state, (x, y))
+
+    for _ in range(WARMUP_STEPS):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        metrics = one_step()
+    loss = metrics["loss"].item()
+    seconds = time.perf_counter() - t0
+    device_rate = batch * TIMED_STEPS / seconds
+    print(f"ViT-B/16 bf16 train, device-only (augment + step): {device_rate:.2f} img/s "
+          f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {batch}); loss {loss:.4f}")
+    if not math.isfinite(loss):
+        raise AssertionError("device-only train loss is not finite")
+    return launches, one_step, train_loader.dataset
+
+
+def _block_grads(module) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """(per-block flattened float32 gradients, all gradients flattened)."""
+    blocks = [torch.cat([p.grad.float().flatten() for p in block.parameters()])
+              for block in module.blocks]
+    return blocks, torch.cat([p.grad.float().flatten() for p in module.parameters()])
+
+
+def train_cross_check(model, dataset, device) -> None:
+    """One microbatch's gradients through the kernels and through the plain
+    path (plain attention and its autograd backward, plain augment), then a
+    loss that falls on one fixed batch."""
+    n = AUTO_MICROBATCH
+    rng = np.random.default_rng(3)
+    raw = torch.from_numpy(dataset.data[:n]).to(device)
+    y = torch.from_numpy(np.asarray(dataset.targets[:n], np.int64)).to(device)
+    boxes, flips = T.sample_crop_batch(rng, n, 32, 32)
+    boxes, flips = torch.from_numpy(boxes).to(device), torch.from_numpy(flips).to(device)
+    x_kernel = T.augment_train_device(raw, boxes, flips, size=224,
+                                      compute_dtype=torch.bfloat16)
+    x_plain = T.augment_train_reference(raw, boxes, flips, 224, torch.bfloat16)
+    module = model.module
+    module.train()
+    grads = {}
+    impl = model.config.attn_impl
+    for path, x in (("kernel", x_kernel), ("plain", x_plain)):
+        model.config.attn_impl = "plain" if path == "plain" else impl
+        try:
+            module.zero_grad(set_to_none=True)
+            torch.nn.functional.cross_entropy(module(x).float(), y).backward()
+            grads[path] = _block_grads(module)
+        finally:
+            model.config.attn_impl = impl
+    module.zero_grad(set_to_none=True)
+    (k_blocks, k_all), (p_blocks, p_all) = grads["kernel"], grads["plain"]
+    per_block = [((a - b).norm() / b.norm()).item() for a, b in zip(k_blocks, p_blocks)]
+    overall = ((k_all - p_all).norm() / p_all.norm()).item()
+    print(f"gradients of one microbatch ({n}), kernel vs plain path: relative L2 "
+          f"{overall:.3e}; per block " + " ".join(f"{r:.2e}" for r in per_block))
+    if not (math.isfinite(overall) and overall <= GRAD_REL_L2):
+        raise AssertionError(f"kernel-path gradients disagree with the plain path: {overall}")
+
+    optimizer, scheduler = build_optimizer(OPTIMIZER, module)
+    state = init_train_state(model, optimizer, scheduler)
+    step_fn = make_train_step(grad_clip=GRAD_CLIP)
+    batch = (x_kernel[:FIXED_BATCH], y[:FIXED_BATCH])
+    losses = [step_fn(state, batch)["loss"] for _ in range(FIXED_STEPS)]
+    losses = [loss.item() for loss in losses]
+    print(f"fixed batch of {FIXED_BATCH}, {FIXED_STEPS} steps at constant lr "
+          f"{OPTIMIZER['lr']}: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the fixed-batch loss did not fall: {losses}")
+
+
+def profile_train_step(one_step) -> None:
+    """torch.profiler over one device-only train step: device time by kind of
+    kernel, and the device's busy share of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"K1 packed_mha_fwd": ("packed_mha_fwd",),
+             "K2 packed_mha_bwd": ("dq_kernel", "dkv_kernel", "db_partial", "db_final"),
+             "K10 train_augment": ("train_augment",),
+             "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
+             "optimizer (foreach / SGD)": ("multi_tensor", "foreach")}
+    totals = dict.fromkeys([*kinds, "elementwise and other"], 0.0)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    for e in events:
+        name = e.name.lower()
+        kind = next((k for k, keys in kinds.items() if any(key in name for key in keys)),
+                    "elementwise and other")
+        totals[kind] += e.time_range.elapsed_us() / 1e3
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:  # union of kernel intervals
+        if stop > end:
+            busy += (stop - max(start, end)) / 1e3
+            end = stop
+    window = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+    print(f"profile of one device-only train step: host wall {wall_ms:.3f} ms, device "
+          f"window {window:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / max(window, 1e-9):.1f}% of the window)")
+    for kind, ms in totals.items():
+        print(f"  {kind}: {ms:.3f} ms")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -190,23 +522,25 @@ def main() -> None:
     print(card_line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    A.build_kernel()
-    print(f"built packed_mha_fwd in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log("packed_mha_fwd").splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip())
-
-    timing = kernel_phase(device)
-    model, x, launches = slice_phase(device)
+    build_phase()
+    timing = {"packed_mha_fwd": kernel_phase(device), "packed_mha_bwd": k2_phase(device),
+              "train_augment": k10_phase(device)}
+    model, x, _ = slice_phase(device)
     cross_check(model, x)
+    del x
+    launches, one_step, dataset = train_phase(model, device)
+    profile_train_step(one_step)
+    train_cross_check(model, dataset, device)
 
+    entries = [("packed_mha_fwd", "fused_mha_packed", "vitef_tpu/ops/attention.py:99"),
+               ("packed_mha_bwd", "packed_mha_bwd", "vitef_tpu/ops/attention.py:270"),
+               ("train_augment", "augment_train_device",
+                "vitef_tpu/data/images/transforms.py:187")]
     print(card_line)
     print(json.dumps({"kernels": [{
-        "name": "packed_mha_fwd", "route": "cuda",
-        "source": "vitef_tpu_torch/ops/csrc/packed_mha_fwd.cu",
-        "replaces": "vitef_tpu/ops/attention.py:99",
-        "launches": launches, **timing}]}))
+        "name": name, "route": "cuda", "source": f"vitef_tpu_torch/ops/csrc/{name}.cu",
+        "replaces": replaces, "launches": launches[counter], **timing[name]}
+        for name, counter, replaces in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -42,12 +42,18 @@ class Model:
     def apply(self, x: torch.Tensor, **kw):
         return self.module(x, **kw)
 
+    def apply_eval(self, x: torch.Tensor, **kw):
+        """``apply`` with the module put in eval mode first."""
+        self.module.eval()
+        return self.module(x, **kw)
+
     @functools.cached_property
     def eval_step(self):
-        """``(x, y) -> (batch_acc, batch_loss)`` under ``torch.inference_mode``."""
+        """``(x, y) -> (batch_acc, batch_loss)`` in eval mode, under
+        ``torch.inference_mode``."""
         from ..parallel.train_step import make_eval_step
 
-        return make_eval_step(self.apply)
+        return make_eval_step(self.apply_eval)
 
 
 def build_model(config: dict[str, Any], *, device,

@@ -17,8 +17,10 @@ numerics:
 
 Ported: the ViT geometry (computer-vision hybrid patching, learned absolute
 positions, multi-head attention, mlp FFN, layer norm, classification head),
-forward only. The other options of the config raise ``NotImplementedError``.
-Dropout is not applied: this port runs inference only so far.
+forward, and backward through autograd. The other options of the config
+raise ``NotImplementedError``. Dropout is not ported: a module in train mode
+with any dropout rate above 0 raises ``NotImplementedError`` rather than train
+without it (ViT's rates are all 0, ``vitef_tpu/models/vit.py:96-111``).
 """
 
 from __future__ import annotations
@@ -180,6 +182,16 @@ def _check_ported(cfg: TransformerConfig) -> None:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+
+
+_DROPOUTS = ("emb_dropout", "attn_dropout", "ffn_dropout", "output_dropout")
+
+
+def _check_no_dropout(cfg: TransformerConfig) -> None:
+    """Raise in train mode for any dropout rate > 0: dropout is not ported."""
+    rates = {name: getattr(cfg, name) for name in _DROPOUTS if getattr(cfg, name) > 0}
+    if rates:
+        raise NotImplementedError(f"dropout is not ported yet; train mode with {rates}")
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +379,8 @@ class Transformer(nn.Module):
         self.output = ClassificationOutput(cfg, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, verbose: bool = False):
+        if self.training:
+            _check_no_dropout(self.cfg)
         out = self.embedding(x)
         attentions = []
         for block in self.blocks:

@@ -2,6 +2,8 @@ from .attention import (  # noqa: F401
     attention_reference,
     fused_mha_packed,
     multi_head_attention,
+    packed_mha_bwd,
+    packed_mha_bwd_reference,
     packed_mha_reference,
     packed_mha_supported,
 )

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>.so`` beside this
 file. It is rebuilt when the source is newer than the library. The source
-includes no PyTorch header, so a build takes seconds, not minutes. The
+includes no PyTorch header, so a build takes seconds, not minutes;
+:func:`build` compiles several sources at once, one ``nvcc`` each. The
 compiler's report (``-Xptxas -v``: registers, shared memory, spills) is kept
 in ``_build/lib<name>.log``.
 
@@ -13,6 +14,7 @@ There is no fallback: without ``nvcc``, or when the build fails, this raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -39,27 +41,57 @@ def _nvcc() -> str:
                        "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
-def _compile(src: Path, lib: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {src.name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
+def _stale(name: str) -> bool:
+    src, lib = CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
+    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+
+
+def build(names) -> None:
+    """Compile every stale ``csrc/<name>.cu`` of ``names``: one ``nvcc`` per
+    source, all started together, each waited for. Raises if any fails."""
+    with _lock:
+        stale = [name for name in names if _stale(name)]
+        if not stale:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for name in stale:
+            lib = BUILD_DIR / f"lib{name}.so"
+            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            log = lib.with_suffix(".log")
+            with open(log, "w") as out:
+                out.write(" ".join(cmd) + "\n")
+                out.flush()
+                proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+            jobs.append((name, lib, tmp, log, proc))
+        failed = []
+        for name, lib, tmp, log, proc in jobs:
+            if proc.wait() != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n{log.read_text()}")
+            else:
+                os.replace(tmp, lib)
+        if failed:
+            raise RuntimeError("nvcc failed to build " + "\n".join(failed))
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
-    src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}.so"
-    with _lock:
-        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
-            _compile(src, lib)
-        return ctypes.CDLL(str(lib))
+    build([name])
+    return ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+
+
+@functools.cache
+def kernel_function(name: str, n_pointers: int, n_ints: int):
+    """The C entry point ``name`` of ``csrc/<name>.cu``, built and loaded at
+    first use. Every entry point takes ``n_pointers`` device pointers, then
+    ``n_ints`` ints, then the CUDA stream, and returns a cudaError_t as int."""
+    fn = getattr(load_library(name), name)
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build_log(name: str) -> str:

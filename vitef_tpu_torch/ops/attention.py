@@ -1,31 +1,34 @@
-"""Multi-head attention: the packed-qkv CUDA kernel and its plain PyTorch versions.
+"""Multi-head attention: the packed-qkv CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``vitef_tpu/ops/attention.py``:
 
 - :func:`attention_reference` (:55-82) — softmax attention on (N, h, L, d)
   with float32 scores, optionally returning the (N, h, L, L) weights;
 - :func:`packed_mha_reference` — the plain version of the packed kernel K1;
+- :func:`packed_mha_bwd_reference` — the plain version of its backward K2
+  (``_packed_mha_bwd_kernel`` :270-342), in float32;
 - :func:`fused_mha_packed` (:459-482) — the K1 wrapper: on a CUDA tensor it
-  launches ``csrc/packed_mha_fwd.cu``, on a CPU tensor it runs
-  :func:`packed_mha_reference`;
+  launches ``csrc/packed_mha_fwd.cu``, and when a gradient is wanted it runs
+  under a ``torch.autograd.Function`` whose backward is :func:`packed_mha_bwd`
+  (``csrc/packed_mha_bwd.cu``), as ``_packed_mha``'s custom VJP (:390-441)
+  does; on a CPU tensor it runs :func:`packed_mha_reference`, and autograd
+  differentiates that;
 - :func:`multi_head_attention` (:701-758) — qkv projection, attention, output
   projection; it takes the kernel at :731-736 of the JAX module, under the
   :func:`packed_mha_supported` gate.
 
-Only the forward exists so far. The kernel's causal and key-masked modes, its
-backward (K2) and the blocked flash kernels (K4, K5) are not ported yet: on
-CUDA those requests raise.
+The kernels' causal and key-masked modes (K1 causal, K3) and the blocked
+flash kernels (K4, K5) are not ported yet: on CUDA those requests raise.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from ._build import kernel_function
 from .common import resolve_impl
 
 _NEG_INF = -1e30
@@ -80,33 +83,116 @@ def packed_mha_reference(qkv, n_heads: int, causal: bool = False, bias=None):
     return _merge_heads(attention_reference(q, k, v, causal=causal))
 
 
-def _smem_bytes(l: int) -> int:
-    # Mirrors smem_bytes() in csrc/packed_mha_fwd.cu: padded K rows, V rows,
-    # and one float probability row for each of the 4 warps.
-    return l * ((_HEAD_DIM + 2) * 2 + _HEAD_DIM * 2 + 4 * 4)
+def packed_mha_bwd_reference(qkv, bias, g, n_heads: int, causal: bool = False):
+    """Plain version of K2: the gradients of K1 for the cotangent ``g`` (N, L, E).
+
+    The algebra of ``_packed_mha_bwd_kernel`` written out in float32: the
+    softmax recomputed from ``qkv + bias`` (added in the input dtype, as the
+    forward does), ``dv = pᵀg``, ``dp = g vᵀ``, ``ds = p (dp - rowsum(p dp)) / √d``,
+    ``dq = ds k``, ``dk = dsᵀ q``, packed back into [q | k | v] head-major
+    columns. Returns ``(dqkv, db)``: dqkv in qkv's dtype, and db the float32
+    column sums of that dqkv over all N·L rows, in the bias's dtype (None
+    without a bias).
+    """
+    n, l, f = qkv.shape
+    d = f // 3 // n_heads
+    x = qkv if bias is None else qkv + bias.to(qkv.dtype)
+    q, k, v = (_split_heads(t, n_heads).float() for t in x.chunk(3, dim=-1))
+    gh = _split_heads(g, n_heads).float()
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        scores = scores.masked_fill(torch.ones(l, l, dtype=torch.bool, device=qkv.device)
+                                    .triu(1), _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gh)
+    dp = torch.matmul(gh, v.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(qkv.dtype)
+    db = None if bias is None else dqkv.float().sum(dim=(0, 1)).to(bias.dtype)
+    return dqkv, db
+
+
+# Shared memory a block of each kernel needs per key of L. K1 (smem_bytes()
+# in csrc/packed_mha_fwd.cu): padded K rows, V rows and one float probability
+# row per warp. K2's dq pass (dq_smem_bytes() in csrc/packed_mha_bwd.cu):
+# padded K and V rows and two float rows per warp.
+_FWD_SMEM_PER_KEY = (_HEAD_DIM + 2) * 2 + _HEAD_DIM * 2 + 4 * 4
+_BWD_SMEM_PER_KEY = (_HEAD_DIM + 2) * 2 * 2 + 4 * 2 * 4
+# Row segments of K2's bias-gradient reduction (its float32 scratch is
+# _DB_SEGMENTS x 3E).
+_DB_SEGMENTS = 128
 
 
 def packed_mha_supported(l: int, e: int, n_heads: int) -> bool:
-    """Whether the packed kernel takes this geometry: head width 64 and the
-    block's K, V and probability rows within Hopper's shared memory
-    (L <= 842)."""
+    """Whether the packed forward kernel takes this geometry: head width 64
+    and the block's K, V and probability rows within Hopper's shared memory
+    (L <= 842). Its backward takes L <= 785."""
     return e % n_heads == 0 and e // n_heads == _HEAD_DIM \
-        and _smem_bytes(l) <= _SMEM_OPTIN
+        and l * _FWD_SMEM_PER_KEY <= _SMEM_OPTIN
 
 
-@functools.cache
-def _kernel():
-    from ._build import load_library
+def _check_cuda(name: str, qkv, n_heads: int, causal: bool, smem_per_key: int):
+    """Raise unless the packed kernel ``name`` takes qkv (N, L, 3E) on CUDA."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv.device}")
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"{name}: qkv must be (N, L, 3E), got {tuple(qkv.shape)}")
+    l, e = qkv.shape[1], qkv.shape[2] // 3
+    if e % n_heads:
+        raise ValueError(f"{name}: E={e} is not a multiple of n_heads={n_heads}")
+    if e // n_heads != _HEAD_DIM:
+        raise NotImplementedError(
+            f"{name} is instantiated for head width {_HEAD_DIM} only, got {e // n_heads}")
+    if l * smem_per_key > _SMEM_OPTIN:
+        raise NotImplementedError(
+            f"{name}: L={l} needs {l * smem_per_key} bytes of shared memory, over "
+            f"the {_SMEM_OPTIN} a block can hold")
+    if causal:
+        raise NotImplementedError(f"{name}: the causal mode is not ported yet")
 
-    fn = load_library("packed_mha_fwd").packed_mha_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+
+def _kernel_operand(t, name: str, shape: tuple, device):
+    """``t`` as a contiguous, 16-byte aligned bfloat16 tensor of ``shape`` on ``device``."""
+    if tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name} must be {shape} on {device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def build_kernel() -> None:
-    """Build (if needed) and load the kernel library now rather than at first use."""
-    _kernel()
+def _launch_fwd(qkv, bias, n_heads: int):
+    n, l, f = qkv.shape
+    out = torch.empty((n, l, f // 3), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = kernel_function("packed_mha_fwd", 3, 4)(
+            qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), n, l, n_heads, _HEAD_DIM, stream)
+    if err != 0:
+        raise RuntimeError(f"packed_mha_fwd launch failed: cudaError {err} "
+                           f"(N={n}, L={l}, n_heads={n_heads})")
+    fused_mha_packed.launches += 1
+    return out
+
+
+class _PackedMHA(torch.autograd.Function):
+    """K1 forward, K2 backward (``_packed_mha``'s custom VJP, :390-441)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, n_heads: int):
+        ctx.n_heads = n_heads
+        ctx.save_for_backward(qkv, bias)
+        return _launch_fwd(qkv, bias, n_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias = ctx.saved_tensors
+        dqkv, db = packed_mha_bwd(qkv, bias, g, ctx.n_heads)
+        return dqkv, db, None
 
 
 def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None):
@@ -116,58 +202,68 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None):
     head-major within each. ``bias`` is the qkv Linear's bias, added inside
     the kernel.
 
-    A CPU tensor goes through :func:`packed_mha_reference`. A CUDA tensor
-    launches the kernel, or raises if the kernel does not take it: bfloat16,
-    contiguous, head width 64, L within the shared-memory budget,
-    non-causal, and no gradient wanted (the backward kernel is not ported
-    yet). ``fused_mha_packed.launches`` counts the kernel's launches.
+    A CPU tensor goes through :func:`packed_mha_reference` (and autograd
+    differentiates it). A CUDA tensor launches the forward kernel, or raises
+    if the kernel does not take it: bfloat16, head width 64, L within the
+    shared-memory budget, non-causal. When qkv or bias requires a gradient
+    the call is differentiable, and its backward launches K2
+    (:func:`packed_mha_bwd`). ``fused_mha_packed.launches`` counts the
+    forward kernel's launches.
     """
     if qkv.device.type == "cpu":
         return packed_mha_reference(qkv, n_heads, causal=causal, bias=bias)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"fused_mha_packed: unsupported device {qkv.device}")
-    if qkv.dim() != 3 or qkv.shape[-1] % 3:
-        raise ValueError(f"fused_mha_packed: qkv must be (N, L, 3E), got {tuple(qkv.shape)}")
+    _check_cuda("packed_mha_fwd", qkv, n_heads, causal, _FWD_SMEM_PER_KEY)
     n, l, f = qkv.shape
-    e = f // 3
-    if e % n_heads:
-        raise ValueError(f"fused_mha_packed: E={e} is not a multiple of n_heads={n_heads}")
-    if e // n_heads != _HEAD_DIM:
-        raise NotImplementedError(
-            f"packed_mha_fwd is instantiated for head width {_HEAD_DIM} only, "
-            f"got {e // n_heads}")
-    if _smem_bytes(l) > _SMEM_OPTIN:
-        raise NotImplementedError(
-            f"packed_mha_fwd: L={l} needs {_smem_bytes(l)} bytes of shared "
-            f"memory, over the {_SMEM_OPTIN} a block can hold")
-    if causal:
-        raise NotImplementedError("packed_mha_fwd: the causal mode is not ported yet")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"packed_mha_fwd takes bfloat16, got {qkv.dtype}")
-    if not qkv.is_contiguous():
-        raise ValueError("packed_mha_fwd: qkv must be contiguous")
-    if torch.is_grad_enabled() and (qkv.requires_grad
-                                    or (bias is not None and bias.requires_grad)):
-        raise NotImplementedError("packed_mha_fwd has no backward kernel yet: "
-                                  "call it under torch.no_grad or inference_mode")
     if bias is None:
         bias = torch.zeros(f, dtype=qkv.dtype, device=qkv.device)
-    if bias.shape != (f,) or bias.device != qkv.device:
-        raise ValueError(f"fused_mha_packed: bias must be ({f},) on {qkv.device}")
-    bias = bias.to(torch.bfloat16).contiguous()
-    out = torch.empty((n, l, e), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = _kernel()(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                        n, l, n_heads, _HEAD_DIM, stream)
-    if err != 0:
-        raise RuntimeError(f"packed_mha_fwd launch failed: cudaError {err} "
-                           f"(N={n}, L={l}, n_heads={n_heads})")
-    fused_mha_packed.launches += 1
-    return out
+    qkv = _kernel_operand(qkv, "qkv", (n, l, f), qkv.device)
+    bias = _kernel_operand(bias.to(torch.bfloat16), "bias", (f,), qkv.device)
+    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+        return _PackedMHA.apply(qkv, bias, n_heads)
+    return _launch_fwd(qkv, bias, n_heads)
 
 
 fused_mha_packed.launches = 0
+
+
+def packed_mha_bwd(qkv, bias, g, n_heads: int, causal: bool = False):
+    """Gradients of :func:`fused_mha_packed` for the cotangent ``g`` (N, L, E):
+    ``(dqkv, db)`` with dqkv (N, L, 3E) in qkv's dtype and db (3E,) in the
+    bias's dtype (None without a bias).
+
+    A CPU tensor goes through :func:`packed_mha_bwd_reference`. A CUDA tensor
+    launches K2 (``csrc/packed_mha_bwd.cu``: dq pass, dk/dv pass, then a
+    fixed-order column sum for db, so two launches on the same inputs give
+    bit-identical results), or raises if the kernel does not take it:
+    bfloat16 qkv and g, head width 64, L <= 785, non-causal.
+    ``packed_mha_bwd.launches`` counts its launches.
+    """
+    if qkv.device.type == "cpu":
+        return packed_mha_bwd_reference(qkv, bias, g, n_heads, causal=causal)
+    _check_cuda("packed_mha_bwd", qkv, n_heads, causal, _BWD_SMEM_PER_KEY)
+    n, l, f = qkv.shape
+    bias_k = torch.zeros(f, dtype=qkv.dtype, device=qkv.device) if bias is None else bias
+    qkv = _kernel_operand(qkv, "qkv", (n, l, f), qkv.device)
+    bias_k = _kernel_operand(bias_k.to(torch.bfloat16), "bias", (f,), qkv.device)
+    g = _kernel_operand(g, "g", (n, l, f // 3), qkv.device)
+    dqkv = torch.empty_like(qkv)
+    db = torch.empty(f, dtype=torch.float32, device=qkv.device)
+    stats = torch.empty((n, n_heads, l, 2), dtype=torch.float32, device=qkv.device)
+    partial = torch.empty((_DB_SEGMENTS, f), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = kernel_function("packed_mha_bwd", 7, 5)(
+            qkv.data_ptr(), bias_k.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            db.data_ptr(), stats.data_ptr(), partial.data_ptr(),
+            n, l, n_heads, _HEAD_DIM, _DB_SEGMENTS, stream)
+    if err != 0:
+        raise RuntimeError(f"packed_mha_bwd launch failed: cudaError {err} "
+                           f"(N={n}, L={l}, n_heads={n_heads})")
+    packed_mha_bwd.launches += 1
+    return dqkv, None if bias is None else db.to(bias.dtype)
+
+
+packed_mha_bwd.launches = 0
 
 
 def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, *, n_heads: int,

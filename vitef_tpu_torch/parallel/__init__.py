@@ -1,1 +1,8 @@
-from .train_step import cross_entropy_loss, make_eval_step  # noqa: F401
+from .train_step import (  # noqa: F401
+    TrainState,
+    auto_grad_acc,
+    cross_entropy_loss,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
