@@ -11,24 +11,42 @@ Phases (each raises on failure, so the run exits non-zero):
 2. build every CUDA kernel from ``vitef_tpu_torch/ops/csrc`` (one ``nvcc`` per
    source, all at once), printing the seconds and ptxas registers/spills;
 3. K1 phase: the packed-MHA forward kernel against its plain PyTorch version
-   (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths,
-   both timed at the ViT-B/16 shape;
-4. K2 phase: the packed-MHA backward kernel likewise, plus bit-identical
-   outputs over two launches;
+   (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths up
+   to 1024, both timed at the ViT-B/16 shape, with
+   ``scaled_dot_product_attention`` timed beside them as a yardstick;
+4. K2 phase: the packed-MHA backward kernel likewise, through the autograd
+   path that the train step takes, plus bit-identical outputs over two
+   launches and a wrapper that raises for what the kernel does not take;
 5. K10 phase: the train augment kernel against its plain version at batch
    512, both timed;
-6. eval slice: ViT-B/16 in bfloat16 (random weights from a seed) classifies a
+6. K1-causal phase: K1's causal mode against its plain version at the GPT-2
+   train shape (N=64, L=1024) and at 11 lengths from 1 to 1024 (N=8), timed
+   with the plain version and SDPA (``is_causal=True``) at the train shape;
+7. K3 phase: the backward's causal mode likewise, as in the K2 phase;
+8. eval slice: ViT-B/16 in bfloat16 (random weights from a seed) classifies a
    synthetic test set through the port's loader and ``run_evaluation``;
    every attention call must launch K1, none may take the plain path;
-7. eval cross-check: the same model's logits through the plain attention path;
-8. train slice: ViT-B/16 finetunes with ``bench.py``'s protocol (batch 512 as
-   2 x 256 accumulation, SGD momentum 0.9, lr 0.01, cosine schedule with
-   warmup 100, clip 1.0) from the port's train loader; K1, K2 and K10 must
-   carry every step and no plain version may run; then the device-only rate
-   on a device-resident raw batch, and a torch.profiler split of one step;
-9. train cross-check: one microbatch's gradients through the kernel path and
-   the plain path, and a loss that falls over 20 steps on one fixed batch.
+9. eval cross-check: the same model's logits through the plain attention path;
+10. train slice: ViT-B/16 finetunes with ``bench.py``'s protocol (batch 512 as
+    2 x 256 accumulation, SGD momentum 0.9, lr 0.01, cosine schedule with
+    warmup 100, clip 1.0) from the port's train loader; K1, K2 and K10 must
+    carry every step and no plain version may run; then the device-only rate
+    on a device-resident raw batch, and a torch.profiler split of one step;
+11. train cross-check: one microbatch's gradients through the kernel path and
+    the plain path, and a loss that falls over 20 steps on one fixed batch;
+12. GPT-2 train slice: GPT-2 base (124M, random weights from a seed) trains
+    with ``tools/bench_models.py``'s ``bench_gpt2`` protocol (bf16, batch
+    64 x 1024 tokens of ``np.random.default_rng(0)``, fused head + CE,
+    AdamW 3e-4, cosine warmup 100 of 1000, clip 1.0): 3 warm-up and 10
+    timed steps, K1 and K3 12 launches per step and no plain version, then a
+    torch.profiler split of one step;
+13. GPT-2 cross-check: the gradients of 4 sequences through the kernel path
+    and the plain path, and a loss that falls over 20 steps on a fixed batch
+    of 8 at constant lr 3e-4.
 
+Each kernel's time comes with its bound: the larger of its operations over
+the card's peak rate for their type and its bytes (each input read once, each
+output written once) over the memory rate, at the published H100 SXM peaks.
 The second-to-last line is a JSON object describing each kernel; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -36,6 +54,7 @@ The second-to-last line is a JSON object describing each kernel; the last is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -44,13 +63,16 @@ from collections import Counter
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vitef_tpu_torch.data.images import build_loader, build_train_val_loader, make_iterable
 from vitef_tpu_torch.data.images import transforms as T
 from vitef_tpu_torch.eval import run_evaluation
+from vitef_tpu_torch import native
 from vitef_tpu_torch.models import build_model
 from vitef_tpu_torch.ops import _build
 from vitef_tpu_torch.ops import attention as A
+from vitef_tpu_torch.ops import make_fused_head_loss
 from vitef_tpu_torch.optim import build_optimizer, build_scheduler
 from vitef_tpu_torch.parallel import auto_grad_acc, init_train_state, make_train_step
 
@@ -61,10 +83,14 @@ EVAL_DATA = {"dataset_name": "synthetic-1024", "mode": "test", "batch_size": 256
              "size": 224, "compute_dtype": "bfloat16"}
 N_HEADS, EMB = 12, 768
 VIT_SHAPE = (256, 197)                       # (N, L) of ViT-B/16 at batch 256
-EDGE_SHAPES = [(8, 1), (8, 17), (8, 64), (8, 65), (8, 577)]
+EDGE_SHAPES = [(8, 1), (8, 17), (8, 64), (8, 65), (8, 577), (8, 1024)]
 
 KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment")
 N_CLASSES = VIT_B16["n_classes"]
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor
+# cores, float32 on the CUDA cores, HBM3.
+PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 # A kernel's bf16 output against the float32 plain version on the same bf16
 # inputs: bf16 rounding of the output alone is ~2^-8 of |value| (K10's values
@@ -91,6 +117,17 @@ FIXED_BATCH, FIXED_STEPS = 64, 20
 # ~2^-9 relative difference. Logits of this model are O(1).
 LOGITS_MAX_ABS, LOGITS_MEAN_ABS = 1e-1, 2e-2
 
+# GPT-2 slice: tools/bench_models.py bench_gpt2 (:77-121) at its batch 64.
+GPT2_BASE = {"implementation": "gpt2", "model_name": "base", "compute_dtype": "bfloat16",
+             "seed": 0}
+GPT2_BATCH, GPT2_LR = 64, 3e-4
+GPT2_OPTIMIZER = {"optimizer": "adamw", "lr": GPT2_LR}
+GPT2_SHAPE = (64, 1024)                      # (N, L) of the train step
+# The causal checks: the train step's shape (timed), then 11 lengths at N=8.
+CAUSAL_SHAPES = [GPT2_SHAPE] + [(8, l) for l in (1, 17, 64, 65, 255, 256, 257, 511, 512,
+                                                  513, 1024)]
+GPT2_CHECK_BATCH, GPT2_FIXED_BATCH = 4, 8
+
 
 def card() -> str:
     return subprocess.run(
@@ -109,6 +146,44 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, peak_flops: float, tensors) -> dict:
+    """The least time the card could take for a call: the larger of its
+    operations over the peak rate for their type and the bytes of its inputs
+    and outputs (each counted once) over the memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def attention_flops(n: int, l: int, products: int, causal: bool) -> float:
+    """FLOPs of ``products`` L x L x d products over all N sequences and heads,
+    counting only the lower triangle's L(L+1)/2 scores when causal."""
+    pairs = l * (l + 1) / 2 if causal else l * l
+    return 2.0 * products * n * N_HEADS * pairs * (EMB // N_HEADS)
+
+
+def split_heads(qkv, bias):
+    """q, k, v (N, h, L, d) of ``qkv + bias``: the operands of SDPA."""
+    n, l, _ = qkv.shape
+    return [t.reshape(n, l, N_HEADS, -1).transpose(1, 2) for t in (qkv + bias).chunk(3, -1)]
+
+
+def sdpa_ms(qkv, bias, causal: bool, g=None, iters: int = 20) -> float:
+    """``F.scaled_dot_product_attention`` on the same split heads, forward or
+    (given the cotangent ``g``) backward: the library yardstick, used nowhere
+    in the port."""
+    q, k, v = split_heads(qkv, bias)
+    if g is None:
+        with torch.inference_mode():
+            return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                           iters)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    gh = g.reshape(out.shape[0], out.shape[2], N_HEADS, -1).transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True), iters)
 
 
 @contextlib.contextmanager
@@ -134,8 +209,9 @@ def counting(module, *names):
 
 @contextlib.contextmanager
 def no_plain_versions():
-    """Record every call of the three plain versions (of K1, K2 and K10)."""
-    with counting(A, "attention_reference", "packed_mha_bwd_reference") as calls, \
+    """Record every call of the plain versions (of K1, K2, K3 and K10)."""
+    with counting(A, "attention_reference", "packed_mha_reference",
+                  "packed_mha_bwd_reference") as calls, \
             counting(T, "augment_train_reference") as aug_calls:
         yield calls, aug_calls
 
@@ -144,6 +220,9 @@ def build_phase() -> None:
     t0 = time.perf_counter()
     _build.build(KERNELS)
     print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
+    t0 = time.perf_counter()
+    native.eval_transform_batch(np.zeros((1, 8, 8, 3), np.uint8), 4)  # g++, at first use
+    print(f"built the native image ops in {time.perf_counter() - t0:.2f} s (g++)")
     for name in KERNELS:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -157,92 +236,124 @@ def in_turns(kernel, plain, iters: int = 20) -> tuple[float, float, list[float]]
     return min(times[1:3]), min(times[0], times[3]), times
 
 
-def kernel_phase(device) -> dict:
-    gen = torch.Generator().manual_seed(0)
-    worst = 0.0
-    for n, l in [VIT_SHAPE, *EDGE_SHAPES]:
+def fwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
+    """K1 (causal or not) against its float32 plain version on the same bf16
+    inputs at every (N, L) of ``shapes``, then timed at the first of them (the
+    main path's shape, whose error is the one returned) with the plain
+    version and SDPA."""
+    gen = torch.Generator().manual_seed(seed)
+    label = "K1 causal" if causal else "K1"
+    for n, l in shapes:
         qkv = (torch.randn(n, l, 3 * EMB, generator=gen) * 0.5).to(device, torch.bfloat16)
         bias = (torch.randn(3 * EMB, generator=gen) * 0.1).to(device, torch.bfloat16)
         with torch.inference_mode():
-            out = A.fused_mha_packed(qkv, N_HEADS, bias=bias)
-            ref = A.packed_mha_reference(qkv.float(), N_HEADS, bias=bias.float())
+            out = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias)
+            ref = A.packed_mha_reference(qkv.float(), N_HEADS, causal=causal,
+                                         bias=bias.float())
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
         max_abs, mean_abs = diff.max().item(), diff.mean().item()
-        print(f"K1 packed_mha_fwd N={n} L={l}: max|d|={max_abs:.3e} "
+        del ref, diff
+        print(f"{label} packed_mha_fwd N={n} L={l}: max|d|={max_abs:.3e} "
               f"mean|d|={mean_abs:.3e}")
         if not (tuple(out.shape) == (n, l, EMB) and math.isfinite(max_abs)
                 and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
-            raise AssertionError(f"K1 disagrees with its plain version at N={n} L={l}")
-        worst = max(worst, max_abs)
-        if (n, l) == VIT_SHAPE:
-            vit_inputs = (qkv, bias)
+            raise AssertionError(f"{label} disagrees with its plain version at N={n} L={l}")
+        if (n, l) == shapes[0]:
+            timed, main_err = (qkv, bias), max_abs
 
-    qkv, bias = vit_inputs
+    (n, l), (qkv, bias) = shapes[0], timed
     with torch.inference_mode():
-        ms, plain_ms, times = in_turns(lambda: A.fused_mha_packed(qkv, N_HEADS, bias=bias),
-                                       lambda: A.packed_mha_reference(qkv, N_HEADS, bias=bias))
-    print(f"K1 at N={VIT_SHAPE[0]} L={VIT_SHAPE[1]} E={EMB} h={N_HEADS}: kernel "
-          f"{times[1]:.4f}/{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        ms, plain_ms, times = in_turns(
+            lambda: A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias),
+            lambda: A.packed_mha_reference(qkv, N_HEADS, causal=causal, bias=bias), iters)
+        out = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias)
+    library_ms = sdpa_ms(qkv, bias, causal=causal, iters=iters)
+    limit = bound(attention_flops(n, l, 2, causal), PEAK_BF16_FLOPS, (qkv, bias, out))
+    print(f"{label} at N={n} L={l} E={EMB} h={N_HEADS}: kernel {times[1]:.4f}/"
+          f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
+            "library_ms": library_ms}
 
 
-def k2_phase(device) -> dict:
-    """K2 against the float32 plain backward on the same bf16 inputs."""
-    gen = torch.Generator().manual_seed(2)
-    worst = 0.0
-    for n, l in [VIT_SHAPE, *EDGE_SHAPES]:
+def backward_graph(qkv, bias, causal: bool):
+    """(the backward as a function of the cotangent, the forward's output):
+    one K1 forward whose graph is kept, so each call runs its backward (K2,
+    or K3 when causal) alone, as the train step does."""
+    leaves = (qkv.detach().requires_grad_(), bias.detach().requires_grad_())
+    out = A.fused_mha_packed(leaves[0], N_HEADS, causal=causal, bias=leaves[1])
+    return lambda g: torch.autograd.grad(out, leaves, g, retain_graph=True), out
+
+
+def bwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
+    """The backward (K2, or K3 when causal), through the autograd path that
+    the train step takes, against the float32 plain backward on the same bf16
+    inputs at every (N, L) of ``shapes``, bit-identical over two launches;
+    then timed at the first of them (the main path's shape, whose error is
+    the one returned) with the plain version and SDPA's backward."""
+    gen = torch.Generator().manual_seed(seed)
+    label = "K3" if causal else "K2"
+    for n, l in shapes:
         qkv = (torch.randn(n, l, 3 * EMB, generator=gen) * 0.5).to(device, torch.bfloat16)
         bias = (torch.randn(3 * EMB, generator=gen) * 0.1).to(device, torch.bfloat16)
         g = torch.randn(n, l, EMB, generator=gen).to(device, torch.bfloat16)
-        dqkv, db = A.packed_mha_bwd(qkv, bias, g, N_HEADS)
-        again = A.packed_mha_bwd(qkv, bias, g, N_HEADS)
+        backward, out = backward_graph(qkv, bias, causal)
+        launches = A.packed_mha_bwd.launches
+        dqkv, db = backward(g)
+        again = backward(g)
+        if A.packed_mha_bwd.launches != launches + 2:
+            raise AssertionError(f"the backward did not launch {label}")
         ref_dqkv, ref_db = A.packed_mha_bwd_reference(qkv.float(), bias.float(), g.float(),
-                                                      N_HEADS)
+                                                      N_HEADS, causal=causal)
         torch.cuda.synchronize()
         diff = (dqkv.float() - ref_dqkv).abs()
         max_abs, mean_abs = diff.max().item(), diff.mean().item()
         db_max, db_scale = (db.float() - ref_db).abs().max().item(), ref_db.abs().max().item()
+        del ref_dqkv, diff
         identical = torch.equal(dqkv, again[0]) and torch.equal(db, again[1])
-        print(f"K2 packed_mha_bwd N={n} L={l}: dqkv max|d|={max_abs:.3e} "
+        print(f"{label} packed_mha_bwd N={n} L={l}: dqkv max|d|={max_abs:.3e} "
               f"mean|d|={mean_abs:.3e}; db max|d|={db_max:.3e} (max|db|={db_scale:.3f}); "
               f"two launches bit-identical: {identical}")
         if not (tuple(dqkv.shape) == (n, l, 3 * EMB) and db.dtype == bias.dtype
                 and math.isfinite(max_abs) and max_abs <= KERNEL_MAX_ABS
                 and mean_abs <= KERNEL_MEAN_ABS and db_max <= DB_MAX_REL * db_scale):
-            raise AssertionError(f"K2 disagrees with its plain version at N={n} L={l}")
+            raise AssertionError(f"{label} disagrees with its plain version at N={n} L={l}")
         if not identical:
-            raise AssertionError(f"K2 is not deterministic at N={n} L={l}")
-        worst = max(worst, max_abs)
-        if (n, l) == VIT_SHAPE:
-            vit_inputs = (qkv, bias, g)
+            raise AssertionError(f"{label} is not deterministic at N={n} L={l}")
+        if (n, l) == shapes[0]:
+            timed, main_err = (qkv, bias, g, backward, out), max_abs
 
+    (n, l), (qkv, bias, g, backward, out) = shapes[0], timed
     # What the kernel does not take raises on CUDA; nothing falls back.
-    too_long = (torch.zeros(1, 786, 3 * EMB, dtype=torch.bfloat16, device=device), None,
-             torch.zeros(1, 786, EMB, dtype=torch.bfloat16, device=device))
-    refused = [(NotImplementedError, lambda: A.packed_mha_bwd(*vit_inputs, N_HEADS,
-                                                               causal=True)),
-               (NotImplementedError, lambda: A.packed_mha_bwd(*too_long, N_HEADS)),
-               (TypeError, lambda: A.packed_mha_bwd(vit_inputs[0].float(), *vit_inputs[1:],
-                                                    N_HEADS))]
+    lse = torch.zeros((n, N_HEADS, l), dtype=torch.float32, device=device)
+    refused = [(TypeError, lambda: A.packed_mha_bwd(qkv.float(), bias, g, out, lse, N_HEADS,
+                                                    causal=causal)),
+               (NotImplementedError, lambda: A.packed_mha_bwd(qkv, bias, g, out, lse, 16,
+                                                              causal=causal))]
     launches = A.packed_mha_bwd.launches
     for error, call in refused:
         try:
             call()
         except error:
             continue
-        raise AssertionError(f"K2's wrapper did not raise {error.__name__}")
+        raise AssertionError(f"{label}'s wrapper did not raise {error.__name__}")
     if A.packed_mha_bwd.launches != launches:
-        raise AssertionError("K2's wrapper launched on an input it does not take")
-    print("K2 wrapper raises for the causal mode, L=786 and float32 input")
+        raise AssertionError(f"{label}'s wrapper launched on an input it does not take")
+    print(f"{label} wrapper raises for float32 input and head width 48")
 
-    qkv, bias, g = vit_inputs
     ms, plain_ms, times = in_turns(
-        lambda: A.packed_mha_bwd(qkv, bias, g, N_HEADS),
-        lambda: A.packed_mha_bwd_reference(qkv, bias, g, N_HEADS))
-    print(f"K2 at N={VIT_SHAPE[0]} L={VIT_SHAPE[1]} E={EMB} h={N_HEADS}: kernel "
-          f"{times[1]:.4f}/{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        lambda: backward(g),
+        lambda: A.packed_mha_bwd_reference(qkv, bias, g, N_HEADS, causal=causal), iters)
+    library_ms = sdpa_ms(qkv, bias, causal=causal, g=g, iters=iters)
+    dqkv, db = backward(g)
+    limit = bound(attention_flops(n, l, 5, causal), PEAK_BF16_FLOPS,
+                  (qkv, bias, g, out, lse, dqkv, db.float()))
+    print(f"{label} at N={n} L={l} E={EMB} h={N_HEADS}: kernel {times[1]:.4f}/"
+          f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA backward "
+          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
+            "library_ms": library_ms}
 
 
 def k10_phase(device) -> dict:
@@ -266,9 +377,13 @@ def k10_phase(device) -> dict:
         lambda: T.augment_train_device(raw, boxes, flips, size=224,
                                        compute_dtype=torch.bfloat16),
         lambda: T.augment_train_reference(raw, boxes, flips, 224, torch.bfloat16))
+    # about 9 float32 operations per output value: four taps, renormalise, normalise
+    limit = bound(9.0 * out.numel(), PEAK_FP32_FLOPS, (raw, boxes, flips, out))
     print(f"K10 at N={n}: kernel {times[1]:.4f}/{times[2]:.4f} ms, "
-          f"plain {times[0]:.4f}/{times[3]:.4f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+          f"plain {times[0]:.4f}/{times[3]:.4f} ms, bound {limit['bound_ms']:.4f} ms "
+          f"({limit['bound_by']}); no single PyTorch call computes it")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **limit,
+            "library_ms": None}
 
 
 def slice_phase(device):
@@ -476,9 +591,22 @@ def train_cross_check(model, dataset, device) -> None:
         raise AssertionError(f"the fixed-batch loss did not fall: {losses}")
 
 
-def profile_train_step(one_step) -> None:
+VIT_KINDS = {"K1 packed_mha_fwd": ("packed_mha_fwd",),
+             "K2 packed_mha_bwd": ("dq_kernel", "dkv_kernel", "db_partial", "db_final"),
+             "K10 train_augment": ("train_augment",),
+             "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
+             "optimizer (foreach / SGD)": ("multi_tensor", "foreach")}
+GPT2_KINDS = {"K1 packed_mha_fwd (causal)": ("packed_mha_fwd",),
+              "K3 packed_mha_bwd (causal)": ("dq_kernel", "dkv_kernel", "db_partial",
+                                           "db_final"),
+              "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
+              "optimizer (foreach / AdamW)": ("multi_tensor", "foreach")}
+
+
+def profile_train_step(one_step, kinds: dict, label: str) -> None:
     """torch.profiler over one device-only train step: device time by kind of
-    kernel, and the device's busy share of the step."""
+    kernel (``kinds``: name -> substrings of kernel names), and the device's
+    busy share of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     one_step()
@@ -488,11 +616,6 @@ def profile_train_step(one_step) -> None:
         one_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"K1 packed_mha_fwd": ("packed_mha_fwd",),
-             "K2 packed_mha_bwd": ("dq_kernel", "dkv_kernel", "db_partial", "db_final"),
-             "K10 train_augment": ("train_augment",),
-             "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
-             "optimizer (foreach / SGD)": ("multi_tensor", "foreach")}
     totals = dict.fromkeys([*kinds, "elementwise and other"], 0.0)
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -507,11 +630,133 @@ def profile_train_step(one_step) -> None:
             busy += (stop - max(start, end)) / 1e3
             end = stop
     window = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
-    print(f"profile of one device-only train step: host wall {wall_ms:.3f} ms, device "
+    print(f"profile of one device-only {label} train step: host wall {wall_ms:.3f} ms, device "
           f"window {window:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / max(window, 1e-9):.1f}% of the window)")
     for kind, ms in totals.items():
         print(f"  {kind}: {ms:.3f} ms")
+    by_name = Counter()
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    for name, ms in by_name.most_common(6):
+        print(f"  top: {ms:8.3f} ms  {name[:110]}")
+
+
+def gpt2_flops_per_token(cfg) -> float:
+    """Train FLOPs per token, 3x the forward's: ``tools/bench_models.py``'s
+    ``gpt2_flops`` (:29-31, the causal half of attention) over seq_len."""
+    e, layers, seq = cfg.emb_dim, cfg.n_layers, cfg.seq_len
+    return 3 * 2 * (layers * (12 * e * e + 2 * (seq // 2) * e) + e * cfg.vocab_size)
+
+
+def gpt2_train_phase(device):
+    """``bench_gpt2``'s protocol through the port: K1 causal forward, K3
+    backward, fused head + CE, clip, AdamW, cosine schedule. Returns the
+    model, the main path's launch counts and a device-only step."""
+    model = build_model(GPT2_BASE, device=device)
+    cfg = model.config
+    schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
+    optimizer, scheduler = build_optimizer(GPT2_OPTIMIZER, model.module, schedule=schedule)
+    step_fn = make_train_step(schedule=schedule, base_lr=GPT2_LR, grad_clip=GRAD_CLIP,
+                              hidden_loss=make_fused_head_loss(cfg))
+    state = init_train_state(model, optimizer, scheduler)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(GPT2_BATCH, cfg.seq_len))).to(device)
+
+    def one_step():
+        return step_fn(state, (tokens, tokens))
+
+    for _ in range(WARMUP_STEPS):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    counters = (A.fused_mha_packed, A.packed_mha_bwd)
+    with no_plain_versions() as (plain_calls, aug_calls):
+        for counter in counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        history = [(state.step, one_step()) for _ in range(TIMED_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+
+    for step, metrics in history:
+        loss, norm, lr = metrics["loss"].item(), metrics["grad_norm"].item(), metrics["lr"]
+        want_lr = GPT2_LR * step / SCHEDULER["warmup"]  # inside the warmup
+        if not (math.isfinite(loss) and math.isfinite(norm) and abs(lr - want_lr) <= 1e-12):
+            raise AssertionError(f"GPT-2 step {step}: loss {loss}, grad_norm {norm}, lr {lr} "
+                                 f"(want {want_lr})")
+    print(f"GPT-2 train steps {history[0][0]}..{history[-1][0]}: loss "
+          f"{history[0][1]['loss'].item():.4f} -> {history[-1][1]['loss'].item():.4f}, "
+          f"grad_norm {history[-1][1]['grad_norm'].item():.4f}, lr {history[-1][1]['lr']:.8f}")
+    want = cfg.n_layers * TIMED_STEPS
+    print(f"GPT-2 train launches over {TIMED_STEPS} steps: {launches} (K1 and K3 want "
+          f"{want}); plain calls {dict(Counter(plain_calls + aug_calls))}")
+    if launches != {"fused_mha_packed": want, "packed_mha_bwd": want}:
+        raise AssertionError("the GPT-2 train path did not go through K1 and K3 every layer")
+    if plain_calls or aug_calls:
+        raise AssertionError(f"plain versions ran on CUDA: {Counter(plain_calls + aug_calls)}")
+    # The fused head + CE alone (forward and backward) at the step's shape.
+    hidden = torch.randn(GPT2_BATCH, cfg.seq_len, cfg.emb_dim, device=device,
+                         dtype=torch.bfloat16, requires_grad=True)
+    loss_fn = make_fused_head_loss(cfg)
+    ce_ms = cuda_ms(lambda: loss_fn(model.module, hidden, tokens).backward(), iters=3,
+                    warmup=1)
+    model.module.zero_grad(set_to_none=True)
+    print(f"fused head + CE, forward and backward, at {GPT2_BATCH} x {cfg.seq_len}: "
+          f"{ce_ms:.3f} ms (four (rows x {cfg.emb_dim}) x ({cfg.emb_dim} x "
+          f"{cfg.vocab_size}) products)")
+    n_tokens = GPT2_BATCH * cfg.seq_len
+    rate = n_tokens * TIMED_STEPS / seconds
+    roofline = PEAK_BF16_FLOPS / gpt2_flops_per_token(cfg)
+    print(f"GPT-2 base bf16 train, device-only: {rate:.2f} tokens/s "
+          f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {GPT2_BATCH} x "
+          f"{cfg.seq_len} tokens, one microbatch); {rate / roofline:.4f} of the "
+          f"{roofline:.0f} tokens/s bf16 roofline; peak memory {peak_gib:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    return model, launches, one_step
+
+
+def gpt2_cross_check(model, device) -> None:
+    """The gradients of GPT2_CHECK_BATCH sequences through the kernels and
+    through the plain path (plain attention and its autograd backward), then a
+    loss that falls on one fixed batch at constant lr."""
+    cfg, module = model.config, model.module
+    loss_fn = make_fused_head_loss(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(GPT2_FIXED_BATCH, cfg.seq_len))).to(device)
+    check = tokens[:GPT2_CHECK_BATCH]
+    module.train()
+    grads, impl = {}, cfg.attn_impl
+    for path in ("kernel", "plain"):
+        cfg.attn_impl = "plain" if path == "plain" else impl
+        try:
+            module.zero_grad(set_to_none=True)
+            loss_fn(module, module(check, return_hidden=True), check).backward()
+            grads[path] = _block_grads(module)
+        finally:
+            cfg.attn_impl = impl
+    module.zero_grad(set_to_none=True)
+    (k_blocks, k_all), (p_blocks, p_all) = grads["kernel"], grads["plain"]
+    per_block = [((a - b).norm() / b.norm()).item() for a, b in zip(k_blocks, p_blocks)]
+    overall = ((k_all - p_all).norm() / p_all.norm()).item()
+    print(f"GPT-2 gradients of {GPT2_CHECK_BATCH} sequences, kernel vs plain path: relative "
+          f"L2 {overall:.3e}; per block " + " ".join(f"{r:.2e}" for r in per_block))
+    if not (math.isfinite(overall) and overall <= GRAD_REL_L2
+            and all(r <= GRAD_REL_L2 for r in per_block)):
+        raise AssertionError(f"GPT-2 kernel-path gradients disagree with the plain path: "
+                             f"{overall}, {per_block}")
+
+    optimizer, scheduler = build_optimizer(GPT2_OPTIMIZER, module)
+    state = init_train_state(model, optimizer, scheduler)
+    step_fn = make_train_step(grad_clip=GRAD_CLIP, hidden_loss=loss_fn)
+    losses = [step_fn(state, (tokens, tokens))["loss"] for _ in range(FIXED_STEPS)]
+    losses = [loss.item() for loss in losses]
+    print(f"GPT-2 fixed batch of {GPT2_FIXED_BATCH}, {FIXED_STEPS} steps at constant lr "
+          f"{GPT2_LR}: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the GPT-2 fixed-batch loss did not fall: {losses}")
 
 
 def main() -> None:
@@ -523,24 +768,45 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     build_phase()
-    timing = {"packed_mha_fwd": kernel_phase(device), "packed_mha_bwd": k2_phase(device),
-              "train_augment": k10_phase(device)}
+    vit_shapes = [VIT_SHAPE, *EDGE_SHAPES]
+    timing = {"packed_mha_fwd": fwd_phase(device, vit_shapes, False, seed=0, iters=20),
+              "packed_mha_bwd": bwd_phase(device, vit_shapes, False, seed=2, iters=20),
+              "train_augment": k10_phase(device),
+              "packed_mha_fwd:causal": fwd_phase(device, CAUSAL_SHAPES, True, seed=5, iters=10),
+              "packed_mha_bwd:causal": bwd_phase(device, CAUSAL_SHAPES, True, seed=6,
+                                                 iters=10)}
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
     launches, one_step, dataset = train_phase(model, device)
-    profile_train_step(one_step)
+    profile_train_step(one_step, VIT_KINDS, "ViT-B/16")
     train_cross_check(model, dataset, device)
+    del model, one_step, dataset
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    entries = [("packed_mha_fwd", "fused_mha_packed", "vitef_tpu/ops/attention.py:99"),
-               ("packed_mha_bwd", "packed_mha_bwd", "vitef_tpu/ops/attention.py:270"),
-               ("train_augment", "augment_train_device",
-                "vitef_tpu/data/images/transforms.py:187")]
+    gpt2, gpt2_launches, gpt2_step = gpt2_train_phase(device)
+    profile_train_step(gpt2_step, GPT2_KINDS, "GPT-2 base")
+    gpt2_cross_check(gpt2, device)
+
+    # (name, source file, main path's launch count, TPU kernel it replaces)
+    entries = [
+        ("packed_mha_fwd", "packed_mha_fwd", launches["fused_mha_packed"],
+         "vitef_tpu/ops/attention.py:99"),
+        ("packed_mha_bwd", "packed_mha_bwd", launches["packed_mha_bwd"],
+         "vitef_tpu/ops/attention.py:270"),
+        ("train_augment", "train_augment", launches["augment_train_device"],
+         "vitef_tpu/data/images/transforms.py:187"),
+        ("packed_mha_fwd:causal", "packed_mha_fwd", gpt2_launches["fused_mha_packed"],
+         "vitef_tpu/ops/attention.py:99"),
+        ("packed_mha_bwd:causal", "packed_mha_bwd", gpt2_launches["packed_mha_bwd"],
+         "vitef_tpu/ops/attention.py:181"),
+    ]
     print(card_line)
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": f"vitef_tpu_torch/ops/csrc/{name}.cu",
-        "replaces": replaces, "launches": launches[counter], **timing[name]}
-        for name, counter, replaces in entries]}))
+        "name": name, "route": "cuda", "source": f"vitef_tpu_torch/ops/csrc/{source}.cu",
+        "replaces": replaces, "launches": count, **timing[name]}
+        for name, source, count, replaces in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

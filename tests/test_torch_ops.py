@@ -120,7 +120,10 @@ def test_packed_mha_supported_gate():
     assert A.packed_mha_supported(197, 768, 12)      # ViT-B/16
     assert A.packed_mha_supported(577, 1024, 16)     # ViT-L at 384
     assert not A.packed_mha_supported(257, 1280, 16)  # ViT-H: head width 80
-    assert not A.packed_mha_supported(1024, 768, 12)  # K/V rows past shared memory
+    # K1, K2 and K3 tile over keys: GPT-2's lengths and widths at d = 64 pass
+    assert A.packed_mha_supported(1024, 768, 12)      # GPT-2 base
+    assert A.packed_mha_supported(1, 768, 12)
+    assert A.packed_mha_supported(2048, 1280, 20)     # GPT-2 large, 2x its L
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -84,7 +84,7 @@ def test_packed_mha_bwd_matches_jax_kernel(n, h, l, d):
     np.testing.assert_allclose(db.numpy(), ref_db, **tol)
 
     launches = A.packed_mha_bwd.launches
-    dqkv, db = A.packed_mha_bwd(_t(qkv), _t(bias), _t(g), h)
+    dqkv, db = A.packed_mha_bwd(_t(qkv), _t(bias), _t(g), None, None, h)
     np.testing.assert_allclose(dqkv.numpy(), ref_dqkv, **tol)
     np.testing.assert_allclose(db.numpy(), ref_db, **tol)
     assert A.packed_mha_bwd.launches == launches, "the CPU route counted a launch"
@@ -324,12 +324,40 @@ def test_train_step_bf16_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs", [{"update_stats": True}, {"mesh": object()},
-                                    {"moe_aux_coefs": (0.1, 0.1)},
-                                    {"hidden_loss": lambda *a: 0}],
-                         ids=["update_stats", "mesh", "moe_aux_coefs", "hidden_loss"])
+                                    {"moe_aux_coefs": (0.1, 0.1)}],
+                         ids=["update_stats", "mesh", "moe_aux_coefs"])
 def test_unported_train_step_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         make_train_step(**kwargs)
+
+
+@pytest.mark.parametrize("components", [["mha"], ["ffn_fc2", "attn_norm"]],
+                         ids=["mha", "ffn_fc2+attn_norm"])
+def test_block_grad_norms_include_frozen_like_jax(components):
+    """``grad_norm_block_{i}`` is the norm of the block's whole gradient,
+    frozen parameters included, as the JAX step computes it; ``grad_norm``
+    and the update see only the trainable gradients."""
+    opt_cfg = {"optimizer": "sgd", "lr": 0.1, "momentum": 0.9}
+    jm, tm = _pair(TRANSFORMER)
+    tx, _ = jax_optim.build_optimizer(opt_cfg, params=jm.params, components=components,
+                                      grad_clip=1.0)
+    jstep = jax_make_train_step(jm.apply, tx, donate=False, block_grad_norms=True,
+                                trainable=jax_optim.trainable_mask(jm.params, components))
+    opt, sched = optim.build_optimizer(opt_cfg, tm.module, components=components)
+    state = init_train_state(tm, opt, sched)
+    step = make_train_step(grad_clip=1.0, block_grad_norms=True)
+    frozen = [p for p in tm.module.parameters() if not p.requires_grad]
+
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(4, 3, 32, 32)).astype(np.float32)
+    y = rng.integers(0, 10, size=4)
+    _, ref = jax.jit(jstep)(jax_init_train_state(jm.params, tx), (jnp.asarray(x), jnp.asarray(y)))
+    metrics = step(state, (_t(x), _t(y)))
+    keys = ["grad_norm"] + [f"grad_norm_block_{i}" for i in range(2)]
+    for key in keys:
+        np.testing.assert_allclose(float(metrics[key]), float(ref[key]), rtol=1e-5, err_msg=key)
+    # the frozen parameters stay frozen, with no gradient left behind
+    assert frozen and all(not p.requires_grad and p.grad is None for p in frozen)
 
 
 def test_auto_grad_acc_matches_app():

@@ -6,8 +6,11 @@ never ``jax``. Every Pallas kernel of ``vitef_tpu`` on a ported path becomes a
 CUDA kernel written by hand for ``sm_90a`` (``ops/csrc/``), built with ``nvcc``
 at first use and bound with ``ctypes`` (``ops/_build.py``).
 
-Ported so far: ViT inference (``models.build_model`` → ``eval.run_evaluation``)
-through the packed multi-head attention forward kernel.
+Ported so far: ViT-B/16 inference (``models.build_model`` →
+``eval.run_evaluation``) and finetuning (``parallel.make_train_step``), and
+GPT-2 causal-LM training with the fused head + CE loss
+(``ops.make_fused_head_loss``), through the packed attention kernels K1
+(forward, causal or not), K2 and K3 (backward) and the train augment K10.
 """
 
 __version__ = "0.1.0"

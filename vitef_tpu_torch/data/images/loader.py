@@ -12,8 +12,8 @@ is a CUDA device; the device copies it without blocking and finishes it:
   ``np.random.default_rng(seed)`` in the JAX package's order (the
   permutation when an epoch starts, then each batch's boxes in batch order),
   so both packages see the same batches;
-- val/test: Resize + CenterCrop through the C++
-  ``vitef_tpu.native.eval_transform_batch`` (PIL-parity, OpenMP across
+- val/test: Resize + CenterCrop through the port's C++
+  ``vitef_tpu_torch.native.eval_transform_batch`` (PIL-parity, OpenMP across
   images); the device normalizes. A failed native build raises: there is no
   PIL path here.
 
@@ -30,8 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from vitef_tpu import native
-
+from ... import native
 from . import datasets as D
 from .transforms import augment_train_device, normalize_device, sample_crop_batch
 
@@ -96,9 +95,6 @@ class Loader:
             boxes, flips = sample_crop_batch(self.rng, len(idx), x.shape[1], x.shape[2])
             host = (torch.from_numpy(x), y, torch.from_numpy(boxes), torch.from_numpy(flips))
         else:
-            if not native.available():
-                raise RuntimeError("vitef_tpu.native (C++ eval transform) could not be "
-                                   "built; the loader has no other resize path")
             x = native.eval_transform_batch(self.dataset.data[idx], self.size)
             host = (torch.from_numpy(x), y)
         if self.device.type == "cuda":

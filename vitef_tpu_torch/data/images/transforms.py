@@ -6,7 +6,7 @@ the train augment ``augment_train_device`` (:237-255) with its kernel K10
 (``_augment_kernel`` :187-201, weights ``_bilinear_weights`` :173-184), and
 ``normalize_device`` / ``normalize_host`` (:258-271).
 
-Eval path: Resize + CenterCrop run on the host (``vitef_tpu.native``,
+Eval path: Resize + CenterCrop run on the host (``vitef_tpu_torch.native``,
 PIL-parity); the /255 + ImageNet normalize and the NHWC -> NCHW transpose run
 on the device. Train path: crop boxes and flip flags are drawn on the host
 with torchvision's RandomResizedCrop algorithm, with the JAX package's draws

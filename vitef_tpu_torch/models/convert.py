@@ -6,10 +6,13 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
 - :func:`from_jax_params` carries a ``vitef_tpu`` parameter tree (numpy
   leaves) across, name for name. The JAX package stores linear weights
   (in, out); the port stores (out, in). That transpose is made here and
-  nowhere else.
+  nowhere else. The ``dict`` token embedding (V, E) is a table, not a
+  linear weight, and keeps its layout.
 - :func:`from_vitef_state_dict` loads a torch-layout state dict with the
-  reference vitef names (the ``checkpoints/vit/<name>.npz`` cache; the
-  inverse direction of ``torch_import.from_vitef_state_dict``).
+  reference vitef names (the ``checkpoints/{vit,gpt2}/<name>.npz`` caches;
+  the inverse direction of ``torch_import.from_vitef_state_dict``).
+- :func:`hf_gpt2_to_vitef` renames a HuggingFace ``GPT2LMHeadModel`` state
+  dict to those reference names (``torch_import.hf_gpt2_to_vitef`` :169-198).
 """
 
 from __future__ import annotations
@@ -29,16 +32,22 @@ def _flatten(tree, prefix: str = ""):
         yield prefix, tree
 
 
+# The embedding table of emb_type='dict', (V, E) in both packages.
+_TABLES = ("embedding.token_emb.weight",)
+
+
 def from_jax_params(params) -> dict[str, torch.Tensor]:
     """``vitef_tpu`` parameter tree (nested dicts/lists of arrays) -> port state dict.
 
-    Every 2-D ``weight`` is a linear weight stored (in, out) and is
-    transposed to (out, in); every other leaf keeps its shape.
+    Every 2-D ``weight`` but the token table is a linear weight stored
+    (in, out) and is transposed to (out, in); every other leaf keeps its
+    shape. The port ports only the ``dict`` token embedding, whose tree has
+    no ``embedding.token_emb.bias``.
     """
     state = {}
     for name, value in _flatten(params):
         array = np.asarray(value, dtype=np.float32)
-        if name.endswith("weight") and array.ndim == 2:
+        if name.endswith("weight") and array.ndim == 2 and name not in _TABLES:
             array = array.T
         state[name] = torch.tensor(array)
     return state
@@ -55,14 +64,20 @@ _RENAMES = {
 }
 
 
-def from_vitef_state_dict(sd: dict[str, np.ndarray], n_layers: int) -> dict[str, torch.Tensor]:
+def from_vitef_state_dict(sd: dict[str, np.ndarray], n_layers: int, *,
+                          weight_tying: bool = False) -> dict[str, torch.Tensor]:
     """Reference vitef-named, torch-layout state dict -> port state dict.
 
     Linear weights are (out, in) on both sides; the Conv2d patch weight
-    (E, C, P, P) flattens to (E, C·P·P) in (c, p1, p2) order.
+    (E, C, P, P) flattens to (E, C·P·P) in (c, p1, p2) order. With
+    ``weight_tying`` the seq2seq head reads the token embedding, so the
+    dict's head copy (``output.output_layer.output.weight``) is dropped, as
+    the JAX package drops it (``gpt2.py:100-102``).
     """
     state = {}
     for name, value in sd.items():
+        if weight_tying and name == "output.output_layer.output.weight":
+            continue
         array = np.asarray(value, dtype=np.float32)
         if name == "embedding.patching.patching.0.weight":
             array = array.reshape(array.shape[0], -1)
@@ -71,3 +86,35 @@ def from_vitef_state_dict(sd: dict[str, np.ndarray], n_layers: int) -> dict[str,
     if n_found != n_layers:
         raise ValueError(f"state dict has {n_found} blocks, the model {n_layers}")
     return state
+
+
+def hf_gpt2_to_vitef(hf: dict[str, np.ndarray], n_layers: int) -> dict[str, np.ndarray]:
+    """HuggingFace ``GPT2LMHeadModel`` state dict -> reference vitef names,
+    torch layout (numpy arrays). HF's Conv1D weights are (in, out) and are
+    transposed to the Linear layout (out, in); ``wpe`` gets a leading batch
+    axis."""
+    def t(x):
+        return np.ascontiguousarray(np.asarray(x).T)
+
+    out = {
+        "embedding.token_emb.weight": hf["transformer.wte.weight"],
+        "embedding.pos_emb": hf["transformer.wpe.weight"][None],
+        "output.output_layer.output_norm.weight": hf["transformer.ln_f.weight"],
+        "output.output_layer.output_norm.bias": hf["transformer.ln_f.bias"],
+        "output.output_layer.output.weight": hf["lm_head.weight"],
+    }
+    for i in range(n_layers):
+        h, v = f"transformer.h.{i}.", f"blocks.{i}."
+        out[v + "attn_norm.weight"] = hf[h + "ln_1.weight"]
+        out[v + "attn_norm.bias"] = hf[h + "ln_1.bias"]
+        out[v + "attn.qkv_mat.weight"] = t(hf[h + "attn.c_attn.weight"])
+        out[v + "attn.qkv_mat.bias"] = hf[h + "attn.c_attn.bias"]
+        out[v + "attn.output.weight"] = t(hf[h + "attn.c_proj.weight"])
+        out[v + "attn.output.bias"] = hf[h + "attn.c_proj.bias"]
+        out[v + "ffn_norm.weight"] = hf[h + "ln_2.weight"]
+        out[v + "ffn_norm.bias"] = hf[h + "ln_2.bias"]
+        out[v + "ffn.fc1.weight"] = t(hf[h + "mlp.c_fc.weight"])
+        out[v + "ffn.fc1.bias"] = hf[h + "mlp.c_fc.bias"]
+        out[v + "ffn.fc2.weight"] = t(hf[h + "mlp.c_proj.weight"])
+        out[v + "ffn.fc2.bias"] = hf[h + "mlp.c_proj.bias"]
+    return out

@@ -1,7 +1,7 @@
 """Model factory. Counterpart of ``vitef_tpu/models/registry.py`` (:31-66, :144-187).
 
 :func:`build_model` takes the JAX package's flat config dicts. Ported
-implementations: ``"vit"`` and ``"transformer"``; the others raise.
+implementations: ``"vit"``, ``"gpt2"`` and ``"transformer"``; the others raise.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from .transformer import Transformer, TransformerConfig
 
 logger = logging.getLogger(__name__)
 
-_UNPORTED = ("gpt2", "patchtst", "llama", "moe")
+_UNPORTED = ("patchtst", "llama", "moe")
 
 
 def _build_config(cls, config: dict[str, Any]):
@@ -80,6 +80,11 @@ def build_model(config: dict[str, Any], *, device,
 
         cfg = _build_config(ViTConfig, config)
         module, tcfg, name = build_vit(cfg, device=device, generator=generator)
+    elif impl == "gpt2":
+        from .gpt2 import GPT2Config, build_gpt2
+
+        cfg = _build_config(GPT2Config, config)
+        module, tcfg, name = build_gpt2(cfg, device=device, generator=generator)
     elif impl == "transformer":
         cfg = tcfg = _build_config(TransformerConfig, config)
         module, name = Transformer(cfg, device=device, generator=generator), "transformer"

@@ -12,15 +12,22 @@ numerics:
 - the residual stream is in the compute dtype (bfloat16 on the card);
 - hybrid image patching replaces the token embedding by the identity, the
   cls token is prepended, then ``pos_emb[:, :l]`` is added;
+- without patching, tokens are gathered from the ``dict`` embedding table
+  cast to the compute dtype (:442-447);
 - 'gelu' is the exact erf in float32 and the tanh approximation in bfloat16;
-- classification reads the CLS token and returns float32 logits.
+- classification reads the CLS token and returns float32 logits;
+  sequence-to-sequence applies the final norm, then the tied head (the token
+  embedding, float32 logits, :747-760) or the untied one.
 
 Ported: the ViT geometry (computer-vision hybrid patching, learned absolute
-positions, multi-head attention, mlp FFN, layer norm, classification head),
-forward, and backward through autograd. The other options of the config
-raise ``NotImplementedError``. Dropout is not ported: a module in train mode
-with any dropout rate above 0 raises ``NotImplementedError`` rather than train
-without it (ViT's rates are all 0, ``vitef_tpu/models/vit.py:96-111``).
+positions, multi-head attention, mlp FFN, layer norm, classification head)
+and the GPT-2 geometry (``dict`` token embedding, causal attention,
+sequence-to-sequence head, ``forward(x, return_hidden=True)`` for the fused
+head loss), forward, and backward through autograd. The other options of the
+config raise ``NotImplementedError``. Dropout is not ported: a module in train
+mode with any dropout rate above 0 raises ``NotImplementedError`` rather than
+train without it (ViT's and GPT-2's rates are all 0,
+``vitef_tpu/models/vit.py:96-111``, ``gpt2.py:52-82``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from ..ops.common import mm_f32
 from .norms import build_norm
 from .patching import extract_patches_chw, image_patch_dims
 
@@ -170,12 +178,17 @@ class TransformerConfig:
 def _check_ported(cfg: TransformerConfig) -> None:
     """Raise for the options whose modules are not ported yet."""
     unported = {
-        "patching other than computer_vision hybrid": not cfg.hybrid_identity_emb,
+        "patching other than computer_vision hybrid":
+            bool(cfg.patch_type) and not cfg.hybrid_identity_emb,
+        f"emb_type={cfg.emb_type!r} token embedding":
+            not cfg.patch_type and cfg.emb_type.lower() != "dict",
         "grouped-query attention": cfg.n_kv_heads != cfg.n_heads,
         "rotary positions": cfg.pos_emb_type.lower() != "learned",
         "swiglu FFN": cfg.ffn_type.lower() != "mlp",
         "mixture of experts": bool(cfg.n_experts),
-        f"output_type={cfg.output_type!r}": cfg.output_type.lower() != "classification",
+        f"output_type={cfg.output_type!r}":
+            cfg.output_type.lower() not in ("classification", "sequence_to_sequence"),
+        "remat": cfg.remat,
     }
     missing = [name for name, hit in unported.items() if hit]
     if missing:
@@ -251,15 +264,24 @@ def get_activation(name: str):
 
 
 class Embedding(nn.Module):
-    """Patch -> (identity token_emb) -> cls prepend -> + pos_emb."""
+    """Patch (or token table) -> cls prepend -> + pos_emb.
+
+    Hybrid image patching replaces the token embedding by the identity;
+    without patching, ``token_emb["weight"]`` (V, E) is the ``dict`` table,
+    drawn from N(0, 1) as ``nn.Embedding`` is."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
         super().__init__()
         self.cfg = cfg
-        fan_in = cfg.image_dim[0] * cfg.patch_size**2
-        self.patching = nn.ModuleDict(
-            {"conv": Linear(fan_in, cfg.emb_dim, True, device=device, generator=generator)})
         e = cfg.emb_dim
+        self.patching = self.token_emb = None
+        if cfg.hybrid_identity_emb:
+            fan_in = cfg.image_dim[0] * cfg.patch_size**2
+            self.patching = nn.ModuleDict(
+                {"conv": Linear(fan_in, e, True, device=device, generator=generator)})
+        else:
+            self.token_emb = nn.ParameterDict({"weight": nn.Parameter(
+                torch.randn((cfg.vocab_size, e), generator=generator).to(device))})
         self.cls_token = (nn.Parameter(torch.randn((1, 1, e), generator=generator).to(device))
                           if cfg.cls_token else None)
         self.pos_emb = (nn.Parameter(
@@ -268,7 +290,10 @@ class Embedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.cfg.cdtype()
-        out = self.patching["conv"](extract_patches_chw(x.to(cd), self.cfg.patch_size), cd)
+        if self.patching is not None:
+            out = self.patching["conv"](extract_patches_chw(x.to(cd), self.cfg.patch_size), cd)
+        else:
+            out = F.embedding(x, self.token_emb["weight"].to(cd))
         if self.cls_token is not None:
             cls = self.cls_token.to(cd).expand(out.shape[0], 1, -1)
             out = torch.cat([cls, out], dim=1)
@@ -361,11 +386,42 @@ class ClassificationOutput(nn.Module):
         return self.output_layer["head"](out, self.cfg.cdtype()).float()
 
 
+class SequenceOutput(nn.Module):
+    """Final norm, then the vocabulary head: the token embedding when tied
+    (float32 logits from compute-dtype operands), else an untied (V, E)
+    ``head`` without bias whose compute-dtype logits are returned as float32."""
+
+    def __init__(self, cfg: TransformerConfig, *, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.output_layer = nn.ModuleDict({
+            "norm": build_norm(cfg.emb_dim, cfg.norm_bias, cfg.norm, cfg.norm_eps,
+                               device=device)})
+        if not cfg.weight_tying:
+            self.output_layer["head"] = Linear(cfg.emb_dim, cfg.vocab_size, False,
+                                               device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, embedding: Embedding,
+                return_hidden: bool = False) -> torch.Tensor:
+        out = self.output_layer["norm"](x)
+        if return_hidden:
+            return out
+        cd = self.cfg.cdtype()
+        if self.cfg.weight_tying:
+            n, l, e = out.shape
+            w = embedding.token_emb["weight"].to(cd)
+            return mm_f32(out.reshape(n * l, e).to(cd), w.t()).reshape(n, l, -1)
+        return self.output_layer["head"](out, cd).float()
+
+
 class Transformer(nn.Module):
-    """Embedding -> blocks -> classification head.
+    """Embedding -> blocks -> classification or sequence-to-sequence head.
 
     ``forward(x, verbose=True)`` also returns the stacked
     (n_layers, N, h, L, L) attention weights, computed on the plain path.
+    ``forward(x, return_hidden=True)`` (seq2seq only) returns the post-norm
+    hidden (N, L, E) in place of the logits, for a loss that fuses the head
+    (``ops.losses.make_fused_head_loss``).
     """
 
     def __init__(self, cfg: TransformerConfig, *, device: torch.device,
@@ -376,11 +432,16 @@ class Transformer(nn.Module):
         self.embedding = Embedding(cfg, device=device, generator=generator)
         self.blocks = nn.ModuleList(
             [Block(cfg, device=device, generator=generator) for _ in range(cfg.n_layers)])
-        self.output = ClassificationOutput(cfg, device=device, generator=generator)
+        seq2seq = cfg.output_type.lower() == "sequence_to_sequence"
+        self.output = (SequenceOutput if seq2seq else ClassificationOutput)(
+            cfg, device=device, generator=generator)
 
-    def forward(self, x: torch.Tensor, verbose: bool = False):
+    def forward(self, x: torch.Tensor, verbose: bool = False, return_hidden: bool = False):
         if self.training:
             _check_no_dropout(self.cfg)
+        seq2seq = isinstance(self.output, SequenceOutput)
+        if return_hidden and not seq2seq:
+            raise ValueError("return_hidden requires a seq2seq output head")
         out = self.embedding(x)
         attentions = []
         for block in self.blocks:
@@ -388,7 +449,8 @@ class Transformer(nn.Module):
             if verbose:
                 out, att = out
                 attentions.append(att)
-        logits = self.output(out)
+        logits = (self.output(out, self.embedding, return_hidden) if seq2seq
+                  else self.output(out))
         if verbose:
             return logits, torch.stack(attentions)
         return logits

@@ -7,5 +7,10 @@ from .attention import (  # noqa: F401
     packed_mha_reference,
     packed_mha_supported,
 )
-from .common import resolve_impl, use_true_fp32  # noqa: F401
+from .common import mm_f32, resolve_impl, use_true_fp32  # noqa: F401
 from .layernorm import layer_norm  # noqa: F401
+from .losses import (  # noqa: F401
+    fused_next_token_ce,
+    make_fused_head_loss,
+    next_token_cross_entropy,
+)

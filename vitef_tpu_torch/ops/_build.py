@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>.so`` beside this
-file. It is rebuilt when the source is newer than the library. The source
-includes no PyTorch header, so a build takes seconds, not minutes;
+file. It is rebuilt when the source, or a ``csrc/*.cuh`` header, is newer
+than the library. The sources include no PyTorch header, so a build takes seconds, not minutes;
 :func:`build` compiles several sources at once, one ``nvcc`` each. The
 compiler's report (``-Xptxas -v``: registers, shared memory, spills) is kept
 in ``_build/lib<name>.log``.
@@ -42,8 +42,11 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
-    src, lib = CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    lib = BUILD_DIR / f"lib{name}.so"
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(src.stat().st_mtime for src in sources)
 
 
 def build(names) -> None:

@@ -5,20 +5,22 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
 - :func:`attention_reference` (:55-82) — softmax attention on (N, h, L, d)
   with float32 scores, optionally returning the (N, h, L, L) weights;
 - :func:`packed_mha_reference` — the plain version of the packed kernel K1;
-- :func:`packed_mha_bwd_reference` — the plain version of its backward K2
-  (``_packed_mha_bwd_kernel`` :270-342), in float32;
+- :func:`packed_mha_bwd_reference` — the plain version of its backward, K2
+  (``_packed_mha_bwd_kernel`` :270-342) and, causal, K3
+  (``_packed_mha_bwd_causal_blocked_kernel`` :181-267), in float32;
 - :func:`fused_mha_packed` (:459-482) — the K1 wrapper: on a CUDA tensor it
-  launches ``csrc/packed_mha_fwd.cu``, and when a gradient is wanted it runs
-  under a ``torch.autograd.Function`` whose backward is :func:`packed_mha_bwd`
-  (``csrc/packed_mha_bwd.cu``), as ``_packed_mha``'s custom VJP (:390-441)
-  does; on a CPU tensor it runs :func:`packed_mha_reference`, and autograd
+  launches ``csrc/packed_mha_fwd.cu`` (non-causal or causal, any L), and when
+  a gradient is wanted it runs under a ``torch.autograd.Function`` whose
+  backward is :func:`packed_mha_bwd` (``csrc/packed_mha_bwd.cu``: K2, or K3
+  when causal, any L), as ``_packed_mha``'s custom VJP (:390-441) does; on a
+  CPU tensor it runs :func:`packed_mha_reference`, and autograd
   differentiates that;
 - :func:`multi_head_attention` (:701-758) — qkv projection, attention, output
   projection; it takes the kernel at :731-736 of the JAX module, under the
   :func:`packed_mha_supported` gate.
 
-The kernels' causal and key-masked modes (K1 causal, K3) and the blocked
-flash kernels (K4, K5) are not ported yet: on CUDA those requests raise.
+The key-masked mode of K1 (serving) and the blocked flash kernels (K4, K5)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,8 +34,7 @@ from ._build import kernel_function
 from .common import resolve_impl
 
 _NEG_INF = -1e30
-_HEAD_DIM = 64                 # the head width csrc/packed_mha_fwd.cu instantiates
-_SMEM_OPTIN = 232_448          # bytes of shared memory a Hopper block can opt into
+_HEAD_DIM = 64                 # the head width the csrc/packed_mha_*.cu kernels instantiate
 
 
 def attention_reference(q, k, v, *, causal: bool = False, kv_len: int | None = None,
@@ -115,43 +116,30 @@ def packed_mha_bwd_reference(qkv, bias, g, n_heads: int, causal: bool = False):
     return dqkv, db
 
 
-# Shared memory a block of each kernel needs per key of L. K1 (smem_bytes()
-# in csrc/packed_mha_fwd.cu): padded K rows, V rows and one float probability
-# row per warp. K2's dq pass (dq_smem_bytes() in csrc/packed_mha_bwd.cu):
-# padded K and V rows and two float rows per warp.
-_FWD_SMEM_PER_KEY = (_HEAD_DIM + 2) * 2 + _HEAD_DIM * 2 + 4 * 4
-_BWD_SMEM_PER_KEY = (_HEAD_DIM + 2) * 2 * 2 + 4 * 2 * 4
-# Row segments of K2's bias-gradient reduction (its float32 scratch is
-# _DB_SEGMENTS x 3E).
+# Row segments of the backward's bias-gradient reduction (its float32
+# scratch is _DB_SEGMENTS x 3E).
 _DB_SEGMENTS = 128
 
 
 def packed_mha_supported(l: int, e: int, n_heads: int) -> bool:
-    """Whether the packed forward kernel takes this geometry: head width 64
-    and the block's K, V and probability rows within Hopper's shared memory
-    (L <= 842). Its backward takes L <= 785."""
-    return e % n_heads == 0 and e // n_heads == _HEAD_DIM \
-        and l * _FWD_SMEM_PER_KEY <= _SMEM_OPTIN
+    """Whether the packed kernels take this geometry: head width 64. The
+    forward (K1) and the backward (K2, K3) tile over keys and take every L,
+    causal or not."""
+    return l > 0 and e % n_heads == 0 and e // n_heads == _HEAD_DIM
 
 
-def _check_cuda(name: str, qkv, n_heads: int, causal: bool, smem_per_key: int):
+def _check_cuda(name: str, qkv, n_heads: int):
     """Raise unless the packed kernel ``name`` takes qkv (N, L, 3E) on CUDA."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {qkv.device}")
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"{name}: qkv must be (N, L, 3E), got {tuple(qkv.shape)}")
-    l, e = qkv.shape[1], qkv.shape[2] // 3
+    e = qkv.shape[2] // 3
     if e % n_heads:
         raise ValueError(f"{name}: E={e} is not a multiple of n_heads={n_heads}")
     if e // n_heads != _HEAD_DIM:
         raise NotImplementedError(
             f"{name} is instantiated for head width {_HEAD_DIM} only, got {e // n_heads}")
-    if l * smem_per_key > _SMEM_OPTIN:
-        raise NotImplementedError(
-            f"{name}: L={l} needs {l * smem_per_key} bytes of shared memory, over "
-            f"the {_SMEM_OPTIN} a block can hold")
-    if causal:
-        raise NotImplementedError(f"{name}: the causal mode is not ported yet")
 
 
 def _kernel_operand(t, name: str, shape: tuple, device):
@@ -165,34 +153,45 @@ def _kernel_operand(t, name: str, shape: tuple, device):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch_fwd(qkv, bias, n_heads: int):
+def _launch_fwd(qkv, bias, n_heads: int, causal: bool, want_lse: bool = False):
+    """K1 on checked operands: ``(out, lse)``, lse (N, n_heads, L) float32 —
+    each row's log2-sum-exp of the scaled scores — or None unless wanted."""
     n, l, f = qkv.shape
     out = torch.empty((n, l, f // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((n, n_heads, l), dtype=torch.float32, device=qkv.device)
+           if want_lse else None)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = kernel_function("packed_mha_fwd", 3, 4)(
-            qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), n, l, n_heads, _HEAD_DIM, stream)
+        err = kernel_function("packed_mha_fwd", 4, 5)(
+            qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), n, l, n_heads, _HEAD_DIM,
+            int(causal), stream)
     if err != 0:
         raise RuntimeError(f"packed_mha_fwd launch failed: cudaError {err} "
-                           f"(N={n}, L={l}, n_heads={n_heads})")
+                           f"(N={n}, L={l}, n_heads={n_heads}, causal={causal})")
     fused_mha_packed.launches += 1
-    return out
+    return out, lse
 
 
 class _PackedMHA(torch.autograd.Function):
-    """K1 forward, K2 backward (``_packed_mha``'s custom VJP, :390-441)."""
+    """K1 forward; K2 backward, or K3 when causal (``_packed_mha``'s custom
+    VJP, :390-441). The forward also keeps its output and each row's
+    log2-sum-exp for the backward: the output is the tensor the
+    out-projection saves anyway, and the statistics are 4 bytes per row and
+    head."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, n_heads: int):
-        ctx.n_heads = n_heads
-        ctx.save_for_backward(qkv, bias)
-        return _launch_fwd(qkv, bias, n_heads)
+    def forward(ctx, qkv, bias, n_heads: int, causal: bool):
+        ctx.n_heads, ctx.causal = n_heads, causal
+        out, lse = _launch_fwd(qkv, bias, n_heads, causal, want_lse=True)
+        ctx.save_for_backward(qkv, bias, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, bias = ctx.saved_tensors
-        dqkv, db = packed_mha_bwd(qkv, bias, g, ctx.n_heads)
-        return dqkv, db, None
+        qkv, bias, out, lse = ctx.saved_tensors
+        dqkv, db = packed_mha_bwd(qkv, bias, g, out, lse, ctx.n_heads, causal=ctx.causal)
+        return dqkv, db, None, None
 
 
 def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None):
@@ -204,61 +203,67 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None):
 
     A CPU tensor goes through :func:`packed_mha_reference` (and autograd
     differentiates it). A CUDA tensor launches the forward kernel, or raises
-    if the kernel does not take it: bfloat16, head width 64, L within the
-    shared-memory budget, non-causal. When qkv or bias requires a gradient
-    the call is differentiable, and its backward launches K2
-    (:func:`packed_mha_bwd`). ``fused_mha_packed.launches`` counts the
-    forward kernel's launches.
+    if the kernel does not take it: bfloat16, head width 64. When qkv or bias
+    requires a gradient the call is differentiable, and its backward launches
+    K2 or, causal, K3 (:func:`packed_mha_bwd`).
+    ``fused_mha_packed.launches`` counts the forward kernel's launches.
     """
     if qkv.device.type == "cpu":
         return packed_mha_reference(qkv, n_heads, causal=causal, bias=bias)
-    _check_cuda("packed_mha_fwd", qkv, n_heads, causal, _FWD_SMEM_PER_KEY)
+    _check_cuda("packed_mha_fwd", qkv, n_heads)
     n, l, f = qkv.shape
     if bias is None:
         bias = torch.zeros(f, dtype=qkv.dtype, device=qkv.device)
     qkv = _kernel_operand(qkv, "qkv", (n, l, f), qkv.device)
     bias = _kernel_operand(bias.to(torch.bfloat16), "bias", (f,), qkv.device)
     if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
-        return _PackedMHA.apply(qkv, bias, n_heads)
-    return _launch_fwd(qkv, bias, n_heads)
+        return _PackedMHA.apply(qkv, bias, n_heads, causal)
+    return _launch_fwd(qkv, bias, n_heads, causal)[0]
 
 
 fused_mha_packed.launches = 0
 
 
-def packed_mha_bwd(qkv, bias, g, n_heads: int, causal: bool = False):
-    """Gradients of :func:`fused_mha_packed` for the cotangent ``g`` (N, L, E):
-    ``(dqkv, db)`` with dqkv (N, L, 3E) in qkv's dtype and db (3E,) in the
-    bias's dtype (None without a bias).
+def packed_mha_bwd(qkv, bias, g, out, lse, n_heads: int, causal: bool = False):
+    """Gradients of :func:`fused_mha_packed` for the cotangent ``g`` (N, L, E),
+    given the forward's output ``out`` (N, L, E) and its per-row log2-sum-exp
+    ``lse`` (N, n_heads, L) float32: ``(dqkv, db)`` with dqkv (N, L, 3E) in
+    qkv's dtype and db (3E,) in the bias's dtype (None without a bias).
 
-    A CPU tensor goes through :func:`packed_mha_bwd_reference`. A CUDA tensor
-    launches K2 (``csrc/packed_mha_bwd.cu``: dq pass, dk/dv pass, then a
-    fixed-order column sum for db, so two launches on the same inputs give
-    bit-identical results), or raises if the kernel does not take it:
-    bfloat16 qkv and g, head width 64, L <= 785, non-causal.
+    A CPU tensor goes through :func:`packed_mha_bwd_reference` (``out`` and
+    ``lse`` unused). A CUDA tensor launches ``csrc/packed_mha_bwd.cu`` (K2,
+    or K3 when causal: dq pass and dk/dv pass, causal over the lower triangle
+    only, then a fixed-order column sum for db, so two launches on the same
+    inputs give bit-identical results), or raises if the kernel does not
+    take it: bfloat16 qkv, g and out, head width 64; every L.
     ``packed_mha_bwd.launches`` counts its launches.
     """
     if qkv.device.type == "cpu":
         return packed_mha_bwd_reference(qkv, bias, g, n_heads, causal=causal)
-    _check_cuda("packed_mha_bwd", qkv, n_heads, causal, _BWD_SMEM_PER_KEY)
+    _check_cuda("packed_mha_bwd", qkv, n_heads)
     n, l, f = qkv.shape
+    if tuple(lse.shape) != (n, n_heads, l) or lse.dtype != torch.float32 \
+            or lse.device != qkv.device:
+        raise ValueError(f"lse must be float32 {(n, n_heads, l)} on {qkv.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     bias_k = torch.zeros(f, dtype=qkv.dtype, device=qkv.device) if bias is None else bias
     qkv = _kernel_operand(qkv, "qkv", (n, l, f), qkv.device)
     bias_k = _kernel_operand(bias_k.to(torch.bfloat16), "bias", (f,), qkv.device)
     g = _kernel_operand(g, "g", (n, l, f // 3), qkv.device)
+    out = _kernel_operand(out, "out", (n, l, f // 3), qkv.device)
     dqkv = torch.empty_like(qkv)
     db = torch.empty(f, dtype=torch.float32, device=qkv.device)
     stats = torch.empty((n, n_heads, l, 2), dtype=torch.float32, device=qkv.device)
     partial = torch.empty((_DB_SEGMENTS, f), dtype=torch.float32, device=qkv.device)
+    pointers = [qkv, bias_k, g, out, lse.contiguous(), dqkv, db, stats, partial]
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = kernel_function("packed_mha_bwd", 7, 5)(
-            qkv.data_ptr(), bias_k.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-            db.data_ptr(), stats.data_ptr(), partial.data_ptr(),
-            n, l, n_heads, _HEAD_DIM, _DB_SEGMENTS, stream)
+        err = kernel_function("packed_mha_bwd", len(pointers), 6)(
+            *(t.data_ptr() for t in pointers), n, l, n_heads, _HEAD_DIM, _DB_SEGMENTS,
+            int(causal), stream)
     if err != 0:
         raise RuntimeError(f"packed_mha_bwd launch failed: cudaError {err} "
-                           f"(N={n}, L={l}, n_heads={n_heads})")
+                           f"(N={n}, L={l}, n_heads={n_heads}, causal={causal})")
     packed_mha_bwd.launches += 1
     return dqkv, None if bias is None else db.to(bias.dtype)
 
@@ -286,8 +291,8 @@ def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, *, n_heads: int,
         if cd != torch.bfloat16 or not packed_mha_supported(l, e, n_heads):
             raise NotImplementedError(
                 f"attention kernel for dtype={cd}, L={l}, E={e}, n_heads={n_heads}: "
-                "only the packed bfloat16 kernel is ported (the blocked flash "
-                "kernel is not yet)")
+                "only the packed bfloat16 kernels at head width 64 are ported (the "
+                "blocked flash kernel is not yet)")
         z = fused_mha_packed(qkv, n_heads, causal=causal,
                              bias=qkv_b.to(cd) if qkv_b is not None else None)
     else:

@@ -1,7 +1,8 @@
 """Shared op policy: which implementation runs, and what float32 means.
 
 Counterpart of ``vitef_tpu/ops/common.py`` (``best_precision`` :9-18,
-``resolve_impl`` :21-59).
+``resolve_impl`` :21-59), and :func:`mm_f32` for the JAX package's
+``preferred_element_type=float32`` products.
 """
 
 from __future__ import annotations
@@ -58,3 +59,22 @@ def resolve_impl(impl: str, device: torch.device, *, seq_len: int | None = None,
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}; choose auto/kernel/plain")
     return impl
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D tensors with a float32 result: an einsum with
+    ``preferred_element_type=jnp.float32`` in the JAX package.
+
+    float32 operands multiply as they are. On CUDA, lower-precision operands
+    go to cuBLAS with a float32 output (``torch.mm(..., out_dtype=...)``:
+    bf16 in, float32 accumulate and out). That call has no autograd formula,
+    so where autograd needs the product's gradient, and on the CPU, the
+    operands are widened to float32 first, which gives the same products (a
+    product of two bfloat16 values is exact in float32), summed in another
+    order, at float32 speed.
+    """
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())

@@ -1,198 +1,175 @@
-// Packed-qkv multi-head attention forward for Hopper (sm_90a).
+// Packed-qkv multi-head attention forward for Hopper (sm_90a): kernel K1.
 //
 // Replaces the TPU kernel vitef_tpu/ops/attention.py:_packed_mha_fwd_kernel
-// (:99, launched by _packed_call_fwd :355) in its non-causal, unmasked mode.
-// For image n and head h it computes
-//     out[n, :, h*d:(h+1)*d] = softmax(Q_h K_h^T / sqrt(d)) V_h
+// (:99, launched by _packed_call_fwd :355) in its non-causal and causal
+// modes, without the per-row key mask. The TPU kernel computes the causal
+// function in two branches, full-L (:152-157) and block-triangular (q_block
+// 256, :110-151); this file computes it, and the non-causal one, at every L
+// with one kernel tiled over keys.
+// For sequence n and head h it computes
+//     out[n, :, h*d:(h+1)*d] = softmax(Q_h K_h^T / sqrt(d) [+ causal mask]) V_h
 // reading Q_h, K_h and V_h straight from the packed projection qkv (N, L, 3E),
 // whose columns are [q | k | v], head-major within each, with the qkv bias
 // (3E,) added in the kernel. Scores, softmax statistics and the P.V sums are
-// float32; the output (N, L, E) is bfloat16.
+// float32; the output (N, L, E) is bfloat16. On request the kernel also
+// writes each row's log2-sum-exp (float32, (N, n_heads, L)), which the
+// backward (csrc/packed_mha_bwd.cu) reads instead of recomputing it.
 //
-// What bounds it on this card: per image and head, two L x L x d products
-// (4*L*L*d FLOPs) and L*L exponentials, against (N*L*3E + N*L*E) * 2 bytes of
-// device memory for the whole call. At ViT-B/16 (L=197, d=64, E=768) that is
-// about 98 FLOPs per byte: memory is not the limit for a kernel that keeps
-// the L x L scores on chip. This first version multiplies on the CUDA cores
+// What bounds it on this card: per sequence and head, two L x L x d products
+// (4*L*L*d FLOPs; causal, the lower triangle's half) and as many
+// exponentials as scores, against (N*L*3E + N*L*E) * 2 bytes of device
+// memory for the whole call: about 98 FLOPs per byte at ViT-B/16 (L=197) and
+// 256 causal at GPT-2 (L=1024), so memory is not the limit for a kernel that
+// keeps the L x L scores on chip. This kernel multiplies on the CUDA cores
 // (FMA, not tensor cores), so arithmetic and shared-memory reads bound it.
 //
-// What the design does about it:
-//   - one block per (image, head, 64-row query tile), 4 warps;
-//   - the block stages K_h and V_h for all L keys in shared memory (with the
-//     bias added), so each byte of K and V is read from device memory once
-//     per query tile and never re-read per query row; the K rows are padded
-//     to an odd word stride so the 32 lanes of a warp, each scoring its own
-//     key, hit 32 different banks;
-//   - a warp owns one query row at a time: each lane scores keys lane,
-//     lane+32, ... against the row held in registers, the row's max and sum
-//     are warp reductions, the probabilities stay in a per-warp shared
-//     buffer, and each lane accumulates two output columns of P.V;
-//   - the L x L scores never reach device memory.
-// Tensor cores (wgmma) and TMA are later work.
+// What the design does about it: one block per (sequence, head, 64-row
+// query tile), 4 warps, walks 64-key tiles of K_h and V_h staged in shared
+// memory (bias added), up to and including the tile on the diagonal when
+// causal: it never loads a tile above the diagonal, which is what the TPU
+// kernel's block-triangular branch buys. Each query row keeps an online
+// softmax (running max and sum in float32, exp2 with log2(e) folded into the
+// scale) and a float32 accumulator in shared memory; keys after the row are
+// masked by index on the diagonal tile. A warp owns one query row at a time
+// and rows go to warps round-robin, so the diagonal tile's triangle is shared
+// evenly; each lane scores two keys of the tile, the row's max and sum are
+// warp reductions, the tile's probabilities stay in a per-warp shared buffer
+// and each lane accumulates two output columns of P.V. The heaviest query
+// tiles are launched first. The K rows are padded to an odd word stride so
+// the 32 lanes of a warp, each scoring its own key, hit 32 different banks,
+// and the L x L scores never reach device memory. Shared memory is fixed
+// (about 51 KB), whatever L is. Tensor cores (wgmma) and TMA are later work.
 //
-// C interface: packed_mha_fwd(qkv, bias, out, N, L, n_heads, head_dim, stream)
-// returns a cudaError_t as int: the launch's cudaGetLastError(), or
-// cudaErrorInvalidValue for a shape this kernel does not take.
+// C interface: packed_mha_fwd(qkv, bias, out, lse, N, L, n_heads, head_dim,
+// causal, stream) returns a cudaError_t as int: the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape this kernel does
+// not take. lse may be null.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstddef>
+#include "packed_mha_common.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;               // the one instantiated head width
 constexpr int kQTile = 64;                 // query rows per block
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kKStride = kHeadDim + 2;     // bf16 elements per staged K row
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kTile = 64;                  // keys per staged tile
 
-// Dynamic shared memory of one block: K (padded rows), V, and one float
-// probability row per warp.
-__host__ __device__ constexpr size_t smem_bytes(int L) {
-  return static_cast<size_t>(L) * kKStride * sizeof(__nv_bfloat16) +
-         static_cast<size_t>(L) * kHeadDim * sizeof(__nv_bfloat16) +
-         static_cast<size_t>(kWarps) * L * sizeof(float);
-}
-
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* base, int pair) {
-  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(base)[pair]);
-}
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* base, int pair, float x, float y) {
-  reinterpret_cast<__nv_bfloat162*>(base)[pair] = __floats2bfloat162_rn(x, y);
-}
+// Dynamic shared memory of one block: K and V tiles (padded rows), the query
+// rows (scaled, float32), the output accumulators, a probability row per
+// warp, and each query row's running max and sum.
+constexpr size_t kSmemBytes =
+    2 * kTile * kKStride * sizeof(bf16) + 2 * kQTile * kHeadDim * sizeof(float) +
+    kWarps * kTile * sizeof(float) + 2 * kQTile * sizeof(float);
 
 __global__ void __launch_bounds__(kThreads)
-packed_mha_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                      const __nv_bfloat16* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ out,
-                      int L, int n_heads, float score_scale) {
+packed_mha_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
+                      bf16* __restrict__ out, float* __restrict__ lse, int L, int n_heads,
+                      int causal, float score_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + static_cast<size_t>(L) * kKStride;
-  float* probs = reinterpret_cast<float*>(vs + static_cast<size_t>(L) * kHeadDim);
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + kTile * kKStride;
+  float* qs = reinterpret_cast<float*>(vs + kTile * kKStride);
+  float* acc = qs + kQTile * kHeadDim;
+  float* probs = acc + kQTile * kHeadDim;
+  float* row_m = probs + kWarps * kTile;
+  float* row_l = row_m + kQTile;
 
   const int E = n_heads * kHeadDim;
   const int F = 3 * E;
   const int n_tiles = (L + kQTile - 1) / kQTile;
-  const int tile = blockIdx.x % n_tiles;
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);  // longest first
   const int h = (blockIdx.x / n_tiles) % n_heads;
   const int n = blockIdx.x / (n_tiles * n_heads);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const __nv_bfloat16* slab = qkv + static_cast<size_t>(n) * L * F;
+  const int q0 = tile * kQTile;
+  const int rows = min(kQTile, L - q0);
+  const bf16* slab = qkv + static_cast<size_t>(n) * L * F;
 
-  // Stage K_h + bias and V_h + bias. kThreads is a multiple of 32, so every
-  // thread always handles the same column pair (its lane): warp w copies rows
-  // w, w + kWarps, ..., each row as 32 coalesced 4-byte pairs.
-  const float2 kb = load_pair(bias + E + h * kHeadDim, lane);
-  const float2 vb = load_pair(bias + 2 * E + h * kHeadDim, lane);
-  for (int j = warp; j < L; j += kWarps) {
-    const __nv_bfloat16* row = slab + static_cast<size_t>(j) * F + E + h * kHeadDim;
-    const float2 k = load_pair(row, lane);
-    const float2 v = load_pair(row + E, lane);
-    store_pair(ks + static_cast<size_t>(j) * kKStride, lane, k.x + kb.x, k.y + kb.y);
-    store_pair(vs + static_cast<size_t>(j) * kHeadDim, lane, v.x + vb.x, v.y + vb.y);
-  }
-  __syncthreads();
-
-  float* p = probs + static_cast<size_t>(warp) * L;
+  // The tile's query rows: bias added and rounded to bf16 (as the plain
+  // version rounds qkv + bias), scaled by log2(e)/sqrt(d). Warp w owns rows
+  // w, w + kWarps, ... here and below.
   const float2 qb = load_pair(bias + h * kHeadDim, lane);
-  const int row_end = min(L, (tile + 1) * kQTile);
-  for (int r = tile * kQTile + warp; r < row_end; r += kWarps) {
-    // The query row, pre-scaled by log2(e)/sqrt(d), broadcast to every lane.
-    const float2 qv = load_pair(slab + static_cast<size_t>(r) * F + h * kHeadDim, lane);
-    const float qx = (qv.x + qb.x) * score_scale;
-    const float qy = (qv.y + qb.y) * score_scale;
-    float q[kHeadDim];
-#pragma unroll
-    for (int c = 0; c < kHeadDim / 2; ++c) {
-      q[2 * c] = __shfl_sync(kFullMask, qx, c);
-      q[2 * c + 1] = __shfl_sync(kFullMask, qy, c);
+  for (int r = warp; r < rows; r += kWarps) {
+    const float2 q = load_pair(slab + static_cast<size_t>(q0 + r) * F + h * kHeadDim, lane);
+    reinterpret_cast<float2*>(qs + r * kHeadDim)[lane] =
+        make_float2(round_bf16(q.x + qb.x) * score_scale, round_bf16(q.y + qb.y) * score_scale);
+    reinterpret_cast<float2*>(acc + r * kHeadDim)[lane] = make_float2(0.f, 0.f);
+    if (lane == 0) {
+      row_m[r] = -INFINITY;
+      row_l[r] = 0.f;
     }
+  }
 
-    // Scores (in log2 units) for keys lane, lane + 32, ...; running max.
-    float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      const __nv_bfloat16* krow = ks + static_cast<size_t>(j) * kKStride;
-      float sx = 0.f, sy = 0.f;
-#pragma unroll
-      for (int c = 0; c < kHeadDim / 2; ++c) {
-        const float2 k = load_pair(krow, c);
-        sx = fmaf(q[2 * c], k.x, sx);
-        sy = fmaf(q[2 * c + 1], k.y, sy);
+  float* p = probs + warp * kTile;
+  const int kv_end = causal ? q0 + rows : L;  // the keys a row of this tile may see
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    const int klen = min(kTile, kv_end - k0);
+    __syncthreads();  // the previous tile has been read by every warp
+    stage_kv(slab, bias, E, h, k0, klen, ks, vs);
+    __syncthreads();
+
+    for (int r = warp; r < rows; r += kWarps) {
+      // Keys k0 .. k0 + lim - 1 are visible to query row q0 + r; lim >= 1,
+      // since a causal tile starts at or before q0.
+      const int lim = causal ? min(klen, q0 + r - k0 + 1) : klen;
+      float x[kHeadDim];
+      load_row(qs + r * kHeadDim, x);
+      float s0 = -INFINITY, s1 = -INFINITY;
+      if (lane < lim) s0 = dot_row(x, ks + lane * kKStride);
+      if (lane + 32 < lim) s1 = dot_row(x, ks + (lane + 32) * kKStride);
+
+      const float m_old = row_m[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
+      const float alpha = exp2f(m_old - m_new);  // 0 on the row's first tile
+      const float p0 = exp2f(s0 - m_new);        // 0 for a masked key
+      const float p1 = exp2f(s1 - m_new);
+      p[lane] = p0;
+      p[lane + 32] = p1;
+      const float l_new = row_l[r] * alpha + warp_sum(p0 + p1);
+      __syncwarp();  // every lane's probabilities are visible to the whole warp
+
+      // P.V into the row's accumulator: lane owns columns 2*lane, 2*lane + 1.
+      float2* arow = reinterpret_cast<float2*>(acc + r * kHeadDim);
+      const float2 a = arow[lane];
+      const float2 pv = weighted_rows(p, vs, lim, lane);
+      arow[lane] = make_float2(fmaf(a.x, alpha, pv.x), fmaf(a.y, alpha, pv.y));
+      if (lane == 0) {
+        row_m[r] = m_new;
+        row_l[r] = l_new;
       }
-      const float s = sx + sy;
-      p[j] = s;
-      m = fmaxf(m, s);
+      __syncwarp();  // the next row may overwrite p only after every lane read it
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFullMask, m, o));
+  }
 
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = exp2f(p[j] - m);
-      p[j] = e;
-      sum += e;
+  for (int r = warp; r < rows; r += kWarps) {
+    const float inv = 1.f / row_l[r];
+    const float2 a = reinterpret_cast<const float2*>(acc + r * kHeadDim)[lane];
+    store_pair(out + (static_cast<size_t>(n) * L + q0 + r) * E + h * kHeadDim, lane,
+               a.x * inv, a.y * inv);
+    if (lse != nullptr && lane == 0) {
+      lse[(static_cast<size_t>(n) * n_heads + h) * L + q0 + r] = row_m[r] + log2f(row_l[r]);
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFullMask, sum, o);
-    __syncwarp();  // every lane's probabilities are visible to the whole warp
-
-    // P.V: lane owns output columns 2*lane and 2*lane + 1.
-    float ax = 0.f, ay = 0.f, bx = 0.f, by = 0.f;
-    int j = 0;
-    for (; j + 1 < L; j += 2) {
-      const float p0 = p[j], p1 = p[j + 1];
-      const float2 v0 = load_pair(vs + static_cast<size_t>(j) * kHeadDim, lane);
-      const float2 v1 = load_pair(vs + static_cast<size_t>(j + 1) * kHeadDim, lane);
-      ax = fmaf(p0, v0.x, ax);
-      ay = fmaf(p0, v0.y, ay);
-      bx = fmaf(p1, v1.x, bx);
-      by = fmaf(p1, v1.y, by);
-    }
-    if (j < L) {
-      const float p0 = p[j];
-      const float2 v0 = load_pair(vs + static_cast<size_t>(j) * kHeadDim, lane);
-      ax = fmaf(p0, v0.x, ax);
-      ay = fmaf(p0, v0.y, ay);
-    }
-    const float inv = 1.f / sum;
-    store_pair(out + (static_cast<size_t>(n) * L + r) * E + h * kHeadDim, lane,
-               (ax + bx) * inv, (ay + by) * inv);
-    __syncwarp();  // the next row may overwrite p only after every lane read it
   }
 }
 
 }  // namespace
 
-extern "C" int packed_mha_fwd(const void* qkv, const void* bias, void* out, int n,
-                              int L, int n_heads, int head_dim, void* stream) {
+extern "C" int packed_mha_fwd(const void* qkv, const void* bias, void* out, void* lse,
+                              int n, int L, int n_heads, int head_dim, int causal,
+                              void* stream) {
   if (head_dim != kHeadDim || n <= 0 || L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0;
-  int smem_optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(L);
-  if (smem > static_cast<size_t>(smem_optin)) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(packed_mha_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-
   const long long blocks =
       static_cast<long long>(n) * n_heads * ((L + kQTile - 1) / kQTile);
-  const float score_scale = 1.4426950408889634f / sqrtf(static_cast<float>(kHeadDim));
-  packed_mha_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(out), L, n_heads, score_scale);
+  const float score_scale = kLog2e / sqrtf(static_cast<float>(kHeadDim));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* qkv_p = static_cast<const bf16*>(qkv);
+  const bf16* bias_p = static_cast<const bf16*>(bias);
+  bf16* out_p = static_cast<bf16*>(out);
+
+  const cudaError_t err = allow_smem(packed_mha_fwd_kernel, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_mha_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, kSmemBytes, s>>>(
+      qkv_p, bias_p, out_p, static_cast<float*>(lse), L, n_heads, causal, score_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,9 @@
 
 The JAX step is one jitted function that scans over microbatches. Here the
 step is eager: each microbatch's forward and backward run in turn (the
-backward of attention is the K2 kernel on CUDA), and autograd accumulates
-their gradients into the float32 ``.grad`` of the trainable parameters.
+backward of attention is the K2 kernel on CUDA, or K3 when causal), and
+autograd accumulates their gradients into the float32 ``.grad`` of the
+trainable parameters.
 """
 
 from __future__ import annotations
@@ -77,13 +78,20 @@ def make_train_step(
     tensors on the batch's device (no host synchronisation): ``loss`` (mean
     of the microbatch losses), ``grad_norm`` (before the clip), ``lr``
     (``base_lr * schedule(step)`` of the step just taken, a float) when
-    ``schedule`` is given, and ``grad_norm_block_{i}`` over each block's
-    trainable gradients when ``block_grad_norms`` is set. The module is put
-    in train mode.
+    ``schedule`` is given, and ``grad_norm_block_{i}`` when
+    ``block_grad_norms`` is set: the norm of block i's whole gradient, frozen
+    parameters included, as the JAX step takes it (:188-193). For those norms
+    the step has autograd compute the frozen block parameters' gradients too,
+    and drops them after; ``grad_norm``, the clip and the optimizer see only
+    the trainable ones. The module is put in train mode.
+
+    ``hidden_loss`` (``ops.losses.make_fused_head_loss``, seq2seq models):
+    the forward stops at the post-norm hidden (``module(x,
+    return_hidden=True)``) and the loss is ``hidden_loss(module, hidden, y)``,
+    which fuses the vocabulary head into the cross entropy (:105-133).
     """
     unported = {"update_stats": update_stats, "mesh": mesh is not None,
-                "moe_aux_coefs": moe_aux_coefs is not None,
-                "hidden_loss": hidden_loss is not None}
+                "moe_aux_coefs": moe_aux_coefs is not None}
     missing = [name for name, hit in unported.items() if hit]
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
@@ -98,21 +106,35 @@ def make_train_step(
         module = state.model.module
         module.train()
         params = [p for p in module.parameters() if p.requires_grad]
+        frozen = ([p for p in module.blocks.parameters() if not p.requires_grad]
+                  if block_grad_norms else [])
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=x.device)
-        for xi, yi in zip(x.chunk(grad_acc_steps), y.chunk(grad_acc_steps)):
-            loss = loss_fn(module(xi), yi)
-            loss.backward()
-            loss_sum += loss.detach()
+        try:
+            for p in frozen:
+                p.requires_grad_(True)
+            for xi, yi in zip(x.chunk(grad_acc_steps), y.chunk(grad_acc_steps)):
+                if hidden_loss is not None:
+                    loss = hidden_loss(module, module(xi, return_hidden=True), yi)
+                else:
+                    loss = loss_fn(module(xi), yi)
+                loss.backward()
+                loss_sum += loss.detach()
+        finally:
+            for p in frozen:
+                p.requires_grad_(False)
         grads = [p.grad for p in params if p.grad is not None]
         if grad_acc_steps > 1:
-            torch._foreach_mul_(grads, 1.0 / grad_acc_steps)
+            torch._foreach_mul_(grads + [p.grad for p in frozen if p.grad is not None],
+                                1.0 / grad_acc_steps)
 
         metrics = {"loss": loss_sum / grad_acc_steps, "grad_norm": global_grad_norm(grads)}
         if block_grad_norms:
             for i, block in enumerate(module.blocks):
                 metrics[f"grad_norm_block_{i}"] = global_grad_norm(
                     p.grad for p in block.parameters())
+        for p in frozen:
+            p.grad = None
         if grad_clip:
             clip_by_global_norm_(grads, grad_clip, metrics["grad_norm"])
         state.optimizer.step()
