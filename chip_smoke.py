@@ -42,7 +42,27 @@ Phases (each raises on failure, so the run exits non-zero):
     torch.profiler split of one step;
 13. GPT-2 cross-check: the gradients of 4 sequences through the kernel path
     and the plain path, and a loss that falls over 20 steps on a fixed batch
-    of 8 at constant lr 3e-4.
+    of 8 at constant lr 3e-4;
+14. K4 and K5 phases: the flash attention forward and backward kernels
+    against their float32 plain versions, in bfloat16 at the Llama-1B train
+    shape (N=4, h=32, L=1024, causal; timed with the plain version and SDPA)
+    and at edge lengths (1, 63, 65, 127, 1000, causal and not), and in
+    float32 at a GPT-2 shape (N=8, h=12, L=1024, causal; timed); K5 also
+    bit-identical over two launches, and both wrappers raise for what the
+    kernels do not take (these run with the other kernel phases, after 7);
+15. GPT-2 float32: GPT-2 base at its default compute dtype, whose attention
+    at L=1024 takes K4 and K5 in float32: the logits and the gradients of 4
+    sequences against the plain path, K4 and K5 launched every layer;
+16. Llama-1B train slice: the JAX package's "1b" preset at L=1024 (random
+    weights from a seed) trains with ``tools/bench_models.py``'s
+    ``bench_llama(batch=4, size="1b")`` protocol (bf16, 4 x 1024 tokens of
+    ``np.random.default_rng(0)``, fused untied head + CE, AdamW 3e-4, cosine
+    warmup 100 of 1000, clip 1.0): 2 warm-up and 10 timed steps, K4 and K5 16
+    launches per step, K1 and K3 none, no plain version, a loss that falls;
+    then a torch.profiler split of one step;
+17. Llama-1B cross-check: the gradients of one sequence through the kernel
+    path and the plain path (the grouped einsum), overall and per block, and
+    the fused loss against the unfused one at V = 128256.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -72,7 +92,7 @@ from vitef_tpu_torch import native
 from vitef_tpu_torch.models import build_model
 from vitef_tpu_torch.ops import _build
 from vitef_tpu_torch.ops import attention as A
-from vitef_tpu_torch.ops import make_fused_head_loss
+from vitef_tpu_torch.ops import make_fused_head_loss, next_token_cross_entropy
 from vitef_tpu_torch.optim import build_optimizer, build_scheduler
 from vitef_tpu_torch.parallel import auto_grad_acc, init_train_state, make_train_step
 
@@ -85,7 +105,7 @@ N_HEADS, EMB = 12, 768
 VIT_SHAPE = (256, 197)                       # (N, L) of ViT-B/16 at batch 256
 EDGE_SHAPES = [(8, 1), (8, 17), (8, 64), (8, 65), (8, 577), (8, 1024)]
 
-KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment")
+KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment", "flash_fwd", "flash_bwd")
 N_CLASSES = VIT_B16["n_classes"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor
@@ -127,6 +147,31 @@ GPT2_SHAPE = (64, 1024)                      # (N, L) of the train step
 CAUSAL_SHAPES = [GPT2_SHAPE] + [(8, l) for l in (1, 17, 64, 65, 255, 256, 257, 511, 512,
                                                   513, 1024)]
 GPT2_CHECK_BATCH, GPT2_FIXED_BATCH = 4, 8
+
+# The flash kernels: (N, h, L, causal). bf16 at the Llama-1B train step's
+# attention (timed) and at edge lengths; float32 at GPT-2 base's heads.
+FLASH_BF16 = [(4, 32, 1024, True)] + [(2, 32, l, causal) for l in (1, 63, 65, 127, 1000)
+                                      for causal in (True, False)]
+FLASH_FP32 = [(8, 12, 1024, True)]
+# float32 throughout, against the float32 plain version: only the order of
+# summation differs (~1e-6 seen), so the limits are 100x that.
+FLASH_FP32_MAX_ABS, FLASH_FP32_MEAN_ABS = 1e-4, 1e-5
+
+# GPT-2 float32: its default compute dtype (vitef_tpu/models/gpt2.py:38).
+GPT2_FP32 = {**GPT2_BASE, "compute_dtype": "float32"}
+# float32 throughout on both paths (TF32 off): logits held relative to their
+# largest entry, gradients by relative L2, at 100x what float32 summation
+# order gives through 12 layers.
+FP32_LOGITS_REL, FP32_GRAD_REL_L2 = 1e-3, 1e-3
+
+# Llama slice: tools/bench_models.py bench_llama(batch=4, size="1b") (:132-194,
+# :228-235): the "1b" preset at seq_len 1024, bf16, AdamW 3e-4 like GPT-2's.
+LLAMA_1B = {"implementation": "llama", "model_name": "1b", "seq_len": 1024,
+            "pretrained": False, "compute_dtype": "bfloat16", "seed": 0}
+LLAMA_BATCH, LLAMA_WARMUP = 4, 2
+# The fused loss against the unfused one on bf16 logits of |x| < 4: bf16
+# rounding of the logits moves the CE by well under this.
+FUSED_LOSS_ABS = 1e-2
 
 
 def card() -> str:
@@ -209,9 +254,9 @@ def counting(module, *names):
 
 @contextlib.contextmanager
 def no_plain_versions():
-    """Record every call of the plain versions (of K1, K2, K3 and K10)."""
+    """Record every call of the plain versions (of K1-K5 and K10)."""
     with counting(A, "attention_reference", "packed_mha_reference",
-                  "packed_mha_bwd_reference") as calls, \
+                  "packed_mha_bwd_reference", "flash_bwd_reference") as calls, \
             counting(T, "augment_train_reference") as aug_calls:
         yield calls, aug_calls
 
@@ -350,6 +395,154 @@ def bwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
     limit = bound(attention_flops(n, l, 5, causal), PEAK_BF16_FLOPS,
                   (qkv, bias, g, out, lse, dqkv, db.float()))
     print(f"{label} at N={n} L={l} E={EMB} h={N_HEADS}: kernel {times[1]:.4f}/"
+          f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA backward "
+          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
+            "library_ms": library_ms}
+
+
+def flash_flops(n: int, h: int, l: int, d: int, products: int, causal: bool) -> float:
+    """FLOPs of ``products`` L x L x d products over N sequences and h heads,
+    counting only the lower triangle's L(L+1)/2 scores when causal."""
+    pairs = l * (l + 1) / 2 if causal else l * l
+    return 2.0 * products * n * h * pairs * d
+
+
+def flash_inputs(gen, n: int, h: int, l: int, dtype, device):
+    """q, k, v (scale 0.5, as the packed phases draw qkv) and a cotangent g,
+    (N, h, L, 64) in ``dtype`` on ``device``."""
+    shape = (n, h, l, 64)
+    return ([(torch.randn(shape, generator=gen) * 0.5).to(device, dtype) for _ in range(3)]
+            + [torch.randn(shape, generator=gen).to(device, dtype)])
+
+
+def flash_limits(dtype) -> tuple[float, float, float]:
+    """(max |d|, mean |d|, peak FLOP/s) of a flash kernel in ``dtype``."""
+    if dtype == torch.bfloat16:
+        return KERNEL_MAX_ABS, KERNEL_MEAN_ABS, PEAK_BF16_FLOPS
+    return FLASH_FP32_MAX_ABS, FLASH_FP32_MEAN_ABS, PEAK_FP32_FLOPS
+
+
+def flash_fwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
+    """K4 against its float32 plain version (``attention_reference``) on the
+    same inputs at every (N, h, L, causal) of ``cases``, then timed at the
+    first of them (the main path's shape, whose error is the one returned)
+    with the plain version and SDPA."""
+    gen = torch.Generator().manual_seed(seed)
+    max_lim, mean_lim, peak = flash_limits(dtype)
+    label = f"K4 flash_fwd {str(dtype).removeprefix('torch.')}"
+    for n, h, l, causal in cases:
+        q, k, v, _ = flash_inputs(gen, n, h, l, dtype, device)
+        launches = A.flash_attention.launches
+        with torch.inference_mode():
+            out = A.flash_attention(q, k, v, causal=causal, impl="kernel")
+            ref = A.attention_reference(q.float(), k.float(), v.float(), causal=causal)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        del ref, diff
+        print(f"{label} N={n} h={h} L={l} causal={causal}: max|d|={max_abs:.3e} "
+              f"mean|d|={mean_abs:.3e}")
+        if A.flash_attention.launches != launches + 1:
+            raise AssertionError(f"{label} did not launch at N={n} h={h} L={l}")
+        if not (out.shape == q.shape and out.dtype == dtype and math.isfinite(max_abs)
+                and max_abs <= max_lim and mean_abs <= mean_lim):
+            raise AssertionError(f"{label} disagrees with its plain version at N={n} h={h} "
+                                 f"L={l} causal={causal}")
+        if (n, h, l, causal) == cases[0]:
+            timed, main_err = (q, k, v, out), max_abs
+
+    (n, h, l, causal), (q, k, v, out) = cases[0], timed
+    with torch.inference_mode():
+        ms, plain_ms, times = in_turns(
+            lambda: A.flash_attention(q, k, v, causal=causal, impl="kernel"),
+            lambda: A.attention_reference(q, k, v, causal=causal), iters)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
+                             iters)
+    limit = bound(flash_flops(n, h, l, 64, 2, causal), peak, (q, k, v, out))
+    print(f"{label} at N={n} h={h} L={l} causal={causal}: kernel {times[1]:.4f}/"
+          f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
+            "library_ms": library_ms}
+
+
+def flash_backward_graph(q, k, v, causal: bool):
+    """(the backward as a function of the cotangent, the forward's output):
+    one K4 forward whose graph is kept, so each call runs K5 alone, as the
+    train step does."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = A.flash_attention(*leaves, causal=causal, impl="kernel")
+    return lambda g: torch.autograd.grad(out, leaves, g, retain_graph=True), out
+
+
+def flash_bwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
+    """K5, through the autograd path that the train step takes, against its
+    float32 plain version (``flash_bwd_reference``) on the same inputs at
+    every (N, h, L, causal) of ``cases``, bit-identical over two launches;
+    what its wrapper does not take raises; then timed at the first case (the
+    main path's shape, whose error is the one returned) with the plain
+    version and SDPA's backward."""
+    gen = torch.Generator().manual_seed(seed)
+    max_lim, mean_lim, peak = flash_limits(dtype)
+    label = f"K5 flash_bwd {str(dtype).removeprefix('torch.')}"
+    for n, h, l, causal in cases:
+        q, k, v, g = flash_inputs(gen, n, h, l, dtype, device)
+        backward, out = flash_backward_graph(q, k, v, causal)
+        launches = A.flash_bwd.launches
+        grads = backward(g)
+        again = backward(g)
+        if A.flash_bwd.launches != launches + 2:
+            raise AssertionError(f"the backward did not launch {label}")
+        refs = A.flash_bwd_reference(q.float(), k.float(), v.float(), g.float(), causal=causal)
+        torch.cuda.synchronize()
+        diffs = [(a.float() - b).abs() for a, b in zip(grads, refs)]
+        max_abs = max(d.max().item() for d in diffs)
+        mean_abs = sum(d.mean().item() for d in diffs) / 3
+        del refs, diffs
+        identical = all(torch.equal(a, b) for a, b in zip(grads, again))
+        print(f"{label} N={n} h={h} L={l} causal={causal}: dq/dk/dv max|d|={max_abs:.3e} "
+              f"mean|d|={mean_abs:.3e}; two launches bit-identical: {identical}")
+        if not (all(t.shape == q.shape and t.dtype == dtype for t in grads)
+                and math.isfinite(max_abs) and max_abs <= max_lim and mean_abs <= mean_lim):
+            raise AssertionError(f"{label} disagrees with its plain version at N={n} h={h} "
+                                 f"L={l} causal={causal}")
+        if not identical:
+            raise AssertionError(f"{label} is not deterministic at N={n} h={h} L={l}")
+        if (n, h, l, causal) == cases[0]:
+            timed, main_err = (q, k, v, g, backward, out), max_abs
+
+    (n, h, l, causal), (q, k, v, g, backward, out) = cases[0], timed
+    # What the kernels do not take raises on CUDA; nothing falls back.
+    lse = torch.zeros((n, h, l), dtype=torch.float32, device=device)
+    narrow = [t[..., :32] for t in (q, k, v, g, out)]
+    refused = [(TypeError, lambda: A.flash_bwd(*(t.half() for t in (q, k, v, g, out)), lse)),
+               (NotImplementedError, lambda: A.flash_bwd(*narrow, lse)),
+               (TypeError, lambda: A.flash_attention(q.half(), k.half(), v.half(),
+                                                     impl="kernel")),
+               (NotImplementedError, lambda: A.flash_attention(*narrow[:3], impl="kernel"))]
+    launches = (A.flash_attention.launches, A.flash_bwd.launches)
+    for error, call in refused:
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"{label}'s wrappers did not raise {error.__name__}")
+    if (A.flash_attention.launches, A.flash_bwd.launches) != launches:
+        raise AssertionError(f"{label}'s wrappers launched on an input they do not take")
+    print(f"{label}: K4's and K5's wrappers raise for float16 input and head width 32")
+
+    ms, plain_ms, times = in_turns(
+        lambda: backward(g),
+        lambda: A.flash_bwd_reference(q, k, v, g, causal=causal), iters)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True),
+                         iters)
+    del sdpa_out, leaves
+    grads = backward(g)
+    limit = bound(flash_flops(n, h, l, 64, 5, causal), peak, (q, k, v, g, out, lse, *grads))
+    print(f"{label} at N={n} h={h} L={l} causal={causal}: kernel {times[1]:.4f}/"
           f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA backward "
           f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
@@ -538,11 +731,37 @@ def train_phase(model, device):
     return launches, one_step, train_loader.dataset
 
 
-def _block_grads(module) -> tuple[list[torch.Tensor], torch.Tensor]:
-    """(per-block flattened float32 gradients, all gradients flattened)."""
-    blocks = [torch.cat([p.grad.float().flatten() for p in block.parameters()])
-              for block in module.blocks]
-    return blocks, torch.cat([p.grad.float().flatten() for p in module.parameters()])
+def kernel_and_plain_grads(model, loss) -> tuple[float, list[float]]:
+    """Gradients of ``loss(plain)`` through the kernel path (``plain`` False)
+    and through the plain path (``attn_impl="plain"``, ``plain`` True): their
+    relative L2, overall and per block, in float32, one parameter at a time
+    (no flattened copy of the whole model)."""
+    cfg, module = model.config, model.module
+    module.train()
+    module.zero_grad(set_to_none=True)
+    loss(False).backward()
+    kernel = {name: p.grad for name, p in module.named_parameters()}
+    module.zero_grad(set_to_none=True)
+    impl = cfg.attn_impl
+    cfg.attn_impl = "plain"  # every module reads the shared config
+    try:
+        loss(True).backward()
+    finally:
+        cfg.attn_impl = impl
+    sums = Counter()
+    for name, p in module.named_parameters():
+        diff = (kernel[name].float() - p.grad.float()).norm().item() ** 2
+        ref = p.grad.float().norm().item() ** 2
+        parts = name.split(".")
+        for key in ["all"] + ([f"block {parts[1]}"] if parts[0] == "blocks" else []):
+            sums[key, "diff"] += diff
+            sums[key, "ref"] += ref
+    module.zero_grad(set_to_none=True)
+
+    def rel(key):
+        return math.sqrt(sums[key, "diff"] / sums[key, "ref"])
+
+    return rel("all"), [rel(f"block {i}") for i in range(len(module.blocks))]
 
 
 def train_cross_check(model, dataset, device) -> None:
@@ -559,21 +778,8 @@ def train_cross_check(model, dataset, device) -> None:
                                       compute_dtype=torch.bfloat16)
     x_plain = T.augment_train_reference(raw, boxes, flips, 224, torch.bfloat16)
     module = model.module
-    module.train()
-    grads = {}
-    impl = model.config.attn_impl
-    for path, x in (("kernel", x_kernel), ("plain", x_plain)):
-        model.config.attn_impl = "plain" if path == "plain" else impl
-        try:
-            module.zero_grad(set_to_none=True)
-            torch.nn.functional.cross_entropy(module(x).float(), y).backward()
-            grads[path] = _block_grads(module)
-        finally:
-            model.config.attn_impl = impl
-    module.zero_grad(set_to_none=True)
-    (k_blocks, k_all), (p_blocks, p_all) = grads["kernel"], grads["plain"]
-    per_block = [((a - b).norm() / b.norm()).item() for a, b in zip(k_blocks, p_blocks)]
-    overall = ((k_all - p_all).norm() / p_all.norm()).item()
+    overall, per_block = kernel_and_plain_grads(
+        model, lambda plain: F.cross_entropy(module(x_plain if plain else x_kernel).float(), y))
     print(f"gradients of one microbatch ({n}), kernel vs plain path: relative L2 "
           f"{overall:.3e}; per block " + " ".join(f"{r:.2e}" for r in per_block))
     if not (math.isfinite(overall) and overall <= GRAD_REL_L2):
@@ -617,7 +823,11 @@ def profile_train_step(one_step, kinds: dict, label: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     totals = dict.fromkeys([*kinds, "elementwise and other"], 0.0)
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    # Device work only: a record_function range (such as the optimizer's
+    # "Optimizer.step#AdamW.step") also appears on the device's timeline, as
+    # a span over the kernels it encloses, and would count them twice.
+    events = [e for e in prof.events()
+              if e.device_type.name == "CUDA" and not e.is_user_annotation]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     for e in events:
         name = e.name.lower()
@@ -638,7 +848,7 @@ def profile_train_step(one_step, kinds: dict, label: str) -> None:
     by_name = Counter()
     for e in events:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    for name, ms in by_name.most_common(6):
+    for name, ms in by_name.most_common(10):
         print(f"  top: {ms:8.3f} ms  {name[:110]}")
 
 
@@ -727,20 +937,8 @@ def gpt2_cross_check(model, device) -> None:
     tokens = torch.from_numpy(np.random.default_rng(9).integers(
         0, cfg.vocab_size, size=(GPT2_FIXED_BATCH, cfg.seq_len))).to(device)
     check = tokens[:GPT2_CHECK_BATCH]
-    module.train()
-    grads, impl = {}, cfg.attn_impl
-    for path in ("kernel", "plain"):
-        cfg.attn_impl = "plain" if path == "plain" else impl
-        try:
-            module.zero_grad(set_to_none=True)
-            loss_fn(module, module(check, return_hidden=True), check).backward()
-            grads[path] = _block_grads(module)
-        finally:
-            cfg.attn_impl = impl
-    module.zero_grad(set_to_none=True)
-    (k_blocks, k_all), (p_blocks, p_all) = grads["kernel"], grads["plain"]
-    per_block = [((a - b).norm() / b.norm()).item() for a, b in zip(k_blocks, p_blocks)]
-    overall = ((k_all - p_all).norm() / p_all.norm()).item()
+    overall, per_block = kernel_and_plain_grads(
+        model, lambda plain: loss_fn(module, module(check, return_hidden=True), check))
     print(f"GPT-2 gradients of {GPT2_CHECK_BATCH} sequences, kernel vs plain path: relative "
           f"L2 {overall:.3e}; per block " + " ".join(f"{r:.2e}" for r in per_block))
     if not (math.isfinite(overall) and overall <= GRAD_REL_L2
@@ -759,6 +957,174 @@ def gpt2_cross_check(model, device) -> None:
         raise AssertionError(f"the GPT-2 fixed-batch loss did not fall: {losses}")
 
 
+FLASH_COUNTERS = (A.fused_mha_packed, A.packed_mha_bwd, A.flash_attention, A.flash_bwd)
+
+
+def gpt2_fp32_phase(device) -> dict:
+    """GPT-2 base at its default compute dtype, float32: at L=1024 its
+    attention takes K4 and K5 in float32 (the repaired route). Logits of
+    GPT2_CHECK_BATCH sequences and their fused-loss gradients, each against
+    the plain path; K4 and K5 carry every layer. Returns the launch counts."""
+    model = build_model(GPT2_FP32, device=device)
+    cfg, module = model.config, model.module
+    loss_fn = make_fused_head_loss(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, size=(GPT2_CHECK_BATCH, cfg.seq_len))).to(device)
+
+    def loss(plain=False):
+        return loss_fn(module, module(tokens, return_hidden=True), tokens)
+
+    with no_plain_versions() as (plain_calls, aug_calls):
+        for counter in FLASH_COUNTERS:
+            counter.launches = 0
+        with torch.inference_mode():
+            logits = model.apply_eval(tokens)
+        module.train()
+        loss().backward()
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in FLASH_COUNTERS}
+    module.zero_grad(set_to_none=True)
+    want = {"fused_mha_packed": 0, "packed_mha_bwd": 0, "flash_attention": 2 * cfg.n_layers,
+            "flash_bwd": cfg.n_layers}
+    print(f"GPT-2 base float32 at {GPT2_CHECK_BATCH} x {cfg.seq_len}, forward then forward and "
+          f"backward: launches {launches} (want {want}); plain calls "
+          f"{dict(Counter(plain_calls + aug_calls))}")
+    if launches != want or plain_calls or aug_calls:
+        raise AssertionError("float32 GPT-2 attention did not go through K4 and K5")
+
+    impl = cfg.attn_impl
+    cfg.attn_impl = "plain"
+    try:
+        with torch.inference_mode():
+            plain_logits = model.apply_eval(tokens)
+    finally:
+        cfg.attn_impl = impl
+    scale = plain_logits.abs().max().item()
+    max_abs = (logits - plain_logits).abs().max().item()
+    overall, per_block = kernel_and_plain_grads(model, loss)
+    print(f"GPT-2 float32 logits, K4 vs plain path: max|d|={max_abs:.3e} (max|logits| "
+          f"{scale:.3f}); gradients relative L2 {overall:.3e}, per block max "
+          f"{max(per_block):.3e}")
+    if not (logits.shape == (GPT2_CHECK_BATCH, cfg.seq_len, cfg.vocab_size)
+            and torch.isfinite(logits).all() and max_abs <= FP32_LOGITS_REL * scale
+            and math.isfinite(overall) and overall <= FP32_GRAD_REL_L2
+            and max(per_block) <= FP32_GRAD_REL_L2):
+        raise AssertionError("float32 GPT-2 through K4/K5 disagrees with the plain path")
+    return launches
+
+
+def llama_flops_per_token(cfg) -> float:
+    """Train FLOPs per token, 3x the forward's: ``tools/bench_models.py``'s
+    ``llama_flops`` (:124-129: GQA qkv, out, three swiglu products, the
+    causal half of attention, the untied head) over seq_len."""
+    e, seq = cfg.emb_dim, cfg.seq_len
+    per_tok = cfg.n_layers * (e * (e + 2 * cfg.kv_dim) + e * e + 3 * e * cfg.ffn_dim
+                              + 2 * (seq // 2) * e) + e * cfg.vocab_size
+    return 3 * 2 * per_tok
+
+
+LLAMA_KINDS = {"K4 flash_fwd (causal)": ("flash_fwd",),
+               "K5 flash_bwd (causal)": ("flash_dq", "flash_dkv"),
+               "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
+               "optimizer (foreach / AdamW)": ("multi_tensor", "foreach")}
+
+
+def llama_train_phase(device):
+    """``bench_llama(batch=4, size="1b")``'s protocol through the port: K4
+    forward and K5 backward in every layer, fused untied head + CE, clip,
+    AdamW, cosine schedule. Returns the model, the main path's launch counts
+    and a device-only step."""
+    t0 = time.perf_counter()
+    model = build_model(LLAMA_1B, device=device)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.module.parameters())
+    print(f"Llama-1B: {n_params:,} parameters, built in {time.perf_counter() - t0:.2f} s")
+    schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
+    optimizer, scheduler = build_optimizer(GPT2_OPTIMIZER, model.module, schedule=schedule)
+    step_fn = make_train_step(schedule=schedule, base_lr=GPT2_LR, grad_clip=GRAD_CLIP,
+                              hidden_loss=make_fused_head_loss(cfg))
+    state = init_train_state(model, optimizer, scheduler)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LLAMA_BATCH, cfg.seq_len))).to(device)
+
+    def one_step():
+        return step_fn(state, (tokens, tokens))
+
+    history = [(state.step, one_step()) for _ in range(LLAMA_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    with no_plain_versions() as (plain_calls, aug_calls):
+        for counter in FLASH_COUNTERS:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        history += [(state.step, one_step()) for _ in range(TIMED_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in FLASH_COUNTERS}
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+
+    losses = []
+    for step, metrics in history:
+        loss, norm, lr = metrics["loss"].item(), metrics["grad_norm"].item(), metrics["lr"]
+        want_lr = GPT2_LR * step / SCHEDULER["warmup"]  # inside the warmup
+        if not (math.isfinite(loss) and math.isfinite(norm) and abs(lr - want_lr) <= 1e-12):
+            raise AssertionError(f"Llama step {step}: loss {loss}, grad_norm {norm}, lr {lr} "
+                                 f"(want {want_lr})")
+        losses.append(loss)
+    print(f"Llama-1B train steps {history[0][0]}..{history[-1][0]}: loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; grad_norm {history[-1][1]['grad_norm'].item():.4f}, "
+          f"lr {history[-1][1]['lr']:.8f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the Llama-1B loss did not fall: {losses}")
+    want = cfg.n_layers * TIMED_STEPS
+    print(f"Llama-1B train launches over {TIMED_STEPS} steps: {launches} (K4 and K5 want "
+          f"{want}, K1 and K3 0); plain calls {dict(Counter(plain_calls + aug_calls))}")
+    if launches != {"fused_mha_packed": 0, "packed_mha_bwd": 0, "flash_attention": want,
+                    "flash_bwd": want}:
+        raise AssertionError("the Llama-1B train path did not go through K4 and K5 every layer")
+    if plain_calls or aug_calls:
+        raise AssertionError(f"plain versions ran on CUDA: {Counter(plain_calls + aug_calls)}")
+    n_tokens = LLAMA_BATCH * cfg.seq_len
+    rate = n_tokens * TIMED_STEPS / seconds
+    roofline = PEAK_BF16_FLOPS / llama_flops_per_token(cfg)
+    print(f"Llama-1B bf16 train, device-only: {rate:.2f} tokens/s "
+          f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {LLAMA_BATCH} x "
+          f"{cfg.seq_len} tokens, one microbatch); {rate / roofline:.4f} of the "
+          f"{roofline:.0f} tokens/s bf16 roofline ({llama_flops_per_token(cfg) / 1e9:.3f} "
+          f"GFLOP per token); peak memory {peak_gib:.3f} GiB (torch.cuda.max_memory_allocated)")
+    return model, launches, one_step
+
+
+def llama_cross_check(model, device) -> None:
+    """The gradients of one sequence through the kernels (K4, K5) and
+    through the plain path (the grouped einsum and its autograd backward),
+    overall and per block; and the fused head + CE against the unfused CE
+    over the untied head's materialised logits at V = 128256."""
+    cfg, module = model.config, model.module
+    loss_fn = make_fused_head_loss(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(1, cfg.seq_len))).to(device)
+    overall, per_block = kernel_and_plain_grads(
+        model, lambda plain: loss_fn(module, module(tokens, return_hidden=True), tokens))
+    print(f"Llama-1B gradients of one sequence, kernel vs plain path: relative L2 "
+          f"{overall:.3e}; per block " + " ".join(f"{r:.2e}" for r in per_block))
+    if not (math.isfinite(overall) and overall <= GRAD_REL_L2
+            and all(r <= GRAD_REL_L2 for r in per_block)):
+        raise AssertionError(f"Llama-1B kernel-path gradients disagree with the plain path: "
+                             f"{overall}, {per_block}")
+
+    with torch.inference_mode():
+        hidden = module(tokens, return_hidden=True)
+        fused = loss_fn(module, hidden, tokens).item()
+        logits = module.output.output_layer["head"](hidden, cfg.cdtype()).float()
+        unfused = next_token_cross_entropy(logits, tokens).item()
+    print(f"Llama-1B fused head + CE {fused:.6f}, unfused over ({cfg.seq_len} x "
+          f"{cfg.vocab_size}) logits {unfused:.6f}")
+    if not (math.isfinite(fused) and abs(fused - unfused) <= FUSED_LOSS_ABS):
+        raise AssertionError("the fused loss disagrees with the unfused one at V = 128256")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -774,7 +1140,15 @@ def main() -> None:
               "train_augment": k10_phase(device),
               "packed_mha_fwd:causal": fwd_phase(device, CAUSAL_SHAPES, True, seed=5, iters=10),
               "packed_mha_bwd:causal": bwd_phase(device, CAUSAL_SHAPES, True, seed=6,
-                                                 iters=10)}
+                                                 iters=10),
+              "flash_fwd": flash_fwd_phase(device, torch.bfloat16, FLASH_BF16, seed=12,
+                                           iters=10),
+              "flash_bwd": flash_bwd_phase(device, torch.bfloat16, FLASH_BF16, seed=13,
+                                           iters=10),
+              "flash_fwd:float32": flash_fwd_phase(device, torch.float32, FLASH_FP32,
+                                                   seed=14, iters=10),
+              "flash_bwd:float32": flash_bwd_phase(device, torch.float32, FLASH_FP32,
+                                                   seed=15, iters=10)}
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
@@ -788,6 +1162,19 @@ def main() -> None:
     gpt2, gpt2_launches, gpt2_step = gpt2_train_phase(device)
     profile_train_step(gpt2_step, GPT2_KINDS, "GPT-2 base")
     gpt2_cross_check(gpt2, device)
+    del gpt2, gpt2_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fp32_launches = gpt2_fp32_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama, llama_launches, llama_step = llama_train_phase(device)
+    profile_train_step(llama_step, LLAMA_KINDS, "Llama-1B")
+    del llama_step  # the optimizer state
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama_cross_check(llama, device)
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -801,6 +1188,14 @@ def main() -> None:
          "vitef_tpu/ops/attention.py:99"),
         ("packed_mha_bwd:causal", "packed_mha_bwd", gpt2_launches["packed_mha_bwd"],
          "vitef_tpu/ops/attention.py:181"),
+        ("flash_fwd", "flash_fwd", llama_launches["flash_attention"],
+         "vitef_tpu/ops/attention.py:490"),
+        ("flash_bwd", "flash_bwd", llama_launches["flash_bwd"],
+         "vitef_tpu/ops/attention.py:588"),
+        ("flash_fwd:float32", "flash_fwd", fp32_launches["flash_attention"],
+         "vitef_tpu/ops/attention.py:490"),
+        ("flash_bwd:float32", "flash_bwd", fp32_launches["flash_bwd"],
+         "vitef_tpu/ops/attention.py:588"),
     ]
     print(card_line)
     print(json.dumps({"kernels": [{

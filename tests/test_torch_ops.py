@@ -123,7 +123,10 @@ def test_packed_mha_supported_gate():
     # K1, K2 and K3 tile over keys: GPT-2's lengths and widths at d = 64 pass
     assert A.packed_mha_supported(1024, 768, 12)      # GPT-2 base
     assert A.packed_mha_supported(1, 768, 12)
-    assert A.packed_mha_supported(2048, 1280, 20)     # GPT-2 large, 2x its L
+    assert A.packed_mha_supported(1024, 1280, 20)     # GPT-2 large: 33.6 MB
+    # past the JAX package's 40 MiB budget attention takes the flash kernels
+    assert not A.packed_mha_supported(2048, 1280, 20)  # GPT-2 large, 2x its L: 92 MB
+    assert not A.packed_mha_supported(1024, 2048, 32)  # Llama-1B: 46.1 MB
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -8,9 +8,11 @@ at first use and bound with ``ctypes`` (``ops/_build.py``).
 
 Ported so far: ViT-B/16 inference (``models.build_model`` →
 ``eval.run_evaluation``) and finetuning (``parallel.make_train_step``), and
-GPT-2 causal-LM training with the fused head + CE loss
+GPT-2 and Llama causal-LM training with the fused head + CE loss
 (``ops.make_fused_head_loss``), through the packed attention kernels K1
-(forward, causal or not), K2 and K3 (backward) and the train augment K10.
+(forward, causal or not), K2 and K3 (backward), the flash attention kernels
+K4 (forward, bfloat16 or float32) and K5 (backward), and the train augment
+K10.
 """
 
 __version__ = "0.1.0"

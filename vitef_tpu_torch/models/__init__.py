@@ -1,10 +1,21 @@
-from .convert import from_jax_params, from_vitef_state_dict, hf_gpt2_to_vitef  # noqa: F401
+from .convert import (  # noqa: F401
+    from_jax_params,
+    from_vitef_state_dict,
+    hf_gpt2_to_vitef,
+    hf_llama_to_vitef,
+)
 from .gpt2 import (  # noqa: F401
     GPT2_SIZES,
     GPT2Config,
     build_gpt2,
     gpt2_model_name,
     gpt2_transformer_config,
+)
+from .llama import (  # noqa: F401
+    LLAMA_SIZES,
+    LlamaConfig,
+    build_llama,
+    llama_transformer_config,
 )
 from .registry import Model, build_model  # noqa: F401
 from .transformer import Transformer, TransformerConfig  # noqa: F401

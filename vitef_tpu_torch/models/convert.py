@@ -7,12 +7,16 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
   leaves) across, name for name. The JAX package stores linear weights
   (in, out); the port stores (out, in). That transpose is made here and
   nowhere else. The ``dict`` token embedding (V, E) is a table, not a
-  linear weight, and keeps its layout.
+  linear weight, and keeps its layout. Llama trees take the same rule: the
+  packed qkv (E, E + 2·kv_dim) and swiglu fc1 (E, 2F) transpose whole, so
+  their [q | k | v] and [gate | up] column blocks become row blocks, and
+  the untied head (E, V) becomes (V, E).
 - :func:`from_vitef_state_dict` loads a torch-layout state dict with the
   reference vitef names (the ``checkpoints/{vit,gpt2}/<name>.npz`` caches;
   the inverse direction of ``torch_import.from_vitef_state_dict``).
 - :func:`hf_gpt2_to_vitef` renames a HuggingFace ``GPT2LMHeadModel`` state
-  dict to those reference names (``torch_import.hf_gpt2_to_vitef`` :169-198).
+  dict to those reference names (``torch_import.hf_gpt2_to_vitef`` :169-198),
+  and :func:`hf_llama_to_vitef` a ``LlamaForCausalLM`` one (:201-229).
 """
 
 from __future__ import annotations
@@ -117,4 +121,29 @@ def hf_gpt2_to_vitef(hf: dict[str, np.ndarray], n_layers: int) -> dict[str, np.n
         out[v + "ffn.fc1.bias"] = hf[h + "mlp.c_fc.bias"]
         out[v + "ffn.fc2.weight"] = t(hf[h + "mlp.c_proj.weight"])
         out[v + "ffn.fc2.bias"] = hf[h + "mlp.c_proj.bias"]
+    return out
+
+
+def hf_llama_to_vitef(hf: dict[str, np.ndarray], n_layers: int) -> dict[str, np.ndarray]:
+    """HuggingFace ``LlamaForCausalLM`` state dict -> reference vitef names,
+    torch layout (numpy arrays). q/k/v concatenate into the packed qkv (k and
+    v are n_kv_heads wide), gate_proj/up_proj into the packed swiglu fc1
+    ([gate | up]); the rms norms have no bias and the head is untied. HF
+    stores q and k in the rotate_half RoPE convention that ``rope.py``
+    implements, so the weights carry over unchanged."""
+    out = {
+        "embedding.token_emb.weight": hf["model.embed_tokens.weight"],
+        "output.output_layer.output_norm.weight": hf["model.norm.weight"],
+        "output.output_layer.output.weight": hf["lm_head.weight"],
+    }
+    for i in range(n_layers):
+        h, v = f"model.layers.{i}.", f"blocks.{i}."
+        out[v + "attn_norm.weight"] = hf[h + "input_layernorm.weight"]
+        out[v + "ffn_norm.weight"] = hf[h + "post_attention_layernorm.weight"]
+        out[v + "attn.qkv_mat.weight"] = np.concatenate(
+            [hf[h + f"self_attn.{m}_proj.weight"] for m in ("q", "k", "v")], axis=0)
+        out[v + "attn.output.weight"] = hf[h + "self_attn.o_proj.weight"]
+        out[v + "ffn.fc1.weight"] = np.concatenate(
+            [hf[h + "mlp.gate_proj.weight"], hf[h + "mlp.up_proj.weight"]], axis=0)
+        out[v + "ffn.fc2.weight"] = hf[h + "mlp.down_proj.weight"]
     return out

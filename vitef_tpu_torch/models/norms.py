@@ -1,6 +1,6 @@
-"""Normalization layers. Counterpart of ``vitef_tpu/models/norms.py`` (:30-56).
+"""Normalization layers. Counterpart of ``vitef_tpu/models/norms.py`` (:30-63).
 
-Only LayerNorm is ported; the rms and batch kinds raise.
+The layer and rms kinds are ported; the batch kind raises.
 """
 
 from __future__ import annotations
@@ -24,11 +24,26 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+class RMSNorm(LayerNorm):
+    """RMSNorm (:57-63): ``x * rsqrt(mean(x²) + eps) * weight [+ bias]``, all
+    in float32, cast back to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        out = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
+        out = out * self.weight.float()
+        if self.bias is not None:
+            out = out + self.bias.float()
+        return out.to(x.dtype)
+
+
 def build_norm(dim: int, bias: bool, kind: str, eps: float, *,
                device: torch.device) -> nn.Module:
     kind = kind.lower()
     if kind == "layer":
         return LayerNorm(dim, bias, eps, device=device)
-    if kind in ("rms", "batch"):
-        raise NotImplementedError(f"{kind} norm is not ported yet")
+    if kind == "rms":
+        return RMSNorm(dim, bias, eps, device=device)
+    if kind == "batch":
+        raise NotImplementedError("batch norm is not ported yet")
     raise ValueError(f"Unknown normalization layer {kind!r}. Choose batch/layer/rms.")

@@ -20,14 +20,16 @@ numerics:
   embedding, float32 logits, :747-760) or the untied one.
 
 Ported: the ViT geometry (computer-vision hybrid patching, learned absolute
-positions, multi-head attention, mlp FFN, layer norm, classification head)
-and the GPT-2 geometry (``dict`` token embedding, causal attention,
+positions, multi-head attention, mlp FFN, layer norm, classification head),
+the GPT-2 geometry (``dict`` token embedding, causal attention,
 sequence-to-sequence head, ``forward(x, return_hidden=True)`` for the fused
-head loss), forward, and backward through autograd. The other options of the
-config raise ``NotImplementedError``. Dropout is not ported: a module in train
-mode with any dropout rate above 0 raises ``NotImplementedError`` rather than
-train without it (ViT's and GPT-2's rates are all 0,
-``vitef_tpu/models/vit.py:96-111``, ``gpt2.py:52-82``).
+head loss) and the Llama geometry (grouped-query attention, rotary
+positions, swiglu FFN, rms norm, untied head), forward, and backward through
+autograd. The other options of the config raise ``NotImplementedError``.
+Dropout is not ported: a module in train mode with any dropout rate above 0
+raises ``NotImplementedError`` rather than train without it (ViT's, GPT-2's
+and Llama's rates are all 0, ``vitef_tpu/models/vit.py:96-111``,
+``gpt2.py:52-82``, ``llama.py:75-99``).
 """
 
 from __future__ import annotations
@@ -39,10 +41,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import multi_head_attention
+from ..ops.attention import (attention_route, flash_attention, fused_mha_packed,
+                             multi_head_attention)
 from ..ops.common import mm_f32
 from .norms import build_norm
 from .patching import extract_patches_chw, image_patch_dims
+from .rope import apply_rope, rope_angles
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -165,6 +169,23 @@ class TransformerConfig:
                 raise ValueError("moe_top_k must be in [1, n_experts]")
 
     @property
+    def uses_rope(self) -> bool:
+        return self.pos_emb_type.lower() == "rope"
+
+    @property
+    def uses_gqa(self) -> bool:
+        return self.n_kv_heads not in (-1, self.n_heads)
+
+    @property
+    def head_dim(self) -> int:
+        return self.emb_dim // self.n_heads
+
+    @property
+    def kv_dim(self) -> int:
+        """Total K (== V) projection width: n_kv_heads * head_dim."""
+        return self.n_kv_heads * self.head_dim
+
+    @property
     def hybrid_identity_emb(self) -> bool:
         """Hybrid CV patching replaces token_emb by identity."""
         return bool(self.patch_type
@@ -182,9 +203,6 @@ def _check_ported(cfg: TransformerConfig) -> None:
             bool(cfg.patch_type) and not cfg.hybrid_identity_emb,
         f"emb_type={cfg.emb_type!r} token embedding":
             not cfg.patch_type and cfg.emb_type.lower() != "dict",
-        "grouped-query attention": cfg.n_kv_heads != cfg.n_heads,
-        "rotary positions": cfg.pos_emb_type.lower() != "learned",
-        "swiglu FFN": cfg.ffn_type.lower() != "mlp",
         "mixture of experts": bool(cfg.n_experts),
         f"output_type={cfg.output_type!r}":
             cfg.output_type.lower() not in ("classification", "sequence_to_sequence"),
@@ -302,41 +320,127 @@ class Embedding(nn.Module):
         return out
 
 
+def split_qkv(cfg: TransformerConfig, qkv: torch.Tensor):
+    """Split the packed projection (..., E + 2*kv_dim) into (q, k, v) (:462-465)."""
+    e, kvd = cfg.emb_dim, cfg.kv_dim
+    return qkv[..., :e], qkv[..., e:e + kvd], qkv[..., e + kvd:]
+
+
 class Attention(nn.Module):
-    """Fused-qkv multi-head attention + output projection."""
+    """Fused-qkv attention + output projection: multi-head attention
+    (:func:`~vitef_tpu_torch.ops.attention.multi_head_attention`), or, with
+    grouped-query heads or rotary positions, :meth:`_modern`. qkv packs
+    [q (E) | k (kv_dim) | v (kv_dim)]."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
         super().__init__()
         self.cfg = cfg
         e = cfg.emb_dim
-        self.qkv_mat = Linear(e, 3 * e, cfg.attn_bias, device=device, generator=generator)
+        self.qkv_mat = Linear(e, e + 2 * cfg.kv_dim, cfg.attn_bias, device=device,
+                              generator=generator)
         self.output = Linear(e, e, cfg.attn_bias, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, verbose: bool = False):
         cfg = self.cfg
+        impl = cfg.attn_impl if cfg.flash else "plain"
+        if cfg.uses_gqa or cfg.uses_rope:
+            return self._modern(x, impl, verbose)
         return multi_head_attention(
             x, self.qkv_mat.weight, self.qkv_mat.bias,
             self.output.weight, self.output.bias,
-            n_heads=cfg.n_heads, causal=cfg.causal,
-            impl=cfg.attn_impl if cfg.flash else "plain",
+            n_heads=cfg.n_heads, causal=cfg.causal, impl=impl,
             verbose=verbose, compute_dtype=cfg.cdtype())
+
+    def _modern(self, x: torch.Tensor, impl: str, verbose: bool):
+        """GQA / RoPE attention: ``_attention_modern`` (:468-562), its three
+        branches chosen by :func:`~vitef_tpu_torch.ops.attention.attention_route`:
+
+        - ``"packed"`` (bfloat16 inside the packed gate): q and k rotated in
+          the packed layout, each k/v head repeated over its query group,
+          then K1 on the re-packed [q | k | v];
+        - ``"flash"`` (bfloat16 past the gate, Llama-1B at L=1024): heads
+          split to (N, h, L, d), q and k rotated, k/v repeated over the
+          groups, then K4;
+        - ``"plain"``: the grouped einsum, each k/v head serving its query
+          group without a repeat, float32 scores.
+
+        A repeat is a broadcast, so autograd sums each group's dk and dv back
+        onto the shared head.
+        """
+        cfg = self.cfg
+        cd = cfg.cdtype()
+        n, l, e = x.shape
+        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v = split_qkv(cfg, self.qkv_mat(x, cd))
+        cos = sin = None
+        if cfg.uses_rope:
+            cos, sin = rope_angles(torch.arange(l, device=x.device), d, cfg.rope_theta)
+        route = "plain" if verbose else attention_route(impl, x.device, seq_len=l, emb_dim=e,
+                                                        n_heads=h, dtype=cd, grouped=True)
+
+        if route == "packed":
+            if cfg.uses_rope:  # rotate in the packed head-major layout
+                cs = (cos[:, None], sin[:, None])  # (L, 1, d/2) over (N, L, heads, d)
+                q = apply_rope(q.reshape(n, l, h, d), *cs).reshape(n, l, e)
+                k = apply_rope(k.reshape(n, l, kv, d), *cs).reshape(n, l, -1)
+            if kv < h:
+                def rep(t):
+                    return t.reshape(n, l, kv, 1, d).expand(n, l, kv, h // kv, d).reshape(n, l, e)
+                k, v = rep(k), rep(v)
+            z = fused_mha_packed(torch.cat([q, k, v], dim=-1), h, causal=cfg.causal)
+            return self.output(z, cd)
+
+        qh = q.reshape(n, l, h, d).transpose(1, 2)
+        kh = k.reshape(n, l, kv, d).transpose(1, 2)
+        vh = v.reshape(n, l, kv, d).transpose(1, 2)
+        if cfg.uses_rope:
+            qh, kh = apply_rope(qh, cos, sin), apply_rope(kh, cos, sin)
+
+        if route == "flash":
+            if kv < h:
+                def rep(t):
+                    return t[:, :, None].expand(n, kv, h // kv, l, d).reshape(n, h, l, d)
+                kh, vh = rep(kh), rep(vh)
+            z = flash_attention(qh, kh, vh, causal=cfg.causal, impl="kernel")
+            return self.output(z.transpose(1, 2).reshape(n, l, e), cd)
+
+        qg = qh.reshape(n, kv, h // kv, l, d)
+        scores = torch.matmul(qg.float(), kh.float()[:, :, None].transpose(-1, -2))
+        scores = scores * (1.0 / math.sqrt(d))
+        if cfg.causal:
+            above = torch.ones(l, l, dtype=torch.bool, device=x.device).triu(1)
+            scores = scores.masked_fill(above, -1e30)
+        weights = torch.softmax(scores, dim=-1)
+        z = torch.matmul(weights.to(vh.dtype).float(), vh.float()[:, :, None]).to(cd)
+        out = self.output(z.reshape(n, h, l, d).transpose(1, 2).reshape(n, l, e), cd)
+        if verbose:
+            return out, weights.reshape(n, h, l, l)
+        return out
 
 
 class FeedForward(nn.Module):
-    """fc1 -> activation -> fc2."""
+    """fc1 -> activation -> fc2; swiglu's fc1 packs [gate | up] (2F wide) and
+    the activation is ``silu(gate) * up`` (:643-649)."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
         super().__init__()
         self.cfg = cfg
+        self.swiglu = cfg.ffn_type.lower() == "swiglu"
         self.activation = get_activation(cfg.activation)
-        self.fc1 = Linear(cfg.emb_dim, cfg.ffn_dim, cfg.ffn_bias,
-                          device=device, generator=generator)
+        self.fc1 = Linear(cfg.emb_dim, 2 * cfg.ffn_dim if self.swiglu else cfg.ffn_dim,
+                          cfg.ffn_bias, device=device, generator=generator)
         self.fc2 = Linear(cfg.ffn_dim, cfg.emb_dim, cfg.ffn_bias,
                           device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.cfg.cdtype()
-        return self.fc2(self.activation(self.fc1(x, cd)), cd)
+        out = self.fc1(x, cd)
+        if self.swiglu:
+            gate, up = out.chunk(2, dim=-1)
+            out = F.silu(gate) * up
+        else:
+            out = self.activation(out)
+        return self.fc2(out, cd)
 
 
 class Block(nn.Module):

@@ -1,5 +1,9 @@
 from .attention import (  # noqa: F401
     attention_reference,
+    attention_route,
+    flash_attention,
+    flash_bwd,
+    flash_bwd_reference,
     fused_mha_packed,
     multi_head_attention,
     packed_mha_bwd,

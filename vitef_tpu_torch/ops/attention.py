@@ -1,9 +1,10 @@
-"""Multi-head attention: the packed-qkv CUDA kernels and their plain PyTorch versions.
+"""Multi-head attention: the packed-qkv and flash CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``vitef_tpu/ops/attention.py``:
 
 - :func:`attention_reference` (:55-82) — softmax attention on (N, h, L, d)
-  with float32 scores, optionally returning the (N, h, L, L) weights;
+  with float32 scores, optionally returning the (N, h, L, L) weights; it is
+  also the plain version of the flash kernel K4;
 - :func:`packed_mha_reference` — the plain version of the packed kernel K1;
 - :func:`packed_mha_bwd_reference` — the plain version of its backward, K2
   (``_packed_mha_bwd_kernel`` :270-342) and, causal, K3
@@ -15,12 +16,27 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
   when causal, any L), as ``_packed_mha``'s custom VJP (:390-441) does; on a
   CPU tensor it runs :func:`packed_mha_reference`, and autograd
   differentiates that;
+- :func:`packed_mha_supported` (:443-456) — the packed kernels' gate: head
+  width 64 and the JAX package's byte budget;
+- :func:`flash_attention` (:680-698) — the K4 wrapper on (N, h, L, d): on a
+  CUDA tensor it launches ``csrc/flash_fwd.cu`` (bfloat16 or float32, causal
+  or not, any L: it masks by index where the JAX version pads L to its
+  blocks and masks with ``kv_len``), and when a gradient is wanted it runs
+  under :class:`_Flash`, whose backward is :func:`flash_bwd`
+  (``csrc/flash_bwd.cu``, K5), as ``_flash``'s custom VJP (:578-677) does; on
+  a CPU tensor it runs :func:`attention_reference`. The JAX backward takes
+  its kernel only while two (h, L, L) float32 tensors fit a 10 MiB budget,
+  and above it differentiates an XLA recompute of ``attention_reference``
+  (:668-674; Llama-1B at L=1024 needs 256 MiB). Both compute the same
+  gradient, and K5 serves every L, so no plain version sits on the path;
+- :func:`flash_bwd_reference` — the plain version of K5, in float32;
+- :func:`attention_route` — which of the three the JAX package's
+  ``multi_head_attention`` (:726-748) and ``_attention_modern``
+  (``models/transformer.py:493-538``) take for a geometry;
 - :func:`multi_head_attention` (:701-758) — qkv projection, attention, output
-  projection; it takes the kernel at :731-736 of the JAX module, under the
-  :func:`packed_mha_supported` gate.
+  projection.
 
-The key-masked mode of K1 (serving) and the blocked flash kernels (K4, K5)
-are not ported yet.
+The key-masked mode of K1 (serving) is not ported yet.
 """
 
 from __future__ import annotations
@@ -121,11 +137,21 @@ def packed_mha_bwd_reference(qkv, bias, g, n_heads: int, causal: bool = False):
 _DB_SEGMENTS = 128
 
 
+# The JAX package's budget for the packed kernels (``_PACKED_VMEM_BUDGET``,
+# vitef_tpu/ops/attention.py:443-456): the (L, 3E) qkv slab and its gradient
+# copy, and three (L, L) float32 score matrices, per program.
+_PACKED_BUDGET = 40 * 1024 * 1024
+
+
 def packed_mha_supported(l: int, e: int, n_heads: int) -> bool:
-    """Whether the packed kernels take this geometry: head width 64. The
-    forward (K1) and the backward (K2, K3) tile over keys and take every L,
-    causal or not."""
-    return l > 0 and e % n_heads == 0 and e // n_heads == _HEAD_DIM
+    """Whether bfloat16 attention takes the packed kernels for this geometry:
+    head width 64, the width K1, K2 and K3 are instantiated for (they tile
+    over keys and take every L, causal or not), and the JAX package's budget
+    ``2·(4·E·L·2) + 3·L²·4 <= 40 MiB``, so that both packages take the same
+    branch. Past the budget (Llama-1B, E=2048 at L=1024: 46.1 MB) attention
+    takes the flash kernels K4 and K5."""
+    return (l > 0 and e % n_heads == 0 and e // n_heads == _HEAD_DIM
+            and 2 * (4 * e * l * 2) + 3 * l * l * 4 <= _PACKED_BUDGET)
 
 
 def _check_cuda(name: str, qkv, n_heads: int):
@@ -271,6 +297,182 @@ def packed_mha_bwd(qkv, bias, g, out, lse, n_heads: int, causal: bool = False):
 packed_mha_bwd.launches = 0
 
 
+def flash_bwd_reference(q, k, v, g, causal: bool = False):
+    """Plain version of K5: the gradients ``(dq, dk, dv)`` of
+    :func:`attention_reference` on (N, h, L, d) for the cotangent ``g``.
+
+    The algebra of ``_flash_bwd_kernel`` (:604-638) written out in float32:
+    the softmax recomputed from q and k, ``dv = pᵀg``, ``dp = g vᵀ``,
+    ``ds = p (dp - rowsum(p dp)) / √d``, ``dq = ds k``, ``dk = dsᵀ q``; each
+    gradient is returned in its input's dtype.
+    """
+    l, d = q.shape[2], q.shape[3]
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        scores = scores.masked_fill(torch.ones(l, l, dtype=torch.bool, device=q.device)
+                                    .triu(1), _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_FLASH_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _flash_operands(name: str, *tensors):
+    """Check that the flash kernel ``name`` takes ``tensors``: CUDA, one
+    shape (N, h, L, 64), one dtype, bfloat16 or float32; return them
+    contiguous and 16-byte aligned."""
+    first = tensors[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    if first.dim() != 4:
+        raise ValueError(f"{name}: tensors must be (N, h, L, d), got {tuple(first.shape)}")
+    if first.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"{name}: dtype must be bfloat16 or float32, got {first.dtype}")
+    for t in tensors:
+        if t.shape != first.shape or t.dtype != first.dtype or t.device != first.device:
+            raise ValueError(f"{name}: operands must share shape, dtype and device, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device} beside "
+                             f"{tuple(first.shape)} {first.dtype} {first.device}")
+    if first.shape[3] != _HEAD_DIM:
+        raise NotImplementedError(
+            f"{name} is instantiated for head width {_HEAD_DIM} only, got {first.shape[3]}")
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    return out
+
+
+def _launch_flash_fwd(q, k, v, causal: bool, want_lse: bool = False):
+    """K4 on checked operands: ``(out, lse)``, lse (N, h, L) float32 — each
+    row's log2-sum-exp of the scaled scores — or None unless wanted."""
+    n, h, l, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((n, h, l), dtype=torch.float32, device=q.device) if want_lse else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = kernel_function("flash_fwd", 5, 6)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), n, h, l, d,
+            int(q.dtype == torch.float32), int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: cudaError {err} "
+                           f"(N={n}, h={h}, L={l}, {q.dtype}, causal={causal})")
+    flash_attention.launches += 1
+    return out, lse
+
+
+class _Flash(torch.autograd.Function):
+    """K4 forward, K5 backward (``_flash``'s custom VJP, :578-677). The
+    forward keeps its output and each row's log2-sum-exp (4 bytes per row and
+    head) for the backward, which rebuilds P from them tile by tile."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.causal = causal
+        out, lse = _launch_flash_fwd(q, k, v, causal, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, g, out, lse, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal: bool = False, impl: str = "auto"):
+    """Flash attention on (N, h, L, d) -> (N, h, L, d), at any L.
+
+    ``impl`` resolves as the JAX version's does (``resolve_impl`` with the
+    sequence length only); ``"plain"`` runs :func:`attention_reference`. The
+    kernel route on a CPU tensor runs :func:`attention_reference` too (and
+    autograd differentiates it). A CUDA tensor launches K4, or raises if the
+    kernel does not take it: q, k and v of one shape and dtype, bfloat16 or
+    float32, head width 64. When a gradient is wanted the call runs under
+    :class:`_Flash`, whose backward launches K5 (:func:`flash_bwd`).
+    ``flash_attention.launches`` counts K4's launches.
+    """
+    resolved = resolve_impl(impl, q.device, seq_len=q.shape[2])
+    if resolved == "plain" or q.device.type == "cpu":
+        return attention_reference(q, k, v, causal=causal)
+    q, k, v = _flash_operands("flash_fwd", q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Flash.apply(q, k, v, causal)
+    return _launch_flash_fwd(q, k, v, causal)[0]
+
+
+flash_attention.launches = 0
+
+
+def flash_bwd(q, k, v, g, out, lse, causal: bool = False):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` for the cotangent
+    ``g``, given the forward's output ``out`` and its per-row log2-sum-exp
+    ``lse`` (N, h, L) float32; all others are (N, h, L, d).
+
+    A CPU tensor goes through :func:`flash_bwd_reference` (``out`` and
+    ``lse`` unused). A CUDA tensor launches ``csrc/flash_bwd.cu`` (a dq pass
+    over key tiles and a dK/dV pass over query chunks, causal over the lower
+    triangle only, no atomics: two launches on the same inputs give
+    bit-identical results), or raises if the kernel does not take it: every
+    operand of one shape and dtype, bfloat16 or float32, head width 64; every
+    L. ``flash_bwd.launches`` counts its launches.
+    """
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, g, causal=causal)
+    q, k, v, g, out = _flash_operands("flash_bwd", q, k, v, g, out)
+    n, h, l, d = q.shape
+    if tuple(lse.shape) != (n, h, l) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be float32 {(n, h, l)} on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((n, h, l, 2), dtype=torch.float32, device=q.device)
+    pointers = [q, k, v, g, out, lse.contiguous(), dq, dk, dv, stats]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = kernel_function("flash_bwd", len(pointers), 6)(
+            *(t.data_ptr() for t in pointers), n, h, l, d,
+            int(q.dtype == torch.float32), int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd launch failed: cudaError {err} "
+                           f"(N={n}, h={h}, L={l}, {q.dtype}, causal={causal})")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
+def attention_route(impl: str, device, *, seq_len: int, emb_dim: int, n_heads: int,
+                    dtype: torch.dtype, grouped: bool = False) -> str:
+    """The attention path for one geometry: ``"packed"`` (K1, with K2 or K3
+    as its backward), ``"flash"`` (K4, with K5) or ``"plain"``.
+
+    The JAX package's branches: ``impl`` resolves with :func:`resolve_impl`;
+    the kernel route takes the packed kernels for bfloat16 inside
+    :func:`packed_mha_supported`, and otherwise the flash kernels — in
+    ``multi_head_attention`` (:726-748) for any dtype (float32 at L >= 512,
+    bfloat16 past the gate), in the GQA/RoPE ``_attention_modern``
+    (``grouped=True``, ``models/transformer.py:493-538``) for bfloat16 only,
+    its float32 taking the plain grouped einsum.
+    """
+    if resolve_impl(impl, device, seq_len=seq_len, dtype=dtype) != "kernel":
+        return "plain"
+    if dtype == torch.bfloat16 and packed_mha_supported(seq_len, emb_dim, n_heads):
+        return "packed"
+    if grouped and dtype != torch.bfloat16:
+        return "plain"
+    return "flash"
+
+
 def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, *, n_heads: int,
                          causal: bool = False, impl: str = "auto",
                          verbose: bool = False, compute_dtype=None):
@@ -278,21 +480,19 @@ def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, *, n_heads: int,
 
     Weights are in the torch layout (out, in). Matmuls take and emit the
     compute dtype (float32 accumulation inside), biases are added in the
-    compute dtype. ``verbose=True`` takes the plain path and also returns the
-    (N, h, L, L) attention weights.
+    compute dtype. The attention is the one :func:`attention_route` picks:
+    K1 for bfloat16 inside the packed gate, else K4 (float32 at L >= 512,
+    bfloat16 past the gate), else the plain version. ``verbose=True`` takes
+    the plain path and also returns the (N, h, L, L) attention weights.
     """
     n, l, e = x.shape
     cd = x.dtype if compute_dtype is None else compute_dtype
     qkv = F.linear(x.to(cd), qkv_w.to(cd))
 
     weights = None
-    resolved = "plain" if verbose else resolve_impl(impl, x.device, seq_len=l, dtype=cd)
-    if resolved == "kernel":
-        if cd != torch.bfloat16 or not packed_mha_supported(l, e, n_heads):
-            raise NotImplementedError(
-                f"attention kernel for dtype={cd}, L={l}, E={e}, n_heads={n_heads}: "
-                "only the packed bfloat16 kernels at head width 64 are ported (the "
-                "blocked flash kernel is not yet)")
+    route = "plain" if verbose else attention_route(impl, x.device, seq_len=l, emb_dim=e,
+                                                    n_heads=n_heads, dtype=cd)
+    if route == "packed":
         z = fused_mha_packed(qkv, n_heads, causal=causal,
                              bias=qkv_b.to(cd) if qkv_b is not None else None)
     else:
@@ -301,6 +501,8 @@ def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, *, n_heads: int,
         q, k, v = (_split_heads(t, n_heads) for t in qkv.chunk(3, dim=-1))
         if verbose:
             z, weights = attention_reference(q, k, v, causal=causal, return_weights=True)
+        elif route == "flash":
+            z = flash_attention(q, k, v, causal=causal, impl="kernel")
         else:
             z = attention_reference(q, k, v, causal=causal)
         z = _merge_heads(z)
