@@ -62,7 +62,32 @@ Phases (each raises on failure, so the run exits non-zero):
     then a torch.profiler split of one step;
 17. Llama-1B cross-check: the gradients of one sequence through the kernel
     path and the plain path (the grouped einsum), overall and per block, and
-    the fused loss against the unfused one at V = 128256.
+    the fused loss against the unfused one at V = 128256;
+18. K8 and K7 phases: the six grouped-product entry points (K8 ``gmm`` and
+    ``tgmm``; K7 ``gmm_swiglu``, ``gmm_dy_swiglu``, ``gmm_dual`` and
+    ``tgmm_swiglu``) in bfloat16 against their float32 plain versions at the
+    8x124m step's shapes (E=8, d=768, f=2048, G=16384 rows in uneven groups
+    from a seeded router draw) and at edge cases (empty and one-row experts,
+    every row in one expert, G=1000, the tiny preset's d=64/f=128), in
+    float32 at a small shape; each bit-identical over two launches; the
+    wrappers raise for float16 and for a width not a multiple of 8, and the
+    ``gmm.cu`` ones count no launch for zero rows; each timed with its plain
+    version, its bound and ``torch._grouped_mm`` (these run with the other
+    kernel phases, after 14);
+19. MoE train slice: the JAX package's "8x124m" preset at L=1024 (random
+    weights from a seed) trains with ``bench_llama(batch=8, size="8x124m",
+    implementation="moe")``'s protocol (bf16, 8 x 1024 tokens of
+    ``np.random.default_rng(0)``, fused untied head + CE, AdamW 3e-4, cosine
+    warmup 100 of 1000, clip 1.0): 2 warm-up and 10 timed steps through the
+    sparse dispatch, per step K8 gmm 12 and tgmm 24, each K7 pass 12, K1 and
+    K3 12, K4 and K5 none, no plain version; then a torch.profiler split of
+    one step;
+20. MoE cross-check: the gradients of one sequence through the kernels and
+    through the dense oracle with plain attention, overall; per block, on the
+    kernel route's recorded inputs, each block's MoE FFN (sparse vs dense, at
+    one routing) and its GQA/RoPE attention (K1 causal + K3 vs the plain
+    grouped einsum); and a loss that falls over 20 steps on a fixed batch of
+    8.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -92,9 +117,12 @@ from vitef_tpu_torch import native
 from vitef_tpu_torch.models import build_model
 from vitef_tpu_torch.ops import _build
 from vitef_tpu_torch.ops import attention as A
+from vitef_tpu_torch.ops import gmm as G
+from vitef_tpu_torch.ops import gmm_fused as GF
 from vitef_tpu_torch.ops import make_fused_head_loss, next_token_cross_entropy
 from vitef_tpu_torch.optim import build_optimizer, build_scheduler
 from vitef_tpu_torch.parallel import auto_grad_acc, init_train_state, make_train_step
+from vitef_tpu_torch.parallel import moe as M
 
 VIT_B16 = {"implementation": "vit", "model_name": "base", "patch_size": 16,
            "image_dim": (3, 224, 224), "finetuning": True, "n_classes": 10,
@@ -105,7 +133,8 @@ N_HEADS, EMB = 12, 768
 VIT_SHAPE = (256, 197)                       # (N, L) of ViT-B/16 at batch 256
 EDGE_SHAPES = [(8, 1), (8, 17), (8, 64), (8, 65), (8, 577), (8, 1024)]
 
-KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment", "flash_fwd", "flash_bwd")
+KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment", "flash_fwd", "flash_bwd",
+           "gmm", "tgmm")
 N_CLASSES = VIT_B16["n_classes"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor
@@ -172,6 +201,23 @@ LLAMA_BATCH, LLAMA_WARMUP = 4, 2
 # The fused loss against the unfused one on bf16 logits of |x| < 4: bf16
 # rounding of the logits moves the CE by well under this.
 FUSED_LOSS_ABS = 1e-2
+
+# MoE slice: tools/bench_models.py bench_llama(batch=8, size="8x124m",
+# implementation="moe") (:132-194, :216-220): the "8x124m" preset at seq_len
+# 1024, bf16, AdamW 3e-4 like GPT-2's.
+MOE_8X124M = {"implementation": "moe", "model_name": "8x124m", "seq_len": 1024,
+              "compute_dtype": "bfloat16", "moe_impl": "auto", "seed": 0}
+MOE_BATCH, MOE_FIXED_BATCH = 8, 8
+# The grouped products: (E, d, f, group sizes). The step's shapes (E=8,
+# d=768, f=2048, 8 x 1024 tokens' top-2 claims from a seeded router draw;
+# timed), then edge cases: empty and one-row experts with G=1000 (not a tile
+# multiple), every row in one expert, the tiny preset's widths; float32 at a
+# small shape.
+GROUPED_EDGES = [(8, 768, 2048, [0, 1, 300, 0, 250, 1, 448, 0]),
+                 (8, 768, 2048, [0, 0, 0, 1000, 0, 0, 0, 0]),
+                 (4, 64, 128, [0, 37, 1, 62])]
+GROUPED_FP32 = [(4, 128, 256, [100, 0, 1, 199])]
+GROUPED = ("gmm", "gmm_swiglu", "gmm_dy_swiglu", "gmm_dual", "tgmm_swiglu", "tgmm")
 
 
 def card() -> str:
@@ -549,6 +595,219 @@ def flash_bwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
             "library_ms": library_ms}
 
 
+def router_sizes(seed: int, n_tokens: int, n_experts: int, top_k: int = 2) -> list[int]:
+    """Claims per expert of a seeded top-k router draw over ``n_tokens``
+    tokens: normal logits plus a per-expert offset, so the groups are
+    uneven."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(n_tokens, n_experts)) + rng.normal(size=n_experts)
+    picks = np.argsort(-logits, axis=1, kind="stable")[:, :top_k]
+    return np.bincount(picks.ravel(), minlength=n_experts).tolist()
+
+
+def grouped_case(name: str, sizes: list[int], d: int, f: int, dtype, device, gen):
+    """One grouped-product entry point at (E = len(sizes), d, f): ``(kernel,
+    plain, flops, tensors, library)``. ``kernel()`` and ``plain()`` (the plain
+    version on the same inputs in float32) return tuples of outputs;
+    ``tensors`` are the inputs and outputs the bound counts; ``library`` lists
+    (label, call) yardsticks for the bare product: ``torch._grouped_mm``,
+    where this torch has it, and the per-expert loop. Inputs are
+    scaled so that every output is O(1)."""
+    e, g_rows = len(sizes), sum(sizes)
+    sz = torch.tensor(sizes, device=device)
+    offs = torch.cumsum(sz, 0).to(torch.int32)
+    bounds = np.cumsum([0] + sizes).tolist()
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device, dtype)
+
+    # Outputs of standard deviation <= 0.5 stay under 4 in magnitude, where a
+    # bf16 step is 2^-6 (2^-5 in [4, 8), more than the limit allows).
+
+    def f32(*ts):
+        return [t.float() for t in ts]
+
+    def grouped_mm(a, b):
+        """torch._grouped_mm of (G, k) rows by (E, k, n), and the per-expert
+        torch.mm loop."""
+        return [("torch._grouped_mm", lambda: torch._grouped_mm(a, b, offs=offs)),
+                ("per-expert torch.mm loop", lambda: torch.cat(
+                    [a[bounds[i]:bounds[i + 1]] @ b[i] for i in range(e)]))]
+
+    def grouped_mm_t(a_t, b):
+        """torch._grouped_mm of (k, G) by (G, n) into (E, k, n), and the loop."""
+        return [("torch._grouped_mm", lambda: torch._grouped_mm(a_t, b, offs=offs)),
+                ("per-expert torch.mm loop", lambda: torch.stack(
+                    [a_t[:, bounds[i]:bounds[i + 1]] @ b[bounds[i]:bounds[i + 1]]
+                     for i in range(e)]))]
+
+    rows = max(max(sizes), 1)  # tgmm sums up to this many rows
+    if name == "gmm":
+        lhs, rhs = randn(g_rows, d), randn(e, d, 2 * f, scale=0.5 * d ** -0.5)
+        return ((lambda: (G.gmm(lhs, rhs, sz),)),
+                (lambda: (G.gmm_reference(*f32(lhs, rhs), sz),)),
+                2.0 * g_rows * d * 2 * f, [lhs, rhs, sz, lhs.new_empty(g_rows, 2 * f)],
+                grouped_mm(lhs, rhs))
+    if name == "gmm_swiglu":
+        h, w2 = randn(g_rows, 2 * f), randn(e, f, d, scale=f ** -0.5)
+        y = (F.silu(h[:, :f].float()) * h[:, f:].float()).to(dtype)
+        return ((lambda: (GF.gmm_swiglu(h, w2, sz),)),
+                (lambda: (GF.gmm_swiglu_reference(*f32(h, w2), sz),)),
+                2.0 * g_rows * f * d, [h, w2, sz, h.new_empty(g_rows, d)], grouped_mm(y, w2))
+    if name == "gmm_dy_swiglu":
+        g, w2t, h = randn(g_rows, d, scale=0.5), randn(e, d, f, scale=d ** -0.5), \
+            randn(g_rows, 2 * f, scale=0.5)
+        return ((lambda: GF.gmm_dy_swiglu(g, w2t, h, sz)),
+                (lambda: GF.gmm_dy_swiglu_reference(*f32(g, w2t, h), sz)),
+                2.0 * g_rows * d * f, [g, w2t, h, sz, g.new_empty(2, g_rows, f)],
+                grouped_mm(g, w2t))
+    if name == "gmm_dual":
+        a, b = randn(g_rows, f), randn(g_rows, f)
+        rt = randn(e, 2 * f, d, scale=0.5 * (2 * f) ** -0.5)
+        ab = torch.cat([a, b], dim=1)
+        return ((lambda: (GF.gmm_dual(a, b, rt, sz),)),
+                (lambda: (GF.gmm_dual_reference(*f32(a, b, rt), sz),)),
+                2.0 * g_rows * 2 * f * d, [a, b, rt, sz, a.new_empty(g_rows, d)],
+                grouped_mm(ab, rt))
+    if name == "tgmm_swiglu":
+        h, g = randn(g_rows, 2 * f), randn(g_rows, d, scale=0.5 * rows ** -0.5)
+        y = (F.silu(h[:, :f].float()) * h[:, f:].float()).to(dtype)
+        return ((lambda: (GF.tgmm_swiglu(h, g, sz),)),
+                (lambda: (GF.tgmm_swiglu_reference(*f32(h, g), sz),)),
+                2.0 * g_rows * f * d, [h, g, sz, h.new_empty(e, f, d)], grouped_mm_t(y.t(), g))
+    assert name == "tgmm"
+    x, dh = randn(g_rows, d), randn(g_rows, f, scale=0.5 * rows ** -0.5)
+    return ((lambda: (G.tgmm(x.t(), dh, sz, e),)),
+            (lambda: (G.tgmm_reference(x.t().float(), dh.float(), sz, e),)),
+            2.0 * g_rows * d * f, [x, dh, sz, x.new_empty(e, d, f)], grouped_mm_t(x.t(), dh))
+
+
+def library_grouped(candidates, iters: int):
+    """(ms, label) of the first yardstick that runs here and gives the last
+    one's result (the per-expert loop) within 5e-2 of its largest entry."""
+    with torch.inference_mode():
+        ref = candidates[-1][1]()
+    scale = ref.abs().max().item()
+    for label, call in candidates:
+        try:
+            with torch.inference_mode():
+                out = call()
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError, ValueError, NotImplementedError, AttributeError) as err:
+            print(f"  yardstick {label}: not taken ({type(err).__name__}: {str(err)[:120]})")
+            continue
+        if out.shape != ref.shape or (out.float() - ref.float()).abs().max().item() > 5e-2 * scale:
+            print(f"  yardstick {label}: not taken (another result)")
+            continue
+        with torch.inference_mode():
+            return cuda_ms(call, iters), label
+    return None, None
+
+
+def grouped_phase(device, name: str, seed: int, iters: int) -> dict:
+    """One grouped-product entry point in bfloat16 against its float32 plain
+    version at the 8x124m step's shapes and at the edge cases, and in
+    float32 at a small shape; bit-identical over two launches; the wrapper
+    raises for float16 and for a width not a multiple of 8; then timed at the
+    step's shapes with its plain version, its bound and the yardstick."""
+    gen = torch.Generator().manual_seed(seed)
+    wrapper = getattr(GF, name, None) or getattr(G, name)
+    step = (8, EMB, 2048, router_sizes(seed, MOE_BATCH * 1024, 8))
+    cases = ([(torch.bfloat16, c) for c in [step] + GROUPED_EDGES]
+             + [(torch.float32, c) for c in GROUPED_FP32])
+    for dtype, (e, d, f, sizes) in cases:
+        kernel, plain, flops, tensors, library = grouped_case(name, sizes, d, f, dtype, device, gen)
+        launches = wrapper.launches
+        outs, again = kernel(), kernel()
+        if wrapper.launches != launches + 2:
+            raise AssertionError(f"{name} did not launch its kernel")
+        refs = plain()
+        torch.cuda.synchronize()
+        max_lim, mean_lim, _ = flash_limits(dtype)
+        diffs = [(a.float() - b).abs() for a, b in zip(outs, refs)]
+        max_abs = max(t.max().item() for t in diffs)
+        mean_abs = sum(t.mean().item() for t in diffs) / len(diffs)
+        identical = all(torch.equal(a, b) for a, b in zip(outs, again))
+        label = f"{name} {str(dtype).removeprefix('torch.')} E={e} d={d} f={f} G={sum(sizes)}"
+        print(f"{label} sizes {sizes}: max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} (max|ref|="
+              f"{max(r.abs().max().item() for r in refs):.3f}); two launches bit-identical: "
+              f"{identical}")
+        if not (all(a.shape == b.shape and a.dtype == dtype for a, b in zip(outs, refs))
+                and math.isfinite(max_abs) and max_abs <= max_lim and mean_abs <= mean_lim):
+            raise AssertionError(f"{label} disagrees with its plain version")
+        if not identical:
+            raise AssertionError(f"{label} is not deterministic")
+        if (e, d, f, sizes) == step:
+            timed = (kernel, plain, flops, tensors, library, max_abs)
+        del outs, again, refs, diffs
+
+    # What the kernels do not take raises on CUDA; nothing falls back.
+    sz = torch.tensor([3, 5], device=device)
+    x16 = torch.zeros(8, 16, device=device, dtype=torch.float16)
+    w16 = torch.zeros(2, 16, 16, device=device, dtype=torch.float16)
+    x12 = torch.zeros(8, 12, device=device, dtype=torch.bfloat16)
+    w12 = torch.zeros(2, 12, 16, device=device, dtype=torch.bfloat16)
+    refused = {"gmm": [(TypeError, lambda: G.gmm(x16, w16, sz)),
+                       (ValueError, lambda: G.gmm(x12, w12, sz))],
+               "tgmm": [(TypeError, lambda: G.tgmm(x16.t(), x16, sz, 2)),
+                        (ValueError, lambda: G.tgmm(x12.t(), x12, sz, 2))],
+               "gmm_swiglu": [(TypeError, lambda: GF.gmm_swiglu(x16, w16[:, :8], sz)),
+                              (ValueError, lambda: GF.gmm_swiglu(x12, w12[:, :6], sz))],
+               "gmm_dy_swiglu": [(TypeError, lambda: GF.gmm_dy_swiglu(x16, w16[:, :, :8], x16, sz)),
+                                 (ValueError, lambda: GF.gmm_dy_swiglu(
+                                     x12, w12[:, :, :6], x12, sz))],
+               "gmm_dual": [(TypeError, lambda: GF.gmm_dual(x16[:, :8], x16[:, :8], w16, sz)),
+                            (ValueError, lambda: GF.gmm_dual(x12[:, :6], x12[:, :6], w12, sz))],
+               "tgmm_swiglu": [(TypeError, lambda: GF.tgmm_swiglu(x16, x16, sz)),
+                               (ValueError, lambda: GF.tgmm_swiglu(x12, x12, sz))]}[name]
+    launches = wrapper.launches
+    for error, call in refused:
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"{name}'s wrapper did not raise {error.__name__}")
+    if wrapper.launches != launches:
+        raise AssertionError(f"{name}'s wrapper launched on an input it does not take")
+    print(f"{name}: the wrapper raises for float16 input and a width of 12 or 6")
+
+    # With no rows csrc/gmm.cu has nothing to launch, and its wrappers count
+    # no launch; csrc/tgmm.cu still launches, to write each group's zeros.
+    sz0 = torch.zeros(2, dtype=torch.int64, device=device)
+    z16 = torch.zeros(0, 16, device=device, dtype=torch.bfloat16)
+    w = torch.zeros(2, 16, 16, device=device, dtype=torch.bfloat16)
+    no_rows = {"gmm": lambda: G.gmm(z16, w, sz0),
+               "gmm_swiglu": lambda: GF.gmm_swiglu(z16, w[:, :8], sz0),
+               "gmm_dy_swiglu": lambda: GF.gmm_dy_swiglu(z16, w[:, :, :8], z16, sz0),
+               "gmm_dual": lambda: GF.gmm_dual(z16[:, :8], z16[:, :8], w, sz0)}
+    if name in no_rows:
+        launches = wrapper.launches
+        outs = no_rows[name]()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.cuda.synchronize()
+        if wrapper.launches != launches or any(t.shape[0] != 0 for t in outs):
+            raise AssertionError(f"{name} counted a launch or gave rows for an input of no rows")
+        print(f"{name}: no rows, no launch counted")
+
+    kernel, plain, flops, tensors, library, main_err = timed
+    with torch.inference_mode():
+        ms, plain_ms, times = in_turns(kernel, plain, iters)
+    library_ms, library_label = library_grouped(library, iters)
+    limit = bound(flops, PEAK_BF16_FLOPS, tensors)
+    bare = "" if name in ("gmm", "tgmm") else " (the bare product, without the swiglu)"
+    print(f"{name} bf16 at the 8x124m step (E=8 d={EMB} f=2048 G={sum(step[3])}): "
+          f"kernel {times[1]:.4f}/{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, "
+          f"yardstick {library_label}{bare} "
+          + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
+          + f", bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    # library_ms: one PyTorch call computing the same function; the K7
+    # passes fuse the swiglu, which no single call does.
+    same_function = name in ("gmm", "tgmm") and str(library_label).startswith("torch.")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
+            "library_ms": library_ms if same_function else None}
+
+
 def k10_phase(device) -> dict:
     """K10 against its float32 plain version at batch 512, 32x32 -> 224."""
     rng = np.random.default_rng(10)
@@ -731,23 +990,35 @@ def train_phase(model, device):
     return launches, one_step, train_loader.dataset
 
 
-def kernel_and_plain_grads(model, loss) -> tuple[float, list[float]]:
+@contextlib.contextmanager
+def config_set(cfg, **fields):
+    """The config's fields set to ``fields`` inside the block (every module
+    reads the shared config)."""
+    saved = {key: getattr(cfg, key) for key in fields}
+    for key, value in fields.items():
+        setattr(cfg, key, value)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            setattr(cfg, key, value)
+
+
+def kernel_and_plain_grads(model, loss, plain_config=None) -> tuple[float, list[float]]:
     """Gradients of ``loss(plain)`` through the kernel path (``plain`` False)
-    and through the plain path (``attn_impl="plain"``, ``plain`` True): their
-    relative L2, overall and per block, in float32, one parameter at a time
-    (no flattened copy of the whole model)."""
+    and through the plain path (``plain`` True: the config's fields set to
+    ``plain_config``, by default ``attn_impl="plain"``): their relative L2,
+    overall and per block, in float32, one parameter at a time (no flattened
+    copy of the whole model)."""
     cfg, module = model.config, model.module
+    plain_config = plain_config or {"attn_impl": "plain"}
     module.train()
     module.zero_grad(set_to_none=True)
     loss(False).backward()
     kernel = {name: p.grad for name, p in module.named_parameters()}
     module.zero_grad(set_to_none=True)
-    impl = cfg.attn_impl
-    cfg.attn_impl = "plain"  # every module reads the shared config
-    try:
+    with config_set(cfg, **plain_config):
         loss(True).backward()
-    finally:
-        cfg.attn_impl = impl
     sums = Counter()
     for name, p in module.named_parameters():
         diff = (kernel[name].float() - p.grad.float()).norm().item() ** 2
@@ -1125,6 +1396,237 @@ def llama_cross_check(model, device) -> None:
         raise AssertionError("the fused loss disagrees with the unfused one at V = 128256")
 
 
+def moe_flops_per_token(cfg) -> float:
+    """Train FLOPs per token, 3x the forward's, with the activated FFN
+    (``ffn_dim · top_k``) as ``bench_llama`` counts it for MoE
+    (``tools/bench_models.py`` :176-179)."""
+    e, seq = cfg.emb_dim, cfg.seq_len
+    ffn = cfg.ffn_dim * cfg.moe_top_k
+    per_tok = cfg.n_layers * (e * (e + 2 * cfg.kv_dim) + e * e + 3 * e * ffn
+                              + 2 * (seq // 2) * e) + e * cfg.vocab_size
+    return 3 * 2 * per_tok
+
+
+GROUPED_WRAPPERS = (G.gmm, G.tgmm, GF.gmm_swiglu, GF.gmm_dy_swiglu, GF.gmm_dual, GF.tgmm_swiglu)
+MOE_KINDS = {"K8 tgmm": ("tgmm_bf16_kernel<0>",),
+             "K7 tgmm_swiglu": ("tgmm_bf16_kernel<1>",),
+             "K8 gmm": ("gmm_bf16_kernel<0>",),
+             "K7 gmm_swiglu": ("gmm_bf16_kernel<1>",),
+             "K7 gmm_dy_swiglu": ("gmm_bf16_kernel<2>",),
+             "K7 gmm_dual": ("gmm_bf16_kernel<3>",),
+             "K1 packed_mha_fwd (causal)": ("packed_mha_fwd",),
+             "K3 packed_mha_bwd (causal)": ("dq_kernel", "dkv_kernel", "db_partial", "db_final"),
+             "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
+             "optimizer (foreach / AdamW)": ("multi_tensor", "foreach")}
+
+
+@contextlib.contextmanager
+def no_moe_plain_versions():
+    """Record every call of the plain versions of K1-K5 and K10, of K7 and
+    K8, and of the dense MoE oracle."""
+    with no_plain_versions() as (calls, aug_calls), \
+            counting(G, "gmm_reference", "tgmm_reference") as k8_calls, \
+            counting(GF, "gmm_swiglu_reference", "gmm_dy_swiglu_reference",
+                     "gmm_dual_reference", "tgmm_swiglu_reference") as k7_calls, \
+            counting(M, "apply_moe_ffn") as dense_calls:
+        yield calls, aug_calls, k8_calls, k7_calls, dense_calls
+
+
+def moe_train_phase(device):
+    """``bench_llama(batch=8, size="8x124m", implementation="moe")``'s
+    protocol through the port: the sparse dispatch with K8 and K7 in every
+    layer, K1 causal forward and K3 backward, fused untied head + CE, clip,
+    AdamW, cosine schedule. Returns the model, the main path's launch counts
+    and a device-only step."""
+    t0 = time.perf_counter()
+    model = build_model(MOE_8X124M, device=device)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.module.parameters())
+    print(f"MoE 8x124m: {n_params:,} parameters, built in {time.perf_counter() - t0:.2f} s")
+    n_tokens = MOE_BATCH * cfg.seq_len
+    impl = M.resolve_moe_impl(cfg, model.module.blocks[0].ffn.params(), n_tokens, device=device)
+    print(f"MoE 8x124m at {MOE_BATCH} x {cfg.seq_len} tokens: resolve_moe_impl -> {impl!r}")
+    if impl != "sparse":
+        raise AssertionError(f"the MoE train step resolved to {impl!r}, not the sparse dispatch")
+    schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
+    optimizer, scheduler = build_optimizer(GPT2_OPTIMIZER, model.module, schedule=schedule)
+    step_fn = make_train_step(schedule=schedule, base_lr=GPT2_LR, grad_clip=GRAD_CLIP,
+                              hidden_loss=make_fused_head_loss(cfg))
+    state = init_train_state(model, optimizer, scheduler)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(MOE_BATCH, cfg.seq_len))).to(device)
+
+    def one_step():
+        return step_fn(state, (tokens, tokens))
+
+    history = [(state.step, one_step()) for _ in range(LLAMA_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    counters = FLASH_COUNTERS + GROUPED_WRAPPERS
+    with no_moe_plain_versions() as calls:
+        for counter in counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        history += [(state.step, one_step()) for _ in range(TIMED_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+    plain_calls = Counter(name for group in calls for name in group)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+
+    losses = []
+    for step, metrics in history:
+        loss, norm, lr = metrics["loss"].item(), metrics["grad_norm"].item(), metrics["lr"]
+        want_lr = GPT2_LR * step / SCHEDULER["warmup"]  # inside the warmup
+        if not (math.isfinite(loss) and math.isfinite(norm) and abs(lr - want_lr) <= 1e-12):
+            raise AssertionError(f"MoE step {step}: loss {loss}, grad_norm {norm}, lr {lr} "
+                                 f"(want {want_lr})")
+        losses.append(loss)
+    print(f"MoE 8x124m train steps {history[0][0]}..{history[-1][0]}: loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; grad_norm {history[-1][1]['grad_norm'].item():.4f}, "
+          f"lr {history[-1][1]['lr']:.8f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the MoE loss did not fall: {losses}")
+    per_layer = cfg.n_layers * TIMED_STEPS
+    want = {"fused_mha_packed": per_layer, "packed_mha_bwd": per_layer, "flash_attention": 0,
+            "flash_bwd": 0, "gmm": per_layer, "tgmm": 2 * per_layer, "gmm_swiglu": per_layer,
+            "gmm_dy_swiglu": per_layer, "gmm_dual": per_layer, "tgmm_swiglu": per_layer}
+    print(f"MoE 8x124m train launches over {TIMED_STEPS} steps: {launches} (want {want}); "
+          f"plain calls {dict(plain_calls)}")
+    if launches != want:
+        raise AssertionError("the MoE train path did not go through K8, K7, K1 and K3 every "
+                             "layer")
+    if plain_calls:
+        raise AssertionError(f"plain versions ran on CUDA: {plain_calls}")
+    rate = n_tokens * TIMED_STEPS / seconds
+    roofline = PEAK_BF16_FLOPS / moe_flops_per_token(cfg)
+    print(f"MoE 8x124m bf16 train, device-only: {rate:.2f} tokens/s "
+          f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {MOE_BATCH} x "
+          f"{cfg.seq_len} tokens, one microbatch); {rate / roofline:.4f} of the "
+          f"{roofline:.0f} tokens/s bf16 roofline ({moe_flops_per_token(cfg) / 1e6:.1f} "
+          f"activated MFLOP per token); peak memory {peak_gib:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    return model, launches, one_step
+
+
+def block_inputs(module, tokens) -> dict:
+    """The input of every block's attention and FFN in one forward without
+    gradients: ``{"attn": [...], "ffn": [...]}``, one entry per block."""
+    inputs = {"attn": [], "ffn": []}
+    hooks = [getattr(block, part).register_forward_pre_hook(
+        lambda mod, args, part=part: inputs[part].append(args[0]))
+        for block in module.blocks for part in inputs]
+    try:
+        with torch.no_grad():
+            module(tokens, return_hidden=True)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return inputs
+
+
+def per_block_rel_l2(parts, inputs, routes, seed: int) -> list[float]:
+    """For each block's ``part`` on its recorded input, under one seeded
+    cotangent: the output, the input's gradient and the part's parameter
+    gradients through both ``routes`` (callables ``(part, x) -> out``), and
+    the largest relative L2 of the first route's against the second's."""
+    gen = torch.Generator().manual_seed(seed)
+    worst = []
+    for part, x in zip(parts, inputs):
+        cot = torch.randn(x.shape, generator=gen).to(x.device, x.dtype)
+        results = []
+        for route in routes:
+            xi = x.detach().clone().requires_grad_()
+            part.zero_grad(set_to_none=True)
+            out = route(part, xi)
+            out.backward(cot)
+            results.append([out.detach(), xi.grad] + [p.grad for p in part.parameters()])
+        part.zero_grad(set_to_none=True)
+        worst.append(max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                         for a, b in zip(*results)))
+    return worst
+
+
+def moe_cross_check(model, device) -> None:
+    """The gradients of one sequence through the kernels (the sparse
+    dispatch with K8 and K7, K1 and K3) and through the dense oracle with
+    plain attention, overall, and per block with the share of tokens whose
+    experts differ between the two; then, per block on the kernel route's
+    recorded inputs, the MoE FFN (so at one routing) and the GQA/RoPE
+    attention through both routes; then a loss that falls on one fixed batch
+    at constant lr."""
+    cfg, module = model.config, model.module
+    loss_fn = make_fused_head_loss(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(MOE_FIXED_BATCH, cfg.seq_len))).to(device)
+    check = tokens[:1]
+    plain = {"attn_impl": "plain", "moe_impl": "dense"}
+    # One sequence is 2048 claims, inside the window where "auto" takes the
+    # dense oracle (resolve_moe_impl), so the kernel route is asked for.
+    launches = G.gmm.launches
+    with config_set(cfg, moe_impl="sparse"):
+        overall, per_block = kernel_and_plain_grads(
+            model, lambda plain: loss_fn(module, module(check, return_hidden=True), check), plain)
+        kernel_inputs = block_inputs(module, check)
+    if G.gmm.launches != launches + 2 * cfg.n_layers:
+        raise AssertionError("the cross-check's kernel route did not launch K8 in every layer")
+    with config_set(cfg, **plain):
+        plain_inputs = block_inputs(module, check)["ffn"]
+    flips = []
+    for block, xk, xp in zip(module.blocks, kernel_inputs["ffn"], plain_inputs):
+        picks = [M._route(block.ffn.params(), cfg, x.reshape(-1, x.shape[-1]), cfg.moe_top_k,
+                          need_probs=False)[2].sort(dim=-1).values for x in (xk, xp)]
+        flips.append((picks[0] != picks[1]).any(dim=-1).float().mean().item())
+    print(f"MoE 8x124m gradients of one sequence, sparse kernel route vs dense oracle with "
+          f"plain attention: relative L2 {overall:.3e}; per block "
+          + " ".join(f"{r:.2e}" for r in per_block)
+          + "; tokens routed to other experts per block "
+          + " ".join(f"{100 * x:.1f}%" for x in flips))
+    if not (math.isfinite(overall) and overall <= GRAD_REL_L2):
+        raise AssertionError(f"MoE kernel-route gradients disagree with the dense oracle: "
+                             f"{overall}, {per_block}")
+
+    # Each block's FFN on the same input through both routes: one routing.
+    worst = per_block_rel_l2(
+        [block.ffn for block in module.blocks], kernel_inputs["ffn"],
+        [lambda ffn, x: M.apply_moe_ffn_sparse(ffn.params(), cfg, x, top_k=cfg.moe_top_k),
+         lambda ffn, x: M.apply_moe_ffn(ffn.params(), cfg, x, top_k=cfg.moe_top_k)], seed=10)
+    print("MoE 8x124m FFN per block at one routing (output, dx, router, fc1, fc2 gradients), "
+          "sparse kernel route vs dense oracle: largest relative L2 "
+          + " ".join(f"{r:.2e}" for r in worst))
+    if not all(math.isfinite(r) and r <= GRAD_REL_L2 for r in worst):
+        raise AssertionError(f"a block's MoE FFN disagrees with the dense oracle: {worst}")
+
+    # Each block's attention on the same input: K1 causal and K3 after the
+    # GQA repeat and the packed rotation, against the plain grouped einsum.
+    def plain_attention(attn, x):
+        with config_set(cfg, attn_impl="plain"):
+            return attn(x)
+
+    k1, k3 = A.fused_mha_packed.launches, A.packed_mha_bwd.launches
+    worst = per_block_rel_l2([block.attn for block in module.blocks], kernel_inputs["attn"],
+                             [lambda attn, x: attn(x), plain_attention], seed=11)
+    if (A.fused_mha_packed.launches - k1, A.packed_mha_bwd.launches - k3) != (cfg.n_layers,) * 2:
+        raise AssertionError("the attention check's kernel route did not launch K1 and K3 in "
+                             "every block")
+    print("MoE 8x124m GQA/RoPE attention per block (output, dx, qkv, output gradients), K1 "
+          "causal + K3 vs the plain grouped einsum: largest relative L2 "
+          + " ".join(f"{r:.2e}" for r in worst))
+    if not all(math.isfinite(r) and r <= GRAD_REL_L2 for r in worst):
+        raise AssertionError(f"a block's attention disagrees with the plain path: {worst}")
+
+    optimizer, scheduler = build_optimizer(GPT2_OPTIMIZER, module)
+    state = init_train_state(model, optimizer, scheduler)
+    step_fn = make_train_step(grad_clip=GRAD_CLIP, hidden_loss=loss_fn)
+    losses = [step_fn(state, (tokens, tokens))["loss"] for _ in range(FIXED_STEPS)]
+    losses = [loss.item() for loss in losses]
+    print(f"MoE 8x124m fixed batch of {MOE_FIXED_BATCH}, {FIXED_STEPS} steps at constant lr "
+          f"{GPT2_LR}: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the MoE fixed-batch loss did not fall: {losses}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1149,6 +1651,8 @@ def main() -> None:
                                                    seed=14, iters=10),
               "flash_bwd:float32": flash_bwd_phase(device, torch.float32, FLASH_FP32,
                                                    seed=15, iters=10)}
+    for i, name in enumerate(GROUPED):
+        timing[name] = grouped_phase(device, name, seed=20 + i, iters=10)
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
@@ -1175,6 +1679,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     llama_cross_check(llama, device)
+    del llama
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe, moe_launches, moe_step = moe_train_phase(device)
+    profile_train_step(moe_step, MOE_KINDS, "MoE 8x124m")
+    del moe_step  # the optimizer state
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cross_check(moe, device)
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -1196,6 +1710,13 @@ def main() -> None:
          "vitef_tpu/ops/attention.py:490"),
         ("flash_bwd:float32", "flash_bwd", fp32_launches["flash_bwd"],
          "vitef_tpu/ops/attention.py:588"),
+        ("gmm", "gmm", moe_launches["gmm"], "vitef_tpu/parallel/moe.py:428"),
+        ("gmm_swiglu", "gmm", moe_launches["gmm_swiglu"], "vitef_tpu/ops/gmm_fused.py:94"),
+        ("gmm_dy_swiglu", "gmm", moe_launches["gmm_dy_swiglu"],
+         "vitef_tpu/ops/gmm_fused.py:177"),
+        ("gmm_dual", "gmm", moe_launches["gmm_dual"], "vitef_tpu/ops/gmm_fused.py:370"),
+        ("tgmm_swiglu", "tgmm", moe_launches["tgmm_swiglu"], "vitef_tpu/ops/gmm_fused.py:268"),
+        ("tgmm", "tgmm", moe_launches["tgmm"], "vitef_tpu/parallel/moe.py:428"),
     ]
     print(card_line)
     print(json.dumps({"kernels": [{

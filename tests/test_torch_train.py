@@ -327,6 +327,13 @@ def test_train_step_bf16_matches_jax():
                                     {"moe_aux_coefs": (0.1, 0.1)}],
                          ids=["update_stats", "mesh", "moe_aux_coefs"])
 def test_unported_train_step_options_raise(kwargs):
+    if "moe_aux_coefs" in kwargs:
+        # ported with the MoE family (tests/test_torch_moe.py): it builds, and
+        # the options still unported raise beside it
+        make_train_step(**kwargs)
+        with pytest.raises(NotImplementedError):
+            make_train_step(update_stats=True, **kwargs)
+        return
     with pytest.raises(NotImplementedError):
         make_train_step(**kwargs)
 

@@ -17,6 +17,7 @@ from .llama import (  # noqa: F401
     build_llama,
     llama_transformer_config,
 )
+from .moe import MOE_SIZES, MoeConfig, build_moe, moe_transformer_config  # noqa: F401
 from .registry import Model, build_model  # noqa: F401
 from .transformer import Transformer, TransformerConfig  # noqa: F401
 from .vit import VIT_SIZES, ViTConfig, build_vit, vit_transformer_config  # noqa: F401

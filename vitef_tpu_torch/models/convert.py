@@ -10,7 +10,11 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
   linear weight, and keeps its layout. Llama trees take the same rule: the
   packed qkv (E, E + 2·kv_dim) and swiglu fc1 (E, 2F) transpose whole, so
   their [q | k | v] and [gate | up] column blocks become row blocks, and
-  the untied head (E, V) becomes (V, E).
+  the untied head (E, V) becomes (V, E). MoE trees take it too: the
+  router (E_model, n_experts) is a 2-D weight and becomes (n_experts,
+  E_model), while the 3-D expert stacks (n_experts, in, out) and the
+  (n_experts, ·) expert biases keep their layout, which the port's grouped
+  kernels read as they are.
 - :func:`from_vitef_state_dict` loads a torch-layout state dict with the
   reference vitef names (the ``checkpoints/{vit,gpt2}/<name>.npz`` caches;
   the inverse direction of ``torch_import.from_vitef_state_dict``).
@@ -45,8 +49,9 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
 
     Every 2-D ``weight`` but the token table is a linear weight stored
     (in, out) and is transposed to (out, in); every other leaf keeps its
-    shape. The port ports only the ``dict`` token embedding, whose tree has
-    no ``embedding.token_emb.bias``.
+    shape (the MoE expert stacks and their biases among them). The port
+    ports only the ``dict`` token embedding, whose tree has no
+    ``embedding.token_emb.bias``.
     """
     state = {}
     for name, value in _flatten(params):

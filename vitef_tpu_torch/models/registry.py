@@ -1,8 +1,8 @@
 """Model factory. Counterpart of ``vitef_tpu/models/registry.py`` (:31-66, :144-187).
 
 :func:`build_model` takes the JAX package's flat config dicts. Ported
-implementations: ``"vit"``, ``"gpt2"``, ``"llama"`` and ``"transformer"``; the
-others raise.
+implementations: ``"vit"``, ``"gpt2"``, ``"llama"``, ``"moe"`` and
+``"transformer"``; the others raise.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from .transformer import Transformer, TransformerConfig
 
 logger = logging.getLogger(__name__)
 
-_UNPORTED = ("patchtst", "moe")
+_UNPORTED = ("patchtst",)
 
 
 def _build_config(cls, config: dict[str, Any]):
@@ -91,6 +91,11 @@ def build_model(config: dict[str, Any], *, device,
 
         cfg = _build_config(LlamaConfig, config)
         module, tcfg, name = build_llama(cfg, device=device, generator=generator)
+    elif impl == "moe":
+        from .moe import MoeConfig, build_moe
+
+        cfg = _build_config(MoeConfig, config)
+        module, tcfg, name = build_moe(cfg, device=device, generator=generator)
     elif impl == "transformer":
         cfg = tcfg = _build_config(TransformerConfig, config)
         module, name = Transformer(cfg, device=device, generator=generator), "transformer"

@@ -23,8 +23,12 @@ Ported: the ViT geometry (computer-vision hybrid patching, learned absolute
 positions, multi-head attention, mlp FFN, layer norm, classification head),
 the GPT-2 geometry (``dict`` token embedding, causal attention,
 sequence-to-sequence head, ``forward(x, return_hidden=True)`` for the fused
-head loss) and the Llama geometry (grouped-query attention, rotary
-positions, swiglu FFN, rms norm, untied head), forward, and backward through
+head loss), the Llama geometry (grouped-query attention, rotary
+positions, swiglu FFN, rms norm, untied head) and the MoE family's FFN
+(``n_experts`` > 0: every block's FFN is
+:class:`~vitef_tpu_torch.parallel.moe.MoEFeedForward`, ``apply_ffn``
+:610-641, and ``forward(x, return_moe_aux=True)`` also returns the per-block
+mean of the router's aux losses, :782-840), forward, and backward through
 autograd. The other options of the config raise ``NotImplementedError``.
 Dropout is not ported: a module in train mode with any dropout rate above 0
 raises ``NotImplementedError`` rather than train without it (ViT's, GPT-2's
@@ -203,7 +207,6 @@ def _check_ported(cfg: TransformerConfig) -> None:
             bool(cfg.patch_type) and not cfg.hybrid_identity_emb,
         f"emb_type={cfg.emb_type!r} token embedding":
             not cfg.patch_type and cfg.emb_type.lower() != "dict",
-        "mixture of experts": bool(cfg.n_experts),
         f"output_type={cfg.output_type!r}":
             cfg.output_type.lower() not in ("classification", "sequence_to_sequence"),
         "remat": cfg.remat,
@@ -444,7 +447,9 @@ class FeedForward(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre- or post-norm transformer block."""
+    """Pre- or post-norm transformer block. With ``n_experts`` > 0 its FFN is
+    the MoE FFN, whose router aux losses ``forward`` appends to ``moe_aux``
+    (a list) when one is given."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
         super().__init__()
@@ -453,22 +458,36 @@ class Block(nn.Module):
         self.attn_norm = build_norm(e, cfg.norm_bias, cfg.norm, cfg.norm_eps, device=device)
         self.attn = Attention(cfg, device=device, generator=generator)
         self.ffn_norm = build_norm(e, cfg.norm_bias, cfg.norm, cfg.norm_eps, device=device)
-        self.ffn = FeedForward(cfg, device=device, generator=generator)
+        if cfg.n_experts:
+            from ..parallel.moe import init_moe_ffn
 
-    def forward(self, x: torch.Tensor, verbose: bool = False):
+            self.ffn = init_moe_ffn(cfg, cfg.n_experts, device=device, generator=generator)
+        else:
+            self.ffn = FeedForward(cfg, device=device, generator=generator)
+
+    def _ffn(self, x: torch.Tensor, moe_aux: list | None) -> torch.Tensor:
+        if not self.cfg.n_experts:
+            return self.ffn(x)
+        aux = {} if moe_aux is not None else None
+        out = self.ffn(x, aux=aux)
+        if moe_aux is not None:
+            moe_aux.append(aux)
+        return out
+
+    def forward(self, x: torch.Tensor, verbose: bool = False, moe_aux: list | None = None):
         att = None
         if self.cfg.pre_norm:
             out = self.attn(self.attn_norm(x), verbose=verbose)
             if verbose:
                 out, att = out
             out = x + out
-            out = out + self.ffn(self.ffn_norm(out))
+            out = out + self._ffn(self.ffn_norm(out), moe_aux)
         else:
             out = self.attn(x, verbose=verbose)
             if verbose:
                 out, att = out
             out = self.attn_norm(x + out)
-            out = self.ffn_norm(out + self.ffn(out))
+            out = self.ffn_norm(out + self._ffn(out, moe_aux))
         return (out, att) if verbose else out
 
 
@@ -525,7 +544,9 @@ class Transformer(nn.Module):
     (n_layers, N, h, L, L) attention weights, computed on the plain path.
     ``forward(x, return_hidden=True)`` (seq2seq only) returns the post-norm
     hidden (N, L, E) in place of the logits, for a loss that fuses the head
-    (``ops.losses.make_fused_head_loss``).
+    (``ops.losses.make_fused_head_loss``). ``forward(x, return_moe_aux=True)``
+    returns ``(out, {"lb": ..., "z": ...})``: the per-block mean of the MoE
+    router's aux losses (0-d float32 zeros without experts).
     """
 
     def __init__(self, cfg: TransformerConfig, *, device: torch.device,
@@ -540,16 +561,20 @@ class Transformer(nn.Module):
         self.output = (SequenceOutput if seq2seq else ClassificationOutput)(
             cfg, device=device, generator=generator)
 
-    def forward(self, x: torch.Tensor, verbose: bool = False, return_hidden: bool = False):
+    def forward(self, x: torch.Tensor, verbose: bool = False, return_hidden: bool = False,
+                return_moe_aux: bool = False):
         if self.training:
             _check_no_dropout(self.cfg)
         seq2seq = isinstance(self.output, SequenceOutput)
         if return_hidden and not seq2seq:
             raise ValueError("return_hidden requires a seq2seq output head")
+        if return_moe_aux and verbose:
+            raise ValueError("return_moe_aux and verbose are mutually exclusive")
+        block_aux = [] if return_moe_aux and self.cfg.n_experts else None
         out = self.embedding(x)
         attentions = []
         for block in self.blocks:
-            out = block(out, verbose=verbose)
+            out = block(out, verbose=verbose, moe_aux=block_aux)
             if verbose:
                 out, att = out
                 attentions.append(att)
@@ -557,4 +582,9 @@ class Transformer(nn.Module):
                   else self.output(out))
         if verbose:
             return logits, torch.stack(attentions)
+        if return_moe_aux:
+            # the per-block mean, the Switch/ST-MoE convention (:832-840)
+            return logits, {key: (torch.stack([a[key] for a in block_aux]).mean() if block_aux
+                                  else torch.zeros((), device=logits.device))
+                            for key in ("lb", "z")}
         return logits

@@ -12,6 +12,18 @@ from .attention import (  # noqa: F401
     packed_mha_supported,
 )
 from .common import mm_f32, resolve_impl, use_true_fp32  # noqa: F401
+# The grouped product ``gmm`` stays ``ops.gmm.gmm``: its name is the module's.
+from .gmm import gmm_reference, tgmm, tgmm_reference  # noqa: F401
+from .gmm_fused import (  # noqa: F401
+    gmm_dual,
+    gmm_dual_reference,
+    gmm_dy_swiglu,
+    gmm_dy_swiglu_reference,
+    gmm_swiglu,
+    gmm_swiglu_reference,
+    tgmm_swiglu,
+    tgmm_swiglu_reference,
+)
 from .layernorm import layer_norm  # noqa: F401
 from .losses import (  # noqa: F401
     fused_next_token_ce,

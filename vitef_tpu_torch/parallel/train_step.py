@@ -89,9 +89,14 @@ def make_train_step(
     the forward stops at the post-norm hidden (``module(x,
     return_hidden=True)``) and the loss is ``hidden_loss(module, hidden, y)``,
     which fuses the vocabulary head into the cross entropy (:105-133).
+
+    ``moe_aux_coefs=(lb_coef, z_coef)`` (MoE families): the forward also
+    returns the router's aux losses (``module(x, return_moe_aux=True)``),
+    ``lb_coef · lb + z_coef · z`` joins each microbatch's loss (so ``loss``
+    includes them, as in the JAX step, :119-127), and their raw values are
+    reported as ``moe_lb`` and ``moe_z``, averaged over the microbatches.
     """
-    unported = {"update_stats": update_stats, "mesh": mesh is not None,
-                "moe_aux_coefs": moe_aux_coefs is not None}
+    unported = {"update_stats": update_stats, "mesh": mesh is not None}
     missing = [name for name, hit in unported.items() if hit]
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
@@ -110,14 +115,24 @@ def make_train_step(
                   if block_grad_norms else [])
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=x.device)
+        aux_sum = ({"moe_lb": torch.zeros((), device=x.device),
+                    "moe_z": torch.zeros((), device=x.device)}
+                   if moe_aux_coefs is not None else {})
+        fwd_kw = {"return_hidden": True} if hidden_loss is not None else {}
         try:
             for p in frozen:
                 p.requires_grad_(True)
             for xi, yi in zip(x.chunk(grad_acc_steps), y.chunk(grad_acc_steps)):
-                if hidden_loss is not None:
-                    loss = hidden_loss(module, module(xi, return_hidden=True), yi)
+                if moe_aux_coefs is not None:
+                    out, aux = module(xi, return_moe_aux=True, **fwd_kw)
                 else:
-                    loss = loss_fn(module(xi), yi)
+                    out = module(xi, **fwd_kw)
+                loss = hidden_loss(module, out, yi) if hidden_loss is not None \
+                    else loss_fn(out, yi)
+                if moe_aux_coefs is not None:
+                    loss = loss + moe_aux_coefs[0] * aux["lb"] + moe_aux_coefs[1] * aux["z"]
+                    aux_sum["moe_lb"] += aux["lb"].detach()
+                    aux_sum["moe_z"] += aux["z"].detach()
                 loss.backward()
                 loss_sum += loss.detach()
         finally:
@@ -129,6 +144,7 @@ def make_train_step(
                                 1.0 / grad_acc_steps)
 
         metrics = {"loss": loss_sum / grad_acc_steps, "grad_norm": global_grad_norm(grads)}
+        metrics.update({key: value / grad_acc_steps for key, value in aux_sum.items()})
         if block_grad_norms:
             for i, block in enumerate(module.blocks):
                 metrics[f"grad_norm_block_{i}"] = global_grad_norm(
