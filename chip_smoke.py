@@ -87,7 +87,30 @@ Phases (each raises on failure, so the run exits non-zero):
     kernel route's recorded inputs, each block's MoE FFN (sparse vs dense, at
     one routing) and its GQA/RoPE attention (K1 causal + K3 vs the plain
     grouped einsum); and a loss that falls over 20 steps on a fixed batch of
-    8.
+    8;
+21. K6 phase: the LayerNorm kernels (forward and dx) in bfloat16 against
+    their float32 plain versions at the ViT-B/16 finetune's rows (50,432 x
+    768, eps 1e-12), in float32 at the analysis's (25,216 x 768), and at
+    rows 1, 7, 255, 257, 1000 x widths 64, 768, 1024, 1280 x bias or not x
+    eps 1e-12 or 1e-6 in both types; bit-identical over two launches; the
+    wrappers raise for float16 and for widths 100 and 4096; each entry point
+    timed with its plain version, its bound and ``F.layer_norm`` (this runs
+    with the other kernel phases, after 18);
+22. K6 finetune: the train slice's protocol (10) on a ViT-B/16 built with
+    ``norm_impl="kernel"``: K6's forward and dx 50 launches per step each,
+    beside K1, K2 and K10 as in 10, no plain version; the rates and peak
+    memory; a torch.profiler split with K6 as its own kind; one
+    microbatch's gradients against the plain LayerNorm (after 11);
+23. analysis: ViT-B/16 in float32 with K6 (the in21k model of
+    ``apps/vit/analysis.py``, random weights from a seed) decomposes two
+    synthetic batches of 128 from different seeds and returns the 61 keys'
+    per-sample distances (``make_decomposition_distance_fn``): 48 K6
+    launches per call, against the plain LayerNorm within 1e-4, timed;
+24. probing: ViT-B/16 in bfloat16 with K6 and K1 pools and normalises the
+    96 probe keys' features over synthetic train and test loaders at batch
+    512 (``get_embeddings``: 24 K6 and 12 K1 launches per batch, against
+    the plain path), then ``run_linear_probing(probe_impl="torch")`` fits
+    the L-BFGS probe per key on the card.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -110,13 +133,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vitef_tpu_torch.apps.vit import analysis as AN
+from vitef_tpu_torch.apps.vit import linear_probing as LP
 from vitef_tpu_torch.data.images import build_loader, build_train_val_loader, make_iterable
 from vitef_tpu_torch.data.images import transforms as T
 from vitef_tpu_torch.eval import run_evaluation
 from vitef_tpu_torch import native
 from vitef_tpu_torch.models import build_model
+from vitef_tpu_torch.models.norms import LayerNorm
 from vitef_tpu_torch.ops import _build
 from vitef_tpu_torch.ops import attention as A
+from vitef_tpu_torch.ops import layernorm as LN
 from vitef_tpu_torch.ops import gmm as G
 from vitef_tpu_torch.ops import gmm_fused as GF
 from vitef_tpu_torch.ops import make_fused_head_loss, next_token_cross_entropy
@@ -134,7 +161,7 @@ VIT_SHAPE = (256, 197)                       # (N, L) of ViT-B/16 at batch 256
 EDGE_SHAPES = [(8, 1), (8, 17), (8, 64), (8, 65), (8, 577), (8, 1024)]
 
 KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment", "flash_fwd", "flash_bwd",
-           "gmm", "tgmm")
+           "gmm", "tgmm", "layernorm")
 N_CLASSES = VIT_B16["n_classes"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor
@@ -218,6 +245,40 @@ GROUPED_EDGES = [(8, 768, 2048, [0, 1, 300, 0, 250, 1, 448, 0]),
                  (4, 64, 128, [0, 37, 1, 62])]
 GROUPED_FP32 = [(4, 128, 256, [100, 0, 1, 199])]
 GROUPED = ("gmm", "gmm_swiglu", "gmm_dy_swiglu", "gmm_dual", "tgmm_swiglu", "tgmm")
+
+# K6, LayerNorm at ViT-B/16's eps: the finetune's rows (a microbatch of 256
+# images x 197 tokens = 50,432) in bfloat16 and the analysis's (128 x 197 =
+# 25,216) in float32, then every edge case of rows x widths x bias x eps.
+# float32 against the float32 plain version differs by the order of summation
+# only (~1e-6), so its limits are 100x that.
+LN_BF16_ROWS, LN_FP32_ROWS = 256 * 197, 128 * 197
+LN_EDGE_ROWS, LN_EDGE_WIDTHS, LN_EDGE_EPS = (1, 7, 255, 257, 1000), (64, 768, 1024, 1280), \
+    (1e-12, 1e-6)
+LN_FP32_MAX_ABS, LN_FP32_MEAN_ABS = 1e-4, 1e-5
+VIT_B16_K6 = {**VIT_B16, "norm_impl": "kernel"}
+
+# The read-outs on ViT-B/16: the plasticity analysis in float32 at batch 128
+# (apps/vit/analysis.py's defaults, AnalysisConfig :90, :99, with analysis()'s
+# in21k model), two synthetic batches from different seeds; the linear
+# probing features in bfloat16 at batch 512 (LinearProbingConfig :129) over
+# synthetic train and test loaders, then the on-device probe per key.
+VIT_B16_ANALYSIS = {"implementation": "vit", "model_name": "base", "patch_size": 16,
+                    "image_dim": (3, 224, 224), "pretrained": True, "in21k": True,
+                    "compute_dtype": "float32", "norm_impl": "kernel", "seed": 0}
+ANALYSIS_BATCH = 128
+# Each distance against the plain path's, relative to the key's largest: the
+# float32 kernel and plain LN differ by summation order (~1e-6) and 12 blocks
+# hardly grow it, so 1e-4 is 100x that.
+ANALYSIS_REL = 1e-4
+VIT_B16_PROBING = {**VIT_B16_ANALYSIS, "compute_dtype": "bfloat16"}
+PROBING_TRAIN = {"dataset_name": "synthetic-2048", "batch_size": 512, "val_batch_size": 512,
+                 "size": 224, "compute_dtype": "bfloat16", "seed": 0}
+PROBING_TEST = {"dataset_name": "synthetic-1024", "mode": "test", "batch_size": 512,
+                "size": 224, "compute_dtype": "bfloat16", "seed": 0}
+# The L2-normalised bf16 embeddings of each key, kernel path (K1 + K6) vs the
+# plain path: both bf16 through up to 12 blocks, as the eval logits, so the
+# gradients' relative L2 bound holds them.
+PROBE_EMB_REL_L2 = GRAD_REL_L2
 
 
 def card() -> str:
@@ -838,6 +899,150 @@ def k10_phase(device) -> dict:
             "library_ms": None}
 
 
+def ln_inputs(gen, rows: int, e: int, dtype, device, bias: bool = True):
+    """x (shifted, scale 2), a cotangent g, and LayerNorm parameters near a
+    trained model's (scale 0.4·(1 ± 0.1), bias ± 0.1): outputs stay under 4
+    in magnitude, where a bf16 step is 2^-6 (2^-5 in [4, 8) is more than
+    KERNEL_MAX_ABS allows)."""
+    x = (torch.randn(rows, e, generator=gen) * 2 + 0.5).to(device, dtype)
+    g = torch.randn(rows, e, generator=gen).to(device, dtype)
+    w = (0.4 * (1 + 0.1 * torch.randn(e, generator=gen))).to(device)
+    b = (0.1 * torch.randn(e, generator=gen)).to(device) if bias else None
+    return x, g, w, b
+
+
+def ln_check(x, g, w, b, eps: float) -> tuple[float, float, float, float, bool]:
+    """K6's forward and dx (from the plain version's float32 statistics)
+    against their float32 plain versions: (forward max |d|, mean |d|, dx max
+    |d|, mean |d|, both bit-identical over two launches)."""
+    launches = (LN.layer_norm.launches, LN.layer_norm_bwd_dx.launches)
+    with torch.inference_mode():
+        out, out2 = (LN.layer_norm(x, w, b, eps, impl="kernel") for _ in range(2))
+        mean, rstd = LN.layer_norm_stats_reference(x, eps)
+        dx, dx2 = (LN.layer_norm_bwd_dx(g, x, w, mean, rstd) for _ in range(2))
+        ref = LN.layer_norm_reference(x.float(), w, b, eps)
+        ref_dx = LN.layer_norm_bwd_dx_reference(g.float(), x.float(), w, mean, rstd)
+    torch.cuda.synchronize()
+    if (LN.layer_norm.launches, LN.layer_norm_bwd_dx.launches) != (launches[0] + 2,
+                                                                   launches[1] + 2):
+        raise AssertionError("K6's wrappers did not launch their kernels")
+    if not (out.shape == dx.shape == x.shape and out.dtype == dx.dtype == x.dtype):
+        raise AssertionError(f"K6 gave {out.dtype} {tuple(out.shape)} and {dx.dtype} "
+                             f"{tuple(dx.shape)} for {x.dtype} {tuple(x.shape)}")
+    d_out, d_dx = (out.float() - ref).abs(), (dx.float() - ref_dx).abs()
+    identical = torch.equal(out, out2) and torch.equal(dx, dx2)
+    return (d_out.max().item(), d_out.mean().item(), d_dx.max().item(), d_dx.mean().item(),
+            identical)
+
+
+def layernorm_phase(device, seed: int, iters: int) -> dict:
+    """K6 (forward and dx) against its float32 plain versions: bf16 at the
+    finetune's rows, float32 at the analysis's, and every edge case; both
+    bit-identical over two launches; the wrappers raise for float16 and for
+    widths K6 does not take; then each entry point timed at the finetune's
+    shape with its plain version, its bound and ``F.layer_norm``."""
+    gen = torch.Generator().manual_seed(seed)
+    cases = [(torch.bfloat16, LN_BF16_ROWS, EMB, True, 1e-12),
+             (torch.float32, LN_FP32_ROWS, EMB, True, 1e-12)]
+    cases += [(dtype, rows, e, bias, eps) for dtype in (torch.bfloat16, torch.float32)
+              for rows in LN_EDGE_ROWS for e in LN_EDGE_WIDTHS for bias in (True, False)
+              for eps in LN_EDGE_EPS]
+    worst = Counter()
+    for dtype, rows, e, bias, eps in cases:
+        x, g, w, b = ln_inputs(gen, rows, e, dtype, device, bias)
+        max_out, mean_out, max_dx, mean_dx, identical = ln_check(x, g, w, b, eps)
+        max_lim, mean_lim = ((KERNEL_MAX_ABS, KERNEL_MEAN_ABS) if dtype == torch.bfloat16
+                             else (LN_FP32_MAX_ABS, LN_FP32_MEAN_ABS))
+        label = (f"K6 layernorm {str(dtype).removeprefix('torch.')} rows={rows} E={e} "
+                 f"bias={bias} eps={eps:g}")
+        if rows in (LN_BF16_ROWS, LN_FP32_ROWS):
+            print(f"{label}: forward max|d|={max_out:.3e} mean|d|={mean_out:.3e}; dx "
+                  f"max|d|={max_dx:.3e} mean|d|={mean_dx:.3e}; two launches bit-identical: "
+                  f"{identical}")
+            if dtype == torch.bfloat16:
+                main_err = (max_out, max_dx)
+        for key, value in (("max_out", max_out), ("mean_out", mean_out), ("max_dx", max_dx),
+                           ("mean_dx", mean_dx)):
+            worst[str(dtype), key] = max(worst[str(dtype), key], value)
+        if not (math.isfinite(max_out) and math.isfinite(max_dx) and max_out <= max_lim
+                and max_dx <= max_lim and mean_out <= mean_lim and mean_dx <= mean_lim):
+            raise AssertionError(f"{label} disagrees with its plain version: {max_out}, "
+                                 f"{mean_out}, {max_dx}, {mean_dx}")
+        if not identical:
+            raise AssertionError(f"{label} is not deterministic")
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"K6 layernorm {str(dtype).removeprefix('torch.')}: worst over the edge cases "
+              f"(rows {LN_EDGE_ROWS} x E {LN_EDGE_WIDTHS} x bias x eps {LN_EDGE_EPS}): "
+              + ", ".join(f"{key} {worst[str(dtype), key]:.3e}"
+                          for key in ("max_out", "mean_out", "max_dx", "mean_dx")))
+
+    # What the kernel does not take raises on CUDA; nothing falls back.
+    ones = torch.ones(EMB, device=device)
+    refused = [(TypeError, lambda: LN.layer_norm(torch.zeros(4, EMB, device=device,
+                                                             dtype=torch.float16),
+                                                 ones, None, 1e-6, impl="kernel")),
+               (NotImplementedError, lambda: LN.layer_norm(torch.zeros(4, 100, device=device),
+                                                           ones[:100], None, 1e-6,
+                                                           impl="kernel")),
+               (NotImplementedError, lambda: LN.layer_norm(torch.zeros(4, 4096, device=device),
+                                                           torch.ones(4096, device=device), None,
+                                                           1e-6, impl="kernel")),
+               (TypeError, lambda: LN.layer_norm_bwd_dx(
+                   *(torch.zeros(4, EMB, device=device, dtype=torch.float16) for _ in range(2)),
+                   ones, torch.zeros(4, device=device), torch.ones(4, device=device)))]
+    launches = (LN.layer_norm.launches, LN.layer_norm_bwd_dx.launches)
+    for error, call in refused:
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"K6's wrapper did not raise {error.__name__}")
+    if (LN.layer_norm.launches, LN.layer_norm_bwd_dx.launches) != launches:
+        raise AssertionError("K6's wrappers launched on an input they do not take")
+    print("K6: the wrappers raise for float16 input and for widths 100 and 4096")
+    # eps = 1e-12 on constant bf16 rows: float32 two-pass statistics give a
+    # variance of exactly 0, so the output is exactly the bias.
+    x, _, w, b = ln_inputs(gen, 64, EMB, torch.bfloat16, device)
+    with torch.inference_mode():
+        out = LN.layer_norm(torch.full_like(x, 3.0), w, b, 1e-12, impl="kernel")
+    if not torch.equal(out, b.to(out.dtype).expand_as(out)):
+        raise AssertionError("K6 does not give the bias on constant rows at eps = 1e-12")
+    print("K6: constant bf16 rows at eps = 1e-12 give exactly the bias")
+
+    # Timed at the finetune's shape as the train step runs them: the forward
+    # writing its statistics, dx from them.
+    x, g, w, b = ln_inputs(gen, LN_BF16_ROWS, EMB, torch.bfloat16, device)
+    rows = LN_BF16_ROWS
+    wb, bb = w.to(x.dtype), b.to(x.dtype)  # F.layer_norm's parameters in x's dtype
+    with torch.inference_mode():
+        out, mean, rstd = LN._launch_fwd(x, w, b, 1e-12, want_stats=True)
+        dx = LN.layer_norm_bwd_dx(g, x, w, mean, rstd)
+        fwd = in_turns(lambda: LN._launch_fwd(x, w, b, 1e-12, want_stats=True),
+                       lambda: LN.layer_norm_reference(x, w, b, 1e-12), iters)
+        dx_t = in_turns(lambda: LN.layer_norm_bwd_dx(g, x, w, mean, rstd),
+                        lambda: LN.layer_norm_bwd_dx_reference(g, x, w, mean, rstd), iters)
+        fwd_lib = cuda_ms(lambda: F.layer_norm(x, (EMB,), wb, bb, 1e-12), iters)
+    xg = x.detach().requires_grad_()
+    lib_out = F.layer_norm(xg, (EMB,), wb, bb, 1e-12)  # dx only: the parameters need none
+    dx_lib = cuda_ms(lambda: torch.autograd.grad(lib_out, xg, g, retain_graph=True), iters)
+    del lib_out, xg
+    result = {}
+    # about 8 float32 operations per value forward, 10 for dx
+    for name, (ms, plain_ms, times), library_ms, tensors, ops, err in (
+            ("layernorm_fwd", fwd, fwd_lib, (x, w, b, out, mean, rstd), 8.0, main_err[0]),
+            ("layernorm_bwd_dx", dx_t, dx_lib, (g, x, w, mean, rstd, dx), 10.0, main_err[1])):
+        limit = bound(ops * rows * EMB, PEAK_FP32_FLOPS, tensors)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        yardstick = "F.layer_norm" + (" backward (dx)" if name == "layernorm_bwd_dx" else "")
+        print(f"K6 {name} bf16 at rows={rows} E={EMB}: kernel {times[1]:.4f}/{times[2]:.4f} ms, "
+              f"plain {times[0]:.4f}/{times[3]:.4f} ms, {yardstick} {library_ms:.4f} ms, bound "
+              f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}, {nbytes / 1e6:.1f} MB); "
+              f"{nbytes / ms / 1e6:.1f} GB/s")
+        result[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **limit,
+                        "library_ms": library_ms}
+    return result
+
+
 def slice_phase(device):
     model = build_model(VIT_B16, device=device)
     loader = build_loader(EVAL_DATA, device=device)
@@ -903,11 +1108,12 @@ def cross_check(model, x):
         raise AssertionError("kernel-path logits disagree with the plain path")
 
 
-def train_phase(model, device):
+def train_phase(model, device, label: str = "ViT-B/16"):
     """bench.py's finetune through the port: the train loader (K10), 2 x 256
-    accumulation (K1 forward, K2 backward), clip, SGD, cosine schedule.
-    Returns the main path's launch counts, a device-only step and the
-    train dataset."""
+    accumulation (K1 forward, K2 backward), clip, SGD, cosine schedule; with
+    ``norm_impl="kernel"`` every LayerNorm takes K6 (forward and dx), else
+    its plain version. Returns the main path's launch counts, a device-only
+    step and the train dataset."""
     schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
     optimizer, scheduler = build_optimizer(OPTIMIZER, model.module, schedule=schedule)
     batch = TRAIN_DATA["batch_size"]
@@ -925,8 +1131,10 @@ def train_phase(model, device):
         step_fn(state, next(batches))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    counters = (A.fused_mha_packed, A.packed_mha_bwd, T.augment_train_device)
-    with no_plain_versions() as (plain_calls, aug_calls):
+    counters = (A.fused_mha_packed, A.packed_mha_bwd, T.augment_train_device, LN.layer_norm,
+                LN.layer_norm_bwd_dx)
+    with no_plain_versions() as (plain_calls, aug_calls), \
+            counting(LN, "layer_norm_reference", "layer_norm_bwd_dx_reference") as ln_plain:
         for counter in counters:
             counter.launches = 0
         t0 = time.perf_counter()
@@ -948,15 +1156,22 @@ def train_phase(model, device):
           f"{history[0][1]['loss'].item():.4f} -> {history[-1][1]['loss'].item():.4f}, "
           f"grad_norm {history[-1][1]['grad_norm'].item():.4f}, lr {history[-1][1]['lr']:.6f}")
     want = model.config.n_layers * grad_acc * TIMED_STEPS
-    print(f"train launches over {TIMED_STEPS} steps: {launches} (K1 and K2 want {want}, "
-          f"K10 {TIMED_STEPS}); plain calls {dict(Counter(plain_calls + aug_calls))}")
+    # every LayerNorm of every microbatch, forward and dx, when K6 is asked for
+    k6 = model.config.norm_impl in ("kernel", "pallas")
+    want_k6 = (sum(isinstance(m, LayerNorm) for m in model.module.modules()) * grad_acc
+               * TIMED_STEPS if k6 else 0)
+    print(f"{label} train launches over {TIMED_STEPS} steps: {launches} (K1 and K2 want "
+          f"{want}, K10 {TIMED_STEPS}, K6 forward and dx {want_k6}); plain calls "
+          f"{dict(Counter(plain_calls + aug_calls + (ln_plain if k6 else [])))}")
     if launches["fused_mha_packed"] != want or launches["packed_mha_bwd"] != want \
-            or launches["augment_train_device"] != TIMED_STEPS:
+            or launches["augment_train_device"] != TIMED_STEPS \
+            or launches["layer_norm"] != want_k6 or launches["layer_norm_bwd_dx"] != want_k6:
         raise AssertionError("the train path did not go through every kernel every step")
-    if plain_calls or aug_calls:
-        raise AssertionError(f"plain versions ran on CUDA: {Counter(plain_calls + aug_calls)}")
+    if plain_calls or aug_calls or (k6 and ln_plain):
+        raise AssertionError(f"plain versions ran on CUDA: "
+                             f"{Counter(plain_calls + aug_calls + ln_plain)}")
     loader_rate = batch * TIMED_STEPS / seconds
-    print(f"ViT-B/16 bf16 train, loader included: {loader_rate:.2f} img/s "
+    print(f"{label} bf16 train, loader included: {loader_rate:.2f} img/s "
           f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {batch}); peak memory "
           f"{peak_gib:.3f} GiB (torch.cuda.max_memory_allocated)")
 
@@ -983,7 +1198,7 @@ def train_phase(model, device):
     loss = metrics["loss"].item()
     seconds = time.perf_counter() - t0
     device_rate = batch * TIMED_STEPS / seconds
-    print(f"ViT-B/16 bf16 train, device-only (augment + step): {device_rate:.2f} img/s "
+    print(f"{label} bf16 train, device-only (augment + step): {device_rate:.2f} img/s "
           f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {batch}); loss {loss:.4f}")
     if not math.isfinite(loss):
         raise AssertionError("device-only train loss is not finite")
@@ -1011,7 +1226,7 @@ def kernel_and_plain_grads(model, loss, plain_config=None) -> tuple[float, list[
     overall and per block, in float32, one parameter at a time (no flattened
     copy of the whole model)."""
     cfg, module = model.config, model.module
-    plain_config = plain_config or {"attn_impl": "plain"}
+    plain_config = {"attn_impl": "plain"} if plain_config is None else plain_config
     module.train()
     module.zero_grad(set_to_none=True)
     loss(False).backward()
@@ -1035,16 +1250,22 @@ def kernel_and_plain_grads(model, loss, plain_config=None) -> tuple[float, list[
     return rel("all"), [rel(f"block {i}") for i in range(len(module.blocks))]
 
 
+def check_microbatch(dataset, device):
+    """The first AUTO_MICROBATCH raw train images on ``device``, their labels,
+    and seeded crop boxes and flips: ``(raw, boxes, flips, y)``."""
+    n = AUTO_MICROBATCH
+    raw = torch.from_numpy(dataset.data[:n]).to(device)
+    y = torch.from_numpy(np.asarray(dataset.targets[:n], np.int64)).to(device)
+    boxes, flips = T.sample_crop_batch(np.random.default_rng(3), n, *raw.shape[1:3])
+    return raw, torch.from_numpy(boxes).to(device), torch.from_numpy(flips).to(device), y
+
+
 def train_cross_check(model, dataset, device) -> None:
     """One microbatch's gradients through the kernels and through the plain
     path (plain attention and its autograd backward, plain augment), then a
     loss that falls on one fixed batch."""
     n = AUTO_MICROBATCH
-    rng = np.random.default_rng(3)
-    raw = torch.from_numpy(dataset.data[:n]).to(device)
-    y = torch.from_numpy(np.asarray(dataset.targets[:n], np.int64)).to(device)
-    boxes, flips = T.sample_crop_batch(rng, n, 32, 32)
-    boxes, flips = torch.from_numpy(boxes).to(device), torch.from_numpy(flips).to(device)
+    raw, boxes, flips, y = check_microbatch(dataset, device)
     x_kernel = T.augment_train_device(raw, boxes, flips, size=224,
                                       compute_dtype=torch.bfloat16)
     x_plain = T.augment_train_reference(raw, boxes, flips, 224, torch.bfloat16)
@@ -1068,11 +1289,152 @@ def train_cross_check(model, dataset, device) -> None:
         raise AssertionError(f"the fixed-batch loss did not fall: {losses}")
 
 
+@contextlib.contextmanager
+def norm_impl(module, impl: str):
+    """Every LayerNorm of ``module`` set to ``impl`` inside the block (a norm
+    reads the ``norm_impl`` it was built with)."""
+    norms = [m for m in module.modules() if isinstance(m, LayerNorm)]
+    saved = [m.impl for m in norms]
+    for m in norms:
+        m.impl = impl
+    try:
+        yield
+    finally:
+        for m, old in zip(norms, saved):
+            m.impl = old
+
+
+def k6_train_cross_check(model, dataset, device) -> None:
+    """One microbatch's gradients with K6 (forward and dx) against the plain
+    LayerNorm and its autograd backward, the rest of the path alike (K10's
+    images, K1 and K2)."""
+    n = AUTO_MICROBATCH
+    raw, boxes, flips, y = check_microbatch(dataset, device)
+    x = T.augment_train_device(raw, boxes, flips, size=model.config.image_dim[-1],
+                               compute_dtype=torch.bfloat16)
+    module = model.module
+
+    def loss(plain: bool):
+        with norm_impl(module, "plain" if plain else "kernel"):
+            return F.cross_entropy(module(x).float(), y)
+
+    launches = (LN.layer_norm.launches, LN.layer_norm_bwd_dx.launches)
+    overall, per_block = kernel_and_plain_grads(model, loss, plain_config={})
+    n_norms = sum(isinstance(m, LayerNorm) for m in module.modules())
+    if (LN.layer_norm.launches - launches[0], LN.layer_norm_bwd_dx.launches - launches[1]) \
+            != (n_norms, n_norms):
+        raise AssertionError("the cross-check's kernel route did not launch K6 in every norm")
+    print(f"gradients of one microbatch ({n}), K6 vs the plain LayerNorm: relative L2 "
+          f"{overall:.3e}; per block " + " ".join(f"{r:.2e}" for r in per_block))
+    if not (math.isfinite(overall) and overall <= GRAD_REL_L2):
+        raise AssertionError(f"K6-path gradients disagree with the plain LayerNorm: {overall}")
+
+
+def analysis_phase(device) -> None:
+    """The plasticity analysis on ViT-B/16 in float32 with K6: the per-key
+    distances of two synthetic batches (different seeds) through
+    ``make_decomposition_distance_fn``, 48 K6 launches per call and no plain
+    LayerNorm, against the same model with the plain LayerNorm; then the
+    time per call."""
+    model = build_model(VIT_B16_ANALYSIS, device=device)
+    x1, x2 = (torch.randn(ANALYSIS_BATCH, *model.config.image_dim,
+                          generator=torch.Generator().manual_seed(seed)).to(device)
+              for seed in (31, 32))
+    decomp_dist = AN.make_decomposition_distance_fn(model)
+    decomp_dist(x1, x2)  # warm-up
+    torch.cuda.synchronize()
+    with counting(LN, "layer_norm_reference") as ln_plain:
+        LN.layer_norm.launches = 0
+        t0 = time.perf_counter()
+        dists = decomp_dist(x1, x2)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = LN.layer_norm.launches
+    want = 2 * 2 * model.config.n_layers
+    print(f"ViT-B/16 float32 analysis, two batches of {ANALYSIS_BATCH}: {len(dists)} keys, "
+          f"K6 launches {launches} (want {want}), plain LayerNorm calls {len(ln_plain)}; "
+          f"{seconds:.3f} s per call (two decompositions and the distances)")
+    if launches != want or ln_plain:
+        raise AssertionError("the analysis did not take K6 in every norm")
+    with norm_impl(model.module, "plain"):
+        plain = decomp_dist(x1, x2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decomp_dist(x1, x2)
+        torch.cuda.synchronize()
+        plain_seconds = time.perf_counter() - t0
+    rel = {key: ((dists[key] - plain[key]).abs().max() / plain[key].abs().max()).item()
+           for key in plain}
+    worst = max(rel, key=rel.get)
+    print(f"analysis distances, K6 vs the plain LayerNorm: largest relative difference "
+          f"{rel[worst]:.3e} ({worst}); plain LayerNorm path {plain_seconds:.3f} s per call")
+    if not (len(dists) == 1 + 5 * model.config.n_layers
+            and all(d.shape == (ANALYSIS_BATCH,) and torch.isfinite(d).all()
+                    for d in dists.values()) and rel[worst] <= ANALYSIS_REL):
+        raise AssertionError(f"the K6 analysis disagrees with the plain path: {rel}")
+
+
+def probing_phase(device) -> None:
+    """The linear-probing features on ViT-B/16 in bfloat16 with K6 and K1:
+    ``get_embeddings`` over synthetic train and test loaders (24 K6 and 12
+    K1 launches per batch, no plain version) against the plain path; then
+    ``run_linear_probing`` with the on-device probe over every key."""
+    model = build_model(VIT_B16_PROBING, device=device)
+    np.random.seed(0)  # the train/val split, as the app seeds it
+    train_loader, _ = build_train_val_loader(PROBING_TRAIN, device=device)
+    train = list(train_loader)  # one epoch, so that both paths see the same images
+    test = list(build_loader(PROBING_TEST, device=device, drop_last=False))
+    LP.get_embeddings(model, train[:1], cls_pooling=False)  # warm-up
+    torch.cuda.synchronize()
+    with no_plain_versions() as (plain_calls, _), \
+            counting(LN, "layer_norm_reference") as ln_plain:
+        LN.layer_norm.launches = A.fused_mha_packed.launches = 0
+        t0 = time.perf_counter()
+        emb, labels = LP.get_embeddings(model, train, cls_pooling=False)
+        seconds = time.perf_counter() - t0
+        launches = (LN.layer_norm.launches, A.fused_mha_packed.launches)
+    layers, n = model.config.n_layers, len(train)
+    print(f"ViT-B/16 bf16 probe features of {len(labels)} train images ({n} batches of "
+          f"{PROBING_TRAIN['batch_size']}): {len(emb)} keys in {seconds:.3f} s "
+          f"({len(labels) / seconds:.2f} img/s, host copies included); K6 and K1 launches "
+          f"{launches} (want {(2 * layers * n, layers * n)}); plain calls "
+          f"{len(plain_calls) + len(ln_plain)}")
+    if launches != (2 * layers * n, layers * n) or plain_calls or ln_plain:
+        raise AssertionError("the probe features did not take K6 and K1 in every block")
+    with norm_impl(model.module, "plain"), config_set(model.config, attn_impl="plain"):
+        plain, plain_labels = LP.get_embeddings(model, train, cls_pooling=False)
+    rel = {key: float(np.linalg.norm(emb[key] - plain[key]) / np.linalg.norm(plain[key]))
+           for key in plain}
+    worst = max(rel, key=rel.get)
+    print(f"probe features, K1 + K6 vs the plain path: largest relative L2 {rel[worst]:.3e} "
+          f"({worst})")
+    if not (len(emb) == 8 * layers and np.array_equal(labels, plain_labels)
+            and all(np.isfinite(v).all() for v in emb.values())
+            and rel[worst] <= PROBE_EMB_REL_L2):
+        raise AssertionError(f"the K6 probe features disagree with the plain path: {rel}")
+
+    t0 = time.perf_counter()
+    accs = LP.run_linear_probing(model, train, test, cls_pooling=False, seed=0,
+                                 probe_impl="torch")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    best = max(accs, key=accs.get)
+    print(f"linear probing on the card over {len(accs)} keys ({len(labels)} train, "
+          f"{sum(len(y) for _, y in test)} test images, 10 classes): "
+          f"{seconds:.2f} s; accuracy {min(accs.values()):.4f}..{accs[best]:.4f} (best "
+          f"{best}); " + " ".join(f"{accs[f'block{i}_ffn_res']:.3f}" for i in range(layers))
+          + " after each block")
+    if not (len(accs) == 8 * layers and all(0.0 <= a <= 1.0 for a in accs.values())):
+        raise AssertionError(f"linear probing gave {accs}")
+
+
 VIT_KINDS = {"K1 packed_mha_fwd": ("packed_mha_fwd",),
              "K2 packed_mha_bwd": ("dq_kernel", "dkv_kernel", "db_partial", "db_final"),
              "K10 train_augment": ("train_augment",),
              "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
              "optimizer (foreach / SGD)": ("multi_tensor", "foreach")}
+VIT_K6_KINDS = {"K6 layernorm_fwd": ("layernorm_fwd_kernel",),
+                "K6 layernorm_bwd_dx": ("layernorm_bwd_dx_kernel",), **VIT_KINDS}
 GPT2_KINDS = {"K1 packed_mha_fwd (causal)": ("packed_mha_fwd",),
               "K3 packed_mha_bwd (causal)": ("dq_kernel", "dkv_kernel", "db_partial",
                                            "db_final"),
@@ -1653,13 +2015,28 @@ def main() -> None:
                                                    seed=15, iters=10)}
     for i, name in enumerate(GROUPED):
         timing[name] = grouped_phase(device, name, seed=20 + i, iters=10)
+    timing.update(layernorm_phase(device, seed=30, iters=20))
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
     launches, one_step, dataset = train_phase(model, device)
     profile_train_step(one_step, VIT_KINDS, "ViT-B/16")
     train_cross_check(model, dataset, device)
+    del model, one_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build_model(VIT_B16_K6, device=device)
+    k6_launches, one_step, _ = train_phase(model, device, label="ViT-B/16 with K6")
+    profile_train_step(one_step, VIT_K6_KINDS, "ViT-B/16 with K6")
+    k6_train_cross_check(model, dataset, device)
     del model, one_step, dataset
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    probing_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1717,6 +2094,10 @@ def main() -> None:
         ("gmm_dual", "gmm", moe_launches["gmm_dual"], "vitef_tpu/ops/gmm_fused.py:370"),
         ("tgmm_swiglu", "tgmm", moe_launches["tgmm_swiglu"], "vitef_tpu/ops/gmm_fused.py:268"),
         ("tgmm", "tgmm", moe_launches["tgmm"], "vitef_tpu/parallel/moe.py:428"),
+        ("layernorm_fwd", "layernorm", k6_launches["layer_norm"],
+         "vitef_tpu/ops/layernorm.py:54"),
+        ("layernorm_bwd_dx", "layernorm", k6_launches["layer_norm_bwd_dx"],
+         "vitef_tpu/ops/layernorm.py:69"),
     ]
     print(card_line)
     print(json.dumps({"kernels": [{

@@ -147,3 +147,46 @@ def test_run_evaluation_matches_jax():
     got = run_evaluation(tm, build_loader(config, device="cpu"))
     np.testing.assert_allclose(got["eval_acc"], ref_acc, atol=1e-6)
     np.testing.assert_allclose(got["eval_loss"], ref_loss, atol=1e-5, rtol=1e-5)
+
+
+def _vitef_state_dict(state: dict, patch: int) -> dict:
+    """The port's state dict renamed to the vitef (torch-layout) names that a
+    weight cache holds."""
+    sd = {}
+    for name, value in state.items():
+        if name == "embedding.patching.conv.weight":
+            value = value.reshape(value.shape[0], 3, patch, patch)  # Conv2d (E, C, P, P)
+        name = name.replace("embedding.patching.conv", "embedding.patching.patching.0")
+        name = name.replace("output_layer.norm", "output_layer.output_norm")
+        name = name.replace("output_layer.head", "output_layer.output")
+        sd[name] = value.clone()
+    return sd
+
+
+def test_pretrained_reads_pt_when_npz_is_missing(tmp_path, monkeypatch):
+    from vitef_tpu_torch.models import vit as vit_module
+
+    config = {**VIT, "finetuning": False, "seed": 1}
+    source = build_model(config, device="cpu")
+    name = vit_module.vit_model_name(vit_module.ViTConfig(model_name="tiny", patch_size=8,
+                                                          image_dim=(3, 32, 32)))
+    torch.save(_vitef_state_dict(source.module.state_dict(), 8), tmp_path / f"{name}.pt")
+    monkeypatch.setattr(vit_module, "AVAILABLE_PRETRAINED", [name])
+    loaded = build_model({**config, "seed": 2, "pretrained": True, "save_dir": str(tmp_path)},
+                         device="cpu")
+    for key, value in source.module.state_dict().items():
+        assert torch.equal(loaded.module.state_dict()[key], value), key
+
+
+def test_pretrained_without_cache_warns_and_keeps_random_init(tmp_path, monkeypatch, caplog):
+    from vitef_tpu_torch.models import vit as vit_module
+
+    monkeypatch.setattr(vit_module, "AVAILABLE_PRETRAINED", ["vit-tiny-patch8-32"])
+    config = {**VIT, "finetuning": False, "seed": 3}
+    with caplog.at_level("WARNING"):
+        tm = build_model({**config, "pretrained": True, "save_dir": str(tmp_path)},
+                         device="cpu")
+    assert "Could not load pretrained weights for vit-tiny-patch8-32" in caplog.text
+    random_init = build_model(config, device="cpu").module.state_dict()
+    for key, value in tm.module.state_dict().items():
+        assert torch.equal(value, random_init[key]), key

@@ -17,7 +17,8 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
   kernels read as they are.
 - :func:`from_vitef_state_dict` loads a torch-layout state dict with the
   reference vitef names (the ``checkpoints/{vit,gpt2}/<name>.npz`` caches;
-  the inverse direction of ``torch_import.from_vitef_state_dict``).
+  the inverse direction of ``torch_import.from_vitef_state_dict``), which
+  :func:`load_weight_cache` reads.
 - :func:`hf_gpt2_to_vitef` renames a HuggingFace ``GPT2LMHeadModel`` state
   dict to those reference names (``torch_import.hf_gpt2_to_vitef`` :169-198),
   and :func:`hf_llama_to_vitef` a ``LlamaForCausalLM`` one (:201-229).
@@ -25,8 +26,34 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
 
 from __future__ import annotations
 
+import logging
+from pathlib import Path
+
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
+
+
+def load_weight_cache(model_name: str, save_dir) -> dict[str, np.ndarray] | None:
+    """The vitef-named torch-layout state dict cached as
+    ``<save_dir>/<model_name>.npz``, else ``.pt``; None, with a warning, when
+    neither exists (the JAX loaders' order, ``vitef_tpu/models/vit.py:121-151``,
+    without their download)."""
+    save_dir = Path(save_dir)
+    npz_path = save_dir / f"{model_name}.npz"
+    if npz_path.exists():
+        logger.info("Loading %s from %s", model_name, npz_path)
+        with np.load(npz_path) as z:
+            return {k: z[k] for k in z.files}
+    pt_path = save_dir / f"{model_name}.pt"
+    if pt_path.exists():
+        logger.info("Loading %s from %s", model_name, pt_path)
+        sd = torch.load(pt_path, map_location="cpu", weights_only=True)
+        return {k: v.numpy() for k, v in sd.items()}
+    logger.warning("Could not load pretrained weights for %s: neither %s nor %s exists",
+                   model_name, npz_path, pt_path)
+    return None
 
 
 def _flatten(tree, prefix: str = ""):

@@ -21,14 +21,12 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from pathlib import Path
 
-import numpy as np
 import torch
 
-from .convert import from_vitef_state_dict
+from ..config import MODEL_DIR
+from .convert import from_vitef_state_dict, load_weight_cache
 from .transformer import Transformer, TransformerConfig
-from .vit import MODEL_DIR
 
 logger = logging.getLogger(__name__)
 
@@ -96,21 +94,6 @@ def gpt2_transformer_config(cfg: GPT2Config) -> TransformerConfig:
     return TransformerConfig(**args)
 
 
-def _load_pretrained_state_dict(model_name: str, save_dir: str) -> dict[str, np.ndarray] | None:
-    save_dir = Path(save_dir)
-    npz_path = save_dir / f"{model_name}.npz"
-    if npz_path.exists():
-        with np.load(npz_path) as z:
-            return {k: z[k] for k in z.files}
-    pt_path = save_dir / f"{model_name}.pt"
-    if pt_path.exists():
-        sd = torch.load(pt_path, map_location="cpu", weights_only=True)
-        return {k: v.numpy() for k, v in sd.items()}
-    logger.warning("Could not load pretrained weights for %s: neither %s nor %s exists",
-                   model_name, npz_path, pt_path)
-    return None
-
-
 def build_gpt2(cfg: GPT2Config, *, device: torch.device, generator: torch.Generator):
     """Build (module, transformer_config, model_name): random init from
     ``generator``, then the local pretrained weights when asked for and found."""
@@ -118,7 +101,7 @@ def build_gpt2(cfg: GPT2Config, *, device: torch.device, generator: torch.Genera
     module = Transformer(tcfg, device=device, generator=generator)
     model_name = gpt2_model_name(cfg)
     if cfg.pretrained:
-        sd = _load_pretrained_state_dict(model_name, cfg.save_dir)
+        sd = load_weight_cache(model_name, cfg.save_dir)
         if sd is not None:
             module.load_state_dict(from_vitef_state_dict(
                 sd, tcfg.n_layers, weight_tying=tcfg.weight_tying))

@@ -25,9 +25,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..config import MODEL_DIR
 from .convert import from_vitef_state_dict
 from .transformer import Transformer, TransformerConfig
-from .vit import MODEL_DIR
 
 logger = logging.getLogger(__name__)
 

@@ -56,6 +56,21 @@ class Model:
 
         return make_eval_step(self.apply_eval)
 
+    def get_decomposition(self, x: torch.Tensor) -> dict:
+        """The per-block component outputs on the embedding output
+        (:meth:`Transformer.get_decomposition`), in eval mode under
+        ``torch.inference_mode``."""
+        self.module.eval()
+        with torch.inference_mode():
+            return self.module.get_decomposition(x)
+
+    def get_probes(self, x: torch.Tensor) -> dict:
+        """The per-block stage-wise hidden states (:meth:`Transformer.get_probes`),
+        in eval mode under ``torch.inference_mode``."""
+        self.module.eval()
+        with torch.inference_mode():
+            return self.module.get_probes(x)
+
 
 def build_model(config: dict[str, Any], *, device,
                 generator: torch.Generator | None = None) -> Model:

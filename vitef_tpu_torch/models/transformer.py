@@ -29,7 +29,10 @@ positions, swiglu FFN, rms norm, untied head) and the MoE family's FFN
 :class:`~vitef_tpu_torch.parallel.moe.MoEFeedForward`, ``apply_ffn``
 :610-641, and ``forward(x, return_moe_aux=True)`` also returns the per-block
 mean of the router's aux losses, :782-840), forward, and backward through
-autograd. The other options of the config raise ``NotImplementedError``.
+autograd; and the paper's read-outs, ``get_decomposition`` and ``get_probes``
+(:851-938). ``norm_impl`` reaches every LayerNorm, which takes kernel K6 for
+``"kernel"`` on CUDA. The other options of the config raise
+``NotImplementedError``.
 Dropout is not ported: a module in train mode with any dropout rate above 0
 raises ``NotImplementedError`` rather than train without it (ViT's, GPT-2's
 and Llama's rates are all 0, ``vitef_tpu/models/vit.py:96-111``,
@@ -455,9 +458,11 @@ class Block(nn.Module):
         super().__init__()
         self.cfg = cfg
         e = cfg.emb_dim
-        self.attn_norm = build_norm(e, cfg.norm_bias, cfg.norm, cfg.norm_eps, device=device)
+        self.attn_norm = build_norm(e, cfg.norm_bias, cfg.norm, cfg.norm_eps, device=device,
+                                    impl=cfg.norm_impl)
         self.attn = Attention(cfg, device=device, generator=generator)
-        self.ffn_norm = build_norm(e, cfg.norm_bias, cfg.norm, cfg.norm_eps, device=device)
+        self.ffn_norm = build_norm(e, cfg.norm_bias, cfg.norm, cfg.norm_eps, device=device,
+                                   impl=cfg.norm_impl)
         if cfg.n_experts:
             from ..parallel.moe import init_moe_ffn
 
@@ -490,6 +495,44 @@ class Block(nn.Module):
             out = self.ffn_norm(out + self._ffn(out, moe_aux))
         return (out, att) if verbose else out
 
+    def decompose(self, x: torch.Tensor) -> dict:
+        """Each component applied to the same ``x`` (``block_decompose``
+        :851-869): the two norms, attention without its norm, fc1, and fc2 on
+        ``x`` zero-padded to ``ffn_dim``, a quirk of the paper's plasticity
+        statistic that is reproduced, not fixed."""
+        cd = self.cfg.cdtype()
+        out = {"attn_norm": self.attn_norm(x), "attn": self.attn(x),
+               "ffn_norm": self.ffn_norm(x), "ffn_fc1": self.ffn.fc1(x, cd)}
+        pad = x.new_zeros(*x.shape[:-1], self.cfg.ffn_dim - self.cfg.emb_dim)
+        out["ffn_fc2"] = self.ffn.fc2(torch.cat([x, pad], dim=-1), cd)
+        return out
+
+    def probes(self, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """``(output, hidden state after each of the 8 stages)``, in the
+        pre-norm or the post-norm order (``block_probes`` :872-911)."""
+        cd = self.cfg.cdtype()
+        fc1, fc2, act = self.ffn.fc1, self.ffn.fc2, self.ffn.activation
+        p = {}
+        if self.cfg.pre_norm:
+            p["attn_norm"] = self.attn_norm(x)
+            p["attn"] = self.attn(p["attn_norm"])
+            p["attn_res"] = res = x + p["attn"]
+            p["ffn_norm"] = self.ffn_norm(res)
+            p["ffn_fc1"] = fc1(p["ffn_norm"], cd)
+            p["ffn_activation"] = act(p["ffn_fc1"])
+            p["ffn_fc2"] = fc2(p["ffn_activation"], cd)
+            p["ffn_res"] = out = res + p["ffn_fc2"]
+        else:
+            p["attn"] = self.attn(x)
+            p["attn_res"] = x + p["attn"]
+            p["attn_norm"] = res = self.attn_norm(p["attn_res"])
+            p["ffn_fc1"] = fc1(res, cd)
+            p["ffn_activation"] = act(p["ffn_fc1"])
+            p["ffn_fc2"] = fc2(p["ffn_activation"], cd)
+            p["ffn_res"] = res + p["ffn_fc2"]
+            p["ffn_norm"] = out = self.ffn_norm(p["ffn_res"])
+        return out, p
+
 
 class ClassificationOutput(nn.Module):
     """Final norm, CLS token, head; float32 logits."""
@@ -499,7 +542,7 @@ class ClassificationOutput(nn.Module):
         self.cfg = cfg
         self.output_layer = nn.ModuleDict({
             "norm": build_norm(cfg.emb_dim, cfg.norm_bias, cfg.norm, cfg.norm_eps,
-                               device=device),
+                               device=device, impl=cfg.norm_impl),
             "head": Linear(cfg.emb_dim, cfg.n_classes, True, device=device,
                            generator=generator),
         })
@@ -519,7 +562,7 @@ class SequenceOutput(nn.Module):
         self.cfg = cfg
         self.output_layer = nn.ModuleDict({
             "norm": build_norm(cfg.emb_dim, cfg.norm_bias, cfg.norm, cfg.norm_eps,
-                               device=device)})
+                               device=device, impl=cfg.norm_impl)})
         if not cfg.weight_tying:
             self.output_layer["head"] = Linear(cfg.emb_dim, cfg.vocab_size, False,
                                                device=device, generator=generator)
@@ -588,3 +631,26 @@ class Transformer(nn.Module):
                                   else torch.zeros((), device=logits.device))
                             for key in ("lb", "z")}
         return logits
+
+    def get_decomposition(self, x: torch.Tensor) -> dict:
+        """Per-block component outputs (``get_decomposition`` :914-926): keys
+        ``embedding`` and ``block{i}_{attn_norm,attn,ffn_norm,ffn_fc1,ffn_fc2}``;
+        every block decomposes the same embedding output."""
+        out = self.embedding(x)
+        outputs = {"embedding": out}
+        for i, block in enumerate(self.blocks):
+            for key, val in block.decompose(out).items():
+                outputs[f"block{i}_{key}"] = val
+        return outputs
+
+    def get_probes(self, x: torch.Tensor) -> dict:
+        """Per-block stage-wise hidden states (``get_probes`` :929-938): keys
+        ``block{i}_{stage}`` for the 8 stages; the state advances through
+        the blocks."""
+        out = self.embedding(x)
+        probes = {}
+        for i, block in enumerate(self.blocks):
+            out, block_probes = block.probes(out)
+            for key, val in block_probes.items():
+                probes[f"block{i}_{key}"] = val
+        return probes

@@ -1,28 +1,23 @@
-"""ViT preset. Counterpart of ``vitef_tpu/models/vit.py`` (:28-35, :53-118, :121-128, :163-194).
+"""ViT preset. Counterpart of ``vitef_tpu/models/vit.py`` (:28-35, :53-118, :121-151, :163-194).
 
-Pretrained weights load only from an existing ``<save_dir>/<name>.npz`` cache
-in the torch (vitef-named) layout; there is no download.
+Pretrained weights load from an existing ``<save_dir>/<name>.npz`` cache, else
+``<name>.pt``, in the torch (vitef-named) layout; with neither, the loader
+warns and the random init stays, as in the JAX package. There is no
+download.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 from dataclasses import dataclass
-from pathlib import Path
 
-import numpy as np
 import torch
 
-from .convert import from_vitef_state_dict
+from ..config import MODEL_DIR
+from .convert import from_vitef_state_dict, load_weight_cache
 from .transformer import Linear, Transformer, TransformerConfig
 
 logger = logging.getLogger(__name__)
-
-# Default weight cache: the checkpoints/ directory at the repository root,
-# overridable like the JAX package's MODEL_DIR.
-MODEL_DIR = Path(os.environ.get("VITEF_MODEL_DIR",
-                                Path(__file__).resolve().parents[2] / "checkpoints"))
 
 VIT_SIZES = {
     # 'tiny' is not a published size; it exists for fast tests.
@@ -115,17 +110,6 @@ def vit_transformer_config(cfg: ViTConfig) -> TransformerConfig:
     return TransformerConfig(**args)
 
 
-def _load_pretrained_state_dict(model_name: str, save_dir: str) -> dict[str, np.ndarray]:
-    npz_path = Path(save_dir) / f"{model_name}.npz"
-    if not npz_path.exists():
-        raise FileNotFoundError(
-            f"no weight cache {npz_path}: this port loads pretrained weights "
-            "only from an existing .npz cache")
-    logger.info("Loading %s from %s", model_name, npz_path)
-    with np.load(npz_path) as z:
-        return {k: z[k] for k in z.files}
-
-
 def build_vit(cfg: ViTConfig, *, device: torch.device, generator: torch.Generator):
     """Build (module, transformer_config, model_name): random init, optional
     pretrained load, optional fresh classification head for finetuning."""
@@ -135,9 +119,10 @@ def build_vit(cfg: ViTConfig, *, device: torch.device, generator: torch.Generato
 
     if cfg.pretrained:
         if model_name in AVAILABLE_PRETRAINED:
-            sd = _load_pretrained_state_dict(model_name, cfg.save_dir)
-            module.load_state_dict(from_vitef_state_dict(sd, tcfg.n_layers))
-            logger.info("Pretrained weights successfully loaded for %s.", model_name)
+            sd = load_weight_cache(model_name, cfg.save_dir)
+            if sd is not None:
+                module.load_state_dict(from_vitef_state_dict(sd, tcfg.n_layers))
+                logger.info("Pretrained weights successfully loaded for %s.", model_name)
         else:
             logger.info("Pretrained weights for %s not found. Using random "
                         "initialization.", model_name)

@@ -11,7 +11,7 @@ from .attention import (  # noqa: F401
     packed_mha_reference,
     packed_mha_supported,
 )
-from .common import mm_f32, resolve_impl, use_true_fp32  # noqa: F401
+from .common import canonical_impl, mm_f32, resolve_impl, use_true_fp32  # noqa: F401
 # The grouped product ``gmm`` stays ``ops.gmm.gmm``: its name is the module's.
 from .gmm import gmm_reference, tgmm, tgmm_reference  # noqa: F401
 from .gmm_fused import (  # noqa: F401
@@ -24,7 +24,12 @@ from .gmm_fused import (  # noqa: F401
     tgmm_swiglu,
     tgmm_swiglu_reference,
 )
-from .layernorm import layer_norm  # noqa: F401
+from .layernorm import (  # noqa: F401
+    layer_norm,
+    layer_norm_bwd_dx,
+    layer_norm_bwd_dx_reference,
+    layer_norm_reference,
+)
 from .losses import (  # noqa: F401
     fused_next_token_ce,
     make_fused_head_loss,

@@ -87,12 +87,16 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def kernel_function(name: str, n_pointers: int, n_ints: int):
-    """The C entry point ``name`` of ``csrc/<name>.cu``, built and loaded at
-    first use. Every entry point takes ``n_pointers`` device pointers, then
-    ``n_ints`` ints, then the CUDA stream, and returns a cudaError_t as int."""
-    fn = getattr(load_library(name), name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+def kernel_function(name: str, n_pointers: int, n_ints: int, n_floats: int = 0,
+                    source: str | None = None):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (by default
+    ``csrc/<name>.cu``), built and loaded at first use. Every entry point
+    takes ``n_pointers`` device pointers, then ``n_ints`` ints, then
+    ``n_floats`` floats, then the CUDA stream, and returns a cudaError_t as
+    int."""
+    fn = getattr(load_library(source or name), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

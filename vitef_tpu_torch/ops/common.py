@@ -47,7 +47,7 @@ def resolve_impl(impl: str, device: torch.device, *, seq_len: int | None = None,
     ``"kernel"`` and ``"plain"`` (or the JAX names ``"pallas"`` and ``"xla"``)
     pick one explicitly.
     """
-    impl = _ALIASES.get(impl, impl)
+    impl = canonical_impl(impl)
     if impl == "auto":
         if torch.device(device).type != "cuda":
             return "plain"
@@ -56,7 +56,16 @@ def resolve_impl(impl: str, device: torch.device, *, seq_len: int | None = None,
         if seq_len is not None and seq_len >= _KERNEL_MIN_SEQ:
             return "kernel"
         return "plain"
-    if impl not in ("kernel", "plain"):
+    return impl
+
+
+def canonical_impl(impl: str) -> str:
+    """``impl`` with the JAX names mapped to the port's (``"pallas"`` ->
+    ``"kernel"``, ``"xla"`` -> ``"plain"``); raises ``ValueError`` for a name
+    that is none of auto/kernel/plain, so that a config can be checked when
+    a model is built."""
+    impl = _ALIASES.get(impl, impl)
+    if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}; choose auto/kernel/plain")
     return impl
 
