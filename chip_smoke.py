@@ -110,7 +110,41 @@ Phases (each raises on failure, so the run exits non-zero):
     96 probe keys' features over synthetic train and test loaders at batch
     512 (``get_embeddings``: 24 K6 and 12 K1 launches per batch, against
     the plain path), then ``run_linear_probing(probe_impl="torch")`` fits
-    the L-BFGS probe per key on the card.
+    the L-BFGS probe per key on the card;
+25. K1 masked phase: K1's key-masked mode (the ragged serving prefill) in
+    bfloat16 against its float32 plain version at the serving prefill's
+    shape (N=256, L=128, causal, left-pad lengths 16-128 from
+    ``np.random.default_rng(0)``, one row of length 1) and at L = 1, 63, 65,
+    127, 197, 512, 1024 (causal and not, with fully masked rows), gated on
+    the rows with a valid visible key, every other row finite; an all-true
+    mask bit-equal to unmasked K1; bit-identical over two launches; the
+    wrapper raises for a gradient, float16, d=32 and a mask of another shape;
+    timed with its plain version, its bound and SDPA with a boolean mask;
+    unmasked K1 re-read at the ViT shape (this runs with the other kernel
+    phases, after 21);
+26. generate: GPT-2 base in bf16 (random weights from a seed) generates 128
+    tokens for 256 prompts of 32-128 tokens left-padded to 128
+    (``Model.generate``, ``tools/profile_decode.py``'s "topk" and "greedy"
+    modes): 12 masked K1 launches per call and no plain version; prefill ms,
+    decode ms per step, tokens/s, peak memory; a torch.profiler split of one
+    decode step; the top-k sampler's order on CUDA (ties) against the CPU's
+    and its time beside ``torch.topk``'s;
+27. serving cross-check: the last prefill logits, kernel route against the
+    plain route; 4 ragged rows against the same prompts prefilled alone; one
+    teacher-forced decode step; the greedy tokens' agreement (printed: at
+    random weights the tied head echoes its input, so it tells nothing).
+    The server's logits against ``generate()``'s: 4 requests' admissions
+    against their prompts prefilled alone, and one window tick against the
+    first decode step. Each of these limits is also read with a fault
+    planted (K1's mask dropped; a slot's position off by one; a slot
+    reading another slot's cache rows; the admission reading the wrong
+    token's logits), and the phase fails if a planted fault passes;
+28. server: ``DecodeServer`` (64 slots, 256 positions, bucket 64) serves
+    ``tools/profile_server.py``'s 256 requests greedily (every request gets
+    its max_new_tokens; requests/s, tokens/s, ticks); then the same requests
+    in waves of 64 through the serve app's ragged ``generate()`` (12 masked
+    K1 launches per wave); then the ``sample`` and ``serve`` apps' ``run`` on
+    the card.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -133,6 +167,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vitef_tpu_torch.apps.gpt2 import sample as SAMPLE_APP
+from vitef_tpu_torch.apps.gpt2 import serve as SERVE_APP
 from vitef_tpu_torch.apps.vit import analysis as AN
 from vitef_tpu_torch.apps.vit import linear_probing as LP
 from vitef_tpu_torch.data.images import build_loader, build_train_val_loader, make_iterable
@@ -140,6 +176,8 @@ from vitef_tpu_torch.data.images import transforms as T
 from vitef_tpu_torch.eval import run_evaluation
 from vitef_tpu_torch import native
 from vitef_tpu_torch.models import build_model
+from vitef_tpu_torch.models import generation as GEN
+from vitef_tpu_torch.models import serving as SRV
 from vitef_tpu_torch.models.norms import LayerNorm
 from vitef_tpu_torch.ops import _build
 from vitef_tpu_torch.ops import attention as A
@@ -279,6 +317,26 @@ PROBING_TEST = {"dataset_name": "synthetic-1024", "mode": "test", "batch_size": 
 # plain path: both bf16 through up to 12 blocks, as the eval logits, so the
 # gradients' relative L2 bound holds them.
 PROBE_EMB_REL_L2 = GRAD_REL_L2
+
+# The serving slice: GPT-2 base in bf16 (random weights from seed 0;
+# pretrained=True falls back to them without a local cache) at
+# tools/profile_decode.py's shapes: batch 256, prompts of 32-128 tokens from
+# np.random.default_rng(0) left-padded to P = 128, 128 new tokens, in its
+# "topk" (T 0.8, top-k 40) and "greedy" modes.
+GPT2_SERVE = {**GPT2_BASE, "pretrained": True}
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 256, 128, 128
+SERVE_MODES = {"topk": {"temperature": 0.8, "top_k": 40}, "greedy": {"temperature": 0.0}}
+# K1's key-masked mode at the serving prefill (N=256, L=128, causal, lengths
+# 16-128 from default_rng(0), one row of length 1), then edge lengths.
+MASKED_SHAPE = (256, 128)
+MASKED_EDGE_LENGTHS = (1, 63, 65, 127, 197, 512, 1024)
+# bf16 logits of two paths that round at different places through 12
+# blocks: relative L2 bound of the serving cross-checks.
+SERVE_REL_L2 = 2e-2
+# tools/profile_server.py: 256 requests (prompts 16-120, max_new 16-96, seed
+# 0) through 64 slots of 256 positions, bucket 64, a harvest every 8 ticks.
+SERVER_REQUESTS = 256
+SERVER = {"n_slots": 64, "max_len": 256, "bucket": 64}
 
 
 def card() -> str:
@@ -1989,6 +2047,484 @@ def moe_cross_check(model, device) -> None:
         raise AssertionError(f"the MoE fixed-batch loss did not fall: {losses}")
 
 
+def left_pad_mask(lengths, l: int, device) -> torch.Tensor:
+    """(N, L) bool: row i's last ``lengths[i]`` positions valid."""
+    starts = l - torch.as_tensor(np.asarray(lengths), dtype=torch.long)
+    return (torch.arange(l)[None, :] >= starts[:, None]).to(device)
+
+
+def visible_rows(mask, causal: bool) -> torch.Tensor:
+    """(N, L) bool: the query rows that see at least one valid key."""
+    if causal:
+        return mask.cumsum(dim=1) > 0
+    return mask.any(dim=1, keepdim=True).expand_as(mask)
+
+
+def masked_flops(lengths, causal: bool) -> float:
+    """The FLOPs this batch needs: two products over each row's valid
+    (query, key) pairs only, m(m+1)/2 causal or m² for a row of m valid
+    tokens (padded rows and keys need none)."""
+    m = np.asarray(lengths, dtype=np.float64)
+    pairs = (m * (m + 1) / 2 if causal else m * m).sum()
+    return 2.0 * 2 * N_HEADS * pairs * (EMB // N_HEADS)
+
+
+def masked_phase(device, seed: int, iters: int, k1_ms: float) -> dict:
+    """K1's key-masked mode against its float32 plain version at the serving
+    prefill's shape and at edge lengths (causal and not; left-pad lengths
+    with fully masked rows and rows of length 1): gated on the rows with a
+    valid visible key, every other row finite; an all-true mask bit-equal to
+    unmasked K1; bit-identical over two launches; the wrapper's refusals.
+    Timed at the main shape with the plain version, its bound and SDPA with
+    a boolean mask (timed only: SDPA gives NaN in fully masked rows); then
+    unmasked K1 re-read at the ViT shape."""
+    gen = torch.Generator().manual_seed(seed)
+    n, l = MASKED_SHAPE
+    lengths = np.random.default_rng(0).integers(16, l + 1, size=n)
+    lengths[-1] = 1
+    cases = [(n, l, True, lengths)] + [
+        (8, e, causal, np.array([e, max(e - 5, 1), (e + 1) // 2, 1, 0, e, 0, max(e // 3, 1)]))
+        for e in MASKED_EDGE_LENGTHS for causal in (True, False)]
+    for n_, l_, causal, lens in cases:
+        qkv = (torch.randn(n_, l_, 3 * EMB, generator=gen) * 0.5).to(device, torch.bfloat16)
+        bias = (torch.randn(3 * EMB, generator=gen) * 0.1).to(device, torch.bfloat16)
+        mask = left_pad_mask(lens, l_, device)
+        with torch.inference_mode():
+            out = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias, key_mask=mask)
+            again = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias, key_mask=mask)
+            ref = A.packed_mha_reference(qkv.float(), N_HEADS, causal=causal,
+                                         bias=bias.float(), key_mask=mask)
+            all_true = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias,
+                                          key_mask=torch.ones_like(mask))
+            unmasked = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias)
+        rows = visible_rows(mask, causal)
+        diff = (out.float() - ref).abs()[rows]
+        max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        finite = bool(torch.isfinite(out).all())
+        print(f"K1 masked N={n_} L={l_} causal={causal} lengths {lens.min()}..{lens.max()}: "
+              f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} over {int(rows.sum())} rows with "
+              f"a valid key; all finite {finite}")
+        if not (finite and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
+            raise AssertionError(f"K1 masked disagrees with its plain version at N={n_} "
+                                 f"L={l_} causal={causal}")
+        if not torch.equal(out, again):
+            raise AssertionError("K1 masked is not bit-identical over two launches")
+        if not torch.equal(all_true, unmasked):
+            raise AssertionError("K1 with an all-true mask differs from unmasked K1")
+        if (n_, l_) == (n, l):
+            timed, main_err = (qkv, bias, mask), max_abs
+
+    qkv, bias, mask = timed
+    refusals = {
+        "a gradient": lambda: A.fused_mha_packed(qkv.detach().requires_grad_(), N_HEADS,
+                                                 causal=True, key_mask=mask),
+        "float16": lambda: A.fused_mha_packed(qkv.half(), N_HEADS, causal=True, key_mask=mask),
+        "d=32": lambda: A.fused_mha_packed(qkv, 2 * N_HEADS, causal=True, key_mask=mask),
+        "a (N, L-1) mask": lambda: A.fused_mha_packed(qkv, N_HEADS, causal=True,
+                                                      key_mask=mask[:, 1:]),
+    }
+    for what, call in refusals.items():
+        try:
+            call()
+        except (NotImplementedError, TypeError, ValueError):
+            continue
+        raise AssertionError(f"the masked K1 wrapper took {what}")
+    print("K1 masked wrapper raises for " + ", ".join(refusals))
+
+    with torch.inference_mode():
+        ms, plain_ms, times = in_turns(
+            lambda: A.fused_mha_packed(qkv, N_HEADS, causal=True, bias=bias, key_mask=mask),
+            lambda: A.packed_mha_reference(qkv, N_HEADS, causal=True, bias=bias,
+                                           key_mask=mask), iters)
+        out = A.fused_mha_packed(qkv, N_HEADS, causal=True, bias=bias, key_mask=mask)
+        q, k, v = split_heads(qkv, bias)
+        allowed = torch.ones(l, l, dtype=torch.bool, device=device).tril()[None, None] \
+            & mask[:, None, None, :]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                     attn_mask=allowed), iters)
+        vit = (torch.randn(VIT_SHAPE[0], VIT_SHAPE[1], 3 * EMB, generator=gen) * 0.5).to(
+            device, torch.bfloat16)
+        vit_ms = cuda_ms(lambda: A.fused_mha_packed(vit, N_HEADS, bias=bias), iters)
+    limit = bound(masked_flops(lengths, True), PEAK_BF16_FLOPS, (qkv, bias, mask, out))
+    print(f"K1 masked at N={n} L={l} causal ragged: kernel {times[1]:.4f}/{times[2]:.4f} ms, "
+          f"plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA with a boolean mask "
+          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+    print(f"K1 unmasked re-read at N={VIT_SHAPE[0]} L={VIT_SHAPE[1]}: {vit_ms:.4f} ms (the K1 "
+          f"phase read {k1_ms:.4f} ms)")
+    return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
+            "library_ms": library_ms}
+
+
+def serve_batch(vocab: int, device):
+    """(prompt (N, P), mask (N, P), lengths): the serving batch, each row's
+    tokens right-aligned, pads 0."""
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(32, SERVE_PROMPT + 1, size=SERVE_BATCH)
+    tokens = torch.from_numpy(rng.integers(0, vocab, size=(SERVE_BATCH, SERVE_PROMPT)))
+    mask = left_pad_mask(lengths, SERVE_PROMPT, device)
+    return tokens.to(device) * mask, mask, lengths
+
+
+@contextlib.contextmanager
+def annotated(module, name: str, label: str):
+    """``module.<name>`` runs inside ``torch.profiler.record_function(label)``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+DECODE_KINDS = ("attention over the cache", "sampling", "linears (cuBLAS)",
+                "elementwise and other")
+
+
+def profile_decode_step(model, prompt, mask, sampling: dict) -> None:
+    """torch.profiler over one decode step of the serving batch (all blocks,
+    the head, the sampler) after its prefill: device time by kind (kernels
+    inside the "attention" and "sampling" ranges, then cuBLAS by name, the
+    rest) and the device's idle share of the step's window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cfg, module = model.config, model.module
+    gen = torch.Generator(device=prompt.device).manual_seed(0)
+    with torch.inference_mode():
+        logits, cache = GEN.prefill(module, cfg, prompt, SERVE_PROMPT + SERVE_NEW, mask)
+        token = GEN.sample_token(logits, gen, **sampling)
+        key_mask = torch.cat([mask, torch.ones_like(mask)], dim=1)
+        logical = mask.sum(dim=1)
+
+        def step():
+            x = GEN._embed_token(module, cfg, token, logical)
+            for block, lc in zip(module.blocks, cache):
+                x, _ = GEN._block_decode(block, cfg, x, lc, SERVE_PROMPT, key_mask,
+                                         positions=logical)
+            head = GEN._logits(module, cfg, x)
+            with record_function("sampling"):
+                return GEN.sample_token(head, gen, **sampling)
+
+        with annotated(GEN, "_attend_cached", "attention"):
+            step()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    ranges = {label: [(e.time_range.start, e.time_range.end) for e in events
+                      if e.is_user_annotation and e.name == label]
+              for label in ("attention", "sampling")}
+    kernels = [e for e in events if not e.is_user_annotation]
+    totals = dict.fromkeys(DECODE_KINDS, 0.0)
+    for e in kernels:
+        start = e.time_range.start
+        kind = next((k for k, label in zip(DECODE_KINDS, ("attention", "sampling"))
+                     if any(a <= start < b for a, b in ranges[label])), None)
+        if kind is None:
+            kind = DECODE_KINDS[2] if any(key in e.name.lower() for key in (
+                "gemm", "nvjet", "cutlass", "xmma", "sm90_")) else DECODE_KINDS[3]
+        totals[kind] += e.time_range.elapsed_us() / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy += (stop - max(start, end)) / 1e3
+            end = stop
+    window = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+    print(f"profile of one decode step (batch {SERVE_BATCH}, position {SERVE_PROMPT}, "
+          f"{sampling}): host wall {wall_ms:.3f} ms, {len(kernels)} kernels, device window "
+          f"{window:.3f} ms, busy {busy:.3f} ms, idle {100 * (1 - busy / max(window, 1e-9)):.1f}%"
+          f" of the window (device-side ranges found: "
+          f"{ {k: len(v) for k, v in ranges.items()} })")
+    for kind, ms in totals.items():
+        print(f"  {kind}: {ms:.3f} ms")
+
+
+def generate_phase(device):
+    """GPT-2 base in bf16 generates for the serving batch through
+    ``Model.generate``, in each of SERVE_MODES: a warm-up, then a timed run
+    (12 launches of K1's masked mode, no unmasked K1, no plain version);
+    prefill timed alone; the rates and peak memory; a profile of one decode
+    step. Returns the model, the last run's masked launches and the greedy
+    tokens."""
+    model = build_model(GPT2_SERVE, device=device)
+    cfg = model.config
+    prompt, mask, lengths = serve_batch(cfg.vocab_size, device)
+    outputs = {}
+    for mode, sampling in SERVE_MODES.items():
+        def run():
+            return model.generate(prompt, SERVE_NEW, prompt_mask=mask, generator=torch.Generator(
+                device=device).manual_seed(0), **sampling)
+
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        with no_plain_versions() as (plain_calls, aug_calls):
+            A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            masked, unmasked = A.fused_mha_packed.masked_launches, A.fused_mha_packed.launches
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+        t0 = time.perf_counter()
+        GEN.prefill(model.module, cfg, prompt, SERVE_PROMPT + SERVE_NEW, mask)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        decode_s = seconds - prefill_s
+        steps = SERVE_NEW - 1
+        print(f"GPT-2 base bf16 generate, {mode} {sampling}, batch {SERVE_BATCH}, prompts "
+              f"{lengths.min()}..{lengths.max()} left-padded to {SERVE_PROMPT}, {SERVE_NEW} new: "
+              f"{seconds * 1e3:.3f} ms in all; prefill {prefill_s * 1e3:.3f} ms (timed alone); "
+              f"decode {decode_s / steps * 1e3:.3f} ms per step, "
+              f"{SERVE_BATCH * steps / decode_s:.2f} decode tokens/s; end to end "
+              f"{SERVE_BATCH * SERVE_NEW / seconds:.2f} tokens/s; peak memory {peak_gib:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated); K1 masked {masked}, unmasked {unmasked}; "
+              f"plain calls {dict(Counter(plain_calls + aug_calls))}")
+        if masked != cfg.n_layers or unmasked:
+            raise AssertionError(f"generate launched K1 masked {masked} and unmasked "
+                                 f"{unmasked} times, want {cfg.n_layers} and 0")
+        if plain_calls or aug_calls:
+            raise AssertionError(f"plain versions ran on CUDA: {Counter(plain_calls)}")
+        if not (tuple(out.shape) == (SERVE_BATCH, SERVE_NEW)
+                and bool(((out >= 0) & (out < cfg.vocab_size)).all())):
+            raise AssertionError(f"generate returned {tuple(out.shape)} or ids out of range")
+        outputs[mode] = out
+        profile_decode_step(model, prompt, mask, sampling)
+    return model, masked, outputs["greedy"]
+
+
+def sampler_check(device) -> None:
+    """The top-k sampler's candidates at the decode step's (256, V) logits:
+    ``_top_k``'s order on CUDA (descending, ties to the lower index, as
+    ``lax.top_k``) against its order on the CPU, on logits with many ties;
+    its time beside ``torch.topk``'s on smooth logits."""
+    k = SERVE_MODES["topk"]["top_k"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    ties = torch.randint(0, 64, (SERVE_BATCH, 50_257), generator=gen, device=device).float()
+    got = GEN._top_k(ties, k)
+    want = GEN._top_k(ties.cpu(), k)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+        raise AssertionError("_top_k's order on CUDA differs from the CPU's")
+    smooth = torch.randn(SERVE_BATCH, 50_257, generator=gen, device=device)
+    ms = cuda_ms(lambda: GEN._top_k(smooth, k))
+    topk_ms = cuda_ms(lambda: torch.topk(smooth, k, dim=-1))
+    sample_ms = cuda_ms(lambda: GEN.sample_token(smooth, gen, **SERVE_MODES["topk"]))
+    print(f"top-k sampler at {tuple(smooth.shape)}, k={k}: order on CUDA equals the CPU's "
+          f"(ties); _top_k (stable sort) {ms:.4f} ms, torch.topk {topk_ms:.4f} ms, "
+          f"sample_token {SERVE_MODES['topk']} {sample_ms:.4f} ms")
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def serve_cross_check(model, greedy, device) -> None:
+    """The serving path's kernel route against its plain route (plain
+    attention in the prefill): the last prefill logits of the ragged batch;
+    4 of its rows against the same prompts prefilled alone and unpadded; one
+    teacher-forced decode step's logits; then each of these limits with K1's
+    mask dropped, which must fail it. The greedy tokens' agreement is
+    printed, not gated: at random weights the tied head echoes its input."""
+    cfg, module = model.config, model.module
+    prompt, mask, lengths = serve_batch(cfg.vocab_size, device)
+    key_mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1)
+    logical = mask.sum(dim=1)
+
+    def prefill():
+        return GEN.prefill(module, cfg, prompt, SERVE_PROMPT + 1, mask)
+
+    def decode_step(cache, token):
+        x = GEN._embed_token(module, cfg, token, logical)
+        for block, lc in zip(module.blocks, cache):
+            x, _ = GEN._block_decode(block, cfg, x, lc, SERVE_PROMPT, key_mask,
+                                     positions=logical)
+        return GEN._logits(module, cfg, x)
+
+    real = A.fused_mha_packed
+
+    def mask_dropped(*args, key_mask=None, **kwargs):
+        return real(*args, **kwargs)
+
+    with torch.inference_mode():
+        kernel_logits, kernel_cache = prefill()
+        with config_set(cfg, attn_impl="plain"):
+            plain_logits, plain_cache = prefill()
+        alone = torch.cat([GEN.prefill(module, cfg, prompt[i:i + 1, SERVE_PROMPT - m:], m)[0]
+                           for i, m in enumerate(lengths[:4])])
+        token = kernel_logits.argmax(dim=-1)
+        plain_step = decode_step(plain_cache, token)
+        kernel_step = decode_step(kernel_cache, token)
+        GEN.fused_mha_packed = mask_dropped
+        try:
+            faulty_logits, faulty_cache = prefill()
+        finally:
+            GEN.fused_mha_packed = real
+        faulty_step = decode_step(faulty_cache, token)
+        with config_set(cfg, attn_impl="plain"):
+            plain_greedy = model.generate(prompt, SERVE_NEW, temperature=0.0, prompt_mask=mask)
+    checks = {"prefill logits, kernel vs plain": rel_l2(kernel_logits, plain_logits),
+              "4 ragged rows vs alone unpadded": rel_l2(kernel_logits[:4], alone),
+              "decode step logits, kernel vs plain": rel_l2(kernel_step, plain_step)}
+    agree = (greedy == plain_greedy).float().mean().item()
+    print("serving cross-check (relative L2): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in checks.items()) + f"; greedy tokens equal on "
+        f"{100 * agree:.2f}% of {SERVE_BATCH} x {SERVE_NEW} (kernel vs plain route, not gated: "
+        f"at random weights the tied head echoes its input, so agreement tells nothing)")
+    if not all(math.isfinite(v) and v <= SERVE_REL_L2 for v in checks.values()):
+        raise AssertionError(f"the serving kernel route disagrees with the plain one: {checks}")
+    planted({"prefill logits, K1's mask dropped": rel_l2(faulty_logits, plain_logits),
+             "4 ragged rows vs alone unpadded, K1's mask dropped": rel_l2(faulty_logits[:4],
+                                                                          alone),
+             "decode step logits, K1's mask dropped in the prefill": rel_l2(faulty_step,
+                                                                            plain_step)})
+
+
+def planted(readings: dict) -> None:
+    """Each reading is a cross-check's relative L2 with a fault planted: it
+    must exceed SERVE_REL_L2, or the check could not see that fault."""
+    print("planted faults (relative L2, must exceed " + f"{SERVE_REL_L2:g}): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in readings.items()))
+    if not all(v > SERVE_REL_L2 for v in readings.values()):
+        raise AssertionError(f"a planted fault passed its serving check: {readings}")
+
+
+def server_cross_check(model, device) -> None:
+    """The server's logits against ``generate()``'s, bf16 on the kernel
+    route: the first 4 of the server's requests admitted into 4 slots of a
+    ``DecodeServer`` (right-padded to a bucket, unmasked K1) against each
+    prompt prefilled alone at its own length; then one window tick of the 4
+    slots, each at its own position, teacher-forced with each prompt's
+    greedy token, against that prompt's first decode step after its own
+    prefill. Then each limit with a fault planted."""
+    cfg, module = model.config, model.module
+    reqs = server_requests(cfg.vocab_size)[:4]
+    srv = SRV.DecodeServer(module, cfg, **{**SERVER, "n_slots": len(reqs)})
+    prompts = [torch.tensor(r.prompt, device=device) for r in reqs]
+    with torch.inference_mode():
+        alone, steps = [], []
+        for p in prompts:
+            logits, cache = GEN.prefill(module, cfg, p[None], len(p) + 1)
+            x = GEN._embed_token(module, cfg, logits.argmax(dim=-1), torch.tensor([len(p)],
+                                                                                device=device))
+            for block, lc in zip(module.blocks, cache):
+                x, _ = GEN._block_decode(block, cfg, x, lc, len(p))
+            alone.append(logits[0])
+            steps.append(GEN._logits(module, cfg, x)[0])
+        alone, steps = torch.stack(alone), torch.stack(steps)
+        admitted, wrong_token = [], []
+        for slot, r in enumerate(reqs):
+            padded, length = srv._bucketed(r.prompt)
+            admitted.append(SRV._admit(module, cfg, srv.cache, srv.pos, slot, padded, length))
+            wrong_token.append(SRV._admit(module, cfg, [{k: v.clone() for k, v in lc.items()}
+                                                        for lc in srv.cache],
+                                          srv.pos.clone(), slot, padded, length - 1))
+        token, pos = alone.argmax(dim=-1), srv.pos.clone()
+
+        def tick(cache, pos):
+            return SRV._tick_logits(module, cfg, [{k: v.clone() for k, v in lc.items()}
+                                                  for lc in cache], token, pos)
+
+        window = tick(srv.cache, pos)
+        off_by_one = tick(srv.cache, pos + 1)
+        rows = [{k: v.roll(1, dims=0) for k, v in lc.items()} for lc in srv.cache]
+        other_rows = tick(rows, pos)
+    checks = {"4 admissions vs prefill alone": rel_l2(torch.stack(admitted), alone),
+              "window tick vs first decode step": rel_l2(window, steps)}
+    print(f"server cross-check, prompts {[len(p) for p in prompts]} (relative L2): " +
+          ", ".join(f"{k} {v:.3e}" for k, v in checks.items()))
+    if not all(math.isfinite(v) and v <= SERVE_REL_L2 for v in checks.values()):
+        raise AssertionError(f"the server's logits disagree with generate()'s: {checks}")
+    planted({"admission reading the token before the last": rel_l2(torch.stack(wrong_token),
+                                                                   alone),
+             "window tick, slot positions off by one": rel_l2(off_by_one, steps),
+             "window tick, each slot reading another slot's cache": rel_l2(other_rows, steps)})
+
+
+def server_requests(vocab: int) -> list:
+    """``tools/profile_server.py``'s ``make_requests(seed=0)`` at 256 requests."""
+    rng = np.random.default_rng(0)
+    reqs = []
+    for _ in range(SERVER_REQUESTS):
+        plen = int(rng.integers(16, 121))
+        mnew = int(rng.integers(16, 97))
+        reqs.append(SRV.Request(prompt=rng.integers(0, vocab, size=(plen,)).tolist(),
+                                max_new_tokens=mnew))
+    return reqs
+
+
+def server_phase(model, device) -> None:
+    """The continuous-batching server over tools/profile_server.py's mix
+    (greedy, no EOS, so every request gets its max_new_tokens), after a
+    warm-up on 8 requests: requests/s, tokens/s, ticks and K1 launches (12
+    per admission, unmasked); then the same requests in waves of n_slots
+    through the serve app's ragged ``generate()`` (12 masked K1 launches per
+    wave)."""
+    cfg, module = model.config, model.module
+    srv = SRV.DecodeServer(module, cfg, **SERVER)
+    srv.serve(server_requests(cfg.vocab_size)[:8])
+    srv.reset()
+    torch.cuda.synchronize()
+    reqs = server_requests(cfg.vocab_size)
+    useful = sum(r.max_new_tokens for r in reqs)
+    with no_plain_versions() as (plain_calls, _):
+        A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+        t0 = time.perf_counter()
+        srv.serve(reqs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (A.fused_mha_packed.launches, A.fused_mha_packed.masked_launches)
+    print(f"DecodeServer greedy {SERVER}, {len(reqs)} requests ({useful} tokens): "
+          f"{seconds:.3f} s, {len(reqs) / seconds:.2f} requests/s, {useful / seconds:.2f} "
+          f"tokens/s, {srv.steps} ticks ({useful / (srv.steps * SERVER['n_slots']):.3f} of "
+          f"the slot-ticks useful); K1 unmasked {launches[0]}, masked {launches[1]}")
+    if launches != (cfg.n_layers * len(reqs), 0) or plain_calls:
+        raise AssertionError(f"the server's admissions launched K1 {launches}, plain calls "
+                             f"{Counter(plain_calls)}")
+    if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
+        raise AssertionError("a request did not get its max_new_tokens from the server")
+
+    waves = server_requests(cfg.vocab_size)
+    n_waves = -(-len(waves) // SERVER["n_slots"])
+    with no_plain_versions() as (plain_calls, _):
+        A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+        t0 = time.perf_counter()
+        SERVE_APP._serve_waves(model, waves, SERVER["n_slots"], 0.0, None, None, None, 0,
+                               device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        masked = A.fused_mha_packed.masked_launches
+    agree = np.mean([a.tokens == b.tokens for a, b in zip(reqs, waves)])
+    print(f"wave mode, {n_waves} waves of {SERVER['n_slots']} through generate(): "
+          f"{seconds:.3f} s, {len(waves) / seconds:.2f} requests/s, {useful / seconds:.2f} "
+          f"tokens/s; K1 masked {masked} ({masked / n_waves:.1f} per wave); requests whose "
+          f"tokens equal the server's: {100 * agree:.1f}% (not gated: at random weights the "
+          f"tied head echoes its input, so agreement tells nothing)")
+    if masked != cfg.n_layers * n_waves or plain_calls:
+        raise AssertionError(f"wave mode launched K1 masked {masked} times, want "
+                             f"{cfg.n_layers * n_waves}")
+    if not all(r.done and len(r.tokens) == r.max_new_tokens for r in waves):
+        raise AssertionError("a request did not get its max_new_tokens in wave mode")
+
+
+def apps_phase(device) -> None:
+    """The two serving entry points as a user runs them on the card."""
+    new_ids = SAMPLE_APP.run(token_ids=[464, 3280, 318], max_new_tokens=16, device=device)
+    reqs = SERVE_APP.run(demo=16, n_slots=4, device=device)
+    if not (0 < len(new_ids) <= 16 and len(reqs) == 16 and all(r.done for r in reqs)):
+        raise AssertionError(f"the gpt2 apps returned {new_ids} and {len(reqs)} requests")
+    print(f"apps: sample.run gave {len(new_ids)} tokens; serve.run --demo 16 --n_slots 4 "
+          f"served {len(reqs)} requests, {sum(len(r.tokens) for r in reqs)} tokens")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2016,6 +2552,8 @@ def main() -> None:
     for i, name in enumerate(GROUPED):
         timing[name] = grouped_phase(device, name, seed=20 + i, iters=10)
     timing.update(layernorm_phase(device, seed=30, iters=20))
+    timing["packed_mha_fwd:masked"] = masked_phase(device, seed=40, iters=20,
+                                                   k1_ms=timing["packed_mha_fwd"]["ms"])
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
@@ -2066,6 +2604,19 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     moe_cross_check(moe, device)
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gpt2, masked_launches, greedy = generate_phase(device)
+    sampler_check(device)
+    serve_cross_check(gpt2, greedy, device)
+    server_cross_check(gpt2, device)
+    server_phase(gpt2, device)
+    del gpt2, greedy
+    gc.collect()
+    torch.cuda.empty_cache()
+    apps_phase(device)
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -2098,6 +2649,8 @@ def main() -> None:
          "vitef_tpu/ops/layernorm.py:54"),
         ("layernorm_bwd_dx", "layernorm", k6_launches["layer_norm_bwd_dx"],
          "vitef_tpu/ops/layernorm.py:69"),
+        ("packed_mha_fwd:masked", "packed_mha_fwd", masked_launches,
+         "vitef_tpu/ops/attention.py:99"),
     ]
     print(card_line)
     print(json.dumps({"kernels": [{

@@ -51,6 +51,6 @@ def test_accuracy_matches_jax_probe():
     xtr, ytr = _separable(seed=1)
     xte, yte = _separable(n=90, seed=1)
     xte = xte + np.random.default_rng(2).normal(size=xte.shape).astype(np.float32)
-    ours = probe_accuracy_torch(xtr, ytr, xte, yte)
+    ours = probe_accuracy_torch(xtr, ytr, xte, yte, device="cpu")
     assert ours == probe_accuracy_jax(xtr, ytr, xte, yte)
     assert 0.5 < ours <= 1.0

@@ -1,4 +1,5 @@
 from .convert import (  # noqa: F401
+    cache_from_jax,
     from_jax_params,
     from_vitef_state_dict,
     hf_gpt2_to_vitef,

@@ -19,6 +19,9 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
   reference vitef names (the ``checkpoints/{vit,gpt2}/<name>.npz`` caches;
   the inverse direction of ``torch_import.from_vitef_state_dict``), which
   :func:`load_weight_cache` reads.
+- :func:`cache_from_jax` carries a ``vitef_tpu`` KV cache across (the
+  serving path's per-layer K/V buffers), so that a decode step can be held
+  against the JAX package's from one cache.
 - :func:`hf_gpt2_to_vitef` renames a HuggingFace ``GPT2LMHeadModel`` state
   dict to those reference names (``torch_import.hf_gpt2_to_vitef`` :169-198),
   and :func:`hf_llama_to_vitef` a ``LlamaForCausalLM`` one (:201-229).
@@ -87,6 +90,26 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
             array = array.T
         state[name] = torch.tensor(array)
     return state
+
+
+def _array_to_tensor(array) -> torch.Tensor:
+    """A numpy array (bfloat16 ones from ``ml_dtypes`` included) as a tensor
+    of the same dtype and values."""
+    array = np.asarray(array)
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(array.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(array))
+
+
+def cache_from_jax(cache) -> list[dict[str, torch.Tensor]]:
+    """A ``vitef_tpu`` KV cache (``init_kv_cache``/``prefill``: a list of
+    per-layer dicts of arrays) -> the port's, as CPU tensors (move them with
+    ``.to``, as ``from_jax_params``'s). The layouts are
+    the same: ``k`` and ``v`` (N, n_kv_heads, max_len, head_dim) in the
+    compute dtype or int8, and an int8 cache's ``k_scale`` and ``v_scale``
+    (N, n_kv_heads, max_len) float32; every value keeps its dtype."""
+    return [{name: _array_to_tensor(value) for name, value in layer.items()}
+            for layer in cache]
 
 
 # Reference vitef names that differ from the port's; all others are equal.

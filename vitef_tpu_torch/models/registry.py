@@ -56,6 +56,21 @@ class Model:
 
         return make_eval_step(self.apply_eval)
 
+    def generate(self, prompt: torch.Tensor, max_new_tokens: int, *,
+                 temperature: float = 1.0, top_k: int | None = None,
+                 top_p: float | None = None, prompt_mask: torch.Tensor | None = None,
+                 kv_cache_dtype: str | None = None, eos_token_id: int | None = None,
+                 generator: torch.Generator | None = None):
+        """KV-cache autoregressive decoding of ``prompt`` (N, P) on the
+        module's device (:func:`~vitef_tpu_torch.models.generation.generate`),
+        with the JAX package's defaults (:68-91)."""
+        from .generation import generate
+
+        return generate(self.module, self.config, prompt, max_new_tokens,
+                        temperature=temperature, top_k=top_k, generator=generator,
+                        prompt_mask=prompt_mask, kv_cache_dtype=kv_cache_dtype, top_p=top_p,
+                        eos_token_id=eos_token_id)
+
     def get_decomposition(self, x: torch.Tensor) -> dict:
         """The per-block component outputs on the embedding output
         (:meth:`Transformer.get_decomposition`), in eval mode under

@@ -5,7 +5,8 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
 - :func:`attention_reference` (:55-82) — softmax attention on (N, h, L, d)
   with float32 scores, optionally returning the (N, h, L, L) weights; it is
   also the plain version of the flash kernel K4;
-- :func:`packed_mha_reference` — the plain version of the packed kernel K1;
+- :func:`packed_mha_reference` — the plain version of the packed kernel K1,
+  with the key mask of its serving mode;
 - :func:`packed_mha_bwd_reference` — the plain version of its backward, K2
   (``_packed_mha_bwd_kernel`` :270-342) and, causal, K3
   (``_packed_mha_bwd_causal_blocked_kernel`` :181-267), in float32;
@@ -15,7 +16,8 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
   backward is :func:`packed_mha_bwd` (``csrc/packed_mha_bwd.cu``: K2, or K3
   when causal, any L), as ``_packed_mha``'s custom VJP (:390-441) does; on a
   CPU tensor it runs :func:`packed_mha_reference`, and autograd
-  differentiates that;
+  differentiates that. With ``key_mask`` (the ragged serving prefill,
+  :459-479) it launches the kernel's key-masked mode, forward only;
 - :func:`packed_mha_supported` (:443-456) — the packed kernels' gate: head
   width 64 and the JAX package's byte budget;
 - :func:`flash_attention` (:680-698) — the K4 wrapper on (N, h, L, d): on a
@@ -35,8 +37,6 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
   (``models/transformer.py:493-538``) take for a geometry;
 - :func:`multi_head_attention` (:701-758) — qkv projection, attention, output
   projection.
-
-The key-masked mode of K1 (serving) is not ported yet.
 """
 
 from __future__ import annotations
@@ -54,10 +54,12 @@ _HEAD_DIM = 64                 # the head width the csrc/packed_mha_*.cu kernels
 
 
 def attention_reference(q, k, v, *, causal: bool = False, kv_len: int | None = None,
-                        return_weights: bool = False):
+                        key_mask=None, return_weights: bool = False):
     """Softmax attention on (N, h, L, d) tensors with float32 scores and softmax.
 
-    ``kv_len`` masks out padded key positions (keys with index >= kv_len).
+    ``kv_len`` masks out padded key positions (keys with index >= kv_len);
+    ``key_mask`` (N, L) bool masks each sequence's invalid keys. A masked
+    score is the finite -1e30.
     Products of bfloat16 inputs are exact in float32, so the float32 matmuls
     here give the JAX package's bf16-in, f32-accumulate einsums.
     """
@@ -70,6 +72,8 @@ def attention_reference(q, k, v, *, causal: bool = False, kv_len: int | None = N
         qi = torch.arange(lq, device=q.device)[:, None]
         ki = torch.arange(lk, device=q.device)[None, :]
         scores = scores.masked_fill(ki > qi, _NEG_INF)
+    if key_mask is not None:
+        scores = scores.masked_fill(~key_mask.bool()[:, None, None, :], _NEG_INF)
     weights = torch.softmax(scores, dim=-1)
     wts = weights.to(v.dtype)
     out = torch.matmul(wts.float(), v.float()).to(q.dtype)
@@ -88,16 +92,21 @@ def _merge_heads(t):
     return t.transpose(1, 2).reshape(n, l, h * d)
 
 
-def packed_mha_reference(qkv, n_heads: int, causal: bool = False, bias=None):
+def packed_mha_reference(qkv, n_heads: int, causal: bool = False, bias=None,
+                         key_mask=None):
     """Plain version of K1: softmax attention on packed qkv (N, L, 3E) -> (N, L, E).
 
     Columns are [q | k | v], head-major within each. ``bias`` (3E,) is added
-    in the input dtype first, as the TPU kernel does.
+    in the input dtype first, as the TPU kernel does. ``key_mask`` (N, L)
+    bool marks each sequence's valid keys; a masked key's float32 score is
+    set to the finite -1e30, so a query row that sees no valid key reads a
+    finite average of values, which the kernel defines otherwise (see
+    :func:`fused_mha_packed`).
     """
     if bias is not None:
         qkv = qkv + bias.to(qkv.dtype)
     q, k, v = (_split_heads(t, n_heads) for t in qkv.chunk(3, dim=-1))
-    return _merge_heads(attention_reference(q, k, v, causal=causal))
+    return _merge_heads(attention_reference(q, k, v, causal=causal, key_mask=key_mask))
 
 
 def packed_mha_bwd_reference(qkv, bias, g, n_heads: int, causal: bool = False):
@@ -179,23 +188,29 @@ def _kernel_operand(t, name: str, shape: tuple, device):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch_fwd(qkv, bias, n_heads: int, causal: bool, want_lse: bool = False):
+def _launch_fwd(qkv, bias, n_heads: int, causal: bool, want_lse: bool = False,
+                key_mask=None):
     """K1 on checked operands: ``(out, lse)``, lse (N, n_heads, L) float32 —
-    each row's log2-sum-exp of the scaled scores — or None unless wanted."""
+    each row's log2-sum-exp of the scaled scores — or None unless wanted.
+    ``key_mask``, a contiguous (N, L) uint8 tensor, launches the masked mode."""
     n, l, f = qkv.shape
     out = torch.empty((n, l, f // 3), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((n, n_heads, l), dtype=torch.float32, device=qkv.device)
            if want_lse else None)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = kernel_function("packed_mha_fwd", 4, 5)(
-            qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), n, l, n_heads, _HEAD_DIM,
-            int(causal), stream)
+        err = kernel_function("packed_mha_fwd", 5, 5)(
+            qkv.data_ptr(), bias.data_ptr(), None if key_mask is None else key_mask.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), n, l, n_heads,
+            _HEAD_DIM, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"packed_mha_fwd launch failed: cudaError {err} "
-                           f"(N={n}, L={l}, n_heads={n_heads}, causal={causal})")
-    fused_mha_packed.launches += 1
+                           f"(N={n}, L={l}, n_heads={n_heads}, causal={causal}, "
+                           f"masked={key_mask is not None})")
+    if key_mask is None:
+        fused_mha_packed.launches += 1
+    else:
+        fused_mha_packed.masked_launches += 1
     return out, lse
 
 
@@ -220,7 +235,7 @@ class _PackedMHA(torch.autograd.Function):
         return dqkv, db, None, None
 
 
-def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None):
+def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None, key_mask=None):
     """Fused softmax attention on packed qkv (N, L, 3E) -> (N, L, E).
 
     Head layout matches the torch fused-qkv Linear: columns [q | k | v],
@@ -232,22 +247,45 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None):
     if the kernel does not take it: bfloat16, head width 64. When qkv or bias
     requires a gradient the call is differentiable, and its backward launches
     K2 or, causal, K3 (:func:`packed_mha_bwd`).
-    ``fused_mha_packed.launches`` counts the forward kernel's launches.
+
+    ``key_mask`` (N, L) bool marks each sequence's valid keys (False: the
+    left padding of a ragged serving batch). It is forward only, as in the
+    JAX package: the call raises when a gradient is wanted, and for a mask of
+    another shape. A masked key's scaled score is the finite -1e30, never
+    -inf, so a query row that sees no valid key stays finite: it reads an
+    average of the values of the keys it may see. Which average is not
+    defined (the kernel, its plain version and the TPU kernel's two branches
+    each take their own); no real row of a left-padded batch reads such a
+    row, and comparisons hold only rows with a valid visible key.
+
+    ``fused_mha_packed.launches`` counts the unmasked forward kernel's
+    launches, ``fused_mha_packed.masked_launches`` the masked mode's.
     """
+    if key_mask is not None:
+        if tuple(key_mask.shape) != tuple(qkv.shape[:2]) or key_mask.device != qkv.device:
+            raise ValueError(f"key_mask must be {tuple(qkv.shape[:2])} on {qkv.device}, got "
+                             f"{tuple(key_mask.shape)} on {key_mask.device}")
+        if torch.is_grad_enabled() and (qkv.requires_grad
+                                        or (bias is not None and bias.requires_grad)):
+            raise NotImplementedError("the key-masked packed attention is forward only")
     if qkv.device.type == "cpu":
-        return packed_mha_reference(qkv, n_heads, causal=causal, bias=bias)
+        return packed_mha_reference(qkv, n_heads, causal=causal, bias=bias, key_mask=key_mask)
     _check_cuda("packed_mha_fwd", qkv, n_heads)
     n, l, f = qkv.shape
     if bias is None:
         bias = torch.zeros(f, dtype=qkv.dtype, device=qkv.device)
     qkv = _kernel_operand(qkv, "qkv", (n, l, f), qkv.device)
     bias = _kernel_operand(bias.to(torch.bfloat16), "bias", (f,), qkv.device)
+    if key_mask is not None:
+        mask = key_mask.to(torch.bool).contiguous().view(torch.uint8)
+        return _launch_fwd(qkv, bias, n_heads, causal, key_mask=mask)[0]
     if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
         return _PackedMHA.apply(qkv, bias, n_heads, causal)
     return _launch_fwd(qkv, bias, n_heads, causal)[0]
 
 
 fused_mha_packed.launches = 0
+fused_mha_packed.masked_launches = 0
 
 
 def packed_mha_bwd(qkv, bias, g, out, lse, n_heads: int, causal: bool = False):

@@ -2,10 +2,11 @@
 //
 // Replaces the TPU kernel vitef_tpu/ops/attention.py:_packed_mha_fwd_kernel
 // (:99, launched by _packed_call_fwd :355) in its non-causal and causal
-// modes, without the per-row key mask. The TPU kernel computes the causal
-// function in two branches, full-L (:152-157) and block-triangular (q_block
-// 256, :110-151); this file computes it, and the non-causal one, at every L
-// with one kernel tiled over keys.
+// modes, each with or without the per-row key mask (masked=True, :101-106,
+// :140-141, :171-172). The TPU kernel computes the causal function in two
+// branches, full-L (:152-157) and block-triangular (q_block 256, :110-151);
+// this file computes it, and the non-causal one, at every L with one kernel
+// tiled over keys.
 // For sequence n and head h it computes
 //     out[n, :, h*d:(h+1)*d] = softmax(Q_h K_h^T / sqrt(d) [+ causal mask]) V_h
 // reading Q_h, K_h and V_h straight from the packed projection qkv (N, L, 3E),
@@ -40,10 +41,29 @@
 // and the L x L scores never reach device memory. Shared memory is fixed
 // (about 51 KB), whatever L is. Tensor cores (wgmma) and TMA are later work.
 //
-// C interface: packed_mha_fwd(qkv, bias, out, lse, N, L, n_heads, head_dim,
-// causal, stream) returns a cudaError_t as int: the launch's
+// The key mask (serving's ragged prefill) is a compile-time flag: the
+// unmasked instantiation is the kernel above, unchanged. The masked one
+// reads a (N, L) byte mask, nonzero for a valid key, two bytes per lane and
+// tile (a lane scores the same two keys for every row of the tile), and
+// gives a masked key the finite scaled score -1e30, as the TPU kernel does,
+// never -inf. A query row that sees no valid key (the leading rows of a
+// left-padded prompt, or every row of an empty one) then averages the values
+// of the keys it may see and stays finite: with -inf it would read 0/0 or
+// -inf - -inf, and the NaN would reach the next layer's K/V of those pad
+// slots, where 0 x NaN in P.V poisons every real row. Which finite average
+// such a row gets differs between the TPU kernel's branches and this one; no
+// real row reads it. The online softmax needs nothing else: a tile of only
+// masked keys leaves the running max at -1e30, and the first valid key's
+// rescale exp2(-1e30 - m) is exactly 0. Tiles whose keys are all padding are
+// still computed.
+//
+// C interface: packed_mha_fwd(qkv, bias, key_mask, out, lse, N, L, n_heads,
+// head_dim, causal, stream) returns a cudaError_t as int: the launch's
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape this kernel does
-// not take. lse may be null.
+// not take. key_mask (uint8, (N, L)) may be null for the unmasked kernel;
+// lse may be null.
+
+#include <cstdint>
 
 #include "packed_mha_common.cuh"
 
@@ -51,6 +71,7 @@ namespace {
 
 constexpr int kQTile = 64;                 // query rows per block
 constexpr int kTile = 64;                  // keys per staged tile
+constexpr float kMaskedScore = -1e30f;     // a masked key's scaled score
 
 // Dynamic shared memory of one block: K and V tiles (padded rows), the query
 // rows (scaled, float32), the output accumulators, a probability row per
@@ -59,10 +80,12 @@ constexpr size_t kSmemBytes =
     2 * kTile * kKStride * sizeof(bf16) + 2 * kQTile * kHeadDim * sizeof(float) +
     kWarps * kTile * sizeof(float) + 2 * kQTile * sizeof(float);
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 packed_mha_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
-                      bf16* __restrict__ out, float* __restrict__ lse, int L, int n_heads,
-                      int causal, float score_scale) {
+                      const uint8_t* __restrict__ key_mask, bf16* __restrict__ out,
+                      float* __restrict__ lse, int L, int n_heads, int causal,
+                      float score_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + kTile * kKStride;
@@ -105,6 +128,12 @@ packed_mha_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
     const int klen = min(kTile, kv_end - k0);
     __syncthreads();  // the previous tile has been read by every warp
     stage_kv(slab, bias, E, h, k0, klen, ks, vs);
+    bool valid0 = true, valid1 = true;  // this lane's two keys of the tile
+    if constexpr (kMasked) {
+      const uint8_t* m = key_mask + static_cast<size_t>(n) * L + k0;
+      valid0 = lane < klen && m[lane] != 0;
+      valid1 = lane + 32 < klen && m[lane + 32] != 0;
+    }
     __syncthreads();
 
     for (int r = warp; r < rows; r += kWarps) {
@@ -116,11 +145,15 @@ packed_mha_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
       float s0 = -INFINITY, s1 = -INFINITY;
       if (lane < lim) s0 = dot_row(x, ks + lane * kKStride);
       if (lane + 32 < lim) s1 = dot_row(x, ks + (lane + 32) * kKStride);
+      if constexpr (kMasked) {
+        if (lane < lim && !valid0) s0 = kMaskedScore;
+        if (lane + 32 < lim && !valid1) s1 = kMaskedScore;
+      }
 
       const float m_old = row_m[r];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
       const float alpha = exp2f(m_old - m_new);  // 0 on the row's first tile
-      const float p0 = exp2f(s0 - m_new);        // 0 for a masked key
+      const float p0 = exp2f(s0 - m_new);        // 0 for a key past lim
       const float p1 = exp2f(s1 - m_new);
       p[lane] = p0;
       p[lane + 32] = p1;
@@ -153,9 +186,9 @@ packed_mha_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
 
 }  // namespace
 
-extern "C" int packed_mha_fwd(const void* qkv, const void* bias, void* out, void* lse,
-                              int n, int L, int n_heads, int head_dim, int causal,
-                              void* stream) {
+extern "C" int packed_mha_fwd(const void* qkv, const void* bias, const void* key_mask,
+                              void* out, void* lse, int n, int L, int n_heads, int head_dim,
+                              int causal, void* stream) {
   if (head_dim != kHeadDim || n <= 0 || L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -167,9 +200,14 @@ extern "C" int packed_mha_fwd(const void* qkv, const void* bias, void* out, void
   const bf16* bias_p = static_cast<const bf16*>(bias);
   bf16* out_p = static_cast<bf16*>(out);
 
-  const cudaError_t err = allow_smem(packed_mha_fwd_kernel, kSmemBytes);
+  const uint8_t* mask_p = static_cast<const uint8_t*>(key_mask);
+  const auto kernel = mask_p != nullptr ? packed_mha_fwd_kernel<true>
+                                        : packed_mha_fwd_kernel<false>;
+
+  const cudaError_t err = allow_smem(kernel, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  packed_mha_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, kSmemBytes, s>>>(
-      qkv_p, bias_p, out_p, static_cast<float*>(lse), L, n_heads, causal, score_scale);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, kSmemBytes, s>>>(
+      qkv_p, bias_p, mask_p, out_p, static_cast<float*>(lse), L, n_heads, causal,
+      score_scale);
   return static_cast<int>(cudaGetLastError());
 }

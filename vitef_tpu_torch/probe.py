@@ -67,8 +67,9 @@ def fit_logreg_lbfgs(x: torch.Tensor, y: torch.Tensor, n_classes: int, c: float 
 
 def probe_accuracy_torch(train_x: np.ndarray, train_y: np.ndarray, test_x: np.ndarray,
                          test_y: np.ndarray, n_classes: int | None = None, c: float = 1.0,
-                         max_iter: int = 200, device="cpu") -> float:
-    """Standardise, fit on ``device``, and return the test accuracy (one probe key)."""
+                         max_iter: int = 200, device="cuda") -> float:
+    """Standardise, fit on ``device`` (the card unless the caller passes
+    ``"cpu"``), and return the test accuracy (one probe key)."""
     if n_classes is None:
         n_classes = int(max(train_y.max(), test_y.max())) + 1
     xtr = torch.as_tensor(train_x, dtype=torch.float32, device=device)
