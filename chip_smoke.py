@@ -144,7 +144,32 @@ Phases (each raises on failure, so the run exits non-zero):
     its max_new_tokens; requests/s, tokens/s, ticks); then the same requests
     in waves of 64 through the serve app's ragged ``generate()`` (12 masked
     K1 launches per wave); then the ``sample`` and ``serve`` apps' ``run`` on
-    the card.
+    the card;
+29. K9 phase: the ring hop in bfloat16 against its float32 plain version at
+    the GPT-2 sp step's hop (N=8, h=12, segments of 512, d=64), at
+    ``tools/profile_ring_hop.py``'s (N=1, h=12, segments of 512 and 1024),
+    at segments of 128, 384 and 640 and at d=128, each mid-ring (every key
+    visible), diagonal and fully future (the state comes back bit-equal),
+    from a non-initial state and from the -1e30 start; two chains of three
+    hops; a zigzag segment and heads of a packed qkv read in place; float16;
+    bit-identical over two launches; the wrapper raises for float32, a
+    segment of 200 and d=96; the masked probabilities' zeroing planted out
+    of the plain version must fail the checks; timed as chained hops with
+    the plain version, its bound and SDPA on the same block as a yardstick
+    (this runs with the other kernel phases, after 25);
+30. sequence parallelism: a one-rank NCCL group on a free localhost port;
+    GPT-2 base (random weights from a seed) trains through
+    ``make_sp_train_step`` in bf16 at 8 x 1024 tokens of
+    ``np.random.default_rng(0)`` (labels rolled by -1), AdamW 3e-4 with
+    ``bench_gpt2``'s schedule, clip 1.0: zigzag, then contiguous, each 2
+    warm-up and 10 timed steps, K9 36 (zigzag) or 12 (contiguous) launches
+    per step, K1, K3, K4 and K5 none, no plain hop forward; a torch.profiler
+    split of one zigzag step; the cross-check on 4 sequences (loss and
+    gradients, overall and per block, against the ordinary GPT-2 step
+    through K1 and K3 and against the sp step on the plain hop; each limit
+    read again with the key positions off by one segment and with the skip
+    of fully future pairs inverted, which must fail it); a loss that falls
+    over 20 steps on a fixed batch of 8.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -186,8 +211,11 @@ from vitef_tpu_torch.ops import gmm as G
 from vitef_tpu_torch.ops import gmm_fused as GF
 from vitef_tpu_torch.ops import make_fused_head_loss, next_token_cross_entropy
 from vitef_tpu_torch.optim import build_optimizer, build_scheduler
+from vitef_tpu_torch.ops import ring_hop as RH
 from vitef_tpu_torch.parallel import auto_grad_acc, init_train_state, make_train_step
+from vitef_tpu_torch.parallel import cross_entropy_loss
 from vitef_tpu_torch.parallel import moe as M
+from vitef_tpu_torch.parallel import sequence as SEQ
 
 VIT_B16 = {"implementation": "vit", "model_name": "base", "patch_size": 16,
            "image_dim": (3, 224, 224), "finetuning": True, "n_classes": 10,
@@ -199,7 +227,7 @@ VIT_SHAPE = (256, 197)                       # (N, L) of ViT-B/16 at batch 256
 EDGE_SHAPES = [(8, 1), (8, 17), (8, 64), (8, 65), (8, 577), (8, 1024)]
 
 KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment", "flash_fwd", "flash_bwd",
-           "gmm", "tgmm", "layernorm")
+           "gmm", "tgmm", "layernorm", "ring_hop")
 N_CLASSES = VIT_B16["n_classes"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor
@@ -337,6 +365,29 @@ SERVE_REL_L2 = 2e-2
 # 0) through 64 slots of 256 positions, bucket 64, a harvest every 8 ticks.
 SERVER_REQUESTS = 256
 SERVER = {"n_slots": 64, "max_len": 256, "bucket": 64}
+
+# K9, the ring hop, as (N, h, segment, d): the GPT-2 sp step's hop (zigzag
+# at sp = 1 and L = 1024; timed, the main path's shape), then
+# tools/profile_ring_hop.py's (sp = 8 zigzag at L 8192 and 16384), then
+# edge segments and d = 128. Each runs in three position cases: mid-ring
+# (every key visible), diagonal, fully future.
+RING_HOP_MAIN = (8, 12, 512, 64)
+RING_HOP_CASES = [RING_HOP_MAIN, (1, 12, 512, 64), (1, 12, 1024, 64), (2, 12, 128, 64),
+                  (2, 12, 384, 64), (2, 12, 640, 64), (2, 4, 512, 128)]
+RING_HOP_CHAIN = 8          # hops per timed chain, the state fed through
+# m is the running max of float32 scores whose bf16 products are exact:
+# kernel and plain version differ by summation order, ~1e-6 at |m| ~ 5.
+RING_HOP_M_ABS = 1e-4
+# The hop's gradients through its autograd path and through its plain
+# version's: one float32 replay, the bf16 casts of dq, dk, dv at 2^-9.
+HOP_GRAD_REL_L2 = 1e-2
+
+# The sp train slice: GPT-2 base through make_sp_train_step at sp = 1 (a
+# one-rank NCCL group), bf16, batch 8 x 1024 tokens of default_rng(0) with
+# labels rolled by -1, AdamW 3e-4 with bench_gpt2's schedule, clip 1.0:
+# zigzag, then contiguous, each 2 warm-up and 10 timed steps.
+SP_BATCH, SP_WARMUP = 8, 2
+SP_K9_PER_LAYER = {True: 3, False: 1}   # hops taken per layer at sp = 1
 
 
 def card() -> str:
@@ -1277,12 +1328,27 @@ def config_set(cfg, **fields):
             setattr(cfg, key, value)
 
 
+def grads_rel_l2(got: dict, ref: dict, n_blocks: int) -> tuple[float, list[float]]:
+    """Relative L2 of two gradient dicts (name -> tensor) in float32,
+    overall and per block, one parameter at a time."""
+    sums = Counter()
+    for name, g in got.items():
+        diff = (g.float() - ref[name].float()).norm().item() ** 2
+        norm = ref[name].float().norm().item() ** 2
+        parts = name.split(".")
+        for key in ["all"] + ([f"block {parts[1]}"] if parts[0] == "blocks" else []):
+            sums[key, "diff"] += diff
+            sums[key, "ref"] += norm
+    rel = {key: math.sqrt(sums[key, "diff"] / sums[key, "ref"]) for key, part in sums
+           if part == "diff"}
+    return rel["all"], [rel[f"block {i}"] for i in range(n_blocks)]
+
+
 def kernel_and_plain_grads(model, loss, plain_config=None) -> tuple[float, list[float]]:
     """Gradients of ``loss(plain)`` through the kernel path (``plain`` False)
     and through the plain path (``plain`` True: the config's fields set to
     ``plain_config``, by default ``attn_impl="plain"``): their relative L2,
-    overall and per block, in float32, one parameter at a time (no flattened
-    copy of the whole model)."""
+    overall and per block (no flattened copy of the whole model)."""
     cfg, module = model.config, model.module
     plain_config = {"attn_impl": "plain"} if plain_config is None else plain_config
     module.train()
@@ -1292,20 +1358,10 @@ def kernel_and_plain_grads(model, loss, plain_config=None) -> tuple[float, list[
     module.zero_grad(set_to_none=True)
     with config_set(cfg, **plain_config):
         loss(True).backward()
-    sums = Counter()
-    for name, p in module.named_parameters():
-        diff = (kernel[name].float() - p.grad.float()).norm().item() ** 2
-        ref = p.grad.float().norm().item() ** 2
-        parts = name.split(".")
-        for key in ["all"] + ([f"block {parts[1]}"] if parts[0] == "blocks" else []):
-            sums[key, "diff"] += diff
-            sums[key, "ref"] += ref
+    rel = grads_rel_l2(kernel, {name: p.grad for name, p in module.named_parameters()},
+                       len(module.blocks))
     module.zero_grad(set_to_none=True)
-
-    def rel(key):
-        return math.sqrt(sums[key, "diff"] / sums[key, "ref"])
-
-    return rel("all"), [rel(f"block {i}") for i in range(len(module.blocks))]
+    return rel
 
 
 def check_microbatch(dataset, device):
@@ -2525,6 +2581,425 @@ def apps_phase(device) -> None:
           f"served {len(reqs)} requests, {sum(len(r.tokens) for r in reqs)} tokens")
 
 
+# ---------------------------------------------------------------------------
+# K9, the ring hop, and the sequence-parallel train slice
+# ---------------------------------------------------------------------------
+
+
+def hop_positions(kind: str, lseg: int, device):
+    """(qpos, kpos) int32 of a hop: "mid" (a mid-ring hop, every key visible,
+    as tools/profile_ring_hop.py:64-65), "diagonal" (qpos = kpos) or "future"
+    (every key after every query)."""
+    iota = torch.arange(lseg, dtype=torch.int32, device=device)
+    return {"mid": (iota + 4 * lseg, iota), "diagonal": (iota, iota),
+            "future": (iota, iota + 4 * lseg)}[kind]
+
+
+def hop_state_draw(gen, n: int, h: int, l: int, d: int, device, initial: bool):
+    """A hop's incoming float32 state: the -1e30 start, or a non-initial one."""
+    if initial:
+        return (torch.full((n, h, l, 1), -1e30, device=device),
+                torch.zeros((n, h, l, 1), device=device), torch.zeros((n, h, l, d), device=device))
+    return ((torch.randn(n, h, l, 1, generator=gen) + 3).to(device),
+            (torch.rand(n, h, l, 1, generator=gen) * 40 + 1).to(device),
+            (torch.randn(n, h, l, d, generator=gen) * 5).to(device))
+
+
+def hop_errors(got, ref) -> tuple[float, float, float]:
+    """(max |d|, mean |d|) of acc / s, and max |d| of m, between two states."""
+    out_g, out_r = (acc / s.clamp_min(1e-30) for _, s, acc in (got, ref))
+    diff = (out_g - out_r).abs()
+    return diff.max().item(), diff.mean().item(), (got[0] - ref[0]).abs().max().item()
+
+
+def unzeroed_hop(q, qpos, k, v, kpos, m, s, acc):
+    """The plain hop with a planted fault: the masked probabilities are not
+    zeroed, so a block that a row may not see counts exp(0) = 1 per key
+    while the row's max is still at the -1e30 start."""
+    scores = torch.matmul(q.float() / math.sqrt(q.shape[-1]), k.float().transpose(-1, -2))
+    scores = torch.where(kpos[None, :] <= qpos[:, None], scores, -1e30)
+    m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+    p = torch.exp(scores - m_new)
+    corr = torch.exp(m - m_new)
+    return m_new, s * corr + p.sum(dim=-1, keepdim=True), acc * corr + p @ v.float()
+
+
+def ring_hop_phase(device, seed: int, iters: int) -> dict:
+    """K9 in bf16 against its float32 plain version on the same inputs at
+    RING_HOP_CASES, each mid-ring, diagonal and fully future (there the state
+    comes back bit-equal, from a non-initial state and from the -1e30
+    start), bit-identical over two launches; chains of 3 hops, one from a
+    non-initial state and one from the start with the future block first
+    (read again with the masked probabilities' zeroing planted out of the
+    plain version, which must fail the gate); strided operands (a zigzag
+    segment, heads read from a packed qkv) and float16; the wrapper's
+    refusals. Timed at the main shape (mid-ring) as chained hops with the
+    plain version, its bound and SDPA on the same block as a yardstick."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def kernel(q, qpos, k, v, kpos, state):
+        return RH.hop_state(q, qpos, k, v, kpos, *state, causal=True, impl="kernel")
+
+    def plain(q, qpos, k, v, kpos, state):
+        return RH.hop_state_reference(q, qpos, k, v, kpos, *state, causal=True)
+
+    def check(label, got, ref):
+        max_abs, mean_abs, m_abs = hop_errors(got, ref)
+        print(f"K9 ring_hop {label}: acc/s max|d|={max_abs:.3e} mean|d|={mean_abs:.3e}, "
+              f"m max|d|={m_abs:.3e}")
+        if not (all(torch.isfinite(t).all() for t in got) and max_abs <= KERNEL_MAX_ABS
+                and mean_abs <= KERNEL_MEAN_ABS and m_abs <= RING_HOP_M_ABS):
+            raise AssertionError(f"K9 disagrees with its plain version: {label}")
+        return max_abs
+
+    for n, h, l, d in RING_HOP_CASES:
+        q, k, v = (torch.randn(n, h, l, d, generator=gen).to(device, torch.bfloat16)
+                   for _ in range(3))
+        for kind in ("mid", "diagonal", "future"):
+            qpos, kpos = hop_positions(kind, l, device)
+            for initial in (False, True):
+                state = hop_state_draw(gen, n, h, l, d, device, initial)
+                launches = RH.hop_state.launches
+                with torch.inference_mode():
+                    got, again = (kernel(q, qpos, k, v, kpos, state) for _ in range(2))
+                    ref = plain(q, qpos, k, v, kpos, state)
+                torch.cuda.synchronize()
+                if RH.hop_state.launches != launches + 2:
+                    raise AssertionError("K9's wrapper did not launch it")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"K9 is not bit-identical over two launches at "
+                                         f"{(n, h, l, d)} {kind}")
+                label = (f"N={n} h={h} lseg={l} d={d} {kind}, "
+                         f"{'the -1e30 start' if initial else 'a non-initial state'}")
+                if kind == "future":
+                    if not all(torch.equal(a, b) for a, b in zip(got, state)):
+                        raise AssertionError(f"K9 changed the state on a fully future block: "
+                                             f"{label}")
+                    print(f"K9 ring_hop {label}: the state came back bit-equal")
+                    continue
+                err = check(label, got, ref)
+                if (n, h, l, d) == RING_HOP_MAIN and kind == "mid" and not initial:
+                    main_err = err
+
+    # Chains of three hops: from a non-initial state (mid, diagonal, future),
+    # and from the start with the future block first (future, mid, diagonal).
+    n, h, l, d = RING_HOP_MAIN
+    blocks = {kind: ((torch.randn(n, h, l, d, generator=gen).to(device, torch.bfloat16),
+                      torch.randn(n, h, l, d, generator=gen).to(device, torch.bfloat16)),
+                     hop_positions(kind, l, device)) for kind in ("mid", "diagonal", "future")}
+    q = torch.randn(n, h, l, d, generator=gen).to(device, torch.bfloat16)
+    for order, initial in ((("mid", "diagonal", "future"), False),
+                           (("future", "mid", "diagonal"), True)):
+        st_k = st_p = hop_state_draw(gen, n, h, l, d, device, initial)
+        with torch.inference_mode():
+            for kind in order:
+                (k, v), (qpos, kpos) = blocks[kind]
+                st_k = kernel(q, qpos, k, v, kpos, st_k)
+                st_p = plain(q, qpos, k, v, kpos, st_p)
+        check(f"chain {' -> '.join(order)} from "
+              f"{'the -1e30 start' if initial else 'a non-initial state'}", st_k, st_p)
+    # The masked probabilities' zeroing matters for a row that has seen no
+    # key yet (once a row sees one, exp(-1e30 - m) wipes what came before):
+    # planted out of the plain version, the fully future hop from the start
+    # must fail both the bit-equality and the gate.
+    (k, v), (qpos, kpos) = blocks["future"]
+    start = hop_state_draw(gen, n, h, l, d, device, True)
+    with torch.inference_mode():
+        faulty = unzeroed_hop(q, qpos, k, v, kpos, *start)
+    planted_reading = hop_errors(kernel(q, qpos, k, v, kpos, start), faulty)[0]
+    print(f"planted fault: the plain hop without the masked probabilities' zeroing, a fully "
+          f"future hop from the -1e30 start: acc/s max|d|={planted_reading:.3e} (must exceed "
+          f"{KERNEL_MAX_ABS:g}); state bit-equal to the start: "
+          f"{all(torch.equal(a, b) for a, b in zip(faulty, start))} (must be False)")
+    if not planted_reading > KERNEL_MAX_ABS or all(torch.equal(a, b)
+                                                   for a, b in zip(faulty, start)):
+        raise AssertionError("the K9 checks did not see the zeroing dropped")
+
+    # The hop's own autograd path (K9 forward, the plain hop replayed
+    # backward) against autograd through its plain version: both backwards
+    # differentiate the same float32 replay, so only rounding may differ.
+    (k, v), (qpos, kpos) = blocks["diagonal"]
+    state = hop_state_draw(gen, n, h, l, d, device, False)
+    cot = [torch.randn(t.shape, generator=gen).to(device) for t in state]
+    grads = []
+    for hop in (kernel, plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, *state)]
+        launches = RH.hop_state.launches
+        new = hop(leaves[0], qpos, leaves[1], leaves[2], kpos, leaves[3:])
+        grads.append(torch.autograd.grad(new, leaves, cot))
+        if hop is kernel and RH.hop_state.launches != launches + 1:
+            raise AssertionError("K9's autograd path did not launch it")
+    rels = [rel_l2(a, b) for a, b in zip(*grads)]
+    print("K9 ring_hop autograd (K9 forward, replayed backward) against the plain hop's: "
+          "relative L2 of dq, dk, dv, dm, ds, dacc " + " ".join(f"{r:.2e}" for r in rels))
+    if not all(math.isfinite(r) and r <= HOP_GRAD_REL_L2 for r in rels):
+        raise AssertionError("K9's backward disagrees with its plain version's")
+
+    # Strided operands read in place: the second half of a zigzag shard, and
+    # heads viewed out of a packed (N, L, 3E) qkv; then float16.
+    shard = torch.randn(n, h, 2 * l, d, generator=gen).to(device, torch.bfloat16)
+    packed = torch.randn(n, 2 * l, 3 * h * d, generator=gen).to(device, torch.bfloat16)
+    heads = [t.reshape(n, 2 * l, h, d).transpose(1, 2)[:, :, l:] for t in packed.chunk(3, -1)]
+    half = [torch.randn(n, h, l, d, generator=gen).to(device, torch.float16) for _ in range(3)]
+    qpos, kpos = hop_positions("diagonal", l, device)
+    for label, (q_, k_, v_) in {"a zigzag segment (offset view)": (shard[:, :, l:],) * 3,
+                                "heads of a packed qkv (row stride 3E)": heads,
+                                "float16": half}.items():
+        state = hop_state_draw(gen, n, h, l, d, device, False)
+        with torch.inference_mode():
+            check(label, kernel(q_, qpos, k_, v_, kpos, state),
+                  plain(q_, qpos, k_, v_, kpos, state))
+
+    # What K9 does not take raises on CUDA; nothing falls back.
+    z200 = torch.zeros(1, h, 200, d, device=device, dtype=torch.bfloat16)
+    pos200 = torch.arange(200, dtype=torch.int32, device=device)
+    narrow = torch.zeros(1, h, 128, 96, device=device, dtype=torch.bfloat16)
+    refused = {"float32": (TypeError, lambda: kernel(
+                   q.float(), qpos, k.float(), v.float(), kpos,
+                   hop_state_draw(gen, n, h, l, d, device, True))),
+               "lseg 200": (ValueError, lambda: kernel(
+                   z200, pos200, z200, z200, pos200,
+                   hop_state_draw(gen, 1, h, 200, d, device, True))),
+               "d=96": (NotImplementedError, lambda: kernel(
+                   narrow, qpos[:128], narrow, narrow, kpos[:128],
+                   hop_state_draw(gen, 1, h, 128, 96, device, True)))}
+    launches = RH.hop_state.launches
+    for what, (error, call) in refused.items():
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"K9's wrapper did not raise {error.__name__} for {what}")
+    if RH.hop_state.launches != launches:
+        raise AssertionError("K9's wrapper launched on an input it does not take")
+    print("K9 ring_hop: the wrapper raises for " + ", ".join(refused))
+
+    # Timed: chains of RING_HOP_CHAIN mid-ring hops, the state fed through.
+    timing = {}
+    for n, h, l, d in RING_HOP_CASES[:3]:
+        q, k, v = (torch.randn(n, h, l, d, generator=gen).to(device, torch.bfloat16)
+                   for _ in range(3))
+        qpos, kpos = hop_positions("mid", l, device)
+        state = hop_state_draw(gen, n, h, l, d, device, False)
+
+        def chain(hop):
+            st = state
+            for _ in range(RING_HOP_CHAIN):
+                st = hop(q, qpos, k, v, kpos, st)
+            return st
+
+        with torch.inference_mode():
+            ms, plain_ms, times = in_turns(lambda: chain(kernel), lambda: chain(plain), iters)
+            sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+            out = kernel(q, qpos, k, v, kpos, state)
+        ms, plain_ms = ms / RING_HOP_CHAIN, plain_ms / RING_HOP_CHAIN
+        limit = bound(4.0 * n * h * l * l * d, PEAK_BF16_FLOPS, (q, k, v, qpos, kpos, *state, *out))
+        print(f"K9 ring_hop bf16 N={n} h={h} lseg={l} d={d} mid-ring, per hop of a chain of "
+              f"{RING_HOP_CHAIN}: kernel {times[1] / RING_HOP_CHAIN:.4f}/"
+              f"{times[2] / RING_HOP_CHAIN:.4f} ms, plain {times[0] / RING_HOP_CHAIN:.4f}/"
+              f"{times[3] / RING_HOP_CHAIN:.4f} ms, SDPA on the same block (no state; a "
+              f"yardstick only) {sdpa:.4f} ms, bound {limit['bound_ms']:.4f} ms "
+              f"({limit['bound_by']}); {4.0 * n * h * l * l * d / ms / 1e9:.2f} TFLOP/s")
+        if (n, h, l, d) == RING_HOP_MAIN:
+            # library_ms: no single PyTorch call merges a block into a state.
+            timing = {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
+                      "library_ms": None}
+    return timing
+
+
+SP_KINDS = {"K9 ring_hop": ("ring_hop_kernel",),
+            "cuBLAS GEMMs (linears, head, the hops' replay)": ("gemm", "nvjet", "cutlass",
+                                                               "xmma", "sm90_"),
+            "optimizer (foreach / AdamW)": ("multi_tensor", "foreach"),
+            "NCCL": ("nccl",)}
+LM_COUNTERS = (A.fused_mha_packed, A.packed_mha_bwd, A.flash_attention, A.flash_bwd,
+               RH.hop_state)
+
+
+class KeepParameters:
+    """An optimizer that leaves the parameters as they are, so that a train
+    step's gradients stay in .grad."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.module.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        pass
+
+
+def sp_grads(model, group, tokens, labels, zigzag: bool = True):
+    """(loss, gradients) of one make_sp_train_step call, without a clip or
+    an update: the all-reduced gradients."""
+    module = model.module
+    step = SEQ.make_sp_train_step(group=group, zigzag=zigzag)
+    loss = step(init_train_state(model, KeepParameters(module)), (tokens, labels))["loss"].item()
+    grads = {name: p.grad.float().clone() for name, p in module.named_parameters()}
+    module.zero_grad(set_to_none=True)
+    return loss, grads
+
+
+def sp_train_phase(device):
+    """GPT-2 base through ``make_sp_train_step`` over a one-rank NCCL group:
+    zigzag, then contiguous, each SP_WARMUP warm-up and TIMED_STEPS timed
+    steps with K9 carrying every hop (3 a layer zigzag, 1 contiguous), no
+    other attention kernel and no plain hop forward; a profile of one zigzag
+    step; the cross-check; a loss that falls. Returns the zigzag run's K9
+    launches over its timed steps."""
+    torch.cuda.set_device(device)
+    group = SEQ.build_sp_group(1, backend="nccl")  # a one-rank group on a free localhost port
+    try:
+        model = build_model(GPT2_BASE, device=device)
+        cfg = model.config
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(SP_BATCH, cfg.seq_len))).to(device)
+        labels = torch.roll(tokens, -1, dims=1)
+        launches_of = {}
+        for zigzag in (True, False):
+            schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
+            optimizer, scheduler = build_optimizer(GPT2_OPTIMIZER, model.module,
+                                                   schedule=schedule)
+            state = init_train_state(model, optimizer, scheduler)
+            step_fn = SEQ.make_sp_train_step(group=group, zigzag=zigzag, grad_clip=GRAD_CLIP,
+                                             schedule=schedule, base_lr=GPT2_LR)
+
+            def one_step():
+                return step_fn(state, (tokens, labels))
+
+            for _ in range(SP_WARMUP):
+                one_step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            with counting(RH, "hop_state_reference") as plain_hops:
+                for counter in LM_COUNTERS:
+                    counter.launches = 0
+                t0 = time.perf_counter()
+                history = [one_step() for _ in range(TIMED_STEPS)]
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = {fn.__name__: fn.launches for fn in LM_COUNTERS}
+            peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+            layout = "zigzag" if zigzag else "contiguous"
+            losses = [m["loss"].item() for m in history]
+            if not all(map(math.isfinite, losses + [history[-1]["grad_norm"].item()])):
+                raise AssertionError(f"sp {layout} step: loss {losses}")
+            want = {"fused_mha_packed": 0, "packed_mha_bwd": 0, "flash_attention": 0,
+                    "flash_bwd": 0,
+                    "hop_state": SP_K9_PER_LAYER[zigzag] * cfg.n_layers * TIMED_STEPS}
+            print(f"GPT-2 sp=1 {layout} launches over {TIMED_STEPS} steps: {launches} (want "
+                  f"{want}); plain hop forwards {len(plain_hops)}")
+            if launches != want or plain_hops:
+                raise AssertionError(f"the sp {layout} step did not go through K9 alone")
+            launches_of[zigzag] = launches["hop_state"]
+            n_tokens = SP_BATCH * cfg.seq_len
+            rate = n_tokens * TIMED_STEPS / seconds
+            roofline = PEAK_BF16_FLOPS / gpt2_flops_per_token(cfg)
+            print(f"GPT-2 base bf16 sp=1 {layout} train, device-only: {rate:.2f} tokens/s "
+                  f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {SP_BATCH} x "
+                  f"{cfg.seq_len} tokens); {rate / roofline:.4f} of the {roofline:.0f} tokens/s "
+                  f"bf16 roofline; peak memory {peak_gib:.3f} GiB; loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}")
+            if zigzag:
+                profile_train_step(one_step, SP_KINDS, "GPT-2 base sp=1 zigzag")
+            del state, optimizer, scheduler, step_fn, one_step, history
+            gc.collect()
+            torch.cuda.empty_cache()
+        sp_cross_check(model, group, device)
+        return launches_of[True]
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def sp_cross_check(model, group, device) -> None:
+    """On GPT2_CHECK_BATCH sequences at the same weights: the sp step's loss
+    and gradients (K9 forward, the replayed backward) against the ordinary
+    GPT-2 step's (K1 causal, K3) and against the sp step on the plain hop
+    route, overall and per block; each limit read again with a fault planted
+    that must fail it (key positions off by one segment, the skip of fully
+    future pairs inverted); then a loss that falls over FIXED_STEPS steps on
+    a fixed batch."""
+    cfg, module = model.config, model.module
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(GPT2_FIXED_BATCH, cfg.seq_len))).to(device)
+    check = tokens[:GPT2_CHECK_BATCH]
+    labels = torch.roll(check, -1, dims=1)
+
+    module.train()
+    module.zero_grad(set_to_none=True)
+    with counting(A, "attention_reference", "packed_mha_reference") as plain_calls:
+        launches = (A.fused_mha_packed.launches, A.packed_mha_bwd.launches)
+        ordinary_loss = cross_entropy_loss(module(check), labels)
+        ordinary_loss.backward()
+        if (A.fused_mha_packed.launches - launches[0], A.packed_mha_bwd.launches - launches[1]) \
+                != (cfg.n_layers, cfg.n_layers) or plain_calls:
+            raise AssertionError("the ordinary GPT-2 step did not go through K1 and K3")
+    ordinary = {name: p.grad.float().clone() for name, p in module.named_parameters()}
+    module.zero_grad(set_to_none=True)
+    sp_loss, kernel = sp_grads(model, group, check, labels)
+    with config_set(cfg, attn_impl="plain"):
+        plain_loss, plain = sp_grads(model, group, check, labels)
+
+    def reading(loss, grads, ref_loss, ref):
+        overall, blocks = grads_rel_l2(grads, ref, cfg.n_layers)
+        return abs(loss - ref_loss) / abs(ref_loss), overall, blocks
+
+    checks = {"sp step vs the ordinary step (K1 causal, K3)":
+              reading(sp_loss, kernel, ordinary_loss.item(), ordinary),
+              "sp step vs the sp step on the plain hop":
+              reading(sp_loss, kernel, plain_loss, plain)}
+    for label, (loss_rel, overall, blocks) in checks.items():
+        print(f"GPT-2 sp cross-check, {GPT2_CHECK_BATCH} sequences, {label}: loss relative "
+              f"{loss_rel:.3e}, gradients relative L2 {overall:.3e}; per block "
+              + " ".join(f"{r:.2e}" for r in blocks))
+        if not all(math.isfinite(r) and r <= GRAD_REL_L2 for r in (loss_rel, overall, *blocks)):
+            raise AssertionError(f"the sp step disagrees: {label}")
+
+    real = {name: getattr(SEQ, name) for name in ("hop_state", "hop_vjp", "_fully_future")}
+
+    def shifted(name):
+        """The hop (K9 forward, or the backward's replay) reading its key
+        positions one segment late."""
+        def call(q, qpos, k, v, kpos, *rest, **kw):
+            return real[name](q, qpos, k, v, kpos + kpos.numel(), *rest, **kw)
+        return call
+
+    faults = {"key positions off by one segment": {"hop_state": shifted("hop_state"),
+                                                   "hop_vjp": shifted("hop_vjp")},
+              "the skip of fully future pairs inverted": {
+                  "_fully_future": lambda kpos, qpos: not real["_fully_future"](kpos, qpos)}}
+    readings = {}
+    for label, patches in faults.items():
+        for name, fault in patches.items():
+            setattr(SEQ, name, fault)
+        try:
+            loss, grads = sp_grads(model, group, check, labels)
+        finally:
+            for name, fn in real.items():
+                setattr(SEQ, name, fn)
+        readings[label] = reading(loss, grads, ordinary_loss.item(), ordinary)
+    print(f"planted faults in the sp step against the ordinary step (a reading fails the "
+          f"limit {GRAD_REL_L2:g} when it exceeds it or is not finite): " + "; ".join(
+              f"{k}: loss relative {r[0]:.3e}, gradients relative L2 {r[1]:.3e}"
+              for k, r in readings.items()))
+    caught = {k: not all(math.isfinite(x) and x <= GRAD_REL_L2 for x in (r[0], r[1], *r[2]))
+              for k, r in readings.items()}
+    if not all(caught.values()):
+        raise AssertionError(f"a planted fault passed the sp cross-check: {caught}")
+
+    optimizer, scheduler = build_optimizer(GPT2_OPTIMIZER, module)
+    state = init_train_state(model, optimizer, scheduler)
+    step_fn = SEQ.make_sp_train_step(group=group, zigzag=True, grad_clip=GRAD_CLIP)
+    fixed_labels = torch.roll(tokens, -1, dims=1)
+    losses = [step_fn(state, (tokens, fixed_labels))["loss"] for _ in range(FIXED_STEPS)]
+    losses = [loss.item() for loss in losses]
+    print(f"GPT-2 sp=1 zigzag fixed batch of {GPT2_FIXED_BATCH}, {FIXED_STEPS} steps at "
+          f"constant lr {GPT2_LR}: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the sp fixed-batch loss did not fall: {losses}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2554,6 +3029,7 @@ def main() -> None:
     timing.update(layernorm_phase(device, seed=30, iters=20))
     timing["packed_mha_fwd:masked"] = masked_phase(device, seed=40, iters=20,
                                                    k1_ms=timing["packed_mha_fwd"]["ms"])
+    timing["ring_hop"] = ring_hop_phase(device, seed=50, iters=10)
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
@@ -2617,6 +3093,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     apps_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring_launches = sp_train_phase(device)
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -2651,6 +3130,7 @@ def main() -> None:
          "vitef_tpu/ops/layernorm.py:69"),
         ("packed_mha_fwd:masked", "packed_mha_fwd", masked_launches,
          "vitef_tpu/ops/attention.py:99"),
+        ("ring_hop", "ring_hop", ring_launches, "vitef_tpu/parallel/sequence.py:166"),
     ]
     print(card_line)
     print(json.dumps({"kernels": [{

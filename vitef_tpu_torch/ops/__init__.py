@@ -35,3 +35,9 @@ from .losses import (  # noqa: F401
     make_fused_head_loss,
     next_token_cross_entropy,
 )
+from .ring_hop import (  # noqa: F401
+    attend_block,
+    hop_kernel_ok,
+    hop_state,
+    hop_state_reference,
+)

@@ -7,6 +7,14 @@ from .moe import (  # noqa: F401
     router_aux,
     router_aux_from_route,
 )
+from .sequence import (  # noqa: F401
+    apply_transformer_sp,
+    build_sp_group,
+    make_sp_train_step,
+    ring_attention,
+    shard_positions,
+    zigzag_permutation,
+)
 from .train_step import (  # noqa: F401
     TrainState,
     auto_grad_acc,

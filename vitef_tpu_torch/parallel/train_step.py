@@ -35,8 +35,10 @@ class TrainState:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross entropy with integer labels, in float32."""
-    return F.cross_entropy(logits.float(), labels.long())
+    """Mean softmax cross entropy with integer labels over the last axis of
+    ``logits`` (classes), in float32: (N, C) with (N,), or (N, L, V) with (N, L)."""
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1).long())
 
 
 def init_train_state(model, optimizer, scheduler=None) -> TrainState:
