@@ -9,19 +9,25 @@ Phases (each raises on failure, so the run exits non-zero):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``vitef_tpu_torch/ops/csrc`` (one ``nvcc`` per
-   source, all at once), printing the seconds and ptxas registers/spills;
+   source, all at once), printing the seconds and ptxas registers/spills,
+   and the HMMA (tensor-core) instructions that ``cuobjdump -sass`` finds in
+   K1's and K4's libraries (none fails the run);
 3. K1 phase: the packed-MHA forward kernel against its plain PyTorch version
    (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths up
-   to 1024, both timed at the ViT-B/16 shape, with
-   ``scaled_dot_product_attention`` timed beside them as a yardstick;
+   to 1024 (the tensor-core tiles' edges 16, 17, 33, 64, 65, 129 among
+   them), each row's log2-sum-exp against the plain scores' within 1e-3 and
+   bit-identical over two launches; both timed at the ViT-B/16 shape (with
+   TFLOP/s), with ``scaled_dot_product_attention`` timed beside them as a
+   yardstick;
 4. K2 phase: the packed-MHA backward kernel likewise, through the autograd
    path that the train step takes, plus bit-identical outputs over two
    launches and a wrapper that raises for what the kernel does not take;
 5. K10 phase: the train augment kernel against its plain version at batch
    512, both timed;
 6. K1-causal phase: K1's causal mode against its plain version at the GPT-2
-   train shape (N=64, L=1024) and at 11 lengths from 1 to 1024 (N=8), timed
-   with the plain version and SDPA (``is_causal=True``) at the train shape;
+   train shape (N=64, L=1024) and at 14 lengths from 1 to 1024 (N=8), with
+   the K1 phase's lse and determinism checks, timed with the plain version
+   and SDPA (``is_causal=True``) at the train shape;
 7. K3 phase: the backward's causal mode likewise, as in the K2 phase;
 8. eval slice: ViT-B/16 in bfloat16 (random weights from a seed) classifies a
    synthetic test set through the port's loader and ``run_evaluation``;
@@ -46,10 +52,11 @@ Phases (each raises on failure, so the run exits non-zero):
 14. K4 and K5 phases: the flash attention forward and backward kernels
     against their float32 plain versions, in bfloat16 at the Llama-1B train
     shape (N=4, h=32, L=1024, causal; timed with the plain version and SDPA)
-    and at edge lengths (1, 63, 65, 127, 1000, causal and not), and in
-    float32 at a GPT-2 shape (N=8, h=12, L=1024, causal; timed); K5 also
-    bit-identical over two launches, and both wrappers raise for what the
-    kernels do not take (these run with the other kernel phases, after 7);
+    and at edge lengths (1, 16, 63, 64, 65, 127, 129, 1000, causal and not),
+    and in float32 at a GPT-2 shape (N=8, h=12, L=1024, causal; timed); K4's
+    lse within 1e-3 of the plain scores', K4 and K5 bit-identical over two
+    launches, and both wrappers raise for what the kernels do not take
+    (these run with the other kernel phases, after 7);
 15. GPT-2 float32: GPT-2 base at its default compute dtype, whose attention
     at L=1024 takes K4 and K5 in float32: the logits and the gradients of 4
     sequences against the plain path, K4 and K5 launched every layer;
@@ -116,12 +123,12 @@ Phases (each raises on failure, so the run exits non-zero):
     shape (N=256, L=128, causal, left-pad lengths 16-128 from
     ``np.random.default_rng(0)``, one row of length 1) and at L = 1, 63, 65,
     127, 197, 512, 1024 (causal and not, with fully masked rows), gated on
-    the rows with a valid visible key, every other row finite; an all-true
-    mask bit-equal to unmasked K1; bit-identical over two launches; the
-    wrapper raises for a gradient, float16, d=32 and a mask of another shape;
-    timed with its plain version, its bound and SDPA with a boolean mask;
-    unmasked K1 re-read at the ViT shape (this runs with the other kernel
-    phases, after 21);
+    the rows with a valid visible key (output and lse), every other row
+    finite; an all-true mask bit-equal to unmasked K1; bit-identical over two
+    launches; the wrapper raises for a gradient, float16, d=32 and a mask of
+    another shape; timed with its plain version, its bound and SDPA with a
+    boolean mask; unmasked K1 re-read at the ViT shape (this runs with the
+    other kernel phases, after 21);
 26. generate: GPT-2 base in bf16 (random weights from a seed) generates 128
     tokens for 256 prompts of 32-128 tokens left-padded to 128
     (``Model.generate``, ``tools/profile_decode.py``'s "topk" and "greedy"
@@ -224,7 +231,9 @@ EVAL_DATA = {"dataset_name": "synthetic-1024", "mode": "test", "batch_size": 256
              "size": 224, "compute_dtype": "bfloat16"}
 N_HEADS, EMB = 12, 768
 VIT_SHAPE = (256, 197)                       # (N, L) of ViT-B/16 at batch 256
-EDGE_SHAPES = [(8, 1), (8, 17), (8, 64), (8, 65), (8, 577), (8, 1024)]
+# Edge lengths: 1, the tensor-core tiles' edges (16-row fragments, 64-row and
+# 64-key tiles: 16, 17, 33, 64, 65, 129) and ViT's 197, 577, 1024.
+EDGE_SHAPES = [(8, l) for l in (1, 16, 17, 33, 64, 65, 129, 197, 577, 1024)]
 
 KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment", "flash_fwd", "flash_bwd",
            "gmm", "tgmm", "layernorm", "ring_hop")
@@ -233,6 +242,15 @@ N_CLASSES = VIT_B16["n_classes"]
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor
 # cores, float32 on the CUDA cores, HBM3.
 PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+# The forwards' per-row log2-sum-exp (K1, K4) against the float32 one of the
+# plain scores: float32 summation order and exp2's few ulp give ~1e-6 at
+# these scores, a natural-log or unscaled lse is off by 30% or more, so
+# 1e-3 (log2 units) sits far from both.
+LSE_MAX_ABS = 1e-3
+# The libraries whose bf16 bodies multiply on the tensor cores (mma.sync):
+# their SASS must hold HMMA instructions.
+TENSOR_CORE_LIBS = ("packed_mha_fwd", "flash_fwd")
 
 # A kernel's bf16 output against the float32 plain version on the same bf16
 # inputs: bf16 rounding of the output alone is ~2^-8 of |value| (K10's values
@@ -254,8 +272,9 @@ GRAD_CLIP = 1.0
 GRAD_REL_L2 = 5e-2
 FIXED_BATCH, FIXED_STEPS = 64, 20
 # Whole-model logits, kernel path vs plain attention path, both bf16: the two
-# attention paths round to bf16 at different places (the kernel keeps q + bias
-# and the probabilities in float32), and 12 residual blocks compound each
+# attention paths round to bf16 at different places (the kernel rounds the
+# unnormalised probabilities and divides by the row sum last, the plain path
+# rounds the normalised weights), and 12 residual blocks compound each
 # ~2^-9 relative difference. Logits of this model are O(1).
 LOGITS_MAX_ABS, LOGITS_MEAN_ABS = 1e-1, 2e-2
 
@@ -265,14 +284,15 @@ GPT2_BASE = {"implementation": "gpt2", "model_name": "base", "compute_dtype": "b
 GPT2_BATCH, GPT2_LR = 64, 3e-4
 GPT2_OPTIMIZER = {"optimizer": "adamw", "lr": GPT2_LR}
 GPT2_SHAPE = (64, 1024)                      # (N, L) of the train step
-# The causal checks: the train step's shape (timed), then 11 lengths at N=8.
-CAUSAL_SHAPES = [GPT2_SHAPE] + [(8, l) for l in (1, 17, 64, 65, 255, 256, 257, 511, 512,
-                                                  513, 1024)]
+# The causal checks: the train step's shape (timed), then 14 lengths at N=8.
+CAUSAL_SHAPES = [GPT2_SHAPE] + [(8, l) for l in (1, 16, 17, 33, 64, 65, 129, 255, 256, 257,
+                                                  511, 512, 513, 1024)]
 GPT2_CHECK_BATCH, GPT2_FIXED_BATCH = 4, 8
 
 # The flash kernels: (N, h, L, causal). bf16 at the Llama-1B train step's
 # attention (timed) and at edge lengths; float32 at GPT-2 base's heads.
-FLASH_BF16 = [(4, 32, 1024, True)] + [(2, 32, l, causal) for l in (1, 63, 65, 127, 1000)
+FLASH_BF16 = [(4, 32, 1024, True)] + [(2, 32, l, causal)
+                                      for l in (1, 16, 63, 64, 65, 127, 129, 1000)
                                       for causal in (True, False)]
 FLASH_FP32 = [(8, 12, 1024, True)]
 # float32 throughout, against the float32 plain version: only the order of
@@ -447,6 +467,24 @@ def sdpa_ms(qkv, bias, causal: bool, g=None, iters: int = 20) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True), iters)
 
 
+def tflops(flops: float, ms: float) -> float:
+    return flops / (ms * 1e-3) / 1e12
+
+
+def lse_reference(q, k, causal: bool, key_mask=None):
+    """(N, h, L) float32 log2-sum-exp of the plain scaled scores q kᵀ/√d, the
+    causal mask's and ``key_mask``'s (N, L) invalid keys left out: what K1
+    and K4 write as each row's lse (a row with no valid key gives -inf)."""
+    l, d = q.shape[2], q.shape[3]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    if causal:
+        scores = scores.masked_fill(torch.ones(l, l, dtype=torch.bool, device=q.device)
+                                    .triu(1), -math.inf)
+    if key_mask is not None:
+        scores = scores.masked_fill(~key_mask[:, None, None, :], -math.inf)
+    return torch.logsumexp(scores, dim=-1) / math.log(2)
+
+
 @contextlib.contextmanager
 def counting(module, *names):
     """Replace each function ``module.<name>`` by a wrapper that records its
@@ -488,6 +526,14 @@ def build_phase() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}:", line.strip())
+    cuobjdump = _build.cuda_tool("cuobjdump")
+    for name in TENSOR_CORE_LIBS:
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.BUILD_DIR / f"lib{name}.so")],
+                              check=True, capture_output=True, text=True, timeout=120).stdout
+        hmma = sass.count("HMMA")
+        print(f"lib{name}.so: {hmma} HMMA (tensor-core) instructions in cuobjdump -sass")
+        if hmma == 0:
+            raise AssertionError(f"lib{name}.so holds no tensor-core instruction")
 
 
 def in_turns(kernel, plain, iters: int = 20) -> tuple[float, float, list[float]]:
@@ -499,7 +545,8 @@ def in_turns(kernel, plain, iters: int = 20) -> tuple[float, float, list[float]]
 
 def fwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
     """K1 (causal or not) against its float32 plain version on the same bf16
-    inputs at every (N, L) of ``shapes``, then timed at the first of them (the
+    inputs at every (N, L) of ``shapes``, its lse against the plain scores'
+    and bit-identical over two launches; then timed at the first of them (the
     main path's shape, whose error is the one returned) with the plain
     version and SDPA."""
     gen = torch.Generator().manual_seed(seed)
@@ -509,17 +556,24 @@ def fwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
         bias = (torch.randn(3 * EMB, generator=gen) * 0.1).to(device, torch.bfloat16)
         with torch.inference_mode():
             out = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias)
+            again, lse = A._launch_fwd(qkv, bias, N_HEADS, causal, want_lse=True)
             ref = A.packed_mha_reference(qkv.float(), N_HEADS, causal=causal,
                                          bias=bias.float())
+            lse_err = (lse - lse_reference(*split_heads(qkv, bias)[:2], causal)).abs().max().item()
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
         max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        identical = torch.equal(out, again)
         del ref, diff
         print(f"{label} packed_mha_fwd N={n} L={l}: max|d|={max_abs:.3e} "
-              f"mean|d|={mean_abs:.3e}")
+              f"mean|d|={mean_abs:.3e}; lse max|d|={lse_err:.3e}; two launches "
+              f"bit-identical: {identical}")
         if not (tuple(out.shape) == (n, l, EMB) and math.isfinite(max_abs)
-                and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
+                and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS
+                and lse_err <= LSE_MAX_ABS):
             raise AssertionError(f"{label} disagrees with its plain version at N={n} L={l}")
+        if not identical:
+            raise AssertionError(f"{label} is not deterministic at N={n} L={l}")
         if (n, l) == shapes[0]:
             timed, main_err = (qkv, bias), max_abs
 
@@ -530,10 +584,13 @@ def fwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
             lambda: A.packed_mha_reference(qkv, N_HEADS, causal=causal, bias=bias), iters)
         out = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias)
     library_ms = sdpa_ms(qkv, bias, causal=causal, iters=iters)
-    limit = bound(attention_flops(n, l, 2, causal), PEAK_BF16_FLOPS, (qkv, bias, out))
+    flops = attention_flops(n, l, 2, causal)
+    limit = bound(flops, PEAK_BF16_FLOPS, (qkv, bias, out))
     print(f"{label} at N={n} L={l} E={EMB} h={N_HEADS}: kernel {times[1]:.4f}/"
-          f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+          f"{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain {times[0]:.4f}/"
+          f"{times[3]:.4f} ms ({tflops(flops, plain_ms):.1f}), SDPA {library_ms:.4f} ms "
+          f"({tflops(flops, library_ms):.1f}), bound {limit['bound_ms']:.4f} ms "
+          f"({limit['bound_by']})")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
             "library_ms": library_ms}
 
@@ -641,7 +698,8 @@ def flash_limits(dtype) -> tuple[float, float, float]:
 
 def flash_fwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
     """K4 against its float32 plain version (``attention_reference``) on the
-    same inputs at every (N, h, L, causal) of ``cases``, then timed at the
+    same inputs at every (N, h, L, causal) of ``cases``, its lse against the
+    plain scores' and bit-identical over two launches; then timed at the
     first of them (the main path's shape, whose error is the one returned)
     with the plain version and SDPA."""
     gen = torch.Generator().manual_seed(seed)
@@ -653,18 +711,25 @@ def flash_fwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
         with torch.inference_mode():
             out = A.flash_attention(q, k, v, causal=causal, impl="kernel")
             ref = A.attention_reference(q.float(), k.float(), v.float(), causal=causal)
+        if A.flash_attention.launches != launches + 1:
+            raise AssertionError(f"{label} did not launch at N={n} h={h} L={l}")
+        with torch.inference_mode():
+            again, lse = A._launch_flash_fwd(q, k, v, causal, want_lse=True)
+            lse_err = (lse - lse_reference(q, k, causal)).abs().max().item()
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
         max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        identical = torch.equal(out, again)
         del ref, diff
         print(f"{label} N={n} h={h} L={l} causal={causal}: max|d|={max_abs:.3e} "
-              f"mean|d|={mean_abs:.3e}")
-        if A.flash_attention.launches != launches + 1:
-            raise AssertionError(f"{label} did not launch at N={n} h={h} L={l}")
+              f"mean|d|={mean_abs:.3e}; lse max|d|={lse_err:.3e}; two launches "
+              f"bit-identical: {identical}")
         if not (out.shape == q.shape and out.dtype == dtype and math.isfinite(max_abs)
-                and max_abs <= max_lim and mean_abs <= mean_lim):
+                and max_abs <= max_lim and mean_abs <= mean_lim and lse_err <= LSE_MAX_ABS):
             raise AssertionError(f"{label} disagrees with its plain version at N={n} h={h} "
                                  f"L={l} causal={causal}")
+        if not identical:
+            raise AssertionError(f"{label} is not deterministic at N={n} h={h} L={l}")
         if (n, h, l, causal) == cases[0]:
             timed, main_err = (q, k, v, out), max_abs
 
@@ -675,10 +740,13 @@ def flash_fwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
             lambda: A.attention_reference(q, k, v, causal=causal), iters)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
                              iters)
-    limit = bound(flash_flops(n, h, l, 64, 2, causal), peak, (q, k, v, out))
+    flops = flash_flops(n, h, l, 64, 2, causal)
+    limit = bound(flops, peak, (q, k, v, out))
     print(f"{label} at N={n} h={h} L={l} causal={causal}: kernel {times[1]:.4f}/"
-          f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+          f"{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain {times[0]:.4f}/"
+          f"{times[3]:.4f} ms ({tflops(flops, plain_ms):.1f}), SDPA {library_ms:.4f} ms "
+          f"({tflops(flops, library_ms):.1f}), bound {limit['bound_ms']:.4f} ms "
+          f"({limit['bound_by']})")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
             "library_ms": library_ms}
 
@@ -2130,7 +2198,8 @@ def masked_phase(device, seed: int, iters: int, k1_ms: float) -> dict:
     prefill's shape and at edge lengths (causal and not; left-pad lengths
     with fully masked rows and rows of length 1): gated on the rows with a
     valid visible key, every other row finite; an all-true mask bit-equal to
-    unmasked K1; bit-identical over two launches; the wrapper's refusals.
+    unmasked K1; bit-identical over two launches; the lse of the rows with a
+    valid visible key against the plain scores'; the wrapper's refusals.
     Timed at the main shape with the plain version, its bound and SDPA with
     a boolean mask (timed only: SDPA gives NaN in fully masked rows); then
     unmasked K1 re-read at the ViT shape."""
@@ -2153,14 +2222,19 @@ def masked_phase(device, seed: int, iters: int, k1_ms: float) -> dict:
             all_true = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias,
                                           key_mask=torch.ones_like(mask))
             unmasked = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias)
+            _, lse = A._launch_fwd(qkv, bias, N_HEADS, causal, want_lse=True,
+                                   key_mask=mask.contiguous().view(torch.uint8))
+            lse_diff = (lse - lse_reference(*split_heads(qkv, bias)[:2], causal, mask)).abs()
         rows = visible_rows(mask, causal)
         diff = (out.float() - ref).abs()[rows]
         max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        lse_err = lse_diff.transpose(1, 2)[rows].max().item()
         finite = bool(torch.isfinite(out).all())
         print(f"K1 masked N={n_} L={l_} causal={causal} lengths {lens.min()}..{lens.max()}: "
-              f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} over {int(rows.sum())} rows with "
-              f"a valid key; all finite {finite}")
-        if not (finite and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
+              f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} lse max|d|={lse_err:.3e} over "
+              f"{int(rows.sum())} rows with a valid key; all finite {finite}")
+        if not (finite and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS
+                and lse_err <= LSE_MAX_ABS):
             raise AssertionError(f"K1 masked disagrees with its plain version at N={n_} "
                                  f"L={l_} causal={causal}")
         if not torch.equal(out, again):
@@ -2201,12 +2275,16 @@ def masked_phase(device, seed: int, iters: int, k1_ms: float) -> dict:
         vit = (torch.randn(VIT_SHAPE[0], VIT_SHAPE[1], 3 * EMB, generator=gen) * 0.5).to(
             device, torch.bfloat16)
         vit_ms = cuda_ms(lambda: A.fused_mha_packed(vit, N_HEADS, bias=bias), iters)
-    limit = bound(masked_flops(lengths, True), PEAK_BF16_FLOPS, (qkv, bias, mask, out))
-    print(f"K1 masked at N={n} L={l} causal ragged: kernel {times[1]:.4f}/{times[2]:.4f} ms, "
-          f"plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA with a boolean mask "
-          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
-    print(f"K1 unmasked re-read at N={VIT_SHAPE[0]} L={VIT_SHAPE[1]}: {vit_ms:.4f} ms (the K1 "
-          f"phase read {k1_ms:.4f} ms)")
+    flops = masked_flops(lengths, True)
+    limit = bound(flops, PEAK_BF16_FLOPS, (qkv, bias, mask, out))
+    print(f"K1 masked at N={n} L={l} causal ragged: kernel {times[1]:.4f}/{times[2]:.4f} ms "
+          f"({tflops(flops, ms):.1f} TFLOP/s of valid pairs), plain {times[0]:.4f}/"
+          f"{times[3]:.4f} ms ({tflops(flops, plain_ms):.1f}), SDPA with a boolean mask "
+          f"{library_ms:.4f} ms ({tflops(flops, library_ms):.1f}), bound "
+          f"{limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+    vit_flops = attention_flops(VIT_SHAPE[0], VIT_SHAPE[1], 2, False)
+    print(f"K1 unmasked re-read at N={VIT_SHAPE[0]} L={VIT_SHAPE[1]}: {vit_ms:.4f} ms "
+          f"({tflops(vit_flops, vit_ms):.1f} TFLOP/s; the K1 phase read {k1_ms:.4f} ms)")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
             "library_ms": library_ms}
 

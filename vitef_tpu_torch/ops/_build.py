@@ -29,16 +29,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """The path of the CUDA toolkit's program ``name`` (``nvcc``,
+    ``cuobjdump``): on PATH, else under CUDA_HOME, CUDA_PATH or
+    /usr/local/cuda. Raises if it is in none of them."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
+    path = Path(home) / "bin" / name
     if path.exists():
         return str(path)
-    raise RuntimeError("nvcc not found (not on PATH, nor under CUDA_HOME or "
-                       "/usr/local/cuda): the CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found (not on PATH, nor under CUDA_HOME or "
+                       "/usr/local/cuda)")
 
 
 def _stale(name: str) -> bool:
@@ -57,7 +60,7 @@ def build(names) -> None:
         if not stale:
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
+        nvcc = cuda_tool("nvcc")
         jobs = []
         for name in stale:
             lib = BUILD_DIR / f"lib{name}.so"

@@ -5,11 +5,11 @@
 // (N, n_heads, L, head_dim) tensors, so one head is a contiguous L x 64
 // block, and both are instantiated for bfloat16 and float32 inputs. Elem<T>
 // is what differs between the two types: how two neighbouring elements (a
-// "pair") or eight are read as floats and written back, and the rounding that
-// the forward's P.V sees (bf16: P is rounded to bfloat16 first, as the TPU
-// kernel does; float32: none). The rest are the packed kernels' row helpers
-// (csrc/packed_mha_common.cuh) for either type: stage_rows (a tile of rows
-// into padded shared rows), dot_row_t and weighted_rows_t.
+// "pair") or eight are read as floats and written back; float32's round_p
+// is the rounding its CUDA-core forward gives P before P.V (none; the bf16
+// forward runs on the tensor cores). The rest are the packed kernels' row
+// helpers (csrc/packed_mha_common.cuh) for either type: stage_rows (a tile
+// of rows into padded shared rows), dot_row_t and weighted_rows_t.
 
 #pragma once
 
@@ -45,7 +45,6 @@ struct Elem<bf16> {
   __device__ __forceinline__ static void copy8(const bf16* src, bf16* dst) {
     *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
   }
-  __device__ __forceinline__ static float round_p(float x) { return round_bf16(x); }
 };
 
 template <>

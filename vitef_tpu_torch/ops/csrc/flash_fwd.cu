@@ -17,22 +17,28 @@
 // What bounds it on this card: per sequence and head two L x L x d products
 // (causal: on the lower triangle) and as many exponentials as scores, against
 // 4 * N * n_heads * L * d elements of device memory: at the Llama-1B shape
-// (N=4, h=32, L=1024, causal) 17.2 GFLOP against 67 MB, so a kernel that keeps
-// the scores on chip is bound by its arithmetic. This one multiplies on the
-// CUDA cores (FMA, not tensor cores), so arithmetic and shared-memory reads
-// bound it.
+// (N=4, h=32, L=1024, causal) 17.2 GFLOP against 67 MB in bf16, so a kernel
+// that keeps the scores on chip is bound by its products. On the CUDA cores,
+// shared-memory reads and FMA issue hold such a kernel to about 11.5 TFLOP/s
+// on this card.
 //
-// What the design does about it: K1's schedule (csrc/packed_mha_fwd.cu) on
-// the head-major layout. One block per (sequence, head, 64-row query tile), 4
-// warps, the heaviest (causal: the last) query tiles launched first. It walks
-// 64-key tiles of K and V staged in shared memory, up to and including the
-// diagonal tile when causal, so nothing above the diagonal is loaded, and
-// masks by index inside the diagonal and the last tile. A warp owns one query
-// row at a time: each lane scores two keys, the row's max and sum are warp
-// reductions, the tile's probabilities sit in a per-warp shared row and each
-// lane accumulates two output columns of P.V in a float32 accumulator in
-// shared memory. Shared memory is fixed whatever L is: about 51 KB (bf16),
-// 68 KB (float32). Tensor cores (wgmma) and TMA are later work.
+// What the design does about it: bfloat16 runs both products on the tensor
+// cores (mma.sync m16n8k16, float32 accumulators) in the FlashAttention-2
+// schedule of attn_fwd_mma.cuh, K1's core on the head-major layout: one
+// block per (sequence, head, 64-row query tile), 4 warps of 16 rows, the
+// heaviest (causal: the last) query tiles launched first; Q as register
+// fragments; 64-key tiles of K and V staged with double-buffered cp.async;
+// scores, online softmax and P in registers; nothing above the causal
+// diagonal loaded; 45 KB of shared memory a block. wgmma, TMA and warp
+// specialisation are the next step.
+//
+// float32 stays on the CUDA cores (flash_fwd_kernel<float>, instantiated for
+// float only): the tensor cores would take it in TF32, which keeps about
+// three decimal digits, and the port runs float32 products in full float32.
+// Its schedule: a warp owns one query row at a time, each lane scores two
+// keys of a 64-key tile staged in shared memory, the row's max and sum are
+// warp reductions, and each lane accumulates two output columns of P.V in a
+// float32 accumulator in shared memory (about 68 KB).
 //
 // C interface: flash_fwd(q, k, v, out, lse, N, n_heads, L, head_dim, fp32,
 // causal, stream) returns a cudaError_t as int: the launch's
@@ -41,11 +47,13 @@
 // be null.
 
 #include "flash_common.cuh"
+#include "attn_fwd_mma.cuh"
 
 namespace {
 
 constexpr int kQTile = 64;                 // query rows per block
 constexpr int kTile = 64;                  // keys per staged tile
+static_assert(kQTile == kAttnRows, "flash_fwd counts one grid for both paths");
 
 // Dynamic shared memory of one block: K and V tiles (padded rows), the query
 // rows (scaled, float32), the output accumulators, a probability row per
@@ -159,6 +167,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   return cudaGetLastError();
 }
 
+// The bfloat16 path: one (sequence, head, 64-row query tile) per block on
+// the tensor-core core of attn_fwd_mma.cuh.
+template <bool kCausal>
+__global__ void __launch_bounds__(kAttnThreads)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      float* __restrict__ lse, int L, float score_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);  // longest first
+  const size_t head = blockIdx.x / n_tiles;                              // n * n_heads + h
+  const size_t head_off = head * L * kAttnDim;
+  const AttnHead view{q + head_off, k + head_off, v + head_off, kAttnDim,
+                      nullptr, nullptr, nullptr, out + head_off, kAttnDim,
+                      lse == nullptr ? nullptr : lse + head * L, nullptr};
+  attn_fwd_tile<false, kCausal, false>(view, L, tile * kAttnRows, score_scale, smem);
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
+                        long long blocks, int L, int causal, float score_scale,
+                        cudaStream_t s) {
+  const auto kernel = causal ? flash_fwd_bf16_kernel<true> : flash_fwd_bf16_kernel<false>;
+  const cudaError_t err = allow_smem(kernel, kAttnSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kAttnThreads, kAttnSmemBytes, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), lse, L, score_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -170,7 +208,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
   const long long blocks =
       static_cast<long long>(n) * n_heads * ((L + kQTile - 1) / kQTile);
   const float score_scale = kLog2e / sqrtf(static_cast<float>(kHeadDim));
-  const auto run = fp32 ? launch<float> : launch<bf16>;
+  const auto run = fp32 ? launch<float> : launch_bf16;
   return static_cast<int>(run(q, k, v, out, static_cast<float*>(lse), blocks, L, causal,
                               score_scale, static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,7 @@
-// Pieces shared by the packed-qkv attention kernels for Hopper (sm_90a):
-// csrc/packed_mha_fwd.cu (K1) and csrc/packed_mha_bwd.cu (K2 and K3).
+// Pieces shared by the CUDA-core attention kernels for Hopper (sm_90a):
+// csrc/packed_mha_bwd.cu (K2 and K3), csrc/ring_hop.cu (K9) and, through
+// flash_common.cuh, csrc/flash_bwd.cu (K5) and K4's float32 path; K1
+// (csrc/packed_mha_fwd.cu, on the tensor cores) takes allow_smem and kLog2e.
 //
 // qkv (N, L, 3E) holds [q | k | v] columns, head-major within each, with the
 // qkv bias (3E,) added in the kernels and rounded to bfloat16 as the plain
