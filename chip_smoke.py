@@ -9,9 +9,10 @@ Phases (each raises on failure, so the run exits non-zero):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``vitef_tpu_torch/ops/csrc`` (one ``nvcc`` per
-   source, all at once), printing the seconds and ptxas registers/spills,
-   and the HMMA (tensor-core) instructions that ``cuobjdump -sass`` finds in
-   K1's and K4's libraries (none fails the run);
+   source, all at once), printing the seconds and each kernel's ptxas
+   registers and spills, and the HMMA (tensor-core) instructions that
+   ``cuobjdump -sass`` finds in the libraries of K1, K2/K3 and K4 (none
+   fails the run);
 3. K1 phase: the packed-MHA forward kernel against its plain PyTorch version
    (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths up
    to 1024 (the tensor-core tiles' edges 16, 17, 33, 64, 65, 129 among
@@ -191,6 +192,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import time
 from collections import Counter
@@ -250,7 +252,7 @@ PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 LSE_MAX_ABS = 1e-3
 # The libraries whose bf16 bodies multiply on the tensor cores (mma.sync):
 # their SASS must hold HMMA instructions.
-TENSOR_CORE_LIBS = ("packed_mha_fwd", "flash_fwd")
+TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd")
 
 # A kernel's bf16 output against the float32 plain version on the same bf16
 # inputs: bf16 rounding of the output alone is ~2^-8 of |value| (K10's values
@@ -515,6 +517,38 @@ def no_plain_versions():
         yield calls, aug_calls
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled symbol: the last component of the
+    (length-prefixed) nested name, with its integer and bool template
+    arguments, as in ``packed_bwd_dq_kernel<1>``."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    parts = []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
+    name = parts[-1] if parts else mangled
+    return name + (f"<{','.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>" if args else "")
+
+
+def ptxas_kernels(log: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spills) of each entry point in a ``-Xptxas -v``
+    log."""
+    found, name, spills = [], None, ""
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name, spills = m.group(1), ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            found.append((kernel_name(name), m.group(1), spills))
+            name = None
+    return found
+
+
 def build_phase() -> None:
     t0 = time.perf_counter()
     _build.build(KERNELS)
@@ -523,9 +557,8 @@ def build_phase() -> None:
     native.eval_transform_batch(np.zeros((1, 8, 8, 3), np.uint8), 4)  # g++, at first use
     print(f"built the native image ops in {time.perf_counter() - t0:.2f} s (g++)")
     for name in KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}:", line.strip())
+        for kernel, registers, spills in ptxas_kernels(_build.build_log(name)):
+            print(f"ptxas {name}: {kernel}: {registers} registers; {spills}")
     cuobjdump = _build.cuda_tool("cuobjdump")
     for name in TENSOR_CORE_LIBS:
         sass = subprocess.run([cuobjdump, "-sass", str(_build.BUILD_DIR / f"lib{name}.so")],
@@ -665,11 +698,13 @@ def bwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
         lambda: A.packed_mha_bwd_reference(qkv, bias, g, N_HEADS, causal=causal), iters)
     library_ms = sdpa_ms(qkv, bias, causal=causal, g=g, iters=iters)
     dqkv, db = backward(g)
-    limit = bound(attention_flops(n, l, 5, causal), PEAK_BF16_FLOPS,
-                  (qkv, bias, g, out, lse, dqkv, db.float()))
+    flops = attention_flops(n, l, 5, causal)
+    limit = bound(flops, PEAK_BF16_FLOPS, (qkv, bias, g, out, lse, dqkv, db.float()))
     print(f"{label} at N={n} L={l} E={EMB} h={N_HEADS}: kernel {times[1]:.4f}/"
-          f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA backward "
-          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+          f"{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s of the 5 products), plain "
+          f"{times[0]:.4f}/{times[3]:.4f} ms, SDPA backward {library_ms:.4f} ms "
+          f"({tflops(flops, library_ms):.1f}), bound {limit['bound_ms']:.4f} ms "
+          f"({limit['bound_by']})")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
             "library_ms": library_ms}
 
@@ -1610,16 +1645,18 @@ def probing_phase(device) -> None:
         raise AssertionError(f"linear probing gave {accs}")
 
 
+# The kernels of one K2/K3 launch (csrc/packed_mha_bwd.cu).
+PACKED_BWD_KERNELS = ("packed_bwd_dq_kernel", "packed_bwd_dkv_kernel", "db_partial_kernel",
+                      "db_final_kernel")
 VIT_KINDS = {"K1 packed_mha_fwd": ("packed_mha_fwd",),
-             "K2 packed_mha_bwd": ("dq_kernel", "dkv_kernel", "db_partial", "db_final"),
+             "K2 packed_mha_bwd": PACKED_BWD_KERNELS,
              "K10 train_augment": ("train_augment",),
              "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
              "optimizer (foreach / SGD)": ("multi_tensor", "foreach")}
 VIT_K6_KINDS = {"K6 layernorm_fwd": ("layernorm_fwd_kernel",),
                 "K6 layernorm_bwd_dx": ("layernorm_bwd_dx_kernel",), **VIT_KINDS}
 GPT2_KINDS = {"K1 packed_mha_fwd (causal)": ("packed_mha_fwd",),
-              "K3 packed_mha_bwd (causal)": ("dq_kernel", "dkv_kernel", "db_partial",
-                                           "db_final"),
+              "K3 packed_mha_bwd (causal)": PACKED_BWD_KERNELS,
               "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
               "optimizer (foreach / AdamW)": ("multi_tensor", "foreach")}
 
@@ -1959,7 +1996,7 @@ MOE_KINDS = {"K8 tgmm": ("tgmm_bf16_kernel<0>",),
              "K7 gmm_dy_swiglu": ("gmm_bf16_kernel<2>",),
              "K7 gmm_dual": ("gmm_bf16_kernel<3>",),
              "K1 packed_mha_fwd (causal)": ("packed_mha_fwd",),
-             "K3 packed_mha_bwd (causal)": ("dq_kernel", "dkv_kernel", "db_partial", "db_final"),
+             "K3 packed_mha_bwd (causal)": PACKED_BWD_KERNELS,
              "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
              "optimizer (foreach / AdamW)": ("multi_tensor", "foreach")}
 

@@ -296,10 +296,13 @@ def packed_mha_bwd(qkv, bias, g, out, lse, n_heads: int, causal: bool = False):
 
     A CPU tensor goes through :func:`packed_mha_bwd_reference` (``out`` and
     ``lse`` unused). A CUDA tensor launches ``csrc/packed_mha_bwd.cu`` (K2,
-    or K3 when causal: dq pass and dk/dv pass, causal over the lower triangle
-    only, then a fixed-order column sum for db, so two launches on the same
-    inputs give bit-identical results), or raises if the kernel does not
-    take it: bfloat16 qkv, g and out, head width 64; every L.
+    or K3 when causal: a dq pass and a dk/dv pass whose five products run on
+    the tensor cores, causal over the lower triangle only, then a
+    fixed-order column sum for db, so two launches on the same inputs give
+    bit-identical results), or raises if the kernel does not take it:
+    bfloat16 qkv, g and out, head width 64; every L. The kernel rounds P and
+    dS to bfloat16 before their products, as the TPU kernel rounds them; the
+    plain version keeps them in float32.
     ``packed_mha_bwd.launches`` counts its launches.
     """
     if qkv.device.type == "cpu":

@@ -1,6 +1,8 @@
 // The tensor-core forward of softmax attention for Hopper (sm_90a), shared
 // by K1 (csrc/packed_mha_fwd.cu, packed qkv with its bias) and K4's bfloat16
-// path (csrc/flash_fwd.cu, head-major q, k, v).
+// path (csrc/flash_fwd.cu, head-major q, k, v). Its tiles, copies and warp
+// products (load_a_frags, mma_a_bt, mma_a_b, c_to_a, store_warp_rows) are
+// also the backward's (attn_bwd_mma.cuh).
 //
 // One block of 4 warps computes 64 query rows of one head at head width 64,
 // a FlashAttention-2 schedule on mma.sync.m16n8k16 (bf16 in, float32
@@ -111,6 +113,95 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Rows row0 .. row0 + 15 of a staged tile as the A fragments of the four k16
+// steps over its 64 columns.
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4], const bf16* tile, int row0) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldmatrix_x4(a[kk], tile + (row0 + (lane & 15)) * kAttnStride + kk * 16 + (lane >> 4) * 8);
+  }
+}
+
+// c (16 x 64) += a (16 x 64) tile^T: n8 tile t of c holds rows 8 t .. 8 t + 7
+// of the staged tile (ldmatrix: the tile's rows are the "col" operand).
+__device__ __forceinline__ void mma_a_bt(float (&c)[8][4], const uint32_t (&a)[4][4],
+                                         const bf16* tile) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      uint32_t b[4];
+      ldmatrix_x4(b, tile + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kAttnStride +
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(c[2 * nj], a[kk], b);
+      mma_bf16(c[2 * nj + 1], a[kk], b + 2);
+    }
+  }
+}
+
+// c (16 x 64) += a (16 x 64) tile: a's columns are the staged tile's rows,
+// and n8 tile t of c holds the tile's columns 8 t .. 8 t + 7 (ldmatrix.trans).
+__device__ __forceinline__ void mma_a_b(float (&c)[8][4], const uint32_t (&a)[4][4],
+                                        const bf16* tile) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int dj = 0; dj < 4; ++dj) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kAttnStride +
+                               dj * 16 + (lane >> 4) * 8);
+      mma_bf16(c[2 * dj], a[kk], b);
+      mma_bf16(c[2 * dj + 1], a[kk], b + 2);
+    }
+  }
+}
+
+// The 16 x 64 accumulators c, rounded to bf16, as the A fragments of the next
+// product: k16 step kk is n8 tiles 2 kk and 2 kk + 1.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    a[t >> 1][2 * (t & 1)] = pack_bf16(c[t][0], c[t][1]);
+    a[t >> 1][2 * (t & 1) + 1] = pack_bf16(c[t][2], c[t][3]);
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&c)[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t) c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.f;
+}
+
+// The warp's 16 x 64 accumulator rows r0 .. r0 + 15 (those < L), in bf16,
+// into dst + r * stride: staged in the warp's own 16 rows `so` of a tile,
+// then written with 16-byte stores.
+__device__ __forceinline__ void store_warp_rows(const float (&c)[8][4], bf16* so, bf16* dst,
+                                                size_t stride, int r0, int L) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    *reinterpret_cast<uint32_t*>(so + g * kAttnStride + 8 * t + 2 * tig) =
+        pack_bf16(c[t][0], c[t][1]);
+    *reinterpret_cast<uint32_t*>(so + (g + 8) * kAttnStride + 8 * t + 2 * tig) =
+        pack_bf16(c[t][2], c[t][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int piece = lane + 32 * i;
+    const int row = piece >> 3;
+    const int col = (piece & 7) * 8;
+    if (r0 + row < L) {
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + row) * stride + col) =
+          *reinterpret_cast<const uint4*>(so + row * kAttnStride + col);
+    }
+  }
+}
+
 // Rows q0 .. q0 + 63 (those < L) of one head: out = softmax(Q K^T * scale'
 // [+ masks]) V, with scale = log2(e)/sqrt(d) applied in exp2 units. Called
 // by all kAttnThreads threads of the block with kAttnSmemBytes of dynamic
@@ -146,8 +237,7 @@ __device__ __forceinline__ void attn_fwd_tile(const AttnHead& hd, int L, int q0,
 
   uint32_t qf[4][4];                   // the warp's Q rows as A fragments, per k16 step
   float o[8][4];                       // O, 16 x 64: n8 tiles of head columns
-#pragma unroll
-  for (int t = 0; t < 8; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  zero_acc(o);
   float row_m[2] = {-INFINITY, -INFINITY};
   float row_l[2] = {0.f, 0.f};         // this thread's part of each row's sum
 
@@ -174,29 +264,12 @@ __device__ __forceinline__ void attn_fwd_tile(const AttnHead& hd, int L, int q0,
     }
     __syncthreads();
 
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        ldmatrix_x4(qf[kk], sq + (warp * 16 + (lane & 15)) * kAttnStride + kk * 16 +
-                                (lane >> 4) * 8);
-      }
-    }
+    if (j == 0) load_a_frags(qf, sq, warp * 16);
 
     // S = Q K^T: n8 tile t holds keys k0 + 8 t .. + 7.
     float s[8][4];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ks + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kAttnStride +
-                           kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * nj], qf[kk], b);
-        mma_bf16(s[2 * nj + 1], qf[kk], b + 2);
-      }
-    }
+    zero_acc(s);
+    mma_a_bt(s, qf, ks);
 
     // Scale; mask by index on the diagonal and the last partial tile, and by
     // the key mask. Element (t, 2 rr + e) is row row0 + 8 rr, key
@@ -247,7 +320,8 @@ __device__ __forceinline__ void attn_fwd_tile(const AttnHead& hd, int L, int q0,
       o[t][2] *= alpha[1];
       o[t][3] *= alpha[1];
     }
-    // P as A fragments: k16 step kk of P V is n8 tiles 2 kk and 2 kk + 1.
+    // P as A fragments (as c_to_a packs them), each n8 tile packed as soon as
+    // it is exponentiated: k16 step kk of P V is n8 tiles 2 kk and 2 kk + 1.
     uint32_t pf[4][4];
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
@@ -262,22 +336,12 @@ __device__ __forceinline__ void attn_fwd_tile(const AttnHead& hd, int L, int q0,
     }
 
     // O += P V: n8 tile t of O holds head columns 8 t .. + 7.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int dj = 0; dj < 4; ++dj) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kAttnStride +
-                                 dj * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dj], pf[kk], b);
-        mma_bf16(o[2 * dj + 1], pf[kk], b + 2);
-      }
-    }
+    mma_a_b(o, pf, vs);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
   // Epilogue: the quad's partial sums, O / l in bf16 through the warp's own
-  // rows of the Q tile (read only on the first tile), 16-byte stores.
+  // rows of the Q tile (read only on the first tile).
   float inv[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
@@ -285,26 +349,14 @@ __device__ __forceinline__ void attn_fwd_tile(const AttnHead& hd, int L, int q0,
     row_l[rr] += __shfl_xor_sync(0xffffffffu, row_l[rr], 2);
     inv[rr] = 1.f / row_l[rr];
   }
-  bf16* so = sq + warp * 16 * kAttnStride;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
-    *reinterpret_cast<uint32_t*>(so + g * kAttnStride + 8 * t + 2 * tig) =
-        pack_bf16(o[t][0] * inv[0], o[t][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(so + (g + 8) * kAttnStride + 8 * t + 2 * tig) =
-        pack_bf16(o[t][2] * inv[1], o[t][3] * inv[1]);
+    o[t][0] *= inv[0];
+    o[t][1] *= inv[0];
+    o[t][2] *= inv[1];
+    o[t][3] *= inv[1];
   }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int piece = lane + 32 * i;
-    const int row = piece >> 3;
-    const int col = (piece & 7) * 8;
-    const int qi = q0 + warp * 16 + row;
-    if (qi < L) {
-      *reinterpret_cast<uint4*>(hd.out + static_cast<size_t>(qi) * hd.out_stride + col) =
-          *reinterpret_cast<const uint4*>(so + row * kAttnStride + col);
-    }
-  }
+  store_warp_rows(o, sq + warp * 16 * kAttnStride, hd.out, hd.out_stride, q0 + warp * 16, L);
   if (hd.lse != nullptr && tig == 0) {
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {

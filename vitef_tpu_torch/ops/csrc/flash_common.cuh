@@ -7,9 +7,9 @@
 // is what differs between the two types: how two neighbouring elements (a
 // "pair") or eight are read as floats and written back; float32's round_p
 // is the rounding its CUDA-core forward gives P before P.V (none; the bf16
-// forward runs on the tensor cores). The rest are the packed kernels' row
-// helpers (csrc/packed_mha_common.cuh) for either type: stage_rows (a tile
-// of rows into padded shared rows), dot_row_t and weighted_rows_t.
+// forward runs on the tensor cores). The rest are row helpers for either
+// type: stage_rows (a tile of rows into padded shared rows), dot_row_t and
+// weighted_rows_t.
 
 #pragma once
 

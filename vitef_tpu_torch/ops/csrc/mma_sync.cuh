@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy wrappers for Hopper (sm_90a), shared by
 // the kernels that multiply with mma.sync: csrc/gmm.cu and csrc/tgmm.cu
 // (through gmm_common.cuh), csrc/packed_mha_fwd.cu and csrc/flash_fwd.cu
-// (through attn_fwd_mma.cuh).
+// (through attn_fwd_mma.cuh) and csrc/packed_mha_bwd.cu (through
+// attn_bwd_mma.cuh).
 //
 // Here: shared-memory addresses, ldmatrix (plain and transposed), the
 // m16n8k16 bf16 product with float32 accumulators, and 16-byte cp.async
