@@ -11,8 +11,9 @@ Phases (each raises on failure, so the run exits non-zero):
 2. build every CUDA kernel from ``vitef_tpu_torch/ops/csrc`` (one ``nvcc`` per
    source, all at once), printing the seconds and each kernel's ptxas
    registers and spills, and the HMMA (tensor-core) instructions that
-   ``cuobjdump -sass`` finds in the libraries of K1, K2/K3 and K4 (none
-   fails the run);
+   ``cuobjdump -sass`` finds in the libraries of K1, K2/K3, K4 and K5 (none
+   fails the run) and the TF32 HMMA instructions in each instantiation of
+   K4's float32 kernel (none fails the run);
 3. K1 phase: the packed-MHA forward kernel against its plain PyTorch version
    (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths up
    to 1024 (the tensor-core tiles' edges 16, 17, 33, 64, 65, 129 among
@@ -54,10 +55,13 @@ Phases (each raises on failure, so the run exits non-zero):
     against their float32 plain versions, in bfloat16 at the Llama-1B train
     shape (N=4, h=32, L=1024, causal; timed with the plain version and SDPA)
     and at edge lengths (1, 16, 63, 64, 65, 127, 129, 1000, causal and not),
-    and in float32 at a GPT-2 shape (N=8, h=12, L=1024, causal; timed); K4's
-    lse within 1e-3 of the plain scores', K4 and K5 bit-identical over two
-    launches, and both wrappers raise for what the kernels do not take
-    (these run with the other kernel phases, after 7);
+    and in float32 at a GPT-2 shape (N=8, h=12, L=1024, causal; timed) and
+    at edge lengths (1, 16, 17, 65, 129, 1000, causal and not; N=2, h=12);
+    K4's lse within 1e-3 of the plain scores', K4 and K5 bit-identical over
+    two launches, and both wrappers raise for what the kernels do not take;
+    TFLOP/s beside each time, and K4 float32's bound both on the CUDA cores
+    and over the split-TF32 products it issues (these run with the other
+    kernel phases, after 7);
 15. GPT-2 float32: GPT-2 base at its default compute dtype, whose attention
     at L=1024 takes K4 and K5 in float32: the logits and the gradients of 4
     sequences against the plain path, K4 and K5 launched every layer;
@@ -242,8 +246,15 @@ KERNELS = ("packed_mha_fwd", "packed_mha_bwd", "train_augment", "flash_fwd", "fl
 N_CLASSES = VIT_B16["n_classes"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor
-# cores, float32 on the CUDA cores, HBM3.
-PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# cores, float32 on the CUDA cores, TF32 tensor cores, HBM3.
+PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 989e12, 67e12, 495e12, 3.35e12
+# K4's float32 path multiplies in split TF32: three TF32 products (hi.hi,
+# hi.lo, lo.hi) for each float32 product.
+TF32_PRODUCTS = 3
+
+# cuda_ms's spin before a timed run: cycles per ms at the H100's top clock
+# (1.98 GHz; a lower clock only spins longer), and its cap.
+SPIN_CYCLES_PER_MS, SPIN_MAX_MS = 1.98e6, 200.0
 
 # The forwards' per-row log2-sum-exp (K1, K4) against the float32 one of the
 # plain scores: float32 summation order and exp2's few ulp give ~1e-6 at
@@ -251,8 +262,10 @@ PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # 1e-3 (log2 units) sits far from both.
 LSE_MAX_ABS = 1e-3
 # The libraries whose bf16 bodies multiply on the tensor cores (mma.sync):
-# their SASS must hold HMMA instructions.
-TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd")
+# their SASS must hold HMMA instructions; and the float32 kernel whose
+# products are TF32 HMMA instructions (each instantiation).
+TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd", "flash_bwd")
+TF32_KERNEL = ("flash_fwd", "flash_fwd_tf32_kernel")
 
 # A kernel's bf16 output against the float32 plain version on the same bf16
 # inputs: bf16 rounding of the output alone is ~2^-8 of |value| (K10's values
@@ -296,7 +309,9 @@ GPT2_CHECK_BATCH, GPT2_FIXED_BATCH = 4, 8
 FLASH_BF16 = [(4, 32, 1024, True)] + [(2, 32, l, causal)
                                       for l in (1, 16, 63, 64, 65, 127, 129, 1000)
                                       for causal in (True, False)]
-FLASH_FP32 = [(8, 12, 1024, True)]
+FLASH_FP32 = [(8, 12, 1024, True)] + [(2, 12, l, causal)
+                                      for l in (1, 16, 17, 65, 129, 1000)
+                                      for causal in (True, False)]
 # float32 throughout, against the float32 plain version: only the order of
 # summation differs (~1e-6 seen), so the limits are 100x that.
 FLASH_FP32_MAX_ABS, FLASH_FP32_MEAN_ABS = 1e-4, 1e-5
@@ -419,9 +434,21 @@ def card() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` launches (CUDA events)."""
+    """Mean device time of ``fn`` in ms over ``iters`` launches (CUDA events).
+
+    The device first spins (``torch.cuda._sleep``) for longer than the host
+    takes to enqueue the ``iters`` calls, so they run back to back: a call
+    whose host work (autograd, allocation) outlasts its device work is timed
+    by the device work, not by the gaps between launches."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = min(SPIN_MAX_MS, 1.5 * iters * host_ms + 1.0)
+    torch.cuda._sleep(int(spin_ms * SPIN_CYCLES_PER_MS))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -549,6 +576,20 @@ def ptxas_kernels(log: str) -> list[tuple[str, str, str]]:
     return found
 
 
+def sass_hmma(lib: str) -> dict[str, list[str]]:
+    """The HMMA (tensor-core) instructions of each kernel in ``lib<lib>.so``,
+    as ``cuobjdump -sass`` prints them, by the kernel's mangled name."""
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                           str(_build.BUILD_DIR / f"lib{lib}.so")],
+                          check=True, capture_output=True, text=True, timeout=120).stdout
+    found = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        found[name.strip()] = [line.split("*/", 1)[-1].strip().rstrip(" ;")
+                               for line in body.splitlines() if "HMMA" in line]
+    return found
+
+
 def build_phase() -> None:
     t0 = time.perf_counter()
     _build.build(KERNELS)
@@ -559,14 +600,22 @@ def build_phase() -> None:
     for name in KERNELS:
         for kernel, registers, spills in ptxas_kernels(_build.build_log(name)):
             print(f"ptxas {name}: {kernel}: {registers} registers; {spills}")
-    cuobjdump = _build.cuda_tool("cuobjdump")
     for name in TENSOR_CORE_LIBS:
-        sass = subprocess.run([cuobjdump, "-sass", str(_build.BUILD_DIR / f"lib{name}.so")],
-                              check=True, capture_output=True, text=True, timeout=120).stdout
-        hmma = sass.count("HMMA")
+        hmma = sum(len(lines) for lines in sass_hmma(name).values())
         print(f"lib{name}.so: {hmma} HMMA (tensor-core) instructions in cuobjdump -sass")
         if hmma == 0:
             raise AssertionError(f"lib{name}.so holds no tensor-core instruction")
+    lib, kernel = TF32_KERNEL
+    found = {fn: lines for fn, lines in sass_hmma(lib).items() if kernel in fn}
+    for fn, lines in sorted(found.items()):
+        tf32 = [line for line in lines if "TF32" in line]
+        print(f"lib{lib}.so {kernel_name(fn)}: {len(tf32)} TF32 HMMA instructions "
+              f"({', '.join(sorted({line.split()[0] for line in lines})) or 'no HMMA'})")
+        if not tf32:
+            raise AssertionError(f"{kernel_name(fn)} holds no TF32 tensor-core instruction")
+    if len(found) != 2:
+        raise AssertionError(f"lib{lib}.so: want {kernel}'s two instantiations, found "
+                             f"{sorted(found)}")
 
 
 def in_turns(kernel, plain, iters: int = 20) -> tuple[float, float, list[float]]:
@@ -777,6 +826,15 @@ def flash_fwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
                              iters)
     flops = flash_flops(n, h, l, 64, 2, causal)
     limit = bound(flops, peak, (q, k, v, out))
+    if dtype == torch.float32:
+        # The design issues TF32_PRODUCTS TF32 products per float32 product;
+        # the least time is the lesser of that and the CUDA cores' bound.
+        tf32 = bound(TF32_PRODUCTS * flops, PEAK_TF32_FLOPS, (q, k, v, out))
+        print(f"{label} bound at N={n} h={h} L={l}: {limit['bound_ms']:.4f} ms on the CUDA "
+              f"cores ({peak / 1e12:.0f} TFLOP/s), {tf32['bound_ms']:.4f} ms over the "
+              f"{TF32_PRODUCTS} TF32 products per float32 product it issues "
+              f"({PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s)")
+        limit = min(limit, tf32, key=lambda b: b["bound_ms"])
     print(f"{label} at N={n} h={h} L={l} causal={causal}: kernel {times[1]:.4f}/"
           f"{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain {times[0]:.4f}/"
           f"{times[3]:.4f} ms ({tflops(flops, plain_ms):.1f}), SDPA {library_ms:.4f} ms "
@@ -860,10 +918,13 @@ def flash_bwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
                          iters)
     del sdpa_out, leaves
     grads = backward(g)
-    limit = bound(flash_flops(n, h, l, 64, 5, causal), peak, (q, k, v, g, out, lse, *grads))
+    flops = flash_flops(n, h, l, 64, 5, causal)
+    limit = bound(flops, peak, (q, k, v, g, out, lse, *grads))
     print(f"{label} at N={n} h={h} L={l} causal={causal}: kernel {times[1]:.4f}/"
-          f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA backward "
-          f"{library_ms:.4f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']})")
+          f"{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s of the 5 products), plain "
+          f"{times[0]:.4f}/{times[3]:.4f} ms, SDPA backward {library_ms:.4f} ms "
+          f"({tflops(flops, library_ms):.1f}), bound {limit['bound_ms']:.4f} ms "
+          f"({limit['bound_by']})")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
             "library_ms": library_ms}
 
@@ -1876,7 +1937,7 @@ def llama_flops_per_token(cfg) -> float:
 
 
 LLAMA_KINDS = {"K4 flash_fwd (causal)": ("flash_fwd",),
-               "K5 flash_bwd (causal)": ("flash_dq", "flash_dkv"),
+               "K5 flash_bwd (causal)": ("flash_bwd_dq", "flash_bwd_dkv"),
                "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
                "optimizer (foreach / AdamW)": ("multi_tensor", "foreach")}
 

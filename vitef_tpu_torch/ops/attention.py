@@ -438,7 +438,9 @@ def flash_attention(q, k, v, *, causal: bool = False, impl: str = "auto"):
     kernel route on a CPU tensor runs :func:`attention_reference` too (and
     autograd differentiates it). A CUDA tensor launches K4, or raises if the
     kernel does not take it: q, k and v of one shape and dtype, bfloat16 or
-    float32, head width 64. When a gradient is wanted the call runs under
+    float32, head width 64. Both types multiply on the tensor cores, float32
+    in split TF32 (three TF32 products per float32 product), which keeps
+    float32's accuracy. When a gradient is wanted the call runs under
     :class:`_Flash`, whose backward launches K5 (:func:`flash_bwd`).
     ``flash_attention.launches`` counts K4's launches.
     """
@@ -461,11 +463,13 @@ def flash_bwd(q, k, v, g, out, lse, causal: bool = False):
 
     A CPU tensor goes through :func:`flash_bwd_reference` (``out`` and
     ``lse`` unused). A CUDA tensor launches ``csrc/flash_bwd.cu`` (a dq pass
-    over key tiles and a dK/dV pass over query chunks, causal over the lower
+    over query tiles and a dK/dV pass over key tiles, causal over the lower
     triangle only, no atomics: two launches on the same inputs give
     bit-identical results), or raises if the kernel does not take it: every
     operand of one shape and dtype, bfloat16 or float32, head width 64; every
-    L. ``flash_bwd.launches`` counts its launches.
+    L. bfloat16 runs on the tensor cores and rounds P and dS to bfloat16
+    before their products, as the TPU kernel rounds them; float32 runs on the
+    CUDA cores in float32. ``flash_bwd.launches`` counts its launches.
     """
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, g, causal=causal)

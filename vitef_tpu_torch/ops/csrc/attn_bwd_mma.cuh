@@ -1,5 +1,6 @@
 // The tensor-core backward of softmax attention for Hopper (sm_90a), used by
-// K2 and K3 (csrc/packed_mha_bwd.cu, packed qkv with its bias). It is the
+// K2 and K3 (csrc/packed_mha_bwd.cu, packed qkv with its bias) and K5's
+// bfloat16 path (csrc/flash_bwd.cu, head-major, no bias). It is the
 // backward of attn_fwd_mma.cuh and is built from its pieces: head width 64,
 // 64-row query tiles and 64-key tiles, 4 warps of 16 rows, rows padded by 8
 // elements in shared memory, 16-byte cp.async copies double buffered, rows

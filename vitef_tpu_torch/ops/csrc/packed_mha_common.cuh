@@ -1,8 +1,8 @@
 // Pieces shared by the CUDA-core attention kernels for Hopper (sm_90a):
-// csrc/ring_hop.cu (K9) and, through flash_common.cuh, csrc/flash_bwd.cu
-// (K5) and K4's float32 path. The tensor-core kernels K1
-// (csrc/packed_mha_fwd.cu) and K2/K3 (csrc/packed_mha_bwd.cu) take
-// allow_smem and kLog2e, and K2/K3's db pass load_pair.
+// csrc/ring_hop.cu (K9) and K5's float32 path (csrc/flash_bwd.cu). The
+// tensor-core kernels K1 (csrc/packed_mha_fwd.cu), K2/K3
+// (csrc/packed_mha_bwd.cu) and K4/K5's other paths take allow_smem and
+// kLog2e, and K2/K3's db pass load_pair.
 //
 // qkv (N, L, 3E) holds [q | k | v] columns, head-major within each, with the
 // qkv bias (3E,) added in the kernels and rounded to bfloat16 as the plain

@@ -38,7 +38,7 @@
 // by its bytes (3.3 us at 3.35 TB/s). This one multiplies on the CUDA cores
 // (FMA), so its arithmetic and shared-memory reads bound it.
 //
-// What the design does about it: the schedule of K4 (csrc/flash_fwd.cu) with
+// What the design does about it: a CUDA-core flash forward's schedule with
 // the state as input and output. One block per (sequence, head, 64-row
 // query tile), 4 warps. The state of the tile's rows is read once into
 // shared memory and written once at the end. The block walks 64-key tiles of
