@@ -12,8 +12,10 @@ Phases (each raises on failure, so the run exits non-zero):
    source, all at once), printing the seconds and each kernel's ptxas
    registers and spills, and the HMMA (tensor-core) instructions that
    ``cuobjdump -sass`` finds in the libraries of K1, K2/K3, K4 and K5 (none
-   fails the run) and the TF32 HMMA instructions in each instantiation of
-   K4's float32 kernel (none fails the run);
+   fails the run), the TF32 HMMA instructions in each instantiation of K4's
+   float32 kernel and of K5's two float32 passes, and the HGMMA (wgmma)
+   instructions in both column tiles of K8 gmm's kPlain kernel (none fails
+   the run);
 3. K1 phase: the packed-MHA forward kernel against its plain PyTorch version
    (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths up
    to 1024 (the tensor-core tiles' edges 16, 17, 33, 64, 65, 129 among
@@ -59,9 +61,9 @@ Phases (each raises on failure, so the run exits non-zero):
     at edge lengths (1, 16, 17, 65, 129, 1000, causal and not; N=2, h=12);
     K4's lse within 1e-3 of the plain scores', K4 and K5 bit-identical over
     two launches, and both wrappers raise for what the kernels do not take;
-    TFLOP/s beside each time, and K4 float32's bound both on the CUDA cores
-    and over the split-TF32 products it issues (these run with the other
-    kernel phases, after 7);
+    TFLOP/s beside each time, and K4's and K5's float32 bounds both on the
+    CUDA cores and over the split-TF32 products they issue (these run with
+    the other kernel phases, after 7);
 15. GPT-2 float32: GPT-2 base at its default compute dtype, whose attention
     at L=1024 takes K4 and K5 in float32: the logits and the gradients of 4
     sequences against the plain path, K4 and K5 launched every layer;
@@ -84,8 +86,10 @@ Phases (each raises on failure, so the run exits non-zero):
     float32 at a small shape; each bit-identical over two launches; the
     wrappers raise for float16 and for a width not a multiple of 8, and the
     ``gmm.cu`` ones count no launch for zero rows; each timed with its plain
-    version, its bound and ``torch._grouped_mm`` (these run with the other
-    kernel phases, after 14);
+    version, its bound and ``torch._grouped_mm``, and K8 gmm's kPlain kernel
+    also at both its column tiles (128 x 128 and 128 x 256), each within the
+    gate and timed in turns (these run with the other kernel phases, after
+    14);
 19. MoE train slice: the JAX package's "8x124m" preset at L=1024 (random
     weights from a seed) trains with ``bench_llama(batch=8, size="8x124m",
     implementation="moe")``'s protocol (bf16, 8 x 1024 tokens of
@@ -262,10 +266,17 @@ SPIN_CYCLES_PER_MS, SPIN_MAX_MS = 1.98e6, 200.0
 # 1e-3 (log2 units) sits far from both.
 LSE_MAX_ABS = 1e-3
 # The libraries whose bf16 bodies multiply on the tensor cores (mma.sync):
-# their SASS must hold HMMA instructions; and the float32 kernel whose
-# products are TF32 HMMA instructions (each instantiation).
+# their SASS must hold HMMA instructions; the float32 kernels whose products
+# are TF32 HMMA instructions (K4's and K5's, each in both instantiations);
+# and K8 gmm's kPlain kernel, whose products are wgmma (HGMMA), at both
+# column tiles.
 TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd", "flash_bwd")
-TF32_KERNEL = ("flash_fwd", "flash_fwd_tf32_kernel")
+SASS_KERNELS = [("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32"),
+                ("flash_bwd", "flash_bwd_dq_tf32_kernel", "HMMA", "TF32"),
+                ("flash_bwd", "flash_bwd_dkv_tf32_kernel", "HMMA", "TF32"),
+                ("gmm", "gmm_wgmma_kernel", "HGMMA", "HGMMA")]
+# kPlain's two column tiles (csrc/gmm.cu gmm_plain_tile), timed in turn.
+GMM_TILES = (128, 256)
 
 # A kernel's bf16 output against the float32 plain version on the same bf16
 # inputs: bf16 rounding of the output alone is ~2^-8 of |value| (K10's values
@@ -576,9 +587,10 @@ def ptxas_kernels(log: str) -> list[tuple[str, str, str]]:
     return found
 
 
-def sass_hmma(lib: str) -> dict[str, list[str]]:
-    """The HMMA (tensor-core) instructions of each kernel in ``lib<lib>.so``,
-    as ``cuobjdump -sass`` prints them, by the kernel's mangled name."""
+def sass_ops(lib: str, opcode: str = "HMMA") -> dict[str, list[str]]:
+    """The instructions of each kernel in ``lib<lib>.so`` whose text holds
+    ``opcode`` (HMMA: mma.sync on the tensor cores; HGMMA: wgmma), as
+    ``cuobjdump -sass`` prints them, by the kernel's mangled name."""
     sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
                            str(_build.BUILD_DIR / f"lib{lib}.so")],
                           check=True, capture_output=True, text=True, timeout=120).stdout
@@ -586,7 +598,7 @@ def sass_hmma(lib: str) -> dict[str, list[str]]:
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         found[name.strip()] = [line.split("*/", 1)[-1].strip().rstrip(" ;")
-                               for line in body.splitlines() if "HMMA" in line]
+                               for line in body.splitlines() if opcode in line]
     return found
 
 
@@ -601,21 +613,21 @@ def build_phase() -> None:
         for kernel, registers, spills in ptxas_kernels(_build.build_log(name)):
             print(f"ptxas {name}: {kernel}: {registers} registers; {spills}")
     for name in TENSOR_CORE_LIBS:
-        hmma = sum(len(lines) for lines in sass_hmma(name).values())
+        hmma = sum(len(lines) for lines in sass_ops(name).values())
         print(f"lib{name}.so: {hmma} HMMA (tensor-core) instructions in cuobjdump -sass")
         if hmma == 0:
             raise AssertionError(f"lib{name}.so holds no tensor-core instruction")
-    lib, kernel = TF32_KERNEL
-    found = {fn: lines for fn, lines in sass_hmma(lib).items() if kernel in fn}
-    for fn, lines in sorted(found.items()):
-        tf32 = [line for line in lines if "TF32" in line]
-        print(f"lib{lib}.so {kernel_name(fn)}: {len(tf32)} TF32 HMMA instructions "
-              f"({', '.join(sorted({line.split()[0] for line in lines})) or 'no HMMA'})")
-        if not tf32:
-            raise AssertionError(f"{kernel_name(fn)} holds no TF32 tensor-core instruction")
-    if len(found) != 2:
-        raise AssertionError(f"lib{lib}.so: want {kernel}'s two instantiations, found "
-                             f"{sorted(found)}")
+    for lib, kernel, opcode, want in SASS_KERNELS:
+        found = {fn: lines for fn, lines in sass_ops(lib, opcode).items() if kernel in fn}
+        for fn, lines in sorted(found.items()):
+            held = [line for line in lines if want in line]
+            print(f"lib{lib}.so {kernel_name(fn)}: {len(held)} {want} instructions "
+                  f"({', '.join(sorted({line.split()[0] for line in lines})) or f'no {opcode}'})")
+            if not held:
+                raise AssertionError(f"{kernel_name(fn)} holds no {want} instruction")
+        if len(found) != 2:
+            raise AssertionError(f"lib{lib}.so: want {kernel}'s two instantiations, found "
+                                 f"{sorted(found)}")
 
 
 def in_turns(kernel, plain, iters: int = 20) -> tuple[float, float, list[float]]:
@@ -780,6 +792,22 @@ def flash_limits(dtype) -> tuple[float, float, float]:
     return FLASH_FP32_MAX_ABS, FLASH_FP32_MEAN_ABS, PEAK_FP32_FLOPS
 
 
+def flash_bound(label: str, dtype, flops: float, tensors, nhl) -> dict:
+    """A flash kernel's bound. float32 runs in split TF32, TF32_PRODUCTS TF32
+    products per float32 product: its least time is the lesser of that and
+    the CUDA cores' bound, both printed."""
+    limit = bound(flops, flash_limits(dtype)[2], tensors)
+    if dtype == torch.float32:
+        tf32 = bound(TF32_PRODUCTS * flops, PEAK_TF32_FLOPS, tensors)
+        n, h, l = nhl
+        print(f"{label} bound at N={n} h={h} L={l}: {limit['bound_ms']:.4f} ms on the CUDA "
+              f"cores ({PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s), {tf32['bound_ms']:.4f} ms over the "
+              f"{TF32_PRODUCTS} TF32 products per float32 product it issues "
+              f"({PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s)")
+        limit = min(limit, tf32, key=lambda b: b["bound_ms"])
+    return limit
+
+
 def flash_fwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
     """K4 against its float32 plain version (``attention_reference``) on the
     same inputs at every (N, h, L, causal) of ``cases``, its lse against the
@@ -787,7 +815,7 @@ def flash_fwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
     first of them (the main path's shape, whose error is the one returned)
     with the plain version and SDPA."""
     gen = torch.Generator().manual_seed(seed)
-    max_lim, mean_lim, peak = flash_limits(dtype)
+    max_lim, mean_lim, _ = flash_limits(dtype)
     label = f"K4 flash_fwd {str(dtype).removeprefix('torch.')}"
     for n, h, l, causal in cases:
         q, k, v, _ = flash_inputs(gen, n, h, l, dtype, device)
@@ -825,16 +853,7 @@ def flash_fwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
                              iters)
     flops = flash_flops(n, h, l, 64, 2, causal)
-    limit = bound(flops, peak, (q, k, v, out))
-    if dtype == torch.float32:
-        # The design issues TF32_PRODUCTS TF32 products per float32 product;
-        # the least time is the lesser of that and the CUDA cores' bound.
-        tf32 = bound(TF32_PRODUCTS * flops, PEAK_TF32_FLOPS, (q, k, v, out))
-        print(f"{label} bound at N={n} h={h} L={l}: {limit['bound_ms']:.4f} ms on the CUDA "
-              f"cores ({peak / 1e12:.0f} TFLOP/s), {tf32['bound_ms']:.4f} ms over the "
-              f"{TF32_PRODUCTS} TF32 products per float32 product it issues "
-              f"({PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s)")
-        limit = min(limit, tf32, key=lambda b: b["bound_ms"])
+    limit = flash_bound(label, dtype, flops, (q, k, v, out), (n, h, l))
     print(f"{label} at N={n} h={h} L={l} causal={causal}: kernel {times[1]:.4f}/"
           f"{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain {times[0]:.4f}/"
           f"{times[3]:.4f} ms ({tflops(flops, plain_ms):.1f}), SDPA {library_ms:.4f} ms "
@@ -861,7 +880,7 @@ def flash_bwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
     main path's shape, whose error is the one returned) with the plain
     version and SDPA's backward."""
     gen = torch.Generator().manual_seed(seed)
-    max_lim, mean_lim, peak = flash_limits(dtype)
+    max_lim, mean_lim, _ = flash_limits(dtype)
     label = f"K5 flash_bwd {str(dtype).removeprefix('torch.')}"
     for n, h, l, causal in cases:
         q, k, v, g = flash_inputs(gen, n, h, l, dtype, device)
@@ -919,7 +938,7 @@ def flash_bwd_phase(device, dtype, cases, seed: int, iters: int) -> dict:
     del sdpa_out, leaves
     grads = backward(g)
     flops = flash_flops(n, h, l, 64, 5, causal)
-    limit = bound(flops, peak, (q, k, v, g, out, lse, *grads))
+    limit = flash_bound(label, dtype, flops, (q, k, v, g, out, lse, *grads), (n, h, l))
     print(f"{label} at N={n} h={h} L={l} causal={causal}: kernel {times[1]:.4f}/"
           f"{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s of the 5 products), plain "
           f"{times[0]:.4f}/{times[3]:.4f} ms, SDPA backward {library_ms:.4f} ms "
@@ -1038,6 +1057,40 @@ def library_grouped(candidates, iters: int):
     return None, None
 
 
+def gmm_tile_shapes(tensors, plain, flops: float, iters: int) -> None:
+    """K8 gmm's kPlain kernel at each column tile of GMM_TILES on the step's
+    operands (csrc/gmm.cu ``gmm_plain_tile``; the wrapper takes 128 x 256),
+    each against the plain version within the bf16 gate and timed, in
+    turns."""
+    lhs, rhs, sz, out = tensors
+    sizes = sz.to(torch.int32)
+    fn = _build.kernel_function("gmm_plain_tile", 4, 5, source="gmm")
+
+    def call(tile_n):
+        err = fn(lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(), out.data_ptr(), lhs.shape[0],
+                 lhs.shape[1], rhs.shape[2], rhs.shape[0], tile_n,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gmm_plain_tile launch failed: cudaError {err} (tile {tile_n})")
+
+    with torch.inference_mode():
+        (ref,) = plain()
+    times = {}
+    for tile_n in GMM_TILES + GMM_TILES[::-1]:
+        call(tile_n)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        if not (max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
+            raise AssertionError(f"gmm at column tile {tile_n} disagrees with its plain version: "
+                                 f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e}")
+        times.setdefault(tile_n, []).append(cuda_ms(lambda: call(tile_n), iters))
+    print("gmm kPlain bf16 column tiles at the 8x124m step, timed in turns: " + "; ".join(
+        f"128 x {t}: " + "/".join(f"{ms:.4f}" for ms in times[t])
+        + f" ms ({flops / min(times[t]) / 1e9:.1f} TFLOP/s)" for t in GMM_TILES)
+        + " (max|d| within the bf16 gate at each)")
+
+
 def grouped_phase(device, name: str, seed: int, iters: int) -> dict:
     """One grouped-product entry point in bfloat16 against its float32 plain
     version at the 8x124m step's shapes and at the edge cases, and in
@@ -1135,6 +1188,8 @@ def grouped_phase(device, name: str, seed: int, iters: int) -> dict:
           + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
           + f", bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s")
+    if name == "gmm":
+        gmm_tile_shapes(tensors, plain, flops, iters)
     # library_ms: one PyTorch call computing the same function; the K7
     # passes fuse the swiglu, which no single call does.
     same_function = name in ("gmm", "tgmm") and str(library_label).startswith("torch.")
@@ -2052,7 +2107,7 @@ def moe_flops_per_token(cfg) -> float:
 GROUPED_WRAPPERS = (G.gmm, G.tgmm, GF.gmm_swiglu, GF.gmm_dy_swiglu, GF.gmm_dual, GF.tgmm_swiglu)
 MOE_KINDS = {"K8 tgmm": ("tgmm_bf16_kernel<0>",),
              "K7 tgmm_swiglu": ("tgmm_bf16_kernel<1>",),
-             "K8 gmm": ("gmm_bf16_kernel<0>",),
+             "K8 gmm": ("gmm_wgmma_kernel",),
              "K7 gmm_swiglu": ("gmm_bf16_kernel<1>",),
              "K7 gmm_dy_swiglu": ("gmm_bf16_kernel<2>",),
              "K7 gmm_dual": ("gmm_bf16_kernel<3>",),

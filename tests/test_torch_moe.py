@@ -5,7 +5,10 @@ the grouped-product kernels K8 (``gmm``, ``tgmm``) and K7 (the four
 swiglu-fused passes) against the JAX package's per-group formula (the
 reference its own test holds the fused segment to,
 tests/test_moe_sparse.py:205-213), with uneven group sizes and an empty
-group; the port's sparse and dense MoE FFN against the JAX dense oracle
+group, and ``gmm``'s at the edges of its kernel's tiles (groups ending one
+row either side of a 128-row boundary, empty first and last groups, fewer
+rows than a tile, a depth not a multiple of 64 and a width not a multiple of
+the column tile); the port's sparse and dense MoE FFN against the JAX dense oracle
 ``apply_moe_ffn``, forward and gradients; the router's tie order and aux
 losses; the sparse/dense branch rule; the counting sort; a tiny MoE model's
 logits and three AdamW steps with the aux losses; the 8x124m preset's names
@@ -128,6 +131,32 @@ def test_grouped_plain_versions_match_jax_formula(name):
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
     if name.startswith("tgmm"):
         assert not out[1].any()  # the empty group
+
+
+# Layouts at the edges of csrc/gmm.cu's kPlain tiles (128 rows, column tiles
+# of 128 or 256, 64 deep per stage): (group sizes, k, n).
+GMM_TILE_EDGES = {
+    "groups_end_one_row_before_and_after_128": ([127, 2, 127], 64, 64),
+    "empty_first_and_last_group": ([0, 100, 60, 0], 64, 64),
+    "rows_below_one_tile": ([20, 0, 30], 64, 64),
+    "k_not_a_stage_multiple": ([64, 70], 72, 64),
+    "n_not_a_column_tile_multiple": ([40, 90], 64, 136),
+}
+
+
+@pytest.mark.parametrize("case", list(GMM_TILE_EDGES))
+def test_gmm_plain_version_at_tile_edges(case):
+    sizes, k, n = GMM_TILE_EDGES[case]
+    rng = np.random.default_rng(53)
+    lhs, rhs = _normal(rng, sum(sizes), k), _normal(rng, len(sizes), k, n)
+    want = _jax_per_group(lhs, rhs, sizes)
+    group_sizes = _t(np.asarray(sizes, np.int64))
+    launches = G.gmm.launches
+    for got in (G.gmm_reference(_t(lhs), _t(rhs), group_sizes),
+                G.gmm(_t(lhs), _t(rhs), group_sizes)):
+        assert got.shape == (sum(sizes), n) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    assert G.gmm.launches == launches  # a CPU tensor takes the plain version
 
 
 def test_grouped_plain_versions_check_sizes():

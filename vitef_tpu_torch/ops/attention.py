@@ -467,9 +467,12 @@ def flash_bwd(q, k, v, g, out, lse, causal: bool = False):
     triangle only, no atomics: two launches on the same inputs give
     bit-identical results), or raises if the kernel does not take it: every
     operand of one shape and dtype, bfloat16 or float32, head width 64; every
-    L. bfloat16 runs on the tensor cores and rounds P and dS to bfloat16
-    before their products, as the TPU kernel rounds them; float32 runs on the
-    CUDA cores in float32. ``flash_bwd.launches`` counts its launches.
+    L. Both types run on the tensor cores: bfloat16 rounds P and dS to
+    bfloat16 before their products, as the TPU kernel rounds them; float32
+    runs every product in split TF32 (three TF32 products per float32
+    product, P and dS kept in float32), each tile's products summed in
+    registers and added to the running sums in float32.
+    ``flash_bwd.launches`` counts its launches.
     """
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, g, causal=causal)

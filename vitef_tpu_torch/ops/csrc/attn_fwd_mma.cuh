@@ -36,6 +36,9 @@
 //
 // No atomics: two launches on the same inputs give bit-identical results.
 // Shared memory: Q 9 KB and two K/V stages 36 KB (45 KB).
+//
+// The float32 paths of K4 and K5 share its tiles and its thread mapping in
+// split TF32 (m16n8k8): stage_tile_f32 stages rows of 68 floats.
 
 #pragma once
 
@@ -199,6 +202,29 @@ __device__ __forceinline__ void store_warp_rows(const float (&c)[8][4], bf16* so
       *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + row) * stride + col) =
           *reinterpret_cast<const uint4*>(so + row * kAttnStride + col);
     }
+  }
+}
+
+// --- float32 in split TF32 (K4's and K5's float32 paths) --------------------
+
+// Rows padded to 68 floats (272 bytes): ldmatrix on 32-bit rows and the
+// column reads of a B operand (8 rows 2 apart, 8 columns) are free of bank
+// conflicts.
+constexpr int kAttnF32Stride = kAttnDim + 4;              // floats per padded shared row
+constexpr int kAttnF32Tile = kAttnKeys * kAttnF32Stride;  // floats per staged 64-row tile
+static_assert(kAttnRows == kAttnKeys, "float32 query and key tiles share one shape");
+
+// This thread's eight 16-byte pieces of a 64-row float32 tile of a
+// head-major head (rows of kAttnDim contiguous floats): rows first_row + 8 i,
+// floats col .. col + 3; rows past L are zero-filled.
+__device__ __forceinline__ void stage_tile_f32(const float* base, int r0, int L, float* dst,
+                                               int first_row, int col) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = first_row + 8 * i;
+    const bool inside = r0 + row < L;
+    const float* src = inside ? base + static_cast<size_t>(r0 + row) * kAttnDim + col : base;
+    cp_async16(dst + row * kAttnF32Stride + col, src, inside);
   }
 }
 

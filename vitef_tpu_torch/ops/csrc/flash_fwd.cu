@@ -83,23 +83,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   attn_fwd_tile<false, kCausal, false>(view, L, tile * kAttnRows, score_scale, smem);
 }
 
-constexpr int kF32Stride = kAttnDim + 4;              // floats per padded shared row
-constexpr int kF32Tile = kAttnKeys * kF32Stride;      // floats per staged 64-row tile
-constexpr size_t kF32SmemBytes = 4 * static_cast<size_t>(kF32Tile) * sizeof(float);
-static_assert(kAttnRows == kAttnKeys, "Q is staged in a K stage");
-
-// This thread's eight 16-byte pieces of a 64-row float32 tile: rows
-// first_row + 8 i, floats col .. col + 3; rows past L are zero-filled.
-__device__ __forceinline__ void stage_tile_f32(const float* base, int r0, int L, float* dst,
-                                               int first_row, int col) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = first_row + 8 * i;
-    const bool inside = r0 + row < L;
-    const float* src = inside ? base + static_cast<size_t>(r0 + row) * kAttnDim + col : base;
-    cp_async16(dst + row * kF32Stride + col, src, inside);
-  }
-}
+constexpr size_t kF32SmemBytes = 4 * static_cast<size_t>(kAttnF32Tile) * sizeof(float);
 
 // The float32 path: rows q0 .. q0 + 63 (those < L) of one head, in split
 // TF32 on the tensor cores (m16n8k8). Element (t, 2 rr + e) of a 16 x 64
@@ -115,8 +99,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ lse, int L, float score_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sk = reinterpret_cast<float*>(smem);  // two stages of kAttnKeys rows
-  float* sv = sk + 2 * kF32Tile;               // likewise
-  float* sq = sk + kF32Tile;                   // Q, until K's second stage is first filled
+  float* sv = sk + 2 * kAttnF32Tile;           // likewise
+  float* sq = sk + kAttnF32Tile;               // Q, until K's second stage is first filled
 
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);  // longest first
@@ -150,7 +134,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     uint32_t a[4];
-    ldmatrix_x4(a, sq + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kF32Stride +
+    ldmatrix_x4(a, sq + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kAttnF32Stride +
                        kk * 8 + (lane >> 4) * 4);
 #pragma unroll
     for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), q_hi[kk][e], q_lo[kk][e]);
@@ -164,12 +148,12 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kAttnKeys;
-    const float* ks = sk + (j & 1) * kF32Tile;
-    const float* vs = sv + (j & 1) * kF32Tile;
+    const float* ks = sk + (j & 1) * kAttnF32Tile;
+    const float* vs = sv + (j & 1) * kAttnF32Tile;
     if (j + 1 < n_kv) {  // the next tile's stage was last read before the previous barrier
       const int next = (j + 1) & 1;
-      stage_tile_f32(kh, k0 + kAttnKeys, L, sk + next * kF32Tile, copy_row, copy_col);
-      stage_tile_f32(vh, k0 + kAttnKeys, L, sv + next * kF32Tile, copy_row, copy_col);
+      stage_tile_f32(kh, k0 + kAttnKeys, L, sk + next * kAttnF32Tile, copy_row, copy_col);
+      stage_tile_f32(vh, k0 + kAttnKeys, L, sv + next * kAttnF32Tile, copy_row, copy_col);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this thread's pieces of tile j have landed
@@ -185,7 +169,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj) {
         uint32_t b[4], b_hi[4], b_lo[4];
-        ldmatrix_x4(b, ks + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kF32Stride +
+        ldmatrix_x4(b, ks + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kAttnF32Stride +
                            kk * 8 + ((lane >> 3) & 1) * 4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(b[e]), b_hi[e], b_lo[e]);
@@ -250,12 +234,12 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       split_tf32(s[kk][2], a_hi[1], a_lo[1]);
       split_tf32(s[kk][1], a_hi[2], a_lo[2]);
       split_tf32(s[kk][3], a_hi[3], a_lo[3]);
-      const float* vrow = vs + (8 * kk + 2 * tig) * kF32Stride + g;
+      const float* vrow = vs + (8 * kk + 2 * tig) * kAttnF32Stride + g;
 #pragma unroll
       for (int dj = 0; dj < 8; ++dj) {
         uint32_t b_hi[2], b_lo[2];
         split_tf32(vrow[8 * dj], b_hi[0], b_lo[0]);
-        split_tf32(vrow[kF32Stride + 8 * dj], b_hi[1], b_lo[1]);
+        split_tf32(vrow[kAttnF32Stride + 8 * dj], b_hi[1], b_lo[1]);
         mma_3xtf32(o[dj], a_hi, a_lo, b_hi, b_lo);
       }
     }

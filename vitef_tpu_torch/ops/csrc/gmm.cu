@@ -24,27 +24,52 @@
 // kSwigluBwdOut move about as many bytes as they multiply (h is 134 MB) and
 // sit near the line.
 //
-// What the design does about it: one block per (row tile of 128, column
-// tile of 128) of one group, 8 warps of 16 x 8 x 16 mma.sync products on
-// tiles staged in shared memory (ldmatrix), the next depth slice loaded into
-// registers while the current one multiplies (one barrier per slice). The
-// work list is built on the card: block y walks group_sizes and takes the
-// y-th (group, row tile) pair, a row tile that spans a group boundary being
-// visited once per group with loads and stores masked to that group's rows
-// (megablox's store mask); the grid is sized from the host-known bound
-// ceil(G / 128) + E - 1 and surplus blocks return. So no launch reads the
-// sizes on the host. The swiglu prologue (kSwigluIn) is applied while the
+// The work list is built on the card in every mode: a work slot walks
+// group_sizes and takes the slot-th (group, row tile of 128) pair, a row tile
+// that spans a group boundary being visited once per group with its stores
+// masked to that group's rows (megablox's store mask); the slots are sized
+// from the host-known bound ceil(G / 128) + E - 1 and surplus slots do
+// nothing. So no launch reads the sizes on the host.
+//
+// kPlain in bfloat16 (gmm_wgmma_kernel, K8 gmm on the MoE path) is Hopper's
+// asynchronous pipeline (wgmma_tma.cuh): a persistent block on each SM walks
+// the (work slot, column tile) items; one producer warp keeps a ring of 64-deep
+// stages filled by TMA (A's 128 x 64 box from a 2-D map, W's 64 x 64 boxes
+// from a 3-D (N, K, E) map, so a depth past K reads zeros inside expert e;
+// all in the 128-byte swizzle) and signals each through an mbarrier; two
+// consumer warpgroups of 64 rows multiply each stage with wgmma m64nNk16
+// (bf16 from shared memory, W N-major, float32 accumulators in registers)
+// and release it. The column tile is 256 with three stages (211 KB of shared
+// memory, 154 registers): against 128 with four it reuses each A tile over
+// twice the columns, and it ran faster on the card (PERF.md). The epilogue
+// overlaps the producer's next loads: the accumulators go in bf16 into a
+// per-warpgroup output tile in the 128-byte swizzle, then, for a tile whose
+// rows all lie in one group, out by asynchronous TMA stores that overlap the
+// next item's products, else by 16-byte row stores masked to the group's
+// rows (stores of four bytes a thread straight from the accumulators held
+// the kernel back). No split of K and no atomics: two launches give the
+// same bits.
+//
+// The other modes and every float32 mode take the mma.sync design: one block per
+// (row tile of 128, column tile of 128) of one group, 8 warps of 16 x 8 x 16
+// mma.sync products on tiles staged in shared memory (ldmatrix), the next
+// depth slice loaded into registers while the current one multiplies (one
+// barrier per slice). The swiglu prologue (kSwigluIn) is applied while the
 // tile moves from registers to shared memory; the swiglu backward
-// (kSwigluBwdOut) in the store epilogue. No TMA or wgmma yet.
+// (kSwigluBwdOut) in the store epilogue.
 //
 // C interface: gmm(a, b, w, h, group_sizes, out, out2, G, K, N, E, mode, fp32,
 // stream) returns a cudaError_t as int: the launch's cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape this kernel does not take. K is the
 // contracted width (kDual: the 2f rows of W), N the output width; K and N
 // are multiples of 8 (kDual: K of 16). b is read in kDual only, h and out2
-// in kSwigluBwdOut only.
+// in kSwigluBwdOut only. kPlain in bf16 also needs a, w and out 16-byte
+// aligned (TMA); the wrapper passes them so. gmm_plain_tile(a, w,
+// group_sizes, out, G, K, N, E, tile_n, stream) runs kPlain in bf16 at
+// column tile 128 or 256, so chip_smoke.py can time both.
 
 #include "gmm_common.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -204,6 +229,258 @@ __global__ void __launch_bounds__(kThreads) gmm_bf16_kernel(Args p) {
   }
 }
 
+// --- bfloat16 kPlain: TMA + wgmma --------------------------------------------
+
+// A block computes a 128 x kBN output tile of one (group, row tile): two
+// consumer warpgroups of 64 rows (warps 0-7) and one producer warp (warp 8)
+// over a ring of kStages stages, each 64 deep: A's 128 x 64 box and W's
+// kBN / 64 boxes of 64 x 64, all in the 128-byte swizzle.
+constexpr int kWgRows = 128;
+constexpr int kWgDepth = 64;                            // one 128-byte swizzle row of bf16
+constexpr int kWgChunk = 64;                            // W columns per TMA box
+constexpr int kWgThreads = 288;
+constexpr int kProducerWarp = 8;
+constexpr int kWgATile = kWgRows * kWgDepth;            // elements of A per stage
+constexpr int kWgChunkBytes = kWgDepth * kWgChunk * 2;  // one W box: the N-major LBO
+
+template <int kBN, int kStages>
+struct WgShape {
+  static constexpr int kWTile = kWgDepth * kBN;                      // elements of W per stage
+  static constexpr uint32_t kStageBytes = 2 * (kWgATile + kWTile);  // each stage's TMA bytes
+  // Each consumer warpgroup's 64 x kBN output tile, as kBN / 64 boxes of
+  // 64 x 64 in the 128-byte swizzle (the TMA store's layout).
+  static constexpr int kOutTile = 64 * kBN;
+  static constexpr size_t kSmemBytes = kStages * static_cast<size_t>(kStageBytes) +
+                                       2 * kOutTile * sizeof(bf16) +
+                                       2 * kStages * sizeof(uint64_t) + 1024;
+};
+
+// bar.sync on barrier `id` (1 + the warpgroup: 0 is __syncthreads) for the
+// 128 threads of one consumer warpgroup.
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// m64nBNk16 over the warpgroup's accumulators.
+template <int kBN>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[kBN / 2], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  if constexpr (kBN == 256) {
+    wgmma_m64n256k16(acc, desc_a, desc_b);
+  } else {
+    static_assert(kBN == 128, "column tiles of 128 or 256");
+    wgmma_m64n128k16(acc, desc_a, desc_b);
+  }
+}
+
+// The slots of a grid over row tiles of `tile` rows: every row tile once,
+// plus one more for each group boundary inside a tile (at most E - 1).
+__host__ __device__ inline long long work_slots(const Args& p, int tile) {
+  return (static_cast<long long>(p.G) + tile - 1) / tile + p.E - 1;
+}
+
+// kPlain in bf16: out[r] = A[r] @ W[e]. A persistent block walks the work
+// items blockIdx.x, + gridDim.x, ...: item i is column tile i % n_cols of
+// work slot i / n_cols, whose (group, row tile, rows [lo, hi)) find_work
+// reads from the sizes (surplus slots are skipped by both roles alike). The
+// ring's stages and phases run on across items, so the producer loads the
+// next item's first stages while the consumers store the last one. A is the
+// 2-D map (K, G) and W the 3-D map (N, K, E): a depth past K reads zeros
+// inside expert e (never expert e + 1), and rows past G read zeros. The rows
+// of a tile outside [lo, hi) are multiplied too and masked at the store. No
+// atomics and no split of K: each output element is one accumulator's fixed
+// sequence of wgmmas, so two launches give the same bits.
+template <int kBN, int kStages>
+__global__ void __launch_bounds__(kWgThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
+                 const __grid_constant__ CUtensorMap w_map,
+                 const __grid_constant__ CUtensorMap out_map, Args p) {
+  using Shape = WgShape<kBN, kStages>;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzle atoms start 1024-byte aligned.
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* a_s = reinterpret_cast<bf16*>(smem);
+  bf16* w_s = a_s + kStages * kWgATile;
+  bf16* o_s = w_s + kStages * Shape::kWTile;  // the two warpgroups' output tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(o_s + 2 * Shape::kOutTile);
+  uint64_t* empty = full + kStages;
+  const int n_cols = (p.N + kBN - 1) / kBN;
+  const int items = n_cols * static_cast<int>(work_slots(p, kWgRows));
+  const int steps = (p.K + kWgDepth - 1) / kWgDepth;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);   // the producer's arrival, then the TMA bytes
+      mbar_init(empty + s, 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  int it = 0;  // stages filled (producer) or consumed (consumers) so far
+  if (warp == kProducerWarp) {
+    if (threadIdx.x % 32 != 0) return;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      int e, row0, lo, hi;
+      if (!find_work(p, kWgRows, item / n_cols, &e, &row0, &lo, &hi)) continue;
+      const int n0 = (item % n_cols) * kBN;
+      for (int step = 0; step < steps; ++step, ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty + s, (it / kStages - 1) & 1);
+        mbar_arrive_expect_tx(full + s, Shape::kStageBytes);
+        tma_load_2d(a_s + s * kWgATile, &a_map, full + s, step * kWgDepth, row0);
+#pragma unroll
+        for (int c = 0; c < kBN / kWgChunk; ++c) {
+          tma_load_3d(w_s + s * Shape::kWTile + c * kWgDepth * kWgChunk, &w_map, full + s,
+                      n0 + c * kWgChunk, step * kWgDepth, e);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows wg * 64 .. + 63 of each tile, and its
+  // first thread releases the stages.
+  const int wg = warp / 4;
+  const int wg_tid = threadIdx.x % 128;
+  const int lane = threadIdx.x % 32;
+  bf16* o_tile = o_s + wg * Shape::kOutTile;
+  bf16* out = static_cast<bf16*>(p.out);
+  float acc[kBN / 2];
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    int e, row0, lo, hi;
+    if (!find_work(p, kWgRows, item / n_cols, &e, &row0, &lo, &hi)) continue;
+    const int n0 = (item % n_cols) * kBN;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+    for (int step = 0; step < steps; ++step, ++it) {
+      const int s = it % kStages;
+      mbar_wait(full + s, (it / kStages) & 1);
+      const bf16* a_tile = a_s + s * kWgATile + wg * 64 * kWgDepth;
+      const bf16* w_tile = w_s + s * Shape::kWTile;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgDepth / 16; ++kk) {
+        wgmma_tile<kBN>(acc, smem_desc_sw128(a_tile + kk * 16, 16, 1024),
+                        smem_desc_sw128(w_tile + kk * 16 * kWgChunk, kWgChunkBytes, 1024));
+      }
+      wgmma_commit();
+      fence_regs(acc);
+      // The previous step's products are done: release its stage.
+      wgmma_wait<1>();
+      fence_regs(acc);
+      if (step > 0 && wg_tid == 0) mbar_arrive(empty + (it - 1) % kStages);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (wg_tid == 0) mbar_arrive(empty + (it - 1) % kStages);
+
+    // Epilogue, while the producer fills the next item's stages. The
+    // accumulators go in bf16 into the warpgroup's output tile (accumulator
+    // 4 j + 2 half + c is row 16 (warp % 4) + lane / 4 + 8 half, column
+    // 8 j + 2 (lane % 4) + c), each 64-column box in the 128-byte swizzle:
+    // row r's 16-byte piece p at piece p ^ (r % 8), so the fragment writes
+    // and the row reads are free of bank conflicts. The tile's last TMA
+    // store must have read it first.
+    const int r0 = row0 + wg * 64;
+    if (wg_tid == 0) tma_store_wait_read();
+    warpgroup_sync(1 + wg);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = (warp % 4) * 16 + lane / 4 + 8 * half;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        bf16* piece = o_tile + (j / 8) * 64 * kWgChunk + r * kWgChunk + ((j % 8) ^ (r % 8)) * 8;
+        *reinterpret_cast<__nv_bfloat162*>(piece + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    }
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+    if (lo <= r0 && hi >= min(r0 + 64, p.G) && n0 + kBN <= p.N) {
+      // Every row of the warpgroup's tile below G is in the group: TMA
+      // stores, asynchronous, overlap the next item's products.
+      if (wg_tid == 0) {
+#pragma unroll
+        for (int c = 0; c < kBN / kWgChunk; ++c) {
+          tma_store_2d(&out_map, o_tile + c * 64 * kWgChunk, n0 + c * kWgChunk, r0);
+        }
+        tma_store_commit();
+      }
+    } else {
+      // A tile across a group boundary (or past N): whole rows in 16-byte
+      // pieces, masked to the rows [lo, hi) of the group (megablox's store
+      // mask) and the columns below N.
+      for (int i = wg_tid; i < 64 * kBN / 8; i += 128) {
+        const int r = i / (kBN / 8);
+        const int c = (i % (kBN / 8)) * 8;
+        if (r0 + r >= lo && r0 + r < hi && n0 + c < p.N) {
+          const int piece = ((c % kWgChunk) / 8) ^ (r % 8);
+          *reinterpret_cast<uint4*>(out + static_cast<size_t>(r0 + r) * p.N + n0 + c) =
+              *reinterpret_cast<const uint4*>(o_tile + (c / kWgChunk) * 64 * kWgChunk +
+                                              r * kWgChunk + piece * 8);
+        }
+      }
+    }
+  }
+  if (wg_tid == 0) tma_store_wait();
+}
+
+// gmm_wgmma_kernel at column tile kBN: its tensor maps, built at each call
+// (the pointers change), and a persistent grid of one block an SM.
+template <int kBN, int kStages>
+cudaError_t launch_wgmma(const Args& p, cudaStream_t stream) {
+  using Shape = WgShape<kBN, kStages>;
+  CUtensorMap a_map, w_map, out_map;
+  const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(p.K), static_cast<cuuint64_t>(p.G)};
+  const cuuint64_t a_strides[1] = {static_cast<cuuint64_t>(p.K) * 2};
+  const cuuint32_t a_box[2] = {kWgDepth, kWgRows};
+  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(p.N), static_cast<cuuint64_t>(p.K),
+                                static_cast<cuuint64_t>(p.E)};
+  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(p.N) * 2,
+                                   static_cast<cuuint64_t>(p.K) * p.N * 2};
+  const cuuint32_t w_box[3] = {kWgChunk, kWgDepth, 1};
+  const cuuint64_t out_dims[2] = {static_cast<cuuint64_t>(p.N), static_cast<cuuint64_t>(p.G)};
+  const cuuint64_t out_strides[1] = {static_cast<cuuint64_t>(p.N) * 2};
+  const cuuint32_t out_box[2] = {kWgChunk, 64};
+  cudaError_t err = make_tensor_map_bf16(&a_map, p.a, 2, a_dims, a_strides, a_box);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map_bf16(&w_map, p.w, 3, w_dims, w_strides, w_box);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map_bf16(&out_map, p.out, 2, out_dims, out_strides, out_box);
+  if (err != cudaSuccess) return err;
+  const auto kernel = gmm_wgmma_kernel<kBN, kStages>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Shape::kSmemBytes));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long items = static_cast<long long>((p.N + kBN - 1) / kBN) * work_slots(p, kWgRows);
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const long long blocks = items < sms ? items : sms;
+  kernel<<<static_cast<unsigned>(blocks), kWgThreads, Shape::kSmemBytes, stream>>>(
+      a_map, w_map, out_map, p);
+  return cudaGetLastError();
+}
+
+// The two column tiles, one block an SM: 128 x 128 with four stages
+// (163 KB), and 128 x 256 with three (211 KB).
+cudaError_t launch_plain_bf16(const Args& p, int tile_n, cudaStream_t stream) {
+  switch (tile_n) {
+    case 128: return launch_wgmma<128, 4>(p, stream);
+    case 256: return launch_wgmma<256, 3>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The column tile kPlain takes (chip_smoke.py times both).
+constexpr int kPlainTileN = 256;
+
 // --- float32 ----------------------------------------------------------------
 
 struct StageF32 {
@@ -297,13 +574,14 @@ __global__ void __launch_bounds__(kThreads) gmm_f32_kernel(Args p) {
 
 template <int kMode>
 cudaError_t launch(const Args& p, int fp32, cudaStream_t stream) {
+  if (kMode == kPlain && !fp32) return launch_plain_bf16(p, kPlainTileN, stream);
   const int tile = fp32 ? kTileF : kTile;
-  const long long slots = (static_cast<long long>(p.G) + tile - 1) / tile + p.E - 1;
+  const long long slots = work_slots(p, tile);
   if (slots > 65535) return cudaErrorInvalidValue;
   const dim3 grid((p.N + tile - 1) / tile, static_cast<unsigned>(slots));
   if (fp32) {
     gmm_f32_kernel<kMode><<<grid, kThreads, 0, stream>>>(p);
-  } else {
+  } else if constexpr (kMode != kPlain) {
     gmm_bf16_kernel<kMode><<<grid, kThreads, 0, stream>>>(p);
   }
   return cudaGetLastError();
@@ -327,4 +605,18 @@ extern "C" int gmm(const void* a, const void* b, const void* w, const void* h,
     case kDual: return static_cast<int>(launch<kDual>(p, fp32, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// kPlain in bf16 at column tile tile_n (128 or 256), whatever gmm() takes:
+// the same operands as gmm(a, nullptr, w, nullptr, group_sizes, out, nullptr,
+// G, K, N, E, kPlain, 0, stream).
+extern "C" int gmm_plain_tile(const void* a, const void* w, const void* group_sizes, void* out,
+                              int G, int K, int N, int E, int tile_n, void* stream) {
+  if (G < 0 || K <= 0 || N <= 0 || E <= 0 || K % 8 || N % 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (G == 0) return static_cast<int>(cudaSuccess);
+  const Args p{a, nullptr, w, nullptr, static_cast<const int*>(group_sizes), out, nullptr,
+               G, K, N, E};
+  return static_cast<int>(launch_plain_bf16(p, tile_n, static_cast<cudaStream_t>(stream)));
 }

@@ -2,7 +2,9 @@
 // the kernels that multiply with mma.sync: csrc/gmm.cu and csrc/tgmm.cu
 // (through gmm_common.cuh), csrc/packed_mha_fwd.cu and csrc/flash_fwd.cu
 // (through attn_fwd_mma.cuh), csrc/packed_mha_bwd.cu and csrc/flash_bwd.cu
-// (through attn_bwd_mma.cuh).
+// (through attn_bwd_mma.cuh; K4's and K5's float32 paths through
+// mma_3xtf32). wgmma_tma.cuh takes smem_addr from here for gmm.cu's
+// TMA + wgmma kernel.
 //
 // Here: shared-memory addresses, ldmatrix (plain and transposed), the
 // m16n8k16 bf16 product with float32 accumulators, the m16n8k8 TF32 product

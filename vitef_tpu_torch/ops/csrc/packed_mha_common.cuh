@@ -1,16 +1,16 @@
-// Pieces shared by the CUDA-core attention kernels for Hopper (sm_90a):
-// csrc/ring_hop.cu (K9) and K5's float32 path (csrc/flash_bwd.cu). The
-// tensor-core kernels K1 (csrc/packed_mha_fwd.cu), K2/K3
-// (csrc/packed_mha_bwd.cu) and K4/K5's other paths take allow_smem and
-// kLog2e, and K2/K3's db pass load_pair.
+// Pieces shared by the attention kernels for Hopper (sm_90a): the CUDA-core
+// csrc/ring_hop.cu (K9) takes the constants, the rounding and the warp
+// reductions; the tensor-core kernels K1 (csrc/packed_mha_fwd.cu), K2/K3
+// (csrc/packed_mha_bwd.cu) and K4/K5 (csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+// take allow_smem and kLog2e, and K2/K3's db pass load_pair.
 //
 // qkv (N, L, 3E) holds [q | k | v] columns, head-major within each, with the
 // qkv bias (3E,) added in the kernels and rounded to bfloat16 as the plain
 // PyTorch version rounds qkv + bias. Every kernel here is instantiated for
 // head width 64.
 //
-// Shared here: the bf16 pair load, rounding and warp-reduction helpers,
-// load_row (a staged float row into registers) and allow_smem.
+// Shared here: the bf16 pair load, rounding and warp-reduction helpers, and
+// allow_smem.
 
 #pragma once
 
@@ -27,7 +27,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kHeadDim = 64;               // the one instantiated head width
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kKStride = kHeadDim + 2;     // bf16 elements per staged K / V row
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -49,17 +48,6 @@ __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
   return x;
-}
-
-// The 64 floats of a staged row, into registers (broadcast reads).
-__device__ __forceinline__ void load_row(const float* row, float* x) {
-  const float2* r = reinterpret_cast<const float2*>(row);
-#pragma unroll
-  for (int c = 0; c < kHeadDim / 2; ++c) {
-    const float2 t = r[c];
-    x[2 * c] = t.x;
-    x[2 * c + 1] = t.y;
-  }
 }
 
 // Let `kernel` use `smem` bytes of dynamic shared memory, or report why not.

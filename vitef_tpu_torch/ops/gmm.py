@@ -153,8 +153,11 @@ def gmm(lhs, rhs, group_sizes, out_dtype=None):
     (default: lhs's dtype), float32 accumulation.
 
     A CPU tensor goes through :func:`gmm_reference`. A CUDA tensor launches
-    ``csrc/gmm.cu`` (plain mode), or raises if the kernel does not take it.
-    ``gmm.launches`` counts its launches.
+    ``csrc/gmm.cu`` (plain mode; in bfloat16 a persistent TMA + ``wgmma``
+    pipeline over 128 x 256 output tiles, whose tensor maps need the
+    16-byte aligned operands that :func:`kernel_operands` gives it), or
+    raises if the kernel does not take it. ``gmm.launches`` counts its
+    launches.
     """
     if lhs.device.type == "cpu":
         return gmm_reference(lhs, rhs, group_sizes, out_dtype)
