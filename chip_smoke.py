@@ -13,9 +13,10 @@ Phases (each raises on failure, so the run exits non-zero):
    registers and spills, and the HMMA (tensor-core) instructions that
    ``cuobjdump -sass`` finds in the libraries of K1, K2/K3, K4 and K5 (none
    fails the run), the TF32 HMMA instructions in each instantiation of K4's
-   float32 kernel and of K5's two float32 passes, and the HGMMA (wgmma)
-   instructions in both column tiles of K8 gmm's kPlain kernel (none fails
-   the run);
+   float32 kernel and of K5's two float32 passes, the HGMMA (wgmma)
+   instructions in both column tiles of K8 gmm's and K8 tgmm's kPlain
+   kernels, and the HMMA instructions in each of K9's four instantiations
+   (bf16 and float16 at d = 64 and 128; none fails the run);
 3. K1 phase: the packed-MHA forward kernel against its plain PyTorch version
    (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths up
    to 1024 (the tensor-core tiles' edges 16, 17, 33, 64, 65, 129 among
@@ -82,14 +83,17 @@ Phases (each raises on failure, so the run exits non-zero):
     ``tgmm_swiglu``) in bfloat16 against their float32 plain versions at the
     8x124m step's shapes (E=8, d=768, f=2048, G=16384 rows in uneven groups
     from a seeded router draw) and at edge cases (empty and one-row experts,
-    every row in one expert, G=1000, the tiny preset's d=64/f=128), in
-    float32 at a small shape; each bit-identical over two launches; the
+    every row in one expert, G=1000, the tiny preset's d=64/f=128, groups of
+    63, 2, 65 rows at d=72/f=136, either side of a 64-row box and no tile
+    multiple), in float32 at a small shape; each bit-identical over two
+    launches, ``tgmm``'s empty groups exactly zero; the
     wrappers raise for float16 and for a width not a multiple of 8, and the
     ``gmm.cu`` ones count no launch for zero rows; each timed with its plain
-    version, its bound and ``torch._grouped_mm``, and K8 gmm's kPlain kernel
-    also at both its column tiles (128 x 128 and 128 x 256), each within the
-    gate and timed in turns (these run with the other kernel phases, after
-    14);
+    version, its bound and ``torch._grouped_mm``, and K8 gmm's and tgmm's
+    kPlain kernels also at both their column tiles (128 x 128 and 128 x 256;
+    tgmm's each with its tiles walked largest group first and in group
+    order), each within the gate and timed in turns (these run with the
+    other kernel phases, after 14);
 19. MoE train slice: the JAX package's "8x124m" preset at L=1024 (random
     weights from a seed) trains with ``bench_llama(batch=8, size="8x124m",
     implementation="moe")``'s protocol (bf16, 8 x 1024 tokens of
@@ -167,7 +171,8 @@ Phases (each raises on failure, so the run exits non-zero):
     at segments of 128, 384 and 640 and at d=128, each mid-ring (every key
     visible), diagonal and fully future (the state comes back bit-equal),
     from a non-initial state and from the -1e30 start; two chains of three
-    hops; a zigzag segment and heads of a packed qkv read in place; float16;
+    hops; a zigzag segment and heads of a packed qkv read in place; float16
+    at d=64 and d=128;
     bit-identical over two launches; the wrapper raises for float32, a
     segment of 200 and d=96; the masked probabilities' zeroing planted out
     of the plain version must fail the checks; timed as chained hops with
@@ -266,17 +271,23 @@ SPIN_CYCLES_PER_MS, SPIN_MAX_MS = 1.98e6, 200.0
 # 1e-3 (log2 units) sits far from both.
 LSE_MAX_ABS = 1e-3
 # The libraries whose bf16 bodies multiply on the tensor cores (mma.sync):
-# their SASS must hold HMMA instructions; the float32 kernels whose products
-# are TF32 HMMA instructions (K4's and K5's, each in both instantiations);
-# and K8 gmm's kPlain kernel, whose products are wgmma (HGMMA), at both
-# column tiles.
-TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd", "flash_bwd")
-SASS_KERNELS = [("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32"),
-                ("flash_bwd", "flash_bwd_dq_tf32_kernel", "HMMA", "TF32"),
-                ("flash_bwd", "flash_bwd_dkv_tf32_kernel", "HMMA", "TF32"),
-                ("gmm", "gmm_wgmma_kernel", "HGMMA", "HGMMA")]
-# kPlain's two column tiles (csrc/gmm.cu gmm_plain_tile), timed in turn.
+# their SASS must hold HMMA instructions; then, per kernel, (library,
+# kernel, opcode, wanted text, instantiations): the float32 kernels whose
+# products are TF32 HMMA instructions (K4's and K5's, each in both
+# instantiations), K8 gmm's and tgmm's kPlain kernels, whose products are
+# wgmma (HGMMA), at both column tiles, and K9 in each (type, d) of bf16,
+# float16 x 64, 128.
+TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd", "flash_bwd", "ring_hop")
+SASS_KERNELS = [("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32", 2),
+                ("flash_bwd", "flash_bwd_dq_tf32_kernel", "HMMA", "TF32", 2),
+                ("flash_bwd", "flash_bwd_dkv_tf32_kernel", "HMMA", "TF32", 2),
+                ("gmm", "gmm_wgmma_kernel", "HGMMA", "HGMMA", 2),
+                ("tgmm", "tgmm_wgmma_kernel", "HGMMA", "HGMMA", 2),
+                ("ring_hop", "ring_hop_mma_kernel", "HMMA", "HMMA", 4)]
+# kPlain's two column tiles (csrc/gmm.cu gmm_plain_tile, csrc/tgmm.cu
+# tgmm_plain_tile), timed in turn; tgmm's also in both walks of its tiles.
 GMM_TILES = (128, 256)
+TGMM_WALKS = {1: "largest group first, snaking", 0: "group order"}
 
 # A kernel's bf16 output against the float32 plain version on the same bf16
 # inputs: bf16 rounding of the output alone is ~2^-8 of |value| (K10's values
@@ -356,7 +367,8 @@ MOE_BATCH, MOE_FIXED_BATCH = 8, 8
 # small shape.
 GROUPED_EDGES = [(8, 768, 2048, [0, 1, 300, 0, 250, 1, 448, 0]),
                  (8, 768, 2048, [0, 0, 0, 1000, 0, 0, 0, 0]),
-                 (4, 64, 128, [0, 37, 1, 62])]
+                 (4, 64, 128, [0, 37, 1, 62]),
+                 (3, 72, 136, [63, 2, 65])]
 GROUPED_FP32 = [(4, 128, 256, [100, 0, 1, 199])]
 GROUPED = ("gmm", "gmm_swiglu", "gmm_dy_swiglu", "gmm_dual", "tgmm_swiglu", "tgmm")
 
@@ -557,8 +569,9 @@ def no_plain_versions():
 
 def kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled symbol: the last component of the
-    (length-prefixed) nested name, with its integer and bool template
-    arguments, as in ``packed_bwd_dq_kernel<1>``."""
+    (length-prefixed) nested name, with its integer, bool and named type
+    template arguments, as in ``packed_bwd_dq_kernel<1>`` or
+    ``ring_hop_mma_kernel<__half,64>``."""
     i = 3 if mangled.startswith("_ZN") else 2
     parts = []
     while i < len(mangled) and mangled[i].isdigit():
@@ -567,9 +580,18 @@ def kernel_name(mangled: str) -> str:
             j += 1
         parts.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
-    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
     name = parts[-1] if parts else mangled
-    return name + (f"<{','.join(re.findall(r'L[a-z](\d+)E', args.group(1)))}>" if args else "")
+    if mangled[i:i + 1] != "I":
+        return name
+    args, i = [], i + 1
+    while m := (re.match(r"L[a-z](\d+)E", mangled[i:]) or re.match(r"(\d+)", mangled[i:])):
+        if m.group().startswith("L"):
+            args.append(m.group(1))
+            i += m.end()
+        else:
+            args.append(mangled[i + m.end():i + m.end() + int(m.group(1))])
+            i += m.end() + int(m.group(1))
+    return f"{name}<{','.join(args)}>"
 
 
 def ptxas_kernels(log: str) -> list[tuple[str, str, str]]:
@@ -617,7 +639,7 @@ def build_phase() -> None:
         print(f"lib{name}.so: {hmma} HMMA (tensor-core) instructions in cuobjdump -sass")
         if hmma == 0:
             raise AssertionError(f"lib{name}.so holds no tensor-core instruction")
-    for lib, kernel, opcode, want in SASS_KERNELS:
+    for lib, kernel, opcode, want, count in SASS_KERNELS:
         found = {fn: lines for fn, lines in sass_ops(lib, opcode).items() if kernel in fn}
         for fn, lines in sorted(found.items()):
             held = [line for line in lines if want in line]
@@ -625,8 +647,8 @@ def build_phase() -> None:
                   f"({', '.join(sorted({line.split()[0] for line in lines})) or f'no {opcode}'})")
             if not held:
                 raise AssertionError(f"{kernel_name(fn)} holds no {want} instruction")
-        if len(found) != 2:
-            raise AssertionError(f"lib{lib}.so: want {kernel}'s two instantiations, found "
+        if len(found) != count:
+            raise AssertionError(f"lib{lib}.so: want {kernel}'s {count} instantiations, found "
                                  f"{sorted(found)}")
 
 
@@ -1057,37 +1079,51 @@ def library_grouped(candidates, iters: int):
     return None, None
 
 
-def gmm_tile_shapes(tensors, plain, flops: float, iters: int) -> None:
-    """K8 gmm's kPlain kernel at each column tile of GMM_TILES on the step's
-    operands (csrc/gmm.cu ``gmm_plain_tile``; the wrapper takes 128 x 256),
-    each against the plain version within the bf16 gate and timed, in
-    turns."""
-    lhs, rhs, sz, out = tensors
+def plain_tile_shapes(name: str, tensors, plain, flops: float, iters: int) -> None:
+    """K8 ``gmm``'s or ``tgmm``'s kPlain kernel at each column tile of
+    GMM_TILES (``tgmm`` also in each walk of TGMM_WALKS) on the step's
+    operands (csrc/gmm.cu ``gmm_plain_tile``, csrc/tgmm.cu
+    ``tgmm_plain_tile``; the wrappers take 128 x 256, ``tgmm`` largest group
+    first), each against the plain version within the bf16 gate and timed,
+    in turns."""
+    a, b, sz, out = tensors
     sizes = sz.to(torch.int32)
-    fn = _build.kernel_function("gmm_plain_tile", 4, 5, source="gmm")
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "gmm":
+        fn = _build.kernel_function("gmm_plain_tile", 4, 5, source="gmm")
+        variants = [(tile_n, None) for tile_n in GMM_TILES]
+        shape = (a.shape[0], a.shape[1], b.shape[2], b.shape[0])
+    else:
+        fn = _build.kernel_function("tgmm_plain_tile", 4, 6, source="tgmm")
+        variants = [(tile_n, walk) for tile_n in GMM_TILES for walk in TGMM_WALKS]
+        shape = (a.shape[0], a.shape[1], b.shape[1], out.shape[0])
 
-    def call(tile_n):
-        err = fn(lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(), out.data_ptr(), lhs.shape[0],
-                 lhs.shape[1], rhs.shape[2], rhs.shape[0], tile_n,
-                 torch.cuda.current_stream().cuda_stream)
+    def call(tile_n, walk):
+        extra = () if walk is None else (walk,)
+        err = fn(a.data_ptr(), b.data_ptr(), sizes.data_ptr(), out.data_ptr(), *shape, tile_n,
+                 *extra, stream)
         if err != 0:
-            raise RuntimeError(f"gmm_plain_tile launch failed: cudaError {err} (tile {tile_n})")
+            raise RuntimeError(f"{name}_plain_tile launch failed: cudaError {err} "
+                               f"(tile {tile_n}, walk {walk})")
+
+    def label(tile_n, walk):
+        return f"128 x {tile_n}" + ("" if walk is None else f", {TGMM_WALKS[walk]}")
 
     with torch.inference_mode():
         (ref,) = plain()
     times = {}
-    for tile_n in GMM_TILES + GMM_TILES[::-1]:
-        call(tile_n)
+    for variant in variants + variants[::-1]:
+        call(*variant)
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
         max_abs, mean_abs = diff.max().item(), diff.mean().item()
         if not (max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
-            raise AssertionError(f"gmm at column tile {tile_n} disagrees with its plain version: "
+            raise AssertionError(f"{name} at {label(*variant)} disagrees with its plain version: "
                                  f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e}")
-        times.setdefault(tile_n, []).append(cuda_ms(lambda: call(tile_n), iters))
-    print("gmm kPlain bf16 column tiles at the 8x124m step, timed in turns: " + "; ".join(
-        f"128 x {t}: " + "/".join(f"{ms:.4f}" for ms in times[t])
-        + f" ms ({flops / min(times[t]) / 1e9:.1f} TFLOP/s)" for t in GMM_TILES)
+        times.setdefault(variant, []).append(cuda_ms(lambda: call(*variant), iters))
+    print(f"{name} kPlain bf16 column tiles at the 8x124m step, timed in turns: " + "; ".join(
+        f"{label(*v)}: " + "/".join(f"{ms:.4f}" for ms in times[v])
+        + f" ms ({flops / min(times[v]) / 1e9:.1f} TFLOP/s)" for v in variants)
         + " (max|d| within the bf16 gate at each)")
 
 
@@ -1124,6 +1160,9 @@ def grouped_phase(device, name: str, seed: int, iters: int) -> dict:
             raise AssertionError(f"{label} disagrees with its plain version")
         if not identical:
             raise AssertionError(f"{label} is not deterministic")
+        if name.startswith("tgmm") and any(outs[0][i].any() for i, size in enumerate(sizes)
+                                           if size == 0):
+            raise AssertionError(f"{label}: an empty group's output is not exactly zero")
         if (e, d, f, sizes) == step:
             timed = (kernel, plain, flops, tensors, library, max_abs)
         del outs, again, refs, diffs
@@ -1188,8 +1227,8 @@ def grouped_phase(device, name: str, seed: int, iters: int) -> dict:
           + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
           + f", bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s")
-    if name == "gmm":
-        gmm_tile_shapes(tensors, plain, flops, iters)
+    if name in ("gmm", "tgmm"):
+        plain_tile_shapes(name, tensors, plain, flops, iters)
     # library_ms: one PyTorch call computing the same function; the K7
     # passes fuse the swiglu, which no single call does.
     same_function = name in ("gmm", "tgmm") and str(library_label).startswith("torch.")
@@ -2105,7 +2144,7 @@ def moe_flops_per_token(cfg) -> float:
 
 
 GROUPED_WRAPPERS = (G.gmm, G.tgmm, GF.gmm_swiglu, GF.gmm_dy_swiglu, GF.gmm_dual, GF.tgmm_swiglu)
-MOE_KINDS = {"K8 tgmm": ("tgmm_bf16_kernel<0>",),
+MOE_KINDS = {"K8 tgmm": ("tgmm_wgmma_kernel",),
              "K7 tgmm_swiglu": ("tgmm_bf16_kernel<1>",),
              "K8 gmm": ("gmm_wgmma_kernel",),
              "K7 gmm_swiglu": ("gmm_bf16_kernel<1>",),
@@ -2972,11 +3011,14 @@ def ring_hop_phase(device, seed: int, iters: int) -> dict:
     packed = torch.randn(n, 2 * l, 3 * h * d, generator=gen).to(device, torch.bfloat16)
     heads = [t.reshape(n, 2 * l, h, d).transpose(1, 2)[:, :, l:] for t in packed.chunk(3, -1)]
     half = [torch.randn(n, h, l, d, generator=gen).to(device, torch.float16) for _ in range(3)]
+    n128, h128, _, _ = RING_HOP_CASES[-1]
+    half128 = [torch.randn(n128, h128, l, 128, generator=gen).to(device, torch.float16)
+               for _ in range(3)]
     qpos, kpos = hop_positions("diagonal", l, device)
     for label, (q_, k_, v_) in {"a zigzag segment (offset view)": (shard[:, :, l:],) * 3,
                                 "heads of a packed qkv (row stride 3E)": heads,
-                                "float16": half}.items():
-        state = hop_state_draw(gen, n, h, l, d, device, False)
+                                "float16": half, "float16 d=128": half128}.items():
+        state = hop_state_draw(gen, *q_.shape[:3], q_.shape[3], device, False)
         with torch.inference_mode():
             check(label, kernel(q_, qpos, k_, v_, kpos, state),
                   plain(q_, qpos, k_, v_, kpos, state))
@@ -3038,7 +3080,7 @@ def ring_hop_phase(device, seed: int, iters: int) -> dict:
     return timing
 
 
-SP_KINDS = {"K9 ring_hop": ("ring_hop_kernel",),
+SP_KINDS = {"K9 ring_hop": ("ring_hop_mma_kernel",),
             "cuBLAS GEMMs (linears, head, the hops' replay)": ("gemm", "nvjet", "cutlass",
                                                                "xmma", "sm90_"),
             "optimizer (foreach / AdamW)": ("multi_tensor", "foreach"),

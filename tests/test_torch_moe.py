@@ -159,6 +159,36 @@ def test_gmm_plain_version_at_tile_edges(case):
     assert G.gmm.launches == launches  # a CPU tensor takes the plain version
 
 
+# Layouts at the edges of csrc/tgmm.cu's kPlain pipeline (stages 64 rows of
+# G deep, whose boxes start at a group's first row and reach into the next
+# group; output tiles 128 x 128 or 128 x 256): (group sizes, k, n).
+TGMM_TILE_EDGES = {
+    "groups_start_and_end_inside_a_64_row_box": ([63, 2, 65], 64, 64),
+    "empty_first_and_last_group": ([0, 70, 0, 60, 0], 64, 64),
+    "one_row_group": ([30, 1, 40], 64, 64),
+    "k_not_a_box_multiple": ([64, 70], 72, 64),
+    "n_not_a_column_tile_multiple": ([40, 90], 64, 136),
+}
+
+
+@pytest.mark.parametrize("case", list(TGMM_TILE_EDGES))
+def test_tgmm_plain_version_at_tile_edges(case):
+    sizes, k, n = TGMM_TILE_EDGES[case]
+    rng = np.random.default_rng(54)
+    lhs, rhs = _normal(rng, sum(sizes), k), _normal(rng, sum(sizes), n)
+    bounds = np.cumsum([0] + sizes)
+    want = np.stack([np.asarray(jnp.asarray(lhs[a:b]).T @ jnp.asarray(rhs[a:b]))
+                     for a, b in zip(bounds[:-1], bounds[1:])])
+    group_sizes = _t(np.asarray(sizes, np.int64))
+    launches = G.tgmm.launches
+    for got in (G.tgmm_reference(_t(lhs).t(), _t(rhs), group_sizes, len(sizes)),
+                G.tgmm(_t(lhs).t(), _t(rhs), group_sizes, len(sizes))):
+        assert got.shape == (len(sizes), k, n) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+        assert all(not got[e].any() for e, size in enumerate(sizes) if size == 0)
+    assert G.tgmm.launches == launches  # a CPU tensor takes the plain version
+
+
 def test_grouped_plain_versions_check_sizes():
     with pytest.raises(ValueError, match="sum to"):
         G.gmm(torch.zeros(4, 8), torch.zeros(2, 8, 8), torch.tensor([1, 2]))

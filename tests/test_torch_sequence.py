@@ -383,6 +383,42 @@ def test_hop_state_runs_its_plain_version_on_the_cpu():
         RH.hop_state(*args, causal=True, impl="bogus")
 
 
+def test_rows_operand_reads_strided_views_in_place():
+    """K9's operand rule (strides multiples of 8 elements, 16-byte aligned):
+    the second half of a zigzag shard and heads viewed out of a packed
+    (N, L, 3E) qkv (row stride 3E = 2304) come back as the same storage; a
+    view whose row stride is not a multiple of 8, or whose start is not
+    16-byte aligned, comes back as a contiguous copy. The hop on each view
+    equals the plain hop on its contiguous copy."""
+    n, h, l, d = 1, 12, 128, 64
+    rng = np.random.default_rng(7)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+
+    shard, packed = bf16(n, h, 2 * l, d), bf16(n, 2 * l, 3 * h * d)
+    heads = [t.reshape(n, 2 * l, h, d).transpose(1, 2)[:, :, l:] for t in packed.chunk(3, -1)]
+    in_place = [shard[:, :, l:], *heads]
+    wide = bf16(n, h, l, d + 4)[..., :d]                     # row stride 68
+    shifted = bf16(n * h * l * d + 1)[1:].view(n, h, l, d)   # 2 bytes past an aligned start
+    for view in in_place:
+        got = RH._rows_operand("q", view)
+        assert got.data_ptr() == view.data_ptr() and got.stride() == view.stride()
+    for view in (wide, shifted):
+        got = RH._rows_operand("q", view)
+        assert got.is_contiguous() and got.data_ptr() != view.data_ptr()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    pos = torch.arange(l, dtype=torch.int32)
+    _, _, _, state = _hop_inputs(8, n, h, l, l, d, initial=False)
+    state = [torch.from_numpy(x) for x in state]
+    for q in (*in_place, wide, shifted):
+        got = RH.hop_state(q, pos + l, in_place[1], in_place[2], pos, *state, causal=True)
+        want = RH.hop_state_reference(q.contiguous(), pos + l, in_place[1].contiguous(),
+                                      in_place[2].contiguous(), pos, *state, causal=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def test_hop_kernel_ok_routes_as_jax(monkeypatch):
     """The same branch as ``_hop_pallas_ok`` with the JAX backend read as
     "tpu", the port given a CUDA device; off CUDA the port takes the plain hop."""

@@ -255,24 +255,6 @@ struct WgShape {
                                        2 * kStages * sizeof(uint64_t) + 1024;
 };
 
-// bar.sync on barrier `id` (1 + the warpgroup: 0 is __syncthreads) for the
-// 128 threads of one consumer warpgroup.
-__device__ __forceinline__ void warpgroup_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// m64nBNk16 over the warpgroup's accumulators.
-template <int kBN>
-__device__ __forceinline__ void wgmma_tile(float (&acc)[kBN / 2], uint64_t desc_a,
-                                           uint64_t desc_b) {
-  if constexpr (kBN == 256) {
-    wgmma_m64n256k16(acc, desc_a, desc_b);
-  } else {
-    static_assert(kBN == 128, "column tiles of 128 or 256");
-    wgmma_m64n128k16(acc, desc_a, desc_b);
-  }
-}
-
 // The slots of a grid over row tiles of `tile` rows: every row tile once,
 // plus one more for each group boundary inside a tile (at most E - 1).
 __host__ __device__ inline long long work_slots(const Args& p, int tile) {
@@ -344,7 +326,6 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
   // first thread releases the stages.
   const int wg = warp / 4;
   const int wg_tid = threadIdx.x % 128;
-  const int lane = threadIdx.x % 32;
   bf16* o_tile = o_s + wg * Shape::kOutTile;
   bf16* out = static_cast<bf16*>(p.out);
   float acc[kBN / 2];
@@ -377,28 +358,16 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
     fence_regs(acc);
     if (wg_tid == 0) mbar_arrive(empty + (it - 1) % kStages);
 
-    // Epilogue, while the producer fills the next item's stages. The
-    // accumulators go in bf16 into the warpgroup's output tile (accumulator
-    // 4 j + 2 half + c is row 16 (warp % 4) + lane / 4 + 8 half, column
-    // 8 j + 2 (lane % 4) + c), each 64-column box in the 128-byte swizzle:
-    // row r's 16-byte piece p at piece p ^ (r % 8), so the fragment writes
-    // and the row reads are free of bank conflicts. The tile's last TMA
-    // store must have read it first.
+    // Epilogue, while the producer fills the next item's stages: the
+    // accumulators go in bf16 into the warpgroup's output tile in the
+    // 128-byte swizzle (stage_acc_sw128), once the tile's last TMA store has
+    // read it. Named barrier 1 + wg syncs the warpgroup's 128 threads.
     const int r0 = row0 + wg * 64;
     if (wg_tid == 0) tma_store_wait_read();
-    warpgroup_sync(1 + wg);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = (warp % 4) * 16 + lane / 4 + 8 * half;
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        bf16* piece = o_tile + (j / 8) * 64 * kWgChunk + r * kWgChunk + ((j % 8) ^ (r % 8)) * 8;
-        *reinterpret_cast<__nv_bfloat162*>(piece + 2 * (lane % 4)) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-      }
-    }
+    named_sync(1 + wg, 128);
+    stage_acc_sw128<kBN>(acc, o_tile);
     fence_proxy_async();
-    warpgroup_sync(1 + wg);
+    named_sync(1 + wg, 128);
     if (lo <= r0 && hi >= min(r0 + 64, p.G) && n0 + kBN <= p.N) {
       // Every row of the warpgroup's tile below G is in the group: TMA
       // stores, asynchronous, overlap the next item's products.

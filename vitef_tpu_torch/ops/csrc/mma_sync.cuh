@@ -3,14 +3,14 @@
 // (through gmm_common.cuh), csrc/packed_mha_fwd.cu and csrc/flash_fwd.cu
 // (through attn_fwd_mma.cuh), csrc/packed_mha_bwd.cu and csrc/flash_bwd.cu
 // (through attn_bwd_mma.cuh; K4's and K5's float32 paths through
-// mma_3xtf32). wgmma_tma.cuh takes smem_addr from here for gmm.cu's
-// TMA + wgmma kernel.
+// mma_3xtf32), and csrc/ring_hop.cu (bf16 and float16). wgmma_tma.cuh takes
+// smem_addr from here for the TMA + wgmma kernels of gmm.cu and tgmm.cu.
 //
 // Here: shared-memory addresses, ldmatrix (plain and transposed), the
-// m16n8k16 bf16 product with float32 accumulators, the m16n8k8 TF32 product
-// and its split ("3xTF32") form for float32 operands, and 16-byte cp.async
-// copies with their zero-fill form, commit and wait. No tile shapes: each
-// kernel family keeps its own.
+// m16n8k16 bf16 and float16 products with float32 accumulators, the m16n8k8
+// TF32 product and its split ("3xTF32") form for float32 operands, and
+// 16-byte cp.async copies with their zero-fill form, commit and wait. No
+// tile shapes: each kernel family keeps its own.
 
 #pragma once
 
@@ -47,6 +47,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), float16 in, float32 accumulators.
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

@@ -2,8 +2,8 @@
 // maps and TMA tile loads (cp.async.bulk.tensor) that report to mbarriers in
 // shared memory, and warpgroup products (wgmma.mma_async) that read their
 // operands from those tiles. K8 gmm's plain mode (csrc/gmm.cu,
-// gmm_wgmma_kernel) is built on them; K8 tgmm and the K7 passes can take
-// them next.
+// gmm_wgmma_kernel) and K8 tgmm's (csrc/tgmm.cu, tgmm_wgmma_kernel) are built
+// on them; the K7 passes can take them next.
 //
 // Tiles are in the 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B): a box is
 // 64 bf16 (128 bytes) along its contiguous dimension, each 128-byte row
@@ -12,17 +12,20 @@
 // descriptor names such a tile by its start address, the byte offset between
 // 8-row groups (SBO, 1024 here) and, for an operand whose contiguous
 // dimension is M or N, the byte offset between 64-wide column chunks (LBO).
-// A K-major operand (A rows, K contiguous) moves 16 deep by adding 32 bytes to
-// the start address inside the atom; an N-major one (W rows, N contiguous)
-// by 16 rows, 2048 bytes.
+// A K-major operand (gmm's A rows, K contiguous) moves 16 deep by adding 32
+// bytes to the start address inside the atom; an MN-major one (gmm's W rows,
+// N contiguous; both of tgmm's operands, whose depth is the rows of G) by 16
+// rows, 2048 bytes. An MN-major A enters wgmma with imm-trans-a 1, an
+// MN-major B with imm-trans-b 1.
 //
 // Here, for the host: cuTensorMapEncodeTiled, a driver function, fetched
 // through the runtime's cudaGetDriverEntryPoint, so the libraries link no
 // -lcuda (ops/_build.py), and make_tensor_map_bf16. For the device:
 // mbarrier init, arrive, arrive with an expected byte count, and wait on a
-// phase; 2-D and 3-D TMA loads and the 2-D TMA store with its proxy fence,
-// commit and waits; shared-memory descriptors; the wgmma fence, commit and
-// wait; m64n128k16 and m64n256k16 bf16 products with float32 accumulators.
+// phase; 2-D and 3-D TMA loads and stores with the proxy fence, commit and
+// waits; shared-memory descriptors; the wgmma fence, commit and wait;
+// m64n128k16 and m64n256k16 bf16 products with float32 accumulators, A
+// K-major or (kTransA) MN-major, B MN-major.
 
 #pragma once
 
@@ -172,6 +175,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// The box at (c0, c1, c2) of a 3-D map, likewise.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -226,7 +239,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[kRegs]) {
 // 8 (i / 4) + 2 (l % 4) + i % 2: the mma.sync C fragment repeated over N.
 
 // d (64 x 128: this thread's 64 float32 accumulators) += A (64 x 16) B (16 x 128),
-// bf16 from shared memory: A K-major (desc_a), B N-major (desc_b, imm-trans-b 1).
+// bf16 from shared memory: A K-major (desc_a; M-major with kTransA 1,
+// imm-trans-a), B N-major (desc_b, imm-trans-b 1).
+template <int kTransA = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
                                                  uint64_t desc_b) {
   asm volatile(
@@ -242,7 +257,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}, %64, %65, p, 1, 1, %67, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -255,11 +270,12 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA));
 }
 
 // d (64 x 256: this thread's 128 float32 accumulators) += A (64 x 16) B (16 x 256),
-// bf16 from shared memory: A K-major (desc_a), B N-major (desc_b, imm-trans-b 1).
+// likewise.
+template <int kTransA = 0>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
                                                  uint64_t desc_b) {
   asm volatile(
@@ -283,7 +299,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}, %128, %129, p, 1, 1, %131, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -307,7 +323,47 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA));
+}
+
+// m64nBNk16 over a warpgroup's kBN / 2 accumulators (column tiles of 128 or
+// 256), A K-major or (kTransA 1) M-major.
+template <int kBN, int kTransA = 0>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[kBN / 2], uint64_t desc_a,
+                                           uint64_t desc_b) {
+  if constexpr (kBN == 256) {
+    wgmma_m64n256k16<kTransA>(acc, desc_a, desc_b);
+  } else {
+    static_assert(kBN == 128, "column tiles of 128 or 256");
+    wgmma_m64n128k16<kTransA>(acc, desc_a, desc_b);
+  }
+}
+
+// bar.sync on named barrier `id` (1-15; 0 is __syncthreads) for `threads`
+// threads, whole warps.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A warpgroup's 64 x kBN accumulators, in bf16, into its output tile: kBN / 64
+// boxes of 64 x 64 in the 128-byte swizzle, the layout a TMA store reads.
+// Accumulator 4 j + 2 half + c is row 16 (warp % 4) + lane / 4 + 8 half,
+// column 8 j + 2 (lane % 4) + c; row r's 16-byte piece p lies at piece
+// p ^ (r % 8), so the fragment writes and the row reads are free of bank
+// conflicts.
+template <int kBN>
+__device__ __forceinline__ void stage_acc_sw128(const float (&acc)[kBN / 2], bf16* tile) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = warp * 16 + lane / 4 + 8 * half;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      bf16* piece = tile + (j / 8) * 64 * 64 + r * 64 + ((j % 8) ^ (r % 8)) * 8;
+      *reinterpret_cast<__nv_bfloat162*>(piece + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
 }
 
 }  // namespace

@@ -187,9 +187,12 @@ def tgmm(lhs_t, rhs, group_sizes, num_groups: int, out_dtype=None):
     ``lhs_t`` is read as the (G, k) rows it transposes: pass ``x.t()`` of a
     contiguous (G, k) ``x``, and nothing is copied. A CPU tensor goes through
     :func:`tgmm_reference`. A CUDA tensor launches ``csrc/tgmm.cu`` (plain
-    mode: one block per (group, k-tile, n-tile) walks its group's rows in a
-    fixed order, no atomics, so two launches give the same bits), or raises
-    if the kernel does not take it. ``tgmm.launches`` counts its launches.
+    mode; in bfloat16 a persistent TMA + ``wgmma`` pipeline over 128 x 256
+    output tiles, largest group first, whose tensor maps need the 16-byte
+    aligned operands that :func:`kernel_operands` gives it; each tile sums
+    its group's rows in a fixed order, no atomics, so two launches give the
+    same bits), or raises if the kernel does not take it. ``tgmm.launches``
+    counts its launches.
     """
     if rhs.device.type == "cpu":
         return tgmm_reference(lhs_t, rhs, group_sizes, num_groups, out_dtype)

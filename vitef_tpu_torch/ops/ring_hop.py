@@ -9,7 +9,8 @@ Counterpart of the hop of ``vitef_tpu/parallel/sequence.py``:
   raw queries, scaled here;
 - :func:`hop_state` (``_attend_state_pallas`` :249-283) — the K9 wrapper:
   on a CUDA tensor it launches ``csrc/ring_hop.cu`` (bfloat16 or float16,
-  d = 64 or 128, any segment length, strided operands read in place), and
+  d = 64 or 128, on the tensor cores; any segment length; operands whose
+  strides are multiples of 8 elements read in place), and
   when a gradient is wanted it runs under :class:`_HopState`, whose backward
   replays :func:`attend_block` under autograd from the saved hop inputs, as
   the JAX custom VJP does (:262-280). The JAX package has no backward kernel
@@ -150,13 +151,16 @@ def _check_operand(name: str, t, shape: tuple, dtype, device):
 
 
 def _rows_operand(name: str, t):
-    """``t`` (N, h, L, d) as K9 reads it: rows contiguous, every stride even
-    and under 2**31 elements, 4-byte aligned; else a contiguous copy."""
+    """``t`` (N, h, L, d) as K9 reads it: rows contiguous, every stride a
+    multiple of 8 elements and under 2**31, 16-byte aligned (K9 copies rows
+    in 16-byte pieces with ``cp.async``); else a contiguous copy."""
     strides = t.stride()
-    if (strides[3] == 1 and all(x % 2 == 0 and x < 2**31 for x in strides[:3])
-            and t.data_ptr() % 4 == 0):
+    if (strides[3] == 1 and all(x % 8 == 0 and x < 2**31 for x in strides[:3])
+            and t.data_ptr() % 16 == 0):
         return t
     t = t.contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
     if t.numel() >= 2**31:
         raise ValueError(f"ring_hop: {name} has {t.numel()} elements, more than int32 strides hold")
     return t
