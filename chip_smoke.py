@@ -14,9 +14,11 @@ Phases (each raises on failure, so the run exits non-zero):
    ``cuobjdump -sass`` finds in the libraries of K1, K2/K3, K4 and K5 (none
    fails the run), the TF32 HMMA instructions in each instantiation of K4's
    float32 kernel and of K5's two float32 passes, the HGMMA (wgmma)
-   instructions in both column tiles of K8 gmm's and K8 tgmm's kPlain
-   kernels, and the HMMA instructions in each of K9's four instantiations
-   (bf16 and float16 at d = 64 and 128; none fails the run);
+   instructions in both column tiles of the TMA kernels (K8 gmm's and K8
+   tgmm's kPlain, K7 gmm_dual's and K7 gmm_swiglu's), and
+   the HMMA instructions in each of K9's four instantiations (bf16 and
+   float16 at d = 64 and 128; none fails the run), with any ptxas warning
+   that it serialises wgmma;
 3. K1 phase: the packed-MHA forward kernel against its plain PyTorch version
    (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths up
    to 1024 (the tensor-core tiles' edges 16, 17, 33, 64, 65, 129 among
@@ -85,15 +87,20 @@ Phases (each raises on failure, so the run exits non-zero):
     from a seeded router draw) and at edge cases (empty and one-row experts,
     every row in one expert, G=1000, the tiny preset's d=64/f=128, groups of
     63, 2, 65 rows at d=72/f=136, either side of a 64-row box and no tile
-    multiple), in float32 at a small shape; each bit-identical over two
-    launches, ``tgmm``'s empty groups exactly zero; the
-    wrappers raise for float16 and for a width not a multiple of 8, and the
-    ``gmm.cu`` ones count no launch for zero rows; each timed with its plain
-    version, its bound and ``torch._grouped_mm``, and K8 gmm's and tgmm's
-    kPlain kernels also at both their column tiles (128 x 128 and 128 x 256;
-    tgmm's each with its tiles walked largest group first and in group
-    order), each within the gate and timed in turns (these run with the
-    other kernel phases, after 14);
+    multiple, and groups of 127, 2, 129 at d=136/f=72, whose f puts K7's
+    gate/up and a/b seams inside a 64-deep stage), in float32 at a small
+    shape; each bit-identical over two launches, ``tgmm``'s empty groups
+    exactly zero; the wrappers raise for float16 and for a width not a
+    multiple of 8, and the ``gmm.cu`` ones count no launch for zero rows;
+    each timed with its plain version, its bound and ``torch._grouped_mm``,
+    and the TMA kernels (K8 gmm, K8 tgmm, K7 gmm_swiglu and gmm_dual) also
+    at both their column tiles (128 x 128 and 128 x 256; tgmm's each with
+    its tiles walked largest group first and in group order), each within
+    the gate and timed in turns; then the y = bf16(silu(g)·u) that K7
+    gmm_swiglu and tgmm_swiglu multiply, read out through an identity
+    operand, against silu(g)·u in float64 within one bf16 rounding plus
+    2^-12 of |y|, gate values from -16 to 4, and the two kernels' y bit for
+    bit the same (these run with the other kernel phases, after 14);
 19. MoE train slice: the JAX package's "8x124m" preset at L=1024 (random
     weights from a seed) trains with ``bench_llama(batch=8, size="8x124m",
     implementation="moe")``'s protocol (bf16, 8 x 1024 tokens of
@@ -101,7 +108,7 @@ Phases (each raises on failure, so the run exits non-zero):
     warmup 100 of 1000, clip 1.0): 2 warm-up and 10 timed steps through the
     sparse dispatch, per step K8 gmm 12 and tgmm 24, each K7 pass 12, K1 and
     K3 12, K4 and K5 none, no plain version; then a torch.profiler split of
-    one step;
+    one step, in which each K8 and K7 kernel must appear under its own kind;
 20. MoE cross-check: the gradients of one sequence through the kernels and
     through the dense oracle with plain attention, overall; per block, on the
     kernel route's recorded inputs, each block's MoE FFN (sparse vs dense, at
@@ -271,22 +278,27 @@ SPIN_CYCLES_PER_MS, SPIN_MAX_MS = 1.98e6, 200.0
 # 1e-3 (log2 units) sits far from both.
 LSE_MAX_ABS = 1e-3
 # The libraries whose bf16 bodies multiply on the tensor cores (mma.sync):
-# their SASS must hold HMMA instructions; then, per kernel, (library,
-# kernel, opcode, wanted text, instantiations): the float32 kernels whose
-# products are TF32 HMMA instructions (K4's and K5's, each in both
-# instantiations), K8 gmm's and tgmm's kPlain kernels, whose products are
-# wgmma (HGMMA), at both column tiles, and K9 in each (type, d) of bf16,
-# float16 x 64, 128.
+# their SASS must hold HMMA instructions; then, per kernel, (library, a
+# piece of the kernel's name with its template arguments, opcode, wanted
+# text, instantiations): the float32 kernels whose products are TF32 HMMA
+# instructions (K4's and K5's, each in both instantiations), the TMA +
+# wgmma kernels, whose products are HGMMA: csrc/gmm.cu's in kPlain (K8
+# gmm), kSwigluIn (K7 gmm_swiglu) and kDual (K7 gmm_dual) and csrc/tgmm.cu's
+# kPlain (K8 tgmm), each at both column tiles, and K9 in each (type, d) of
+# bf16, float16 x 64, 128.
 TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd", "flash_bwd", "ring_hop")
 SASS_KERNELS = [("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32", 2),
                 ("flash_bwd", "flash_bwd_dq_tf32_kernel", "HMMA", "TF32", 2),
                 ("flash_bwd", "flash_bwd_dkv_tf32_kernel", "HMMA", "TF32", 2),
-                ("gmm", "gmm_wgmma_kernel", "HGMMA", "HGMMA", 2),
+                ("gmm", "gmm_wgmma_kernel<0,", "HGMMA", "HGMMA", 2),
+                ("gmm", "gmm_wgmma_kernel<1,", "HGMMA", "HGMMA", 2),
+                ("gmm", "gmm_wgmma_kernel<3,", "HGMMA", "HGMMA", 2),
                 ("tgmm", "tgmm_wgmma_kernel", "HGMMA", "HGMMA", 2),
                 ("ring_hop", "ring_hop_mma_kernel", "HMMA", "HMMA", 4)]
-# kPlain's two column tiles (csrc/gmm.cu gmm_plain_tile, csrc/tgmm.cu
-# tgmm_plain_tile), timed in turn; tgmm's also in both walks of its tiles.
+# The column tiles of the TMA kernels (csrc/gmm.cu gmm_tile, csrc/tgmm.cu
+# tgmm_plain_tile), timed in turn: tgmm's in both walks of its tiles.
 GMM_TILES = (128, 256)
+GMM_TILE_MODES = {"gmm": G.PLAIN, "gmm_swiglu": G.SWIGLU_IN, "gmm_dual": G.DUAL}
 TGMM_WALKS = {1: "largest group first, snaking", 0: "group order"}
 
 # A kernel's bf16 output against the float32 plain version on the same bf16
@@ -368,7 +380,8 @@ MOE_BATCH, MOE_FIXED_BATCH = 8, 8
 GROUPED_EDGES = [(8, 768, 2048, [0, 1, 300, 0, 250, 1, 448, 0]),
                  (8, 768, 2048, [0, 0, 0, 1000, 0, 0, 0, 0]),
                  (4, 64, 128, [0, 37, 1, 62]),
-                 (3, 72, 136, [63, 2, 65])]
+                 (3, 72, 136, [63, 2, 65]),
+                 (3, 136, 72, [127, 2, 129])]
 GROUPED_FP32 = [(4, 128, 256, [100, 0, 1, 199])]
 GROUPED = ("gmm", "gmm_swiglu", "gmm_dy_swiglu", "gmm_dual", "tgmm_swiglu", "tgmm")
 
@@ -639,8 +652,13 @@ def build_phase() -> None:
         print(f"lib{name}.so: {hmma} HMMA (tensor-core) instructions in cuobjdump -sass")
         if hmma == 0:
             raise AssertionError(f"lib{name}.so holds no tensor-core instruction")
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "Performance Loss" in line:  # ptxas serialising wgmma, and why
+                print(f"ptxas {name}: {line.strip()}")
     for lib, kernel, opcode, want, count in SASS_KERNELS:
-        found = {fn: lines for fn, lines in sass_ops(lib, opcode).items() if kernel in fn}
+        found = {fn: lines for fn, lines in sass_ops(lib, opcode).items()
+                 if kernel in kernel_name(fn)}
         for fn, lines in sorted(found.items()):
             held = [line for line in lines if want in line]
             print(f"lib{lib}.so {kernel_name(fn)}: {len(held)} {want} instructions "
@@ -1079,40 +1097,44 @@ def library_grouped(candidates, iters: int):
     return None, None
 
 
-def plain_tile_shapes(name: str, tensors, plain, flops: float, iters: int) -> None:
-    """K8 ``gmm``'s or ``tgmm``'s kPlain kernel at each column tile of
-    GMM_TILES (``tgmm`` also in each walk of TGMM_WALKS) on the step's
-    operands (csrc/gmm.cu ``gmm_plain_tile``, csrc/tgmm.cu
-    ``tgmm_plain_tile``; the wrappers take 128 x 256, ``tgmm`` largest group
-    first), each against the plain version within the bf16 gate and timed,
-    in turns."""
-    a, b, sz, out = tensors
-    sizes = sz.to(torch.int32)
+def tile_shapes(name: str, tensors, plain, flops: float, iters: int) -> None:
+    """A TMA kernel at each column tile of GMM_TILES on the step's operands:
+    csrc/gmm.cu ``gmm_tile`` for K8 ``gmm``, K7 ``gmm_swiglu`` and
+    ``gmm_dual``, csrc/tgmm.cu ``tgmm_plain_tile`` for K8 ``tgmm`` (also in
+    each walk of TGMM_WALKS); each against the plain version within the bf16
+    gate and timed, in turns."""
     stream = torch.cuda.current_stream().cuda_stream
-    if name == "gmm":
-        fn = _build.kernel_function("gmm_plain_tile", 4, 5, source="gmm")
-        variants = [(tile_n, None) for tile_n in GMM_TILES]
-        shape = (a.shape[0], a.shape[1], b.shape[2], b.shape[0])
-    else:
+    if name == "tgmm":
+        a, b, sz, out = tensors
         fn = _build.kernel_function("tgmm_plain_tile", 4, 6, source="tgmm")
         variants = [(tile_n, walk) for tile_n in GMM_TILES for walk in TGMM_WALKS]
+        pointers = (a, b, sz.to(torch.int32), out)
         shape = (a.shape[0], a.shape[1], b.shape[1], out.shape[0])
+    else:
+        if name == "gmm_dual":
+            a, b, w, sz, out = tensors
+        else:
+            (a, w, sz, out), b = tensors, None
+        fn = _build.kernel_function("gmm_tile", 5, 6, source="gmm")
+        variants = [(tile_n,) for tile_n in GMM_TILES]
+        pointers = (a, b, w, sz.to(torch.int32), out)
+        shape = (a.shape[0], w.shape[1], w.shape[2], w.shape[0], GMM_TILE_MODES[name])
 
-    def call(tile_n, walk):
-        extra = () if walk is None else (walk,)
-        err = fn(a.data_ptr(), b.data_ptr(), sizes.data_ptr(), out.data_ptr(), *shape, tile_n,
-                 *extra, stream)
+    def call(*variant):
+        err = fn(*(None if t is None else t.data_ptr() for t in pointers), *shape, *variant,
+                 stream)
         if err != 0:
-            raise RuntimeError(f"{name}_plain_tile launch failed: cudaError {err} "
-                               f"(tile {tile_n}, walk {walk})")
+            raise RuntimeError(f"{name} tile launch failed: cudaError {err} "
+                               f"({label(*variant)})")
 
-    def label(tile_n, walk):
-        return f"128 x {tile_n}" + ("" if walk is None else f", {TGMM_WALKS[walk]}")
+    def label(tile_n, *walk):
+        return f"128 x {tile_n}" + "".join(f", {TGMM_WALKS[w]}" for w in walk)
 
     with torch.inference_mode():
         (ref,) = plain()
     times = {}
     for variant in variants + variants[::-1]:
+        out.zero_()
         call(*variant)
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
@@ -1121,7 +1143,7 @@ def plain_tile_shapes(name: str, tensors, plain, flops: float, iters: int) -> No
             raise AssertionError(f"{name} at {label(*variant)} disagrees with its plain version: "
                                  f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e}")
         times.setdefault(variant, []).append(cuda_ms(lambda: call(*variant), iters))
-    print(f"{name} kPlain bf16 column tiles at the 8x124m step, timed in turns: " + "; ".join(
+    print(f"{name} bf16 column tiles at the 8x124m step, timed in turns: " + "; ".join(
         f"{label(*v)}: " + "/".join(f"{ms:.4f}" for ms in times[v])
         + f" ms ({flops / min(times[v]) / 1e9:.1f} TFLOP/s)" for v in variants)
         + " (max|d| within the bf16 gate at each)")
@@ -1227,13 +1249,52 @@ def grouped_phase(device, name: str, seed: int, iters: int) -> dict:
           + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
           + f", bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s")
-    if name in ("gmm", "tgmm"):
-        plain_tile_shapes(name, tensors, plain, flops, iters)
+    if name in ("gmm", "tgmm", "gmm_swiglu", "gmm_dual"):
+        tile_shapes(name, tensors, plain, flops, iters)
     # library_ms: one PyTorch call computing the same function; the K7
     # passes fuse the swiglu, which no single call does.
     same_function = name in ("gmm", "tgmm") and str(library_label).startswith("torch.")
     return {"max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms, **limit,
             "library_ms": library_ms if same_function else None}
+
+
+def swiglu_y_phase(device, seed: int) -> None:
+    """The y = bf16(silu(g)·u) that K7 ``gmm_swiglu`` and ``tgmm_swiglu``
+    make in their prologues (csrc/gmm_common.cuh ``silu_fast``), read out
+    exactly: ``gmm_swiglu`` with W = I gives y, ``tgmm_swiglu`` with rows of
+    I as its right operand gives yᵀ, group by group. Gate values span -16 to
+    4, so most lie where sigmoid is small and an absolute error on it would
+    be a large relative one on y. Each y must lie within one bf16 rounding
+    (2^-8 of |y|) plus 2^-12 of |y| of silu(g)·u in float64, and the two
+    kernels' y must agree bit for bit, so dw2 is taken against the y that
+    the forward multiplied."""
+    gen = torch.Generator().manual_seed(seed)
+    rows, f = 512, 256
+    sizes = torch.tensor([200, rows - 200], device=device)
+    g = (torch.rand(rows, f, generator=gen) * 20 - 16).to(torch.bfloat16)
+    u = torch.randn(rows, f, generator=gen).to(torch.bfloat16)
+    h = torch.cat([g, u], dim=1).to(device)
+    eye = torch.eye(f, dtype=torch.bfloat16, device=device)
+    y_fwd = GF.gmm_swiglu(h, eye.expand(2, f, f).contiguous(), sizes)
+    eye_rows = torch.eye(rows, dtype=torch.bfloat16, device=device)
+    y_bwd = GF.tgmm_swiglu(h, eye_rows, sizes).sum(0).t()
+    torch.cuda.synchronize()
+    g64, u64 = g.double(), u.double()
+    exact = (g64 * torch.sigmoid(g64) * u64).to(device)
+    nonzero = exact != 0
+    rel = ((y_fwd.double() - exact).abs() / exact.abs())[nonzero]
+    worst = rel.max().item()
+    at = g.to(device)[nonzero].flatten()[rel.argmax()].item()
+    limit = 2.0 ** -8 + 2.0 ** -12
+    same = torch.equal(y_fwd, y_bwd)
+    print(f"K7 swiglu prologue y (rows {rows}, f {f}, gate values -16 to 4, "
+          f"{(g <= -2).float().mean().item():.1%} at or below -2): worst |y - exact| / |y| = "
+          f"{worst:.3e} (at g = {at:.3f}; limit {limit:.3e}, one bf16 rounding 3.906e-03 plus "
+          f"2^-12); gmm_swiglu's and tgmm_swiglu's y bit-identical: {same}")
+    if not (math.isfinite(worst) and worst <= limit):
+        raise AssertionError("the swiglu prologue's y is off by more than one bf16 rounding")
+    if not same:
+        raise AssertionError("gmm_swiglu and tgmm_swiglu make different y")
 
 
 def k10_phase(device) -> dict:
@@ -1816,10 +1877,10 @@ GPT2_KINDS = {"K1 packed_mha_fwd (causal)": ("packed_mha_fwd",),
               "optimizer (foreach / AdamW)": ("multi_tensor", "foreach")}
 
 
-def profile_train_step(one_step, kinds: dict, label: str) -> None:
+def profile_train_step(one_step, kinds: dict, label: str) -> dict:
     """torch.profiler over one device-only train step: device time by kind of
     kernel (``kinds``: name -> substrings of kernel names), and the device's
-    busy share of the step."""
+    busy share of the step. Returns the ms of each kind."""
     from torch.profiler import ProfilerActivity, profile
 
     one_step()
@@ -1857,6 +1918,7 @@ def profile_train_step(one_step, kinds: dict, label: str) -> None:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
     for name, ms in by_name.most_common(10):
         print(f"  top: {ms:8.3f} ms  {name[:110]}")
+    return totals
 
 
 def gpt2_flops_per_token(cfg) -> float:
@@ -2144,12 +2206,14 @@ def moe_flops_per_token(cfg) -> float:
 
 
 GROUPED_WRAPPERS = (G.gmm, G.tgmm, GF.gmm_swiglu, GF.gmm_dy_swiglu, GF.gmm_dual, GF.tgmm_swiglu)
+# gmm_wgmma_kernel<mode, tile>: K8 gmm is mode 0, K7 gmm_swiglu 1 and
+# gmm_dual 3, so each kind names its mode.
 MOE_KINDS = {"K8 tgmm": ("tgmm_wgmma_kernel",),
              "K7 tgmm_swiglu": ("tgmm_bf16_kernel<1>",),
-             "K8 gmm": ("gmm_wgmma_kernel",),
-             "K7 gmm_swiglu": ("gmm_bf16_kernel<1>",),
-             "K7 gmm_dy_swiglu": ("gmm_bf16_kernel<2>",),
-             "K7 gmm_dual": ("gmm_bf16_kernel<3>",),
+             "K8 gmm": ("gmm_wgmma_kernel<0,",),
+             "K7 gmm_swiglu": ("gmm_wgmma_kernel<1,",),
+             "K7 gmm_dy_swiglu": ("gmm_swiglu_bwd_kernel",),
+             "K7 gmm_dual": ("gmm_wgmma_kernel<3,",),
              "K1 packed_mha_fwd (causal)": ("packed_mha_fwd",),
              "K3 packed_mha_bwd (causal)": PACKED_BWD_KERNELS,
              "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
@@ -3299,6 +3363,7 @@ def main() -> None:
                                                    seed=15, iters=10)}
     for i, name in enumerate(GROUPED):
         timing[name] = grouped_phase(device, name, seed=20 + i, iters=10)
+    swiglu_y_phase(device, seed=29)
     timing.update(layernorm_phase(device, seed=30, iters=20))
     timing["packed_mha_fwd:masked"] = masked_phase(device, seed=40, iters=20,
                                                    k1_ms=timing["packed_mha_fwd"]["ms"])
@@ -3348,7 +3413,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     moe, moe_launches, moe_step = moe_train_phase(device)
-    profile_train_step(moe_step, MOE_KINDS, "MoE 8x124m")
+    moe_kinds = profile_train_step(moe_step, MOE_KINDS, "MoE 8x124m")
+    unseen = [kind for kind in MOE_KINDS if kind.startswith(("K7", "K8")) and not moe_kinds[kind]]
+    if unseen:
+        raise AssertionError(f"the MoE profile found no kernel of {unseen}")
     del moe_step  # the optimizer state
     gc.collect()
     torch.cuda.empty_cache()

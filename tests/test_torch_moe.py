@@ -5,10 +5,12 @@ the grouped-product kernels K8 (``gmm``, ``tgmm``) and K7 (the four
 swiglu-fused passes) against the JAX package's per-group formula (the
 reference its own test holds the fused segment to,
 tests/test_moe_sparse.py:205-213), with uneven group sizes and an empty
-group, and ``gmm``'s at the edges of its kernel's tiles (groups ending one
-row either side of a 128-row boundary, empty first and last groups, fewer
-rows than a tile, a depth not a multiple of 64 and a width not a multiple of
-the column tile); the port's sparse and dense MoE FFN against the JAX dense oracle
+group, and ``gmm``'s, ``gmm_swiglu``'s and ``gmm_dual``'s at the edges of
+their kernel's tiles (groups ending one row either side of a 128-row
+boundary, empty first and last groups, fewer rows than a tile, a depth not a
+multiple of 64, so that K7's gate/up and a/b seams fall inside a stage, and a
+width not a multiple of the column tile); the port's sparse and dense MoE FFN
+against the JAX dense oracle
 ``apply_moe_ffn``, forward and gradients; the router's tie order and aux
 losses; the sparse/dense branch rule; the counting sort; a tiny MoE model's
 logits and three AdamW steps with the aux losses; the 8x124m preset's names
@@ -157,6 +159,46 @@ def test_gmm_plain_version_at_tile_edges(case):
         assert got.shape == (sum(sizes), n) and got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
     assert G.gmm.launches == launches  # a CPU tensor takes the plain version
+
+
+# Layouts at the edges of csrc/gmm.cu's TMA pipeline in K7's two modes
+# (128-row tiles, column tiles of 128 or 256, 64-deep stages; gmm_swiglu's
+# gate/up seam and gmm_dual's a/b seam fall inside a stage when f is not a
+# multiple of 64): (group sizes, f, n).
+K7_TILE_EDGES = {
+    "f_72_seam_inside_a_stage": ([64, 70], 72, 64),
+    "f_136_seam_inside_a_stage": ([40, 90], 136, 64),
+    "groups_end_one_row_before_and_after_128": ([127, 2, 127], 64, 64),
+    "empty_first_and_last_group": ([0, 100, 60, 0], 64, 64),
+    "rows_below_one_tile": ([20, 0, 30], 64, 64),
+    "n_not_a_column_tile_multiple": ([40, 90], 64, 136),
+}
+
+
+@pytest.mark.parametrize("case", list(K7_TILE_EDGES))
+@pytest.mark.parametrize("name", ["gmm_swiglu", "gmm_dual"])
+def test_k7_plain_versions_at_tile_edges(name, case):
+    sizes, f, n = K7_TILE_EDGES[case]
+    rng = np.random.default_rng(55)
+    g_rows, e = sum(sizes), len(sizes)
+    group_sizes = _t(np.asarray(sizes, np.int64))
+    if name == "gmm_swiglu":
+        h, w2 = _normal(rng, g_rows, 2 * f), _normal(rng, e, f, n)
+        want = _jax_per_group(_jax_swiglu_y(h), w2, sizes)
+        calls = (lambda: GF.gmm_swiglu_reference(_t(h), _t(w2), group_sizes),
+                 lambda: GF.gmm_swiglu(_t(h), _t(w2), group_sizes))
+    else:
+        a, b, rt = _normal(rng, g_rows, f), _normal(rng, g_rows, f), _normal(rng, e, 2 * f, n)
+        want = _jax_per_group(a, rt[:, :f], sizes) + _jax_per_group(b, rt[:, f:], sizes)
+        calls = (lambda: GF.gmm_dual_reference(_t(a), _t(b), _t(rt), group_sizes),
+                 lambda: GF.gmm_dual(_t(a), _t(b), _t(rt), group_sizes))
+    wrapper = getattr(GF, name)
+    launches = wrapper.launches
+    for call in calls:
+        got = call()
+        assert got.shape == (g_rows, n) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    assert wrapper.launches == launches  # a CPU tensor takes the plain version
 
 
 # Layouts at the edges of csrc/tgmm.cu's kPlain pipeline (stages 64 rows of

@@ -1,9 +1,9 @@
 // Hopper's asynchronous pieces for the grouped products (sm_90a): tensor
 // maps and TMA tile loads (cp.async.bulk.tensor) that report to mbarriers in
 // shared memory, and warpgroup products (wgmma.mma_async) that read their
-// operands from those tiles. K8 gmm's plain mode (csrc/gmm.cu,
-// gmm_wgmma_kernel) and K8 tgmm's (csrc/tgmm.cu, tgmm_wgmma_kernel) are built
-// on them; the K7 passes can take them next.
+// operands from those tiles or, for A, from registers. csrc/gmm.cu's
+// gmm_wgmma_kernel (K8 gmm, K7 gmm_dual and K7 gmm_swiglu) and csrc/tgmm.cu's
+// tgmm_wgmma_kernel (K8 tgmm) are built on them.
 //
 // Tiles are in the 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B): a box is
 // 64 bf16 (128 bytes) along its contiguous dimension, each 128-byte row
@@ -16,16 +16,21 @@
 // bytes to the start address inside the atom; an MN-major one (gmm's W rows,
 // N contiguous; both of tgmm's operands, whose depth is the rows of G) by 16
 // rows, 2048 bytes. An MN-major A enters wgmma with imm-trans-a 1, an
-// MN-major B with imm-trans-b 1.
+// MN-major B with imm-trans-b 1. A from registers (the RS form) is each
+// warp's m16n8k16 A fragment of its 16 rows, the layout ldmatrix_x4 leaves
+// from a row-major tile: a thread may compute it, so gmm_swiglu's prologue
+// runs between the TMA tile and the product. Such a fragment must stay
+// unwritten until the wgmma that reads it has completed (wgmma_wait).
 //
 // Here, for the host: cuTensorMapEncodeTiled, a driver function, fetched
 // through the runtime's cudaGetDriverEntryPoint, so the libraries link no
 // -lcuda (ops/_build.py), and make_tensor_map_bf16. For the device:
 // mbarrier init, arrive, arrive with an expected byte count, and wait on a
-// phase; 2-D and 3-D TMA loads and stores with the proxy fence, commit and
-// waits; shared-memory descriptors; the wgmma fence, commit and wait;
-// m64n128k16 and m64n256k16 bf16 products with float32 accumulators, A
-// K-major or (kTransA) MN-major, B MN-major.
+// phase; 2-D, 3-D and 4-D TMA loads, 2-D and 3-D stores with the proxy
+// fence, commit and waits; shared-memory descriptors; the wgmma fence,
+// commit and wait; m64n128k16 and m64n256k16 bf16 products with float32
+// accumulators, A K-major or (kTransA) MN-major from shared memory or A from
+// registers, B MN-major.
 
 #pragma once
 
@@ -152,6 +157,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -339,29 +354,137 @@ __device__ __forceinline__ void wgmma_tile(float (&acc)[kBN / 2], uint64_t desc_
   }
 }
 
+// d (64 x 128: this thread's 64 float32 accumulators) += A (64 x 16) B (16 x 128),
+// A from registers (the m16n8k16 A fragment of this thread's warp, rows
+// 16 (warp % 4) ..; ldmatrix_x4's layout), B N-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 256: this thread's 128 float32 accumulators) += A (64 x 16) B (16 x 256),
+// A from registers (the m16n8k16 A fragment of this thread's warp, rows
+// 16 (warp % 4) ..; ldmatrix_x4's layout), B N-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// m64nBNk16 over a warpgroup's kBN / 2 accumulators (column tiles of 128 or
+// 256), A from registers.
+template <int kBN>
+__device__ __forceinline__ void wgmma_tile_rs(float (&acc)[kBN / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  if constexpr (kBN == 256) {
+    wgmma_m64n256k16_rs(acc, a, desc_b);
+  } else {
+    static_assert(kBN == 128, "column tiles of 128 or 256");
+    wgmma_m64n128k16_rs(acc, a, desc_b);
+  }
+}
+
+// Keep the compiler from moving writes of an A fragment across the
+// asynchronous wgmma that reads it (no instruction).
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i]) : : "memory");
+}
+
 // bar.sync on named barrier `id` (1-15; 0 is __syncthreads) for `threads`
 // threads, whole warps.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// A warpgroup's 64 x kBN accumulators, in bf16, into its output tile: kBN / 64
-// boxes of 64 x 64 in the 128-byte swizzle, the layout a TMA store reads.
-// Accumulator 4 j + 2 half + c is row 16 (warp % 4) + lane / 4 + 8 half,
-// column 8 j + 2 (lane % 4) + c; row r's 16-byte piece p lies at piece
-// p ^ (r % 8), so the fragment writes and the row reads are free of bank
-// conflicts.
-template <int kBN>
-__device__ __forceinline__ void stage_acc_sw128(const float (&acc)[kBN / 2], bf16* tile) {
+// A warpgroup's 64 x kCols accumulators of columns part * kCols .. + kCols - 1
+// (of its kBN), in bf16, into its output tile: kCols / 64 boxes of 64 x 64
+// in the 128-byte swizzle, the layout a TMA store reads. Accumulator
+// 4 j + 2 half + c is row 16 (warp % 4) + lane / 4 + 8 half, column
+// 8 j + 2 (lane % 4) + c; row r's 16-byte piece p lies at piece p ^ (r % 8),
+// so the fragment writes and the row reads are free of bank conflicts.
+template <int kBN, int kCols = kBN>
+__device__ __forceinline__ void stage_acc_sw128(const float (&acc)[kBN / 2], bf16* tile,
+                                                int part = 0) {
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = warp * 16 + lane / 4 + 8 * half;
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
+    for (int j = 0; j < kCols / 8; ++j) {
+      const int i = part * kCols / 2 + 4 * j + 2 * half;
       bf16* piece = tile + (j / 8) * 64 * 64 + r * 64 + ((j % 8) ^ (r % 8)) * 8;
       *reinterpret_cast<__nv_bfloat162*>(piece + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
     }
   }
 }

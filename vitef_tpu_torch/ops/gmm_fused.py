@@ -96,8 +96,9 @@ def gmm_dual_reference(a, b, rt, group_sizes, out_dtype=None):
 def gmm_swiglu(h, w2, group_sizes, out_dtype=None):
     """``out[rows of e] = (silu(h[:, :f]) · h[:, f:])[rows of e] @ w2[e]``:
     h (G, 2f) the packed [gate | up] fc1 output, w2 (E, f, n) -> (G, n).
-    The CUDA kernel (``csrc/gmm.cu``, mode ``SWIGLU_IN``) builds each tile of
-    y in shared memory from h."""
+    The CUDA kernel (``csrc/gmm.cu``, mode ``SWIGLU_IN``; in bfloat16 the
+    TMA + ``wgmma`` pipeline of :func:`.gmm.gmm`) makes each slice of y in
+    registers from h's gate and up tiles and multiplies it from there."""
     if h.device.type == "cpu":
         return gmm_swiglu_reference(h, w2, group_sizes, out_dtype)
     ops, sizes = kernel_operands("gmm_swiglu", {"h": h, "w2": w2}, group_sizes, out_dtype)
@@ -169,7 +170,9 @@ def gmm_dual(a, b, rt, group_sizes, out_dtype=None):
     """``out[rows of e] = a[rows of e] @ rt[e, :f] + b[rows of e] @ rt[e, f:]``:
     a, b (G, f) the two cotangent halves, rt (E, 2f, n) the explicitly
     transposed packed fc1 weight -> (G, n), one float32 accumulator. The CUDA
-    kernel is ``csrc/gmm.cu`` in mode ``DUAL``."""
+    kernel is ``csrc/gmm.cu`` in mode ``DUAL`` (in bfloat16 the TMA +
+    ``wgmma`` pipeline of :func:`.gmm.gmm`, reading a, then b, with the
+    matching half of rt)."""
     if a.device.type == "cpu":
         return gmm_dual_reference(a, b, rt, group_sizes, out_dtype)
     ops, sizes = kernel_operands("gmm_dual", {"a": a, "b": b, "rt": rt}, group_sizes,
