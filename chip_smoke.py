@@ -15,7 +15,7 @@ Phases (each raises on failure, so the run exits non-zero):
    fails the run), the TF32 HMMA instructions in each instantiation of K4's
    float32 kernel and of K5's two float32 passes, the HGMMA (wgmma)
    instructions in both column tiles of the TMA kernels (K8 gmm's and K8
-   tgmm's kPlain, K7 gmm_dual's and K7 gmm_swiglu's), and
+   tgmm's kPlain and all four K7 passes), and
    the HMMA instructions in each of K9's four instantiations (bf16 and
    float16 at d = 64 and 128; none fails the run), with any ptxas warning
    that it serialises wgmma;
@@ -89,13 +89,15 @@ Phases (each raises on failure, so the run exits non-zero):
     63, 2, 65 rows at d=72/f=136, either side of a 64-row box and no tile
     multiple, and groups of 127, 2, 129 at d=136/f=72, whose f puts K7's
     gate/up and a/b seams inside a 64-deep stage), in float32 at a small
-    shape; each bit-identical over two launches, ``tgmm``'s empty groups
-    exactly zero; the wrappers raise for float16 and for a width not a
+    shape; each bit-identical over two launches, ``tgmm``'s and
+    ``tgmm_swiglu``'s empty groups exactly zero; ``gmm_dy_swiglu``'s
+    reciprocal (``recip_fast``) equal to ``1.f / d`` at every float of
+    [1, 2^126); the wrappers raise for float16 and for a width not a
     multiple of 8, and the ``gmm.cu`` ones count no launch for zero rows;
     each timed with its plain version, its bound and ``torch._grouped_mm``,
-    and the TMA kernels (K8 gmm, K8 tgmm, K7 gmm_swiglu and gmm_dual) also
-    at both their column tiles (128 x 128 and 128 x 256; tgmm's each with
-    its tiles walked largest group first and in group order), each within
+    and each also at both its kernel's column tiles (128 x 128 and 128 x
+    256; tgmm's and tgmm_swiglu's each with their tiles walked largest
+    group first and in group order), each within
     the gate and timed in turns; then the y = bf16(silu(g)·u) that K7
     gmm_swiglu and tgmm_swiglu multiply, read out through an identity
     operand, against silu(g)·u in float64 within one bf16 rounding plus
@@ -283,8 +285,9 @@ LSE_MAX_ABS = 1e-3
 # text, instantiations): the float32 kernels whose products are TF32 HMMA
 # instructions (K4's and K5's, each in both instantiations), the TMA +
 # wgmma kernels, whose products are HGMMA: csrc/gmm.cu's in kPlain (K8
-# gmm), kSwigluIn (K7 gmm_swiglu) and kDual (K7 gmm_dual) and csrc/tgmm.cu's
-# kPlain (K8 tgmm), each at both column tiles, and K9 in each (type, d) of
+# gmm), kSwigluIn (K7 gmm_swiglu), kSwigluBwdOut (K7 gmm_dy_swiglu) and
+# kDual (K7 gmm_dual) and csrc/tgmm.cu's in kPlain (K8 tgmm) and kSwigluIn
+# (K7 tgmm_swiglu), each at both column tiles, and K9 in each (type, d) of
 # bf16, float16 x 64, 128.
 TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd", "flash_bwd", "ring_hop")
 SASS_KERNELS = [("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32", 2),
@@ -292,13 +295,17 @@ SASS_KERNELS = [("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32", 2),
                 ("flash_bwd", "flash_bwd_dkv_tf32_kernel", "HMMA", "TF32", 2),
                 ("gmm", "gmm_wgmma_kernel<0,", "HGMMA", "HGMMA", 2),
                 ("gmm", "gmm_wgmma_kernel<1,", "HGMMA", "HGMMA", 2),
+                ("gmm", "gmm_wgmma_kernel<2,", "HGMMA", "HGMMA", 2),
                 ("gmm", "gmm_wgmma_kernel<3,", "HGMMA", "HGMMA", 2),
-                ("tgmm", "tgmm_wgmma_kernel", "HGMMA", "HGMMA", 2),
+                ("tgmm", "tgmm_wgmma_kernel<0,", "HGMMA", "HGMMA", 2),
+                ("tgmm", "tgmm_wgmma_kernel<1,", "HGMMA", "HGMMA", 2),
                 ("ring_hop", "ring_hop_mma_kernel", "HMMA", "HMMA", 4)]
 # The column tiles of the TMA kernels (csrc/gmm.cu gmm_tile, csrc/tgmm.cu
-# tgmm_plain_tile), timed in turn: tgmm's in both walks of its tiles.
+# tgmm_tile), timed in turn: tgmm's and tgmm_swiglu's in both walks of
+# their tiles.
 GMM_TILES = (128, 256)
-GMM_TILE_MODES = {"gmm": G.PLAIN, "gmm_swiglu": G.SWIGLU_IN, "gmm_dual": G.DUAL}
+TILE_MODES = {"gmm": G.PLAIN, "gmm_swiglu": G.SWIGLU_IN, "gmm_dy_swiglu": G.SWIGLU_BWD_OUT,
+              "gmm_dual": G.DUAL, "tgmm": G.PLAIN, "tgmm_swiglu": G.SWIGLU_IN}
 TGMM_WALKS = {1: "largest group first, snaking", 0: "group order"}
 
 # A kernel's bf16 output against the float32 plain version on the same bf16
@@ -1099,26 +1106,31 @@ def library_grouped(candidates, iters: int):
 
 def tile_shapes(name: str, tensors, plain, flops: float, iters: int) -> None:
     """A TMA kernel at each column tile of GMM_TILES on the step's operands:
-    csrc/gmm.cu ``gmm_tile`` for K8 ``gmm``, K7 ``gmm_swiglu`` and
-    ``gmm_dual``, csrc/tgmm.cu ``tgmm_plain_tile`` for K8 ``tgmm`` (also in
-    each walk of TGMM_WALKS); each against the plain version within the bf16
-    gate and timed, in turns."""
+    csrc/gmm.cu ``gmm_tile`` for K8 ``gmm`` and K7 ``gmm_swiglu``,
+    ``gmm_dy_swiglu`` and ``gmm_dual``, csrc/tgmm.cu ``tgmm_tile`` for K8
+    ``tgmm`` and K7 ``tgmm_swiglu`` (also in each walk of TGMM_WALKS); each
+    against the plain version within the bf16 gate and timed, in turns."""
     stream = torch.cuda.current_stream().cuda_stream
-    if name == "tgmm":
+    if name.startswith("tgmm"):
         a, b, sz, out = tensors
-        fn = _build.kernel_function("tgmm_plain_tile", 4, 6, source="tgmm")
+        fn = _build.kernel_function("tgmm_tile", 4, 7, source="tgmm")
         variants = [(tile_n, walk) for tile_n in GMM_TILES for walk in TGMM_WALKS]
         pointers = (a, b, sz.to(torch.int32), out)
-        shape = (a.shape[0], a.shape[1], b.shape[1], out.shape[0])
+        shape = (a.shape[0], out.shape[1], b.shape[1], out.shape[0], TILE_MODES[name])
+        outs = (out,)
     else:
+        b = h = out2 = None
         if name == "gmm_dual":
             a, b, w, sz, out = tensors
+        elif name == "gmm_dy_swiglu":
+            a, w, h, sz, (out, out2) = tensors
         else:
-            (a, w, sz, out), b = tensors, None
-        fn = _build.kernel_function("gmm_tile", 5, 6, source="gmm")
+            a, w, sz, out = tensors
+        fn = _build.kernel_function("gmm_tile", 7, 6, source="gmm")
         variants = [(tile_n,) for tile_n in GMM_TILES]
-        pointers = (a, b, w, sz.to(torch.int32), out)
-        shape = (a.shape[0], w.shape[1], w.shape[2], w.shape[0], GMM_TILE_MODES[name])
+        pointers = (a, b, w, h, sz.to(torch.int32), out, out2)
+        shape = (a.shape[0], w.shape[1], w.shape[2], w.shape[0], TILE_MODES[name])
+        outs = (out,) if out2 is None else (out, out2)
 
     def call(*variant):
         err = fn(*(None if t is None else t.data_ptr() for t in pointers), *shape, *variant,
@@ -1131,14 +1143,16 @@ def tile_shapes(name: str, tensors, plain, flops: float, iters: int) -> None:
         return f"128 x {tile_n}" + "".join(f", {TGMM_WALKS[w]}" for w in walk)
 
     with torch.inference_mode():
-        (ref,) = plain()
+        refs = plain()
     times = {}
     for variant in variants + variants[::-1]:
-        out.zero_()
+        for t in outs:
+            t.zero_()
         call(*variant)
         torch.cuda.synchronize()
-        diff = (out.float() - ref).abs()
-        max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        diffs = [(t.float() - ref).abs() for t, ref in zip(outs, refs)]
+        max_abs = max(d.max().item() for d in diffs)
+        mean_abs = sum(d.mean().item() for d in diffs) / len(diffs)
         if not (max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS):
             raise AssertionError(f"{name} at {label(*variant)} disagrees with its plain version: "
                                  f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e}")
@@ -1149,6 +1163,23 @@ def tile_shapes(name: str, tensors, plain, flops: float, iters: int) -> None:
         + " (max|d| within the bf16 gate at each)")
 
 
+def recip_check(device) -> None:
+    """gmm_dy_swiglu's epilogue takes its sigmoid's 1 / d from recip_fast
+    (csrc/gmm_common.cuh), the division's fast path without its branch: it
+    must give 1.f / d's bits at every float d in [1, 2^126), the range where
+    the epilogue uses it (csrc/gmm.cu gmm_recip_check)."""
+    found = torch.zeros(1, dtype=torch.int64, device=device)
+    err = _build.kernel_function("gmm_recip_check", 1, 0, source="gmm")(
+        found.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err != 0:
+        raise RuntimeError(f"gmm_recip_check launch failed: cudaError {err}")
+    print(f"gmm_dy_swiglu's recip_fast against 1.f / d at all {0x7e800000 - 0x3f800000:,} floats "
+          f"in [1, 2^126): {found.item()} differ")
+    if found.item():
+        raise AssertionError("recip_fast differs from the division it stands for")
+
+
 def grouped_phase(device, name: str, seed: int, iters: int) -> dict:
     """One grouped-product entry point in bfloat16 against its float32 plain
     version at the 8x124m step's shapes and at the edge cases, and in
@@ -1157,6 +1188,8 @@ def grouped_phase(device, name: str, seed: int, iters: int) -> dict:
     step's shapes with its plain version, its bound and the yardstick."""
     gen = torch.Generator().manual_seed(seed)
     wrapper = getattr(GF, name, None) or getattr(G, name)
+    if name == "gmm_dy_swiglu":
+        recip_check(device)
     step = (8, EMB, 2048, router_sizes(seed, MOE_BATCH * 1024, 8))
     cases = ([(torch.bfloat16, c) for c in [step] + GROUPED_EDGES]
              + [(torch.float32, c) for c in GROUPED_FP32])
@@ -1249,8 +1282,7 @@ def grouped_phase(device, name: str, seed: int, iters: int) -> dict:
           + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
           + f", bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}); "
           f"{flops / ms / 1e9:.1f} TFLOP/s")
-    if name in ("gmm", "tgmm", "gmm_swiglu", "gmm_dual"):
-        tile_shapes(name, tensors, plain, flops, iters)
+    tile_shapes(name, tensors, plain, flops, iters)
     # library_ms: one PyTorch call computing the same function; the K7
     # passes fuse the swiglu, which no single call does.
     same_function = name in ("gmm", "tgmm") and str(library_label).startswith("torch.")
@@ -2206,14 +2238,16 @@ def moe_flops_per_token(cfg) -> float:
 
 
 GROUPED_WRAPPERS = (G.gmm, G.tgmm, GF.gmm_swiglu, GF.gmm_dy_swiglu, GF.gmm_dual, GF.tgmm_swiglu)
-# gmm_wgmma_kernel<mode, tile>: K8 gmm is mode 0, K7 gmm_swiglu 1 and
-# gmm_dual 3, so each kind names its mode.
-MOE_KINDS = {"K8 tgmm": ("tgmm_wgmma_kernel",),
-             "K7 tgmm_swiglu": ("tgmm_bf16_kernel<1>",),
-             "K8 gmm": ("gmm_wgmma_kernel<0,",),
-             "K7 gmm_swiglu": ("gmm_wgmma_kernel<1,",),
-             "K7 gmm_dy_swiglu": ("gmm_swiglu_bwd_kernel",),
-             "K7 gmm_dual": ("gmm_wgmma_kernel<3,",),
+# gmm_wgmma_kernel<mode, tile> and tgmm_wgmma_kernel<mode, tile, stages>:
+# K8 gmm and tgmm are mode 0, K7 gmm_swiglu and tgmm_swiglu 1,
+# gmm_dy_swiglu 2 and gmm_dual 3, so each kind names its kernel (after
+# "::", which tgmm's name does not hold before "gmm") and its mode.
+MOE_KINDS = {"K8 tgmm": ("::tgmm_wgmma_kernel<0,",),
+             "K7 tgmm_swiglu": ("::tgmm_wgmma_kernel<1,",),
+             "K8 gmm": ("::gmm_wgmma_kernel<0,",),
+             "K7 gmm_swiglu": ("::gmm_wgmma_kernel<1,",),
+             "K7 gmm_dy_swiglu": ("::gmm_wgmma_kernel<2,",),
+             "K7 gmm_dual": ("::gmm_wgmma_kernel<3,",),
              "K1 packed_mha_fwd (causal)": ("packed_mha_fwd",),
              "K3 packed_mha_bwd (causal)": PACKED_BWD_KERNELS,
              "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),

@@ -5,11 +5,13 @@ the grouped-product kernels K8 (``gmm``, ``tgmm``) and K7 (the four
 swiglu-fused passes) against the JAX package's per-group formula (the
 reference its own test holds the fused segment to,
 tests/test_moe_sparse.py:205-213), with uneven group sizes and an empty
-group, and ``gmm``'s, ``gmm_swiglu``'s and ``gmm_dual``'s at the edges of
-their kernel's tiles (groups ending one row either side of a 128-row
-boundary, empty first and last groups, fewer rows than a tile, a depth not a
-multiple of 64, so that K7's gate/up and a/b seams fall inside a stage, and a
-width not a multiple of the column tile); the port's sparse and dense MoE FFN
+group, and ``gmm``'s, ``gmm_swiglu``'s, ``gmm_dy_swiglu``'s and
+``gmm_dual``'s at the edges of their kernel's tiles (groups ending one row
+either side of a 128-row boundary, empty first and last groups, fewer rows
+than a tile, a depth not a multiple of 64, so that K7's gate/up and a/b seams
+fall inside a stage, and a width not a multiple of the column tile),
+``tgmm``'s and ``tgmm_swiglu``'s at the edges of their 64-row boxes (and f
+of 72 and 136); the port's sparse and dense MoE FFN
 against the JAX dense oracle
 ``apply_moe_ffn``, forward and gradients; the router's tie order and aux
 losses; the sparse/dense branch rule; the counting sort; a tiny MoE model's
@@ -176,7 +178,7 @@ K7_TILE_EDGES = {
 
 
 @pytest.mark.parametrize("case", list(K7_TILE_EDGES))
-@pytest.mark.parametrize("name", ["gmm_swiglu", "gmm_dual"])
+@pytest.mark.parametrize("name", ["gmm_swiglu", "gmm_dy_swiglu", "gmm_dual"])
 def test_k7_plain_versions_at_tile_edges(name, case):
     sizes, f, n = K7_TILE_EDGES[case]
     rng = np.random.default_rng(55)
@@ -187,6 +189,17 @@ def test_k7_plain_versions_at_tile_edges(name, case):
         want = _jax_per_group(_jax_swiglu_y(h), w2, sizes)
         calls = (lambda: GF.gmm_swiglu_reference(_t(h), _t(w2), group_sizes),
                  lambda: GF.gmm_swiglu(_t(h), _t(w2), group_sizes))
+    elif name == "gmm_dy_swiglu":
+        # The ping-pong's column halves and h's gate/up boxes meet these
+        # edges: dy = g @ w2t[e] (width n in, f out), the swiglu backward
+        # on it against h, as jax.vjp of silu(hg) hu gives it.
+        g, w2t, h = _normal(rng, g_rows, n), _normal(rng, e, n, f), _normal(rng, g_rows, 2 * f)
+        dy = jnp.asarray(_jax_per_group(g, w2t, sizes))
+        _, vjp = jax.vjp(lambda hh: jax.nn.silu(hh[:, :f]) * hh[:, f:], jnp.asarray(h))
+        (dh,) = vjp(dy)
+        want = (np.asarray(dh[:, :f]), np.asarray(dh[:, f:]))
+        calls = (lambda: GF.gmm_dy_swiglu_reference(_t(g), _t(w2t), _t(h), group_sizes),
+                 lambda: GF.gmm_dy_swiglu(_t(g), _t(w2t), _t(h), group_sizes))
     else:
         a, b, rt = _normal(rng, g_rows, f), _normal(rng, g_rows, f), _normal(rng, e, 2 * f, n)
         want = _jax_per_group(a, rt[:, :f], sizes) + _jax_per_group(b, rt[:, f:], sizes)
@@ -196,8 +209,10 @@ def test_k7_plain_versions_at_tile_edges(name, case):
     launches = wrapper.launches
     for call in calls:
         got = call()
-        assert got.shape == (g_rows, n) and got.dtype == torch.float32
-        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+        for out, ref in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+            assert out.shape == ref.shape and out.dtype == torch.float32
+            np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
     assert wrapper.launches == launches  # a CPU tensor takes the plain version
 
 
@@ -229,6 +244,32 @@ def test_tgmm_plain_version_at_tile_edges(case):
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
         assert all(not got[e].any() for e, size in enumerate(sizes) if size == 0)
     assert G.tgmm.launches == launches  # a CPU tensor takes the plain version
+
+
+# tgmm_swiglu on csrc/tgmm.cu's pipeline: its gate and up boxes are 64 rows
+# of G by 64 columns of f, so besides tgmm's edges, f = 72 and 136 put the
+# end of f inside a box: (group sizes, f, n).
+TGMM_SWIGLU_EDGES = {**TGMM_TILE_EDGES,
+                     "f_72_inside_a_box": ([63, 2, 65], 72, 64),
+                     "f_136_inside_a_box": ([127, 2, 129], 136, 72)}
+
+
+@pytest.mark.parametrize("case", list(TGMM_SWIGLU_EDGES))
+def test_tgmm_swiglu_plain_version_at_tile_edges(case):
+    sizes, f, n = TGMM_SWIGLU_EDGES[case]
+    rng = np.random.default_rng(56)
+    h, g = _normal(rng, sum(sizes), 2 * f), _normal(rng, sum(sizes), n)
+    y, bounds = _jax_swiglu_y(h), np.cumsum([0] + sizes)
+    want = np.stack([np.asarray(jnp.asarray(y[a:b]).T @ jnp.asarray(g[a:b]))
+                     for a, b in zip(bounds[:-1], bounds[1:])])
+    group_sizes = _t(np.asarray(sizes, np.int64))
+    launches = GF.tgmm_swiglu.launches
+    for got in (GF.tgmm_swiglu_reference(_t(h), _t(g), group_sizes),
+                GF.tgmm_swiglu(_t(h), _t(g), group_sizes)):
+        assert got.shape == (len(sizes), f, n) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+        assert all(not got[e].any() for e, size in enumerate(sizes) if size == 0)
+    assert GF.tgmm_swiglu.launches == launches  # a CPU tensor takes the plain version
 
 
 def test_grouped_plain_versions_check_sizes():

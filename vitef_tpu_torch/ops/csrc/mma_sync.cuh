@@ -1,10 +1,10 @@
 // Tensor-core and asynchronous-copy wrappers for Hopper (sm_90a), shared by
-// the kernels that multiply with mma.sync: csrc/gmm.cu and csrc/tgmm.cu
-// (through gmm_common.cuh), csrc/packed_mha_fwd.cu and csrc/flash_fwd.cu
-// (through attn_fwd_mma.cuh), csrc/packed_mha_bwd.cu and csrc/flash_bwd.cu
-// (through attn_bwd_mma.cuh; K4's and K5's float32 paths through
-// mma_3xtf32), and csrc/ring_hop.cu (bf16 and float16). wgmma_tma.cuh takes
-// smem_addr from here for the TMA + wgmma kernels of gmm.cu and tgmm.cu.
+// the kernels that multiply with mma.sync: csrc/packed_mha_fwd.cu and
+// csrc/flash_fwd.cu (through attn_fwd_mma.cuh), csrc/packed_mha_bwd.cu and
+// csrc/flash_bwd.cu (through attn_bwd_mma.cuh; K4's and K5's float32 paths
+// through mma_3xtf32), and csrc/ring_hop.cu (bf16 and float16). The TMA +
+// wgmma kernels of csrc/gmm.cu and csrc/tgmm.cu (wgmma_tma.cuh) take
+// smem_addr and ldmatrix from here.
 //
 // Here: shared-memory addresses, ldmatrix (plain and transposed), the
 // m16n8k16 bf16 and float16 products with float32 accumulators, the m16n8k8

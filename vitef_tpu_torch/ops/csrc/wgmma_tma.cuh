@@ -2,8 +2,9 @@
 // maps and TMA tile loads (cp.async.bulk.tensor) that report to mbarriers in
 // shared memory, and warpgroup products (wgmma.mma_async) that read their
 // operands from those tiles or, for A, from registers. csrc/gmm.cu's
-// gmm_wgmma_kernel (K8 gmm, K7 gmm_dual and K7 gmm_swiglu) and csrc/tgmm.cu's
-// tgmm_wgmma_kernel (K8 tgmm) are built on them.
+// gmm_wgmma_kernel (K8 gmm and the K7 passes gmm_swiglu, gmm_dy_swiglu and
+// gmm_dual) and csrc/tgmm.cu's tgmm_wgmma_kernel (K8 tgmm and K7
+// tgmm_swiglu) are built on them.
 //
 // Tiles are in the 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B): a box is
 // 64 bf16 (128 bytes) along its contiguous dimension, each 128-byte row
@@ -28,9 +29,11 @@
 // mbarrier init, arrive, arrive with an expected byte count, and wait on a
 // phase; 2-D, 3-D and 4-D TMA loads, 2-D and 3-D stores with the proxy
 // fence, commit and waits; shared-memory descriptors; the wgmma fence,
-// commit and wait; m64n128k16 and m64n256k16 bf16 products with float32
-// accumulators, A K-major or (kTransA) MN-major from shared memory or A from
-// registers, B MN-major.
+// commit and wait; m64n64k16, m64n128k16 and m64n256k16 bf16 products with
+// float32 accumulators, A K-major or (kTransA) MN-major from shared memory
+// or A from registers, B MN-major; where an accumulator lies in a swizzled
+// 64 x 64 box (acc_pair_sw128), and the bf16 staging of the accumulators
+// for a TMA store.
 
 #pragma once
 
@@ -253,6 +256,32 @@ __device__ __forceinline__ void fence_regs(float (&d)[kRegs]) {
 // m64nN product is row 16 w + l / 4 + 8 ((i / 2) % 2), column
 // 8 (i / 4) + 2 (l % 4) + i % 2: the mma.sync C fragment repeated over N.
 
+// d (64 x 64: this thread's 32 float32 accumulators) += A (64 x 16) B (16 x 64),
+// bf16 from shared memory: A K-major (desc_a; M-major with kTransA 1,
+// imm-trans-a), B N-major (desc_b, imm-trans-b 1).
+template <int kTransA = 0>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA));
+}
+
 // d (64 x 128: this thread's 64 float32 accumulators) += A (64 x 16) B (16 x 128),
 // bf16 from shared memory: A K-major (desc_a; M-major with kTransA 1,
 // imm-trans-a), B N-major (desc_b, imm-trans-b 1).
@@ -341,16 +370,18 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA));
 }
 
-// m64nBNk16 over a warpgroup's kBN / 2 accumulators (column tiles of 128 or
-// 256), A K-major or (kTransA 1) M-major.
+// m64nBNk16 over a warpgroup's kBN / 2 accumulators (column tiles of 64,
+// 128 or 256), A K-major or (kTransA 1) M-major.
 template <int kBN, int kTransA = 0>
 __device__ __forceinline__ void wgmma_tile(float (&acc)[kBN / 2], uint64_t desc_a,
                                            uint64_t desc_b) {
   if constexpr (kBN == 256) {
     wgmma_m64n256k16<kTransA>(acc, desc_a, desc_b);
-  } else {
-    static_assert(kBN == 128, "column tiles of 128 or 256");
+  } else if constexpr (kBN == 128) {
     wgmma_m64n128k16<kTransA>(acc, desc_a, desc_b);
+  } else {
+    static_assert(kBN == 64, "column tiles of 64, 128 or 256");
+    wgmma_m64n64k16<kTransA>(acc, desc_a, desc_b);
   }
 }
 
@@ -466,24 +497,30 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Where a warpgroup's accumulators 4 j + 2 half and + 1 of a 64 x kCols
+// part (j < kCols / 8) lie, as one bf16 pair, in a tile of kCols / 64 boxes
+// of 64 x 64 in the 128-byte swizzle, the layout a TMA load leaves and a TMA
+// store reads: row 16 (warp % 4) + lane / 4 + 8 half, column
+// 8 j + 2 (lane % 4); row r's 16-byte piece p lies at piece p ^ (r % 8), so
+// the pair accesses of a warp are free of bank conflicts. In elements from
+// the tile's start.
+__device__ __forceinline__ int acc_pair_sw128(int j, int half) {
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r = warp * 16 + lane / 4 + 8 * half;
+  return (j / 8) * 64 * 64 + r * 64 + ((j % 8) ^ (r % 8)) * 8 + 2 * (lane % 4);
+}
+
 // A warpgroup's 64 x kCols accumulators of columns part * kCols .. + kCols - 1
-// (of its kBN), in bf16, into its output tile: kCols / 64 boxes of 64 x 64
-// in the 128-byte swizzle, the layout a TMA store reads. Accumulator
-// 4 j + 2 half + c is row 16 (warp % 4) + lane / 4 + 8 half, column
-// 8 j + 2 (lane % 4) + c; row r's 16-byte piece p lies at piece p ^ (r % 8),
-// so the fragment writes and the row reads are free of bank conflicts.
+// (of its kBN), in bf16, into its output tile at acc_pair_sw128's places.
 template <int kBN, int kCols = kBN>
 __device__ __forceinline__ void stage_acc_sw128(const float (&acc)[kBN / 2], bf16* tile,
                                                 int part = 0) {
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = warp * 16 + lane / 4 + 8 * half;
 #pragma unroll
     for (int j = 0; j < kCols / 8; ++j) {
       const int i = part * kCols / 2 + 4 * j + 2 * half;
-      bf16* piece = tile + (j / 8) * 64 * 64 + r * 64 + ((j % 8) ^ (r % 8)) * 8;
-      *reinterpret_cast<__nv_bfloat162*>(piece + 2 * (lane % 4)) =
+      *reinterpret_cast<__nv_bfloat162*>(tile + acc_pair_sw128(j, half)) =
           __floats2bfloat162_rn(acc[i], acc[i + 1]);
     }
   }

@@ -122,7 +122,11 @@ def gmm_dy_swiglu(g, w2t, h, group_sizes, out_dtype=None):
     silu'(hg)`` and ``dhu = dy · silu(hg)`` on the float32 accumulator: g
     (G, n), w2t (E, n, f) the explicitly transposed fc2 weight, h (G, 2f) ->
     (dhg, dhu), (G, f) each. The CUDA kernel is ``csrc/gmm.cu`` in mode
-    ``SWIGLU_BWD_OUT``."""
+    ``SWIGLU_BWD_OUT`` (in bfloat16 the TMA + ``wgmma`` pipeline of
+    :func:`.gmm.gmm` as a ping-pong: each consumer warpgroup multiplies one
+    column half of a tile while the other applies the swiglu backward to
+    its accumulators against h's gate and up, loaded by TMA, and stores dhg
+    and dhu by TMA)."""
     if g.device.type == "cpu":
         return gmm_dy_swiglu_reference(g, w2t, h, group_sizes, out_dtype)
     ops, sizes = kernel_operands("gmm_dy_swiglu", {"g": g, "w2t": w2t, "h": h}, group_sizes,
@@ -147,8 +151,10 @@ def tgmm_swiglu(h, g, group_sizes, out_dtype=None):
     """``dw2[e] = yᵀ[rows of e] @ g[rows of e]`` with ``y = silu(h[:, :f]) ·
     h[:, f:]`` recomputed (and rounded to h's dtype): h (G, 2f), g (G, n) ->
     (E, f, n), an empty group zeros. The CUDA kernel is ``csrc/tgmm.cu`` in
-    mode ``SWIGLU_IN`` (fixed row order, no atomics: two launches give the
-    same bits)."""
+    mode ``SWIGLU_IN`` (in bfloat16 the TMA + ``wgmma`` pipeline of
+    :func:`.gmm.tgmm`, y written over h's gate tile in shared memory before
+    each product, as ``gmm_swiglu`` makes it, bit for bit; fixed row order,
+    no atomics: two launches give the same bits)."""
     if h.device.type == "cpu":
         return tgmm_swiglu_reference(h, g, group_sizes, out_dtype)
     ops, sizes = kernel_operands("tgmm_swiglu", {"h": h, "g": g}, group_sizes, out_dtype)
