@@ -17,8 +17,9 @@ Phases (each raises on failure, so the run exits non-zero):
    instructions in both column tiles of the TMA kernels (K8 gmm's and K8
    tgmm's kPlain and all four K7 passes), and
    the HMMA instructions in each of K9's four instantiations (bf16 and
-   float16 at d = 64 and 128; none fails the run), with any ptxas warning
-   that it serialises wgmma;
+   float16 at d = 64 and 128) and in each head-width-80 instantiation of K1
+   (four modes) and K2/K3 (both passes, both modes; none fails the run),
+   with any ptxas warning that it serialises wgmma;
 3. K1 phase: the packed-MHA forward kernel against its plain PyTorch version
    (float32, same bf16 inputs) at the ViT-B/16 shape and at edge lengths up
    to 1024 (the tensor-core tiles' edges 16, 17, 33, 64, 65, 129 among
@@ -199,7 +200,28 @@ Phases (each raises on failure, so the run exits non-zero):
     through K1 and K3 and against the sp step on the plain hop; each limit
     read again with the key positions off by one segment and with the skip
     of fully future pairs inverted, which must fail it); a loss that falls
-    over 20 steps on a fixed batch of 8.
+    over 20 steps on a fixed batch of 8;
+31. head width 80 (ViT-H/14: 16 heads over E = 1280, L = 257): K1 and K2
+    against their float32 plain versions under the bf16 gates at the
+    ViT-H/14 microbatch (N=128, L=257; timed with the plain version, the
+    bound and SDPA, with TFLOP/s) and at lengths 16, 17, 33, 64, 65, 129,
+    257 (N=8), K1's lse within 1e-3, bit-identical over two launches, the
+    K2 wrapper raising for head width 128; K1's causal mode and K3 likewise
+    at 17, 65, 129, 257 (N=8, timed at 257), K3 also at the main shape
+    against its algebra emulated in float32 (P and dS rounded to bf16), each
+    output within half a bf16 ulp plus 1e-2; K1's key-masked mode at those
+    lengths, causal and not, as in 25 (these run with the other kernel
+    phases, after 29);
+32. the model-size ablation: ViT-L/16 (2 x 256) and ViT-H/14 (patch 14,
+    4 x 128) finetune with the train slice's protocol (10) at full width and
+    depth from random weights: 3 warm-up and 5 timed steps through the
+    loader (K1 and K2 24 or 32 launches per microbatch, K10 one per step, no
+    plain version) and then device-only, peak memory, a torch.profiler split
+    of one step (after 22);
+33. ViT-H/14 cross-check at full width and 4 blocks: logits kernel vs plain
+    attention path under the ViT gates, one microbatch's (128) gradients
+    within 5e-2 relative L2 overall and in every block, and a loss that
+    falls over 20 steps on one fixed batch.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -211,6 +233,7 @@ The second-to-last line is a JSON object describing each kernel; the last is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -232,6 +255,9 @@ from vitef_tpu_torch.data.images import transforms as T
 from vitef_tpu_torch.eval import run_evaluation
 from vitef_tpu_torch import native
 from vitef_tpu_torch.models import build_model
+from vitef_tpu_torch.models.registry import Model
+from vitef_tpu_torch.models.transformer import Transformer
+from vitef_tpu_torch.models.vit import ViTConfig, vit_transformer_config
 from vitef_tpu_torch.models import generation as GEN
 from vitef_tpu_torch.models import serving as SRV
 from vitef_tpu_torch.models.norms import LayerNorm
@@ -282,15 +308,19 @@ LSE_MAX_ABS = 1e-3
 # The libraries whose bf16 bodies multiply on the tensor cores (mma.sync):
 # their SASS must hold HMMA instructions; then, per kernel, (library, a
 # piece of the kernel's name with its template arguments, opcode, wanted
-# text, instantiations): the float32 kernels whose products are TF32 HMMA
-# instructions (K4's and K5's, each in both instantiations), the TMA +
+# text, instantiations): K1's four modes and K2/K3's two passes in both
+# modes at head width 80 (ViT-H/14), the float32 kernels whose products are
+# TF32 HMMA instructions (K4's and K5's, each in both instantiations), the TMA +
 # wgmma kernels, whose products are HGMMA: csrc/gmm.cu's in kPlain (K8
 # gmm), kSwigluIn (K7 gmm_swiglu), kSwigluBwdOut (K7 gmm_dy_swiglu) and
 # kDual (K7 gmm_dual) and csrc/tgmm.cu's in kPlain (K8 tgmm) and kSwigluIn
 # (K7 tgmm_swiglu), each at both column tiles, and K9 in each (type, d) of
 # bf16, float16 x 64, 128.
 TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd", "flash_bwd", "ring_hop")
-SASS_KERNELS = [("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32", 2),
+SASS_KERNELS = [("packed_mha_fwd", "packed_mha_fwd_kernel<80,", "HMMA", "HMMA", 4),
+                ("packed_mha_bwd", "packed_bwd_dq_kernel<80,", "HMMA", "HMMA", 2),
+                ("packed_mha_bwd", "packed_bwd_dkv_kernel<80,", "HMMA", "HMMA", 2),
+                ("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32", 2),
                 ("flash_bwd", "flash_bwd_dq_tf32_kernel", "HMMA", "TF32", 2),
                 ("flash_bwd", "flash_bwd_dkv_tf32_kernel", "HMMA", "TF32", 2),
                 ("gmm", "gmm_wgmma_kernel<0,", "HGMMA", "HGMMA", 2),
@@ -327,6 +357,29 @@ GRAD_CLIP = 1.0
 # layers (the eval logits already differ by ~1.2e-2): relative L2 bound.
 GRAD_REL_L2 = 5e-2
 FIXED_BATCH, FIXED_STEPS = 64, 20
+# The paper's model-size ablation (apps/vit/scripts/ablation/model_size.sh):
+# ViT-L/16 and ViT-H/14 finetuned with the same protocol at full width and
+# depth, random weights from a seed. Batch 512 in microbatches that fit the
+# card's 80 GB as measured (PERF.md section 5: 65.81 and 74.98 GiB peaks), a
+# constant of the phase; 3 warm-up and 5 timed steps each way (a ViT-H/14
+# step takes about 2 s).
+VIT_L16 = {**VIT_B16, "model_name": "large"}
+VIT_H14 = {**VIT_B16, "model_name": "huge", "patch_size": 14}
+SIZES = {"ViT-L/16": (VIT_L16, 256), "ViT-H/14": (VIT_H14, 128)}
+SIZE_WARMUP, SIZE_TIMED = 3, 5
+# ViT-H/14's attention: 16 heads of width 80 over E = 1280, L = 257. K1 and
+# K2 at its microbatch and at the tiles' edge lengths; K1's causal and
+# masked modes and K3 (no preset of the repo takes them at d = 80) at a few.
+VIT_H_HEADS, VIT_H_L = (16, 1280), 257
+D80_EDGE_SHAPES = [(8, l) for l in (16, 17, 33, 64, 65, 129, 257)]
+D80_MODE_LENGTHS = (17, 65, 129, 257)
+# K3 against its algebra emulated in float32 (P and dS rounded to bf16),
+# past half a bf16 ulp of each output: float32 summation order and the
+# tensor cores' truncating accumulation over 257 keys read 4.9e-3 at
+# ViT-H/14's shape (PERF.md section 6), so the limit is about twice that.
+EMULATED_ABS = 1e-2
+# The ViT-H/14 cross-check runs its full width at 4 of its 32 blocks.
+VIT_H_CHECK_BLOCKS = 4
 # Whole-model logits, kernel path vs plain attention path, both bf16: the two
 # attention paths round to bf16 at different places (the kernel rounds the
 # unnormalised probabilities and divides by the row sum last, the plain path
@@ -511,31 +564,32 @@ def bound(flops: float, peak_flops: float, tensors) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def attention_flops(n: int, l: int, products: int, causal: bool) -> float:
-    """FLOPs of ``products`` L x L x d products over all N sequences and heads,
-    counting only the lower triangle's L(L+1)/2 scores when causal."""
+def attention_flops(n: int, l: int, products: int, causal: bool, emb: int = EMB) -> float:
+    """FLOPs of ``products`` L x L x d products over all N sequences and the
+    heads of width ``emb``, counting only the lower triangle's L(L+1)/2
+    scores when causal."""
     pairs = l * (l + 1) / 2 if causal else l * l
-    return 2.0 * products * n * N_HEADS * pairs * (EMB // N_HEADS)
+    return 2.0 * products * n * pairs * emb
 
 
-def split_heads(qkv, bias):
+def split_heads(qkv, bias, n_heads: int = N_HEADS):
     """q, k, v (N, h, L, d) of ``qkv + bias``: the operands of SDPA."""
     n, l, _ = qkv.shape
-    return [t.reshape(n, l, N_HEADS, -1).transpose(1, 2) for t in (qkv + bias).chunk(3, -1)]
+    return [t.reshape(n, l, n_heads, -1).transpose(1, 2) for t in (qkv + bias).chunk(3, -1)]
 
 
-def sdpa_ms(qkv, bias, causal: bool, g=None, iters: int = 20) -> float:
+def sdpa_ms(qkv, bias, causal: bool, g=None, iters: int = 20, n_heads: int = N_HEADS) -> float:
     """``F.scaled_dot_product_attention`` on the same split heads, forward or
     (given the cotangent ``g``) backward: the library yardstick, used nowhere
     in the port."""
-    q, k, v = split_heads(qkv, bias)
+    q, k, v = split_heads(qkv, bias, n_heads)
     if g is None:
         with torch.inference_mode():
             return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
                            iters)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-    gh = g.reshape(out.shape[0], out.shape[2], N_HEADS, -1).transpose(1, 2)
+    gh = g.reshape(out.shape[0], out.shape[2], n_heads, -1).transpose(1, 2)
     return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True), iters)
 
 
@@ -684,23 +738,27 @@ def in_turns(kernel, plain, iters: int = 20) -> tuple[float, float, list[float]]
     return min(times[1:3]), min(times[0], times[3]), times
 
 
-def fwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
+def fwd_phase(device, shapes, causal: bool, seed: int, iters: int,
+              heads: tuple[int, int] = (N_HEADS, EMB)) -> dict:
     """K1 (causal or not) against its float32 plain version on the same bf16
     inputs at every (N, L) of ``shapes``, its lse against the plain scores'
     and bit-identical over two launches; then timed at the first of them (the
     main path's shape, whose error is the one returned) with the plain
-    version and SDPA."""
+    version and SDPA. ``heads`` is (n_heads, E): ViT-B/16's by default,
+    ViT-H/14's (16, 1280) for the head width 80."""
     gen = torch.Generator().manual_seed(seed)
-    label = "K1 causal" if causal else "K1"
+    h, e = heads
+    label = ("K1 causal" if causal else "K1") + ("" if e // h == 64 else f" d={e // h}")
     for n, l in shapes:
-        qkv = (torch.randn(n, l, 3 * EMB, generator=gen) * 0.5).to(device, torch.bfloat16)
-        bias = (torch.randn(3 * EMB, generator=gen) * 0.1).to(device, torch.bfloat16)
+        qkv = (torch.randn(n, l, 3 * e, generator=gen) * 0.5).to(device, torch.bfloat16)
+        bias = (torch.randn(3 * e, generator=gen) * 0.1).to(device, torch.bfloat16)
         with torch.inference_mode():
-            out = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias)
-            again, lse = A._launch_fwd(qkv, bias, N_HEADS, causal, want_lse=True)
-            ref = A.packed_mha_reference(qkv.float(), N_HEADS, causal=causal,
+            out = A.fused_mha_packed(qkv, h, causal=causal, bias=bias)
+            again, lse = A._launch_fwd(qkv, bias, h, causal, want_lse=True)
+            ref = A.packed_mha_reference(qkv.float(), h, causal=causal,
                                          bias=bias.float())
-            lse_err = (lse - lse_reference(*split_heads(qkv, bias)[:2], causal)).abs().max().item()
+            lse_err = (lse - lse_reference(*split_heads(qkv, bias, h)[:2], causal)).abs().max()
+            lse_err = lse_err.item()
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
         max_abs, mean_abs = diff.max().item(), diff.mean().item()
@@ -709,7 +767,7 @@ def fwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
         print(f"{label} packed_mha_fwd N={n} L={l}: max|d|={max_abs:.3e} "
               f"mean|d|={mean_abs:.3e}; lse max|d|={lse_err:.3e}; two launches "
               f"bit-identical: {identical}")
-        if not (tuple(out.shape) == (n, l, EMB) and math.isfinite(max_abs)
+        if not (tuple(out.shape) == (n, l, e) and math.isfinite(max_abs)
                 and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS
                 and lse_err <= LSE_MAX_ABS):
             raise AssertionError(f"{label} disagrees with its plain version at N={n} L={l}")
@@ -721,13 +779,13 @@ def fwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
     (n, l), (qkv, bias) = shapes[0], timed
     with torch.inference_mode():
         ms, plain_ms, times = in_turns(
-            lambda: A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias),
-            lambda: A.packed_mha_reference(qkv, N_HEADS, causal=causal, bias=bias), iters)
-        out = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias)
-    library_ms = sdpa_ms(qkv, bias, causal=causal, iters=iters)
-    flops = attention_flops(n, l, 2, causal)
+            lambda: A.fused_mha_packed(qkv, h, causal=causal, bias=bias),
+            lambda: A.packed_mha_reference(qkv, h, causal=causal, bias=bias), iters)
+        out = A.fused_mha_packed(qkv, h, causal=causal, bias=bias)
+    library_ms = sdpa_ms(qkv, bias, causal=causal, iters=iters, n_heads=h)
+    flops = attention_flops(n, l, 2, causal, e)
     limit = bound(flops, PEAK_BF16_FLOPS, (qkv, bias, out))
-    print(f"{label} at N={n} L={l} E={EMB} h={N_HEADS}: kernel {times[1]:.4f}/"
+    print(f"{label} at N={n} L={l} E={e} h={h}: kernel {times[1]:.4f}/"
           f"{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s), plain {times[0]:.4f}/"
           f"{times[3]:.4f} ms ({tflops(flops, plain_ms):.1f}), SDPA {library_ms:.4f} ms "
           f"({tflops(flops, library_ms):.1f}), bound {limit['bound_ms']:.4f} ms "
@@ -736,35 +794,38 @@ def fwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
             "library_ms": library_ms}
 
 
-def backward_graph(qkv, bias, causal: bool):
+def backward_graph(qkv, bias, causal: bool, n_heads: int = N_HEADS):
     """(the backward as a function of the cotangent, the forward's output):
     one K1 forward whose graph is kept, so each call runs its backward (K2,
     or K3 when causal) alone, as the train step does."""
     leaves = (qkv.detach().requires_grad_(), bias.detach().requires_grad_())
-    out = A.fused_mha_packed(leaves[0], N_HEADS, causal=causal, bias=leaves[1])
+    out = A.fused_mha_packed(leaves[0], n_heads, causal=causal, bias=leaves[1])
     return lambda g: torch.autograd.grad(out, leaves, g, retain_graph=True), out
 
 
-def bwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
+def bwd_phase(device, shapes, causal: bool, seed: int, iters: int,
+              heads: tuple[int, int] = (N_HEADS, EMB)) -> dict:
     """The backward (K2, or K3 when causal), through the autograd path that
     the train step takes, against the float32 plain backward on the same bf16
     inputs at every (N, L) of ``shapes``, bit-identical over two launches;
     then timed at the first of them (the main path's shape, whose error is
-    the one returned) with the plain version and SDPA's backward."""
+    the one returned) with the plain version and SDPA's backward. ``heads``
+    as in fwd_phase."""
     gen = torch.Generator().manual_seed(seed)
-    label = "K3" if causal else "K2"
+    h, e = heads
+    label = ("K3" if causal else "K2") + ("" if e // h == 64 else f" d={e // h}")
     for n, l in shapes:
-        qkv = (torch.randn(n, l, 3 * EMB, generator=gen) * 0.5).to(device, torch.bfloat16)
-        bias = (torch.randn(3 * EMB, generator=gen) * 0.1).to(device, torch.bfloat16)
-        g = torch.randn(n, l, EMB, generator=gen).to(device, torch.bfloat16)
-        backward, out = backward_graph(qkv, bias, causal)
+        qkv = (torch.randn(n, l, 3 * e, generator=gen) * 0.5).to(device, torch.bfloat16)
+        bias = (torch.randn(3 * e, generator=gen) * 0.1).to(device, torch.bfloat16)
+        g = torch.randn(n, l, e, generator=gen).to(device, torch.bfloat16)
+        backward, out = backward_graph(qkv, bias, causal, h)
         launches = A.packed_mha_bwd.launches
         dqkv, db = backward(g)
         again = backward(g)
         if A.packed_mha_bwd.launches != launches + 2:
             raise AssertionError(f"the backward did not launch {label}")
         ref_dqkv, ref_db = A.packed_mha_bwd_reference(qkv.float(), bias.float(), g.float(),
-                                                      N_HEADS, causal=causal)
+                                                      h, causal=causal)
         torch.cuda.synchronize()
         diff = (dqkv.float() - ref_dqkv).abs()
         max_abs, mean_abs = diff.max().item(), diff.mean().item()
@@ -774,7 +835,7 @@ def bwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
         print(f"{label} packed_mha_bwd N={n} L={l}: dqkv max|d|={max_abs:.3e} "
               f"mean|d|={mean_abs:.3e}; db max|d|={db_max:.3e} (max|db|={db_scale:.3f}); "
               f"two launches bit-identical: {identical}")
-        if not (tuple(dqkv.shape) == (n, l, 3 * EMB) and db.dtype == bias.dtype
+        if not (tuple(dqkv.shape) == (n, l, 3 * e) and db.dtype == bias.dtype
                 and math.isfinite(max_abs) and max_abs <= KERNEL_MAX_ABS
                 and mean_abs <= KERNEL_MEAN_ABS and db_max <= DB_MAX_REL * db_scale):
             raise AssertionError(f"{label} disagrees with its plain version at N={n} L={l}")
@@ -785,10 +846,13 @@ def bwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
 
     (n, l), (qkv, bias, g, backward, out) = shapes[0], timed
     # What the kernel does not take raises on CUDA; nothing falls back.
-    lse = torch.zeros((n, N_HEADS, l), dtype=torch.float32, device=device)
-    refused = [(TypeError, lambda: A.packed_mha_bwd(qkv.float(), bias, g, out, lse, N_HEADS,
+    lse = torch.zeros((n, h, l), dtype=torch.float32, device=device)
+    # a head count whose width the kernel is not instantiated for: 48 at
+    # ViT-B/16's E, 128 at ViT-H/14's
+    bad_h = next(c for c in (16, 10) if e % c == 0 and e // c not in A._PACKED_HEAD_DIMS)
+    refused = [(TypeError, lambda: A.packed_mha_bwd(qkv.float(), bias, g, out, lse, h,
                                                     causal=causal)),
-               (NotImplementedError, lambda: A.packed_mha_bwd(qkv, bias, g, out, lse, 16,
+               (NotImplementedError, lambda: A.packed_mha_bwd(qkv, bias, g, out, lse, bad_h,
                                                               causal=causal))]
     launches = A.packed_mha_bwd.launches
     for error, call in refused:
@@ -799,16 +863,16 @@ def bwd_phase(device, shapes, causal: bool, seed: int, iters: int) -> dict:
         raise AssertionError(f"{label}'s wrapper did not raise {error.__name__}")
     if A.packed_mha_bwd.launches != launches:
         raise AssertionError(f"{label}'s wrapper launched on an input it does not take")
-    print(f"{label} wrapper raises for float32 input and head width 48")
+    print(f"{label} wrapper raises for float32 input and head width {e // bad_h}")
 
     ms, plain_ms, times = in_turns(
         lambda: backward(g),
-        lambda: A.packed_mha_bwd_reference(qkv, bias, g, N_HEADS, causal=causal), iters)
-    library_ms = sdpa_ms(qkv, bias, causal=causal, g=g, iters=iters)
+        lambda: A.packed_mha_bwd_reference(qkv, bias, g, h, causal=causal), iters)
+    library_ms = sdpa_ms(qkv, bias, causal=causal, g=g, iters=iters, n_heads=h)
     dqkv, db = backward(g)
-    flops = attention_flops(n, l, 5, causal)
+    flops = attention_flops(n, l, 5, causal, e)
     limit = bound(flops, PEAK_BF16_FLOPS, (qkv, bias, g, out, lse, dqkv, db.float()))
-    print(f"{label} at N={n} L={l} E={EMB} h={N_HEADS}: kernel {times[1]:.4f}/"
+    print(f"{label} at N={n} L={l} E={e} h={h}: kernel {times[1]:.4f}/"
           f"{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s of the 5 products), plain "
           f"{times[0]:.4f}/{times[3]:.4f} ms, SDPA backward {library_ms:.4f} ms "
           f"({tflops(flops, library_ms):.1f}), bound {limit['bound_ms']:.4f} ms "
@@ -1541,7 +1605,7 @@ def slice_phase(device):
     return model, x, launches
 
 
-def cross_check(model, x):
+def cross_check(model, x, label: str = "ViT-B/16"):
     """Logits of 64 images through both attention paths; then the forward's
     time on the plain path, and again on the kernel path, at the full batch."""
     impl = model.config.attn_impl
@@ -1554,13 +1618,13 @@ def cross_check(model, x):
         finally:
             model.config.attn_impl = impl
         kernel_ms = cuda_ms(lambda: model.apply(x), iters=10)
-    print(f"ViT-B/16 bf16 device-only forward, plain attention path: "
+    print(f"{label} bf16 device-only forward, plain attention path: "
           f"{len(x) / plain_ms * 1e3:.2f} img/s ({plain_ms:.3f} ms); kernel path "
           f"again: {len(x) / kernel_ms * 1e3:.2f} img/s ({kernel_ms:.3f} ms)")
     x = x[:64]
     diff = (kernel_logits - plain_logits).abs()
     max_abs, mean_abs = diff.max().item(), diff.mean().item()
-    print(f"logits kernel vs plain attention ({len(x)} images): max|d|={max_abs:.3e} "
+    print(f"{label} logits kernel vs plain attention ({len(x)} images): max|d|={max_abs:.3e} "
           f"mean|d|={mean_abs:.3e} (|logits| max {plain_logits.abs().max().item():.3f})")
     if not (tuple(kernel_logits.shape) == (len(x), VIT_B16["n_classes"])
             and torch.isfinite(kernel_logits).all()
@@ -1568,26 +1632,37 @@ def cross_check(model, x):
         raise AssertionError("kernel-path logits disagree with the plain path")
 
 
-def train_phase(model, device, label: str = "ViT-B/16"):
-    """bench.py's finetune through the port: the train loader (K10), 2 x 256
-    accumulation (K1 forward, K2 backward), clip, SGD, cosine schedule; with
-    ``norm_impl="kernel"`` every LayerNorm takes K6 (forward and dx), else
-    its plain version. Returns the main path's launch counts, a device-only
-    step and the train dataset."""
+def vit_flops_per_image(cfg) -> float:
+    """Train FLOPs per image, 3x the forward's: ``tools/bench_models.py``'s
+    ``vit_flops`` (:23-26: the linears, both attention products and the
+    patch embedding; the head left out)."""
+    e, tokens, patch = cfg.emb_dim, cfg.seq_len, cfg.patch_size
+    return 3 * 2 * tokens * (cfg.n_layers * (12 * e * e + 2 * tokens * e) + patch * patch * 3 * e)
+
+
+def train_phase(model, device, label: str = "ViT-B/16", microbatch: int = AUTO_MICROBATCH,
+                warmup: int = WARMUP_STEPS, timed: int = TIMED_STEPS):
+    """bench.py's finetune through the port: the train loader (K10), batch
+    512 as microbatches of ``microbatch`` (K1 forward, K2 backward), clip,
+    SGD, cosine schedule; with ``norm_impl="kernel"`` every LayerNorm takes
+    K6 (forward and dx), else its plain version. ``warmup`` untimed and
+    ``timed`` timed steps through the loader, then as many device-only.
+    Returns the main path's launch counts, a device-only step and the train
+    dataset."""
     schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
     optimizer, scheduler = build_optimizer(OPTIMIZER, model.module, schedule=schedule)
     batch = TRAIN_DATA["batch_size"]
-    grad_acc = auto_grad_acc(batch, AUTO_MICROBATCH)
+    grad_acc = auto_grad_acc(batch, microbatch)
     step_fn = make_train_step(grad_acc_steps=grad_acc, schedule=schedule,
                               base_lr=OPTIMIZER["lr"], grad_clip=GRAD_CLIP)
     state = init_train_state(model, optimizer, scheduler)
     np.random.seed(0)  # the train/val split, as the app seeds it
     train_loader, _ = build_train_val_loader(TRAIN_DATA, device=device)
     batches = make_iterable(train_loader)
-    print(f"train: batch {batch} as {grad_acc} x {batch // grad_acc} "
-          f"(auto_microbatch={AUTO_MICROBATCH}); {len(train_loader)} batches per epoch")
+    print(f"{label} train: batch {batch} as {grad_acc} x {batch // grad_acc} "
+          f"(auto_microbatch={microbatch}); {len(train_loader)} batches per epoch")
 
-    for _ in range(WARMUP_STEPS):
+    for _ in range(warmup):
         step_fn(state, next(batches))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -1599,7 +1674,7 @@ def train_phase(model, device, label: str = "ViT-B/16"):
             counter.launches = 0
         t0 = time.perf_counter()
         history = []
-        for _ in range(TIMED_STEPS):
+        for _ in range(timed):
             history.append((state.step, step_fn(state, next(batches))))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -1615,25 +1690,26 @@ def train_phase(model, device, label: str = "ViT-B/16"):
     print(f"train steps {history[0][0]}..{history[-1][0]}: loss "
           f"{history[0][1]['loss'].item():.4f} -> {history[-1][1]['loss'].item():.4f}, "
           f"grad_norm {history[-1][1]['grad_norm'].item():.4f}, lr {history[-1][1]['lr']:.6f}")
-    want = model.config.n_layers * grad_acc * TIMED_STEPS
+    want = model.config.n_layers * grad_acc * timed
     # every LayerNorm of every microbatch, forward and dx, when K6 is asked for
     k6 = model.config.norm_impl in ("kernel", "pallas")
     want_k6 = (sum(isinstance(m, LayerNorm) for m in model.module.modules()) * grad_acc
-               * TIMED_STEPS if k6 else 0)
-    print(f"{label} train launches over {TIMED_STEPS} steps: {launches} (K1 and K2 want "
-          f"{want}, K10 {TIMED_STEPS}, K6 forward and dx {want_k6}); plain calls "
+               * timed if k6 else 0)
+    print(f"{label} train launches over {timed} steps: {launches} (K1 and K2 want "
+          f"{want}, K10 {timed}, K6 forward and dx {want_k6}); plain calls "
           f"{dict(Counter(plain_calls + aug_calls + (ln_plain if k6 else [])))}")
     if launches["fused_mha_packed"] != want or launches["packed_mha_bwd"] != want \
-            or launches["augment_train_device"] != TIMED_STEPS \
+            or launches["augment_train_device"] != timed \
             or launches["layer_norm"] != want_k6 or launches["layer_norm_bwd_dx"] != want_k6:
         raise AssertionError("the train path did not go through every kernel every step")
     if plain_calls or aug_calls or (k6 and ln_plain):
         raise AssertionError(f"plain versions ran on CUDA: "
                              f"{Counter(plain_calls + aug_calls + ln_plain)}")
-    loader_rate = batch * TIMED_STEPS / seconds
+    loader_rate = batch * timed / seconds
     print(f"{label} bf16 train, loader included: {loader_rate:.2f} img/s "
-          f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {batch}); peak memory "
-          f"{peak_gib:.3f} GiB (torch.cuda.max_memory_allocated)")
+          f"({seconds / timed * 1e3:.3f} ms per step of {batch}); peak memory "
+          f"{peak_gib:.3f} GiB (torch.cuda.max_memory_allocated) at {grad_acc} x "
+          f"{batch // grad_acc}")
 
     # Device-only: a device-resident raw batch, boxes drawn on the host per
     # step, augment + step (bench.py:main).
@@ -1649,17 +1725,20 @@ def train_phase(model, device, label: str = "ViT-B/16"):
                                    compute_dtype=torch.bfloat16)
         return step_fn(state, (x, y))
 
-    for _ in range(WARMUP_STEPS):
+    for _ in range(warmup):
         one_step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         metrics = one_step()
     loss = metrics["loss"].item()
     seconds = time.perf_counter() - t0
-    device_rate = batch * TIMED_STEPS / seconds
+    device_rate = batch * timed / seconds
+    flops = vit_flops_per_image(model.config)
     print(f"{label} bf16 train, device-only (augment + step): {device_rate:.2f} img/s "
-          f"({seconds / TIMED_STEPS * 1e3:.3f} ms per step of {batch}); loss {loss:.4f}")
+          f"({seconds / timed * 1e3:.3f} ms per step of {batch}); "
+          f"{device_rate * flops / 1e12:.1f} TFLOP/s at {flops / 1e9:.1f} GFLOP per image, "
+          f"{device_rate * flops / PEAK_BF16_FLOPS:.4f} of the bf16 peak; loss {loss:.4f}")
     if not math.isfinite(loss):
         raise AssertionError("device-only train loss is not finite")
     return launches, one_step, train_loader.dataset
@@ -1715,32 +1794,34 @@ def kernel_and_plain_grads(model, loss, plain_config=None) -> tuple[float, list[
     return rel
 
 
-def check_microbatch(dataset, device):
-    """The first AUTO_MICROBATCH raw train images on ``device``, their labels,
-    and seeded crop boxes and flips: ``(raw, boxes, flips, y)``."""
-    n = AUTO_MICROBATCH
+def check_microbatch(dataset, device, n: int = AUTO_MICROBATCH):
+    """The first ``n`` raw train images on ``device``, their labels, and
+    seeded crop boxes and flips: ``(raw, boxes, flips, y)``."""
     raw = torch.from_numpy(dataset.data[:n]).to(device)
     y = torch.from_numpy(np.asarray(dataset.targets[:n], np.int64)).to(device)
     boxes, flips = T.sample_crop_batch(np.random.default_rng(3), n, *raw.shape[1:3])
     return raw, torch.from_numpy(boxes).to(device), torch.from_numpy(flips).to(device), y
 
 
-def train_cross_check(model, dataset, device) -> None:
-    """One microbatch's gradients through the kernels and through the plain
-    path (plain attention and its autograd backward, plain augment), then a
+def train_cross_check(model, dataset, device, n: int = AUTO_MICROBATCH,
+                      label: str = "ViT-B/16", per_block: bool = False) -> None:
+    """One microbatch (``n`` images) of gradients through the kernels and
+    through the plain path (plain attention and its autograd backward, plain
+    augment), gated overall and, with ``per_block``, in each block; then a
     loss that falls on one fixed batch."""
-    n = AUTO_MICROBATCH
-    raw, boxes, flips, y = check_microbatch(dataset, device)
+    raw, boxes, flips, y = check_microbatch(dataset, device, n)
     x_kernel = T.augment_train_device(raw, boxes, flips, size=224,
                                       compute_dtype=torch.bfloat16)
     x_plain = T.augment_train_reference(raw, boxes, flips, 224, torch.bfloat16)
     module = model.module
-    overall, per_block = kernel_and_plain_grads(
+    overall, blocks = kernel_and_plain_grads(
         model, lambda plain: F.cross_entropy(module(x_plain if plain else x_kernel).float(), y))
-    print(f"gradients of one microbatch ({n}), kernel vs plain path: relative L2 "
-          f"{overall:.3e}; per block " + " ".join(f"{r:.2e}" for r in per_block))
-    if not (math.isfinite(overall) and overall <= GRAD_REL_L2):
-        raise AssertionError(f"kernel-path gradients disagree with the plain path: {overall}")
+    print(f"{label} gradients of one microbatch ({n}), kernel vs plain path: relative L2 "
+          f"{overall:.3e}; per block " + " ".join(f"{r:.2e}" for r in blocks))
+    if not (math.isfinite(overall) and overall <= GRAD_REL_L2
+            and (not per_block or all(r <= GRAD_REL_L2 for r in blocks))):
+        raise AssertionError(f"{label} kernel-path gradients disagree with the plain path: "
+                             f"{overall}, {blocks}")
 
     optimizer, scheduler = build_optimizer(OPTIMIZER, module)
     state = init_train_state(model, optimizer, scheduler)
@@ -1748,10 +1829,10 @@ def train_cross_check(model, dataset, device) -> None:
     batch = (x_kernel[:FIXED_BATCH], y[:FIXED_BATCH])
     losses = [step_fn(state, batch)["loss"] for _ in range(FIXED_STEPS)]
     losses = [loss.item() for loss in losses]
-    print(f"fixed batch of {FIXED_BATCH}, {FIXED_STEPS} steps at constant lr "
+    print(f"{label} fixed batch of {FIXED_BATCH}, {FIXED_STEPS} steps at constant lr "
           f"{OPTIMIZER['lr']}: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"the fixed-batch loss did not fall: {losses}")
+        raise AssertionError(f"the {label} fixed-batch loss did not fall: {losses}")
 
 
 @contextlib.contextmanager
@@ -1774,7 +1855,7 @@ def k6_train_cross_check(model, dataset, device) -> None:
     LayerNorm and its autograd backward, the rest of the path alike (K10's
     images, K1 and K2)."""
     n = AUTO_MICROBATCH
-    raw, boxes, flips, y = check_microbatch(dataset, device)
+    raw, boxes, flips, y = check_microbatch(dataset, device, n)
     x = T.augment_train_device(raw, boxes, flips, size=model.config.image_dim[-1],
                                compute_dtype=torch.bfloat16)
     module = model.module
@@ -1793,6 +1874,124 @@ def k6_train_cross_check(model, dataset, device) -> None:
           f"{overall:.3e}; per block " + " ".join(f"{r:.2e}" for r in per_block))
     if not (math.isfinite(overall) and overall <= GRAD_REL_L2):
         raise AssertionError(f"K6-path gradients disagree with the plain LayerNorm: {overall}")
+
+
+def bwd_emulated(qkv, bias, g, n_heads: int, causal: bool) -> torch.Tensor:
+    """The algebra K2 and K3 are specified to compute, emulated in float32:
+    the plain backward with P and dS rounded to bf16 where they become
+    operands of a product, as the TPU kernels round them (the plain version
+    keeps them in float32). Returns dqkv unrounded, float32."""
+    n, l, f = qkv.shape
+    scale = 1.0 / math.sqrt(f // 3 // n_heads)
+    q, k, v = (A._split_heads(t, n_heads).float() for t in (qkv + bias).chunk(3, dim=-1))
+    gh = A._split_heads(g, n_heads).float()
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        scores = scores.masked_fill(torch.ones(l, l, dtype=torch.bool, device=qkv.device)
+                                    .triu(1), -1e30)
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.matmul(p.bfloat16().float().transpose(-1, -2), gh)
+    dp = torch.matmul(gh, v.transpose(-1, -2))
+    ds = (p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * scale).bfloat16().float()
+    dq, dk = torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q)
+    return torch.cat([A._merge_heads(t) for t in (dq, dk, dv)], dim=-1)
+
+
+def emulated_bwd_check(device, n: int, seed: int) -> None:
+    """K3 at d = 80 at ViT-H/14's microbatch (N = n, L = 257, causal)
+    against ``bwd_emulated``: each output within half a bf16 ulp of the
+    emulation (its own rounding) plus EMULATED_ABS. Against the float32
+    plain version this shape's largest gradients, in [4, 8), already differ
+    by up to 2^-8 · 4 = 1.56e-2 from rounding the output alone, beside the
+    specified rounding of P and dS, so the absolute 2e-2 gate is held at
+    the edge lengths (N = 8) and this check holds the main shape."""
+    h, e = VIT_H_HEADS
+    gen = torch.Generator().manual_seed(seed)
+    qkv = (torch.randn(n, VIT_H_L, 3 * e, generator=gen) * 0.5).to(device, torch.bfloat16)
+    bias = (torch.randn(3 * e, generator=gen) * 0.1).to(device, torch.bfloat16)
+    g = torch.randn(n, VIT_H_L, e, generator=gen).to(device, torch.bfloat16)
+    backward, _ = backward_graph(qkv, bias, True, h)
+    dqkv = backward(g)[0].float()
+    with torch.no_grad():
+        emu = bwd_emulated(qkv, bias, g, h, True)
+        ref = A.packed_mha_bwd_reference(qkv.float(), bias.float(), g.float(), h,
+                                         causal=True)[0]
+    over = ((dqkv - emu).abs() - emu.abs() * 2.0 ** -8).max().item()
+    plain_err = (dqkv - ref).abs()
+    print(f"K3 d=80 N={n} L={VIT_H_L} against the emulated algebra (P, dS in bf16): "
+          f"max(|d| - half ulp)={over:.3e}; against the float32 plain version max|d|="
+          f"{plain_err.max().item():.3e} (max|dqkv| {ref.abs().max().item():.3f}; "
+          f"{int((plain_err > KERNEL_MAX_ABS).sum())} of {plain_err.numel()} values past "
+          f"{KERNEL_MAX_ABS})")
+    if not over <= EMULATED_ABS:
+        raise AssertionError(f"K3 d=80 disagrees with its emulated algebra: {over}")
+
+
+def d80_phases(device, n: int) -> dict:
+    """K1, K2, K1's causal and key-masked modes and K3 at head width 80
+    (ViT-H/14's 16 heads over E = 1280), each against its float32 plain
+    version under the bf16 gates, with lse and determinism checks: K1 and K2
+    at ViT-H/14's microbatch (N = n, L = 257; timed with the plain version,
+    its bound and SDPA) and at the tiles' edge lengths; K1's causal mode and
+    K3 at N = 8 and D80_MODE_LENGTHS (timed at L = 257), K3 also at the main
+    shape against its emulated algebra; the masked mode at those lengths,
+    causal and not. Returns the timing rows by name."""
+    main = [(n, VIT_H_L)]
+    modes = [(8, l) for l in sorted(D80_MODE_LENGTHS, reverse=True)]
+    timing = {
+        "packed_mha_fwd:d80": fwd_phase(device, main + D80_EDGE_SHAPES, False, seed=60,
+                                        iters=10, heads=VIT_H_HEADS),
+        "packed_mha_bwd:d80": bwd_phase(device, main + D80_EDGE_SHAPES, False, seed=61,
+                                        iters=10, heads=VIT_H_HEADS),
+        "packed_mha_fwd:causal:d80": fwd_phase(device, modes, True, seed=62, iters=10,
+                                               heads=VIT_H_HEADS),
+        "packed_mha_bwd:causal:d80": bwd_phase(device, modes, True, seed=63, iters=10,
+                                               heads=VIT_H_HEADS)}
+    emulated_bwd_check(device, n, seed=63)
+    masked_cases(device, torch.Generator().manual_seed(64),
+                 [(8, l, causal, edge_lengths(l)) for l in D80_MODE_LENGTHS
+                  for causal in (True, False)], heads=VIT_H_HEADS)
+    return timing
+
+
+def size_phase(device, label: str) -> tuple[dict, object]:
+    """One preset of the model-size ablation through ``train_phase`` at its
+    microbatch (K1 and K2 n_layers x microbatches launches a step, K10 one),
+    then a torch.profiler split of one device-only step. Returns the launch
+    counts and the train dataset."""
+    config, microbatch = SIZES[label]
+    t0 = time.perf_counter()
+    model = build_model(config, device=device)
+    cfg = model.config
+    print(f"{label}: {sum(p.numel() for p in model.module.parameters()):,} parameters, "
+          f"{cfg.n_layers} blocks, E={cfg.emb_dim}, {cfg.n_heads} heads of "
+          f"{cfg.emb_dim // cfg.n_heads}, L={cfg.seq_len}; built in "
+          f"{time.perf_counter() - t0:.2f} s; the card holds "
+          f"{torch.cuda.get_device_properties(device).total_memory / 2**30:.2f} GiB")
+    launches, one_step, dataset = train_phase(model, device, label, microbatch, SIZE_WARMUP,
+                                              SIZE_TIMED)
+    profile_train_step(one_step, VIT_KINDS, label)
+    return launches, dataset
+
+
+def vit_h_cross_check(device, dataset) -> None:
+    """ViT-H/14 at full width and VIT_H_CHECK_BLOCKS blocks (random weights
+    from a seed): its logits through the kernels against the plain attention
+    path, one microbatch's gradients overall and per block, and a loss that
+    falls over FIXED_STEPS steps on one fixed batch."""
+    label = f"ViT-H/14 ({VIT_H_CHECK_BLOCKS} blocks)"
+    tcfg = dataclasses.replace(
+        vit_transformer_config(ViTConfig(model_name="huge", patch_size=14,
+                                         compute_dtype="bfloat16")),
+        n_layers=VIT_H_CHECK_BLOCKS, n_classes=N_CLASSES)
+    module = Transformer(tcfg, device=device, generator=torch.Generator().manual_seed(0))
+    model = Model(module=module.eval(), config=tcfg, name=label)
+    n = SIZES["ViT-H/14"][1]
+    x = torch.randn(n, 3, 224, 224, generator=torch.Generator().manual_seed(1)).to(
+        device, torch.bfloat16)
+    cross_check(model, x, label)
+    del x
+    train_cross_check(model, dataset, device, n, label, per_block=True)
 
 
 def analysis_phase(device) -> None:
@@ -2483,13 +2682,62 @@ def masked_flops(lengths, causal: bool) -> float:
     return 2.0 * 2 * N_HEADS * pairs * (EMB // N_HEADS)
 
 
+def masked_cases(device, gen, cases, heads: tuple[int, int] = (N_HEADS, EMB)) -> tuple:
+    """K1's key-masked mode against its float32 plain version at every
+    (N, L, causal, left-pad lengths) of ``cases``, gated on the rows with a
+    valid visible key (output and lse), every other row finite; an all-true
+    mask bit-equal to unmasked K1; bit-identical over two launches. Returns
+    the first case's (qkv, bias, mask) and its max |d|."""
+    h, e = heads
+    label = "K1 masked" + ("" if e // h == 64 else f" d={e // h}")
+    for n_, l_, causal, lens in cases:
+        qkv = (torch.randn(n_, l_, 3 * e, generator=gen) * 0.5).to(device, torch.bfloat16)
+        bias = (torch.randn(3 * e, generator=gen) * 0.1).to(device, torch.bfloat16)
+        mask = left_pad_mask(lens, l_, device)
+        with torch.inference_mode():
+            out = A.fused_mha_packed(qkv, h, causal=causal, bias=bias, key_mask=mask)
+            again = A.fused_mha_packed(qkv, h, causal=causal, bias=bias, key_mask=mask)
+            ref = A.packed_mha_reference(qkv.float(), h, causal=causal,
+                                         bias=bias.float(), key_mask=mask)
+            all_true = A.fused_mha_packed(qkv, h, causal=causal, bias=bias,
+                                          key_mask=torch.ones_like(mask))
+            unmasked = A.fused_mha_packed(qkv, h, causal=causal, bias=bias)
+            _, lse = A._launch_fwd(qkv, bias, h, causal, want_lse=True,
+                                   key_mask=mask.contiguous().view(torch.uint8))
+            lse_diff = (lse - lse_reference(*split_heads(qkv, bias, h)[:2], causal,
+                                            mask)).abs()
+        rows = visible_rows(mask, causal)
+        diff = (out.float() - ref).abs()[rows]
+        max_abs, mean_abs = diff.max().item(), diff.mean().item()
+        lse_err = lse_diff.transpose(1, 2)[rows].max().item()
+        finite = bool(torch.isfinite(out).all())
+        print(f"{label} N={n_} L={l_} causal={causal} lengths {lens.min()}..{lens.max()}: "
+              f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} lse max|d|={lse_err:.3e} over "
+              f"{int(rows.sum())} rows with a valid key; all finite {finite}")
+        if not (finite and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS
+                and lse_err <= LSE_MAX_ABS):
+            raise AssertionError(f"{label} disagrees with its plain version at N={n_} "
+                                 f"L={l_} causal={causal}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{label} is not bit-identical over two launches")
+        if not torch.equal(all_true, unmasked):
+            raise AssertionError(f"{label} with an all-true mask differs from unmasked K1")
+        if (n_, l_, causal) == cases[0][:3]:
+            timed, main_err = (qkv, bias, mask), max_abs
+    return timed, main_err
+
+
+def edge_lengths(l: int) -> np.ndarray:
+    """Left-pad lengths of an (8, l) masked case: full, ragged, half, one
+    token, empty rows."""
+    return np.array([l, max(l - 5, 1), (l + 1) // 2, 1, 0, l, 0, max(l // 3, 1)])
+
+
 def masked_phase(device, seed: int, iters: int, k1_ms: float) -> dict:
     """K1's key-masked mode against its float32 plain version at the serving
     prefill's shape and at edge lengths (causal and not; left-pad lengths
-    with fully masked rows and rows of length 1): gated on the rows with a
-    valid visible key, every other row finite; an all-true mask bit-equal to
-    unmasked K1; bit-identical over two launches; the lse of the rows with a
-    valid visible key against the plain scores'; the wrapper's refusals.
+    with fully masked rows and rows of length 1), as ``masked_cases``
+    checks; the wrapper's refusals.
     Timed at the main shape with the plain version, its bound and SDPA with
     a boolean mask (timed only: SDPA gives NaN in fully masked rows); then
     unmasked K1 re-read at the ViT shape."""
@@ -2497,42 +2745,9 @@ def masked_phase(device, seed: int, iters: int, k1_ms: float) -> dict:
     n, l = MASKED_SHAPE
     lengths = np.random.default_rng(0).integers(16, l + 1, size=n)
     lengths[-1] = 1
-    cases = [(n, l, True, lengths)] + [
-        (8, e, causal, np.array([e, max(e - 5, 1), (e + 1) // 2, 1, 0, e, 0, max(e // 3, 1)]))
-        for e in MASKED_EDGE_LENGTHS for causal in (True, False)]
-    for n_, l_, causal, lens in cases:
-        qkv = (torch.randn(n_, l_, 3 * EMB, generator=gen) * 0.5).to(device, torch.bfloat16)
-        bias = (torch.randn(3 * EMB, generator=gen) * 0.1).to(device, torch.bfloat16)
-        mask = left_pad_mask(lens, l_, device)
-        with torch.inference_mode():
-            out = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias, key_mask=mask)
-            again = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias, key_mask=mask)
-            ref = A.packed_mha_reference(qkv.float(), N_HEADS, causal=causal,
-                                         bias=bias.float(), key_mask=mask)
-            all_true = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias,
-                                          key_mask=torch.ones_like(mask))
-            unmasked = A.fused_mha_packed(qkv, N_HEADS, causal=causal, bias=bias)
-            _, lse = A._launch_fwd(qkv, bias, N_HEADS, causal, want_lse=True,
-                                   key_mask=mask.contiguous().view(torch.uint8))
-            lse_diff = (lse - lse_reference(*split_heads(qkv, bias)[:2], causal, mask)).abs()
-        rows = visible_rows(mask, causal)
-        diff = (out.float() - ref).abs()[rows]
-        max_abs, mean_abs = diff.max().item(), diff.mean().item()
-        lse_err = lse_diff.transpose(1, 2)[rows].max().item()
-        finite = bool(torch.isfinite(out).all())
-        print(f"K1 masked N={n_} L={l_} causal={causal} lengths {lens.min()}..{lens.max()}: "
-              f"max|d|={max_abs:.3e} mean|d|={mean_abs:.3e} lse max|d|={lse_err:.3e} over "
-              f"{int(rows.sum())} rows with a valid key; all finite {finite}")
-        if not (finite and max_abs <= KERNEL_MAX_ABS and mean_abs <= KERNEL_MEAN_ABS
-                and lse_err <= LSE_MAX_ABS):
-            raise AssertionError(f"K1 masked disagrees with its plain version at N={n_} "
-                                 f"L={l_} causal={causal}")
-        if not torch.equal(out, again):
-            raise AssertionError("K1 masked is not bit-identical over two launches")
-        if not torch.equal(all_true, unmasked):
-            raise AssertionError("K1 with an all-true mask differs from unmasked K1")
-        if (n_, l_) == (n, l):
-            timed, main_err = (qkv, bias, mask), max_abs
+    cases = [(n, l, True, lengths)] + [(8, e, causal, edge_lengths(e))
+                                       for e in MASKED_EDGE_LENGTHS for causal in (True, False)]
+    timed, main_err = masked_cases(device, gen, cases)
 
     qkv, bias, mask = timed
     refusals = {
@@ -3402,6 +3617,7 @@ def main() -> None:
     timing["packed_mha_fwd:masked"] = masked_phase(device, seed=40, iters=20,
                                                    k1_ms=timing["packed_mha_fwd"]["ms"])
     timing["ring_hop"] = ring_hop_phase(device, seed=50, iters=10)
+    timing.update(d80_phases(device, SIZES["ViT-H/14"][1]))
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
@@ -3417,6 +3633,16 @@ def main() -> None:
     profile_train_step(one_step, VIT_K6_KINDS, "ViT-B/16 with K6")
     k6_train_cross_check(model, dataset, device)
     del model, one_step, dataset
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    size_launches = {}
+    for label in SIZES:
+        size_launches[label], dataset = size_phase(device, label)
+        gc.collect()
+        torch.cuda.empty_cache()
+    vit_h_cross_check(device, dataset)
+    del dataset
     gc.collect()
     torch.cuda.empty_cache()
     analysis_phase(device)
@@ -3506,6 +3732,10 @@ def main() -> None:
         ("packed_mha_fwd:masked", "packed_mha_fwd", masked_launches,
          "vitef_tpu/ops/attention.py:99"),
         ("ring_hop", "ring_hop", ring_launches, "vitef_tpu/parallel/sequence.py:166"),
+        ("packed_mha_fwd:d80", "packed_mha_fwd", size_launches["ViT-H/14"]["fused_mha_packed"],
+         "vitef_tpu/ops/attention.py:99"),
+        ("packed_mha_bwd:d80", "packed_mha_bwd", size_launches["ViT-H/14"]["packed_mha_bwd"],
+         "vitef_tpu/ops/attention.py:270"),
     ]
     print(card_line)
     print(json.dumps({"kernels": [{

@@ -9,7 +9,8 @@ seeded numpy inputs, to ``jax.grad`` of the JAX package's
 ``fused_mha_packed`` in Pallas interpret mode: causal at 17, 65 and 129
 (the JAX package's full-L kernel in its causal mode), causal at 512 (its
 block-triangular causal kernel, taken when L % 256 == 0 and L >= 512) and
-non-causal at 17 and 129.
+non-causal at 17 and 129. At head width 80 (ViT-H/14, whose K2 and K3 tiles
+hold 80 columns): causal at 17, non-causal at 129 and at ViT-H/14's 257.
 """
 
 import numpy as np
@@ -29,13 +30,15 @@ N, H, D = 2, 2, 64
 TOL = dict(atol=5e-5, rtol=1e-3)
 
 
-@pytest.mark.parametrize("l,causal", [(17, True), (65, True), (129, True), (512, True),
-                                      (17, False), (129, False)],
+@pytest.mark.parametrize("l,causal,d", [(17, True, D), (65, True, D), (129, True, D),
+                                        (512, True, D), (17, False, D), (129, False, D),
+                                        (17, True, 80), (129, False, 80), (257, False, 80)],
                          ids=["causal17", "causal65", "causal129", "causal512_blocked",
-                              "full17", "full129"])
-def test_packed_mha_bwd_reference_matches_jax_kernels(l, causal):
-    rng = np.random.default_rng(400 + l)
-    e = H * D
+                              "full17", "full129", "d80_causal17", "d80_full129",
+                              "d80_full257"])
+def test_packed_mha_bwd_reference_matches_jax_kernels(l, causal, d):
+    rng = np.random.default_rng(400 + l + (d - D))  # d = 64 keeps its seeds
+    e = H * d
     qkv = (rng.normal(size=(N, l, 3 * e)) * 0.5).astype(np.float32)
     bias = (rng.normal(size=(3 * e,)) * 0.3).astype(np.float32)
     g = rng.normal(size=(N, l, e)).astype(np.float32)

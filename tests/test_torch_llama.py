@@ -248,14 +248,16 @@ def test_llama_bf16_flash_route_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("l,e,h", [
     (197, 768, 12),     # ViT-B/16
+    (197, 1024, 16),    # ViT-L/16
+    (257, 1280, 16),    # ViT-H/14: head width 80
     (1024, 768, 12),    # GPT-2 base
     (1024, 1600, 25),   # GPT-2 xl
     (512, 768, 12),     # Llama 124m
     (1024, 768, 12),    # Llama 124m
     (512, 2048, 32),    # Llama 1b
     (1024, 2048, 32),   # Llama 1b: past the budget (46.1 MB)
-], ids=["vit_b_197", "gpt2_base_1024", "gpt2_xl_1024", "llama_124m_512",
-        "llama_124m_1024", "llama_1b_512", "llama_1b_1024"])
+], ids=["vit_b_197", "vit_l_197", "vit_h_257", "gpt2_base_1024", "gpt2_xl_1024",
+        "llama_124m_512", "llama_124m_1024", "llama_1b_512", "llama_1b_1024"])
 def test_packed_gate_matches_jax(l, e, h):
     want = jax_attention.packed_mha_supported(l, e, 2)
     assert A.packed_mha_supported(l, e, h) == want

@@ -60,8 +60,8 @@ def _pair(config, dtype="float32", seed=0):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n,h,l,d", [(3, 2, 9, 8), (2, 12, 197, 64)],
-                         ids=["small", "vit_b16"])
+@pytest.mark.parametrize("n,h,l,d", [(3, 2, 9, 8), (2, 12, 197, 64), (2, 16, 257, 80)],
+                         ids=["small", "vit_b16", "vit_h14"])
 def test_packed_mha_bwd_matches_jax_kernel(n, h, l, d):
     rng = np.random.default_rng(11)
     e = h * d

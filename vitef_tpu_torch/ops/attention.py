@@ -18,8 +18,9 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
   CPU tensor it runs :func:`packed_mha_reference`, and autograd
   differentiates that. With ``key_mask`` (the ragged serving prefill,
   :459-479) it launches the kernel's key-masked mode, forward only;
-- :func:`packed_mha_supported` (:443-456) — the packed kernels' gate: head
-  width 64 and the JAX package's byte budget;
+- :func:`packed_mha_supported` (:443-456) — the packed kernels' gate: a head
+  width the kernels are instantiated for (64, 80) and the JAX package's byte
+  budget;
 - :func:`flash_attention` (:680-698) — the K4 wrapper on (N, h, L, d): on a
   CUDA tensor it launches ``csrc/flash_fwd.cu`` (bfloat16 or float32, causal
   or not, any L: it masks by index where the JAX version pads L to its
@@ -50,7 +51,8 @@ from ._build import kernel_function
 from .common import resolve_impl
 
 _NEG_INF = -1e30
-_HEAD_DIM = 64                 # the head width the csrc/packed_mha_*.cu kernels instantiate
+_PACKED_HEAD_DIMS = (64, 80)   # the head widths csrc/packed_mha_*.cu instantiate, every mode
+_FLASH_HEAD_DIM = 64           # the head width csrc/flash_*.cu instantiate
 
 
 def attention_reference(q, k, v, *, causal: bool = False, kv_len: int | None = None,
@@ -154,12 +156,14 @@ _PACKED_BUDGET = 40 * 1024 * 1024
 
 def packed_mha_supported(l: int, e: int, n_heads: int) -> bool:
     """Whether bfloat16 attention takes the packed kernels for this geometry:
-    head width 64, the width K1, K2 and K3 are instantiated for (they tile
-    over keys and take every L, causal or not), and the JAX package's budget
-    ``2·(4·E·L·2) + 3·L²·4 <= 40 MiB``, so that both packages take the same
-    branch. Past the budget (Llama-1B, E=2048 at L=1024: 46.1 MB) attention
-    takes the flash kernels K4 and K5."""
-    return (l > 0 and e % n_heads == 0 and e // n_heads == _HEAD_DIM
+    a head width K1, K2 and K3 are instantiated for, 64 or 80 (ViT-H/14),
+    each in every mode (they tile over keys and take every L, causal or
+    not), and the JAX package's budget ``2·(4·E·L·2) + 3·L²·4 <= 40 MiB``, so
+    that both packages take the same branch. Past the budget (Llama-1B,
+    E=2048 at L=1024: 46.1 MB) attention takes the flash kernels K4 and K5.
+    The JAX gate checks the budget only; at another head width (96, 128) the
+    port takes the flash route, whose kernels raise for any width but 64."""
+    return (l > 0 and e % n_heads == 0 and e // n_heads in _PACKED_HEAD_DIMS
             and 2 * (4 * e * l * 2) + 3 * l * l * 4 <= _PACKED_BUDGET)
 
 
@@ -172,9 +176,9 @@ def _check_cuda(name: str, qkv, n_heads: int):
     e = qkv.shape[2] // 3
     if e % n_heads:
         raise ValueError(f"{name}: E={e} is not a multiple of n_heads={n_heads}")
-    if e // n_heads != _HEAD_DIM:
+    if e // n_heads not in _PACKED_HEAD_DIMS:
         raise NotImplementedError(
-            f"{name} is instantiated for head width {_HEAD_DIM} only, got {e // n_heads}")
+            f"{name} is instantiated for head widths {_PACKED_HEAD_DIMS}, got {e // n_heads}")
 
 
 def _kernel_operand(t, name: str, shape: tuple, device):
@@ -202,7 +206,7 @@ def _launch_fwd(qkv, bias, n_heads: int, causal: bool, want_lse: bool = False,
         err = kernel_function("packed_mha_fwd", 5, 5)(
             qkv.data_ptr(), bias.data_ptr(), None if key_mask is None else key_mask.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(), n, l, n_heads,
-            _HEAD_DIM, int(causal), stream)
+            f // 3 // n_heads, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"packed_mha_fwd launch failed: cudaError {err} "
                            f"(N={n}, L={l}, n_heads={n_heads}, causal={causal}, "
@@ -244,7 +248,7 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None, key_mas
 
     A CPU tensor goes through :func:`packed_mha_reference` (and autograd
     differentiates it). A CUDA tensor launches the forward kernel, or raises
-    if the kernel does not take it: bfloat16, head width 64. When qkv or bias
+    if the kernel does not take it: bfloat16, head width 64 or 80. When qkv or bias
     requires a gradient the call is differentiable, and its backward launches
     K2 or, causal, K3 (:func:`packed_mha_bwd`).
 
@@ -300,7 +304,7 @@ def packed_mha_bwd(qkv, bias, g, out, lse, n_heads: int, causal: bool = False):
     the tensor cores, causal over the lower triangle only, then a
     fixed-order column sum for db, so two launches on the same inputs give
     bit-identical results), or raises if the kernel does not take it:
-    bfloat16 qkv, g and out, head width 64; every L. The kernel rounds P and
+    bfloat16 qkv, g and out, head width 64 or 80; every L. The kernel rounds P and
     dS to bfloat16 before their products, as the TPU kernel rounds them; the
     plain version keeps them in float32.
     ``packed_mha_bwd.launches`` counts its launches.
@@ -326,8 +330,8 @@ def packed_mha_bwd(qkv, bias, g, out, lse, n_heads: int, causal: bool = False):
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = kernel_function("packed_mha_bwd", len(pointers), 6)(
-            *(t.data_ptr() for t in pointers), n, l, n_heads, _HEAD_DIM, _DB_SEGMENTS,
-            int(causal), stream)
+            *(t.data_ptr() for t in pointers), n, l, n_heads, f // 3 // n_heads,
+            _DB_SEGMENTS, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"packed_mha_bwd launch failed: cudaError {err} "
                            f"(N={n}, L={l}, n_heads={n_heads}, causal={causal})")
@@ -382,9 +386,9 @@ def _flash_operands(name: str, *tensors):
             raise ValueError(f"{name}: operands must share shape, dtype and device, got "
                              f"{tuple(t.shape)} {t.dtype} {t.device} beside "
                              f"{tuple(first.shape)} {first.dtype} {first.device}")
-    if first.shape[3] != _HEAD_DIM:
-        raise NotImplementedError(
-            f"{name} is instantiated for head width {_HEAD_DIM} only, got {first.shape[3]}")
+    if first.shape[3] != _FLASH_HEAD_DIM:
+        raise NotImplementedError(f"{name} is instantiated for head width {_FLASH_HEAD_DIM} "
+                                  f"only, got {first.shape[3]}")
     out = []
     for t in tensors:
         t = t.contiguous()

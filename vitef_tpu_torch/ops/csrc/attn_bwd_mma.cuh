@@ -1,11 +1,12 @@
 // The tensor-core backward of softmax attention for Hopper (sm_90a), used by
 // K2 and K3 (csrc/packed_mha_bwd.cu, packed qkv with its bias) and K5
 // (csrc/flash_bwd.cu, head-major, no bias; float32 in split TF32, below). It
-// is the backward of attn_fwd_mma.cuh and is built from its pieces: head width 64,
-// 64-row query tiles and 64-key tiles, 4 warps of 16 rows, rows padded by 8
-// elements in shared memory, 16-byte cp.async copies double buffered, rows
-// past L zero-filled, the bias added in place as bf16(x + b), and the warp
-// products on 16 x 64 register tiles.
+// is the backward of attn_fwd_mma.cuh and is built from its pieces: head
+// width D (64 or 80 in bf16, 64 in float32), 64-row query tiles and 64-key
+// tiles, 4 warps of 16 rows, rows padded by 8 elements in shared memory,
+// 16-byte cp.async copies double buffered, rows past L zero-filled, the bias
+// added in place as bf16(x + b), and the warp products on 16 x 64 and
+// 16 x D register tiles.
 //
 // For one head, with P rebuilt from the forward's per-row log2-sum-exp of
 // the scaled scores (P = exp2(S * log2(e)/sqrt(d) - lse)) and
@@ -39,7 +40,8 @@
 // without a test: exp2(s - inf) = 0 for every finite score.
 //
 // Shared memory: six 64-row tiles (two of them double buffered) and the
-// statistics, 56,320 bytes a block in either pass.
+// statistics, 56,320 bytes a block at D = 64 and 68,608 at D = 80, in either
+// pass.
 //
 // K5's float32 path takes the same two passes in split TF32
 // (attn_bwd_dq_tile_f32, attn_bwd_dkv_tile_f32; head-major, no bias): all
@@ -67,8 +69,9 @@
 
 namespace {
 
+template <int D>
 constexpr size_t kAttnBwdSmemBytes =
-    static_cast<size_t>(2 * kAttnRows + 4 * kAttnKeys) * kAttnStride * sizeof(bf16) +
+    static_cast<size_t>(2 * kAttnRows + 4 * kAttnKeys) * kAttnStride<D> * sizeof(bf16) +
     2 * kAttnRows * sizeof(float2);
 
 // Where one (sequence, head) of the backward lives: row r of Q, K and V at
@@ -76,7 +79,7 @@ constexpr size_t kAttnBwdSmemBytes =
 // and of the forward's output O at g and out plus r * g_stride; the
 // forward's per-row log2-sum-exp lse[r]; stats[r], the (lse, delta) scratch
 // the first pass writes and the second reads; row r of dQ, dK and dV at dq,
-// dk, dv plus r * d_stride. Every row is 64 contiguous bf16, 16-byte
+// dk, dv plus r * d_stride. Every row is D contiguous bf16, 16-byte
 // aligned.
 struct AttnBwdHead {
   const bf16* q;
@@ -100,52 +103,53 @@ struct AttnBwdHead {
 // Pass 1 for query rows q0 .. q0 + 63 (those < L) of one head: dQ, and each
 // row's (lse, delta) into hd.stats. scale = log2(e)/sqrt(d) (the forward's
 // units), ds_scale = 1/sqrt(d). Called by all kAttnThreads threads with
-// kAttnBwdSmemBytes of dynamic shared memory at smem.
-template <bool kBias, bool kCausal>
+// kAttnBwdSmemBytes<D> of dynamic shared memory at smem.
+template <int D, bool kBias, bool kCausal>
 __device__ __forceinline__ void attn_bwd_dq_tile(const AttnBwdHead& hd, int L, int q0,
                                                  float scale, float ds_scale,
                                                  unsigned char* smem) {
+  constexpr int kStride = kAttnStride<D>;
   bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sg = sq + kAttnRows * kAttnStride;
-  bf16* sk = sg + kAttnRows * kAttnStride;        // two stages of kAttnKeys rows
-  bf16* sv = sk + 2 * kAttnKeys * kAttnStride;    // likewise
-  float2* st = reinterpret_cast<float2*>(sv + 2 * kAttnKeys * kAttnStride);
+  bf16* sg = sq + kAttnRows * kStride;
+  bf16* sk = sg + kAttnRows * kStride;            // two stages of kAttnKeys rows
+  bf16* sv = sk + 2 * kAttnKeys * kStride;        // likewise
+  float2* st = reinterpret_cast<float2*>(sv + 2 * kAttnKeys * kStride);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane >> 2;             // the accumulator row (and row + 8) of this thread
   const int tig = lane & 3;            // its column pair within each n8 tile
-  const int copy_row = tid >> 3;       // this thread's copies: rows copy_row + 16 i,
-  const int copy_col = (tid & 7) * 8;  // columns copy_col .. + 7
+  const int copy_row = tid >> 3;       // this thread's copies (tile_piece): rows
+  const int copy_col = (tid & 7) * 8;  // copy_row + 16 i, columns copy_col .. + 7
   const int row0 = q0 + warp * 16 + g; // this thread's query rows: row0 and row0 + 8
   const int kv_end = kCausal ? min(q0 + kAttnRows, L) : L;  // keys this tile may see
   const int n_kv = (kv_end + kAttnKeys - 1) / kAttnKeys;
 
-  stage_tile(hd.q, hd.stride, q0, L, sq, copy_row, copy_col);
-  stage_tile(hd.g, hd.g_stride, q0, L, sg, copy_row, copy_col);
+  stage_tile<D>(hd.q, hd.stride, q0, L, sq, copy_row, copy_col);
+  stage_tile<D>(hd.g, hd.g_stride, q0, L, sg, copy_row, copy_col);
   cp_async_commit();
-  stage_tile(hd.k, hd.stride, 0, L, sk, copy_row, copy_col);
-  stage_tile(hd.v, hd.stride, 0, L, sv, copy_row, copy_col);
+  stage_tile<D>(hd.k, hd.stride, 0, L, sk, copy_row, copy_col);
+  stage_tile<D>(hd.v, hd.stride, 0, L, sv, copy_row, copy_col);
   cp_async_commit();
 
-  uint4 k_bias = make_uint4(0, 0, 0, 0), v_bias = k_bias;
+  TileBias<D> k_bias{}, v_bias{};
   if constexpr (kBias) {
-    k_bias = *reinterpret_cast<const uint4*>(hd.k_bias + copy_col);
-    v_bias = *reinterpret_cast<const uint4*>(hd.v_bias + copy_col);
+    k_bias = load_tile_bias<D>(hd.k_bias, copy_col);
+    v_bias = load_tile_bias<D>(hd.v_bias, copy_col);
   }
-  // delta = G . O per row from device memory, two threads a row (32
+  // delta = G . O per row from device memory, two threads a row (D/2
   // columns each), while the tiles are in flight; rows past L get (+inf, 0).
   {
     const int r = tid >> 1;
-    const int c0 = (tid & 1) * 32;
+    const int c0 = (tid & 1) * (D / 2);
     const int qi = q0 + r;
     float delta = 0.f;
     if (qi < L) {
       const bf16* grow = hd.g + static_cast<size_t>(qi) * hd.g_stride + c0;
       const bf16* orow = hd.out + static_cast<size_t>(qi) * hd.g_stride + c0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < D / 16; ++i) {
         const uint4 gw = *reinterpret_cast<const uint4*>(grow + 8 * i);
         const uint4 ow = *reinterpret_cast<const uint4*>(orow + 8 * i);
         const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gw);
@@ -168,34 +172,33 @@ __device__ __forceinline__ void attn_bwd_dq_tile(const AttnBwdHead& hd, int L, i
 
   cp_async_wait<1>();  // this thread's pieces of Q and G have landed
   if constexpr (kBias) {
-    add_bias_tile(sq, *reinterpret_cast<const uint4*>(hd.q_bias + copy_col), copy_row,
-                  copy_col);
+    add_bias_tile<D>(sq, load_tile_bias<D>(hd.q_bias, copy_col), copy_row, copy_col);
   }
   __syncthreads();
 
-  uint32_t qf[4][4], gf[4][4];         // the warp's Q and G rows as A fragments
-  load_a_frags(qf, sq, warp * 16);
-  load_a_frags(gf, sg, warp * 16);
-  float dq[8][4];                      // dQ, 16 x 64: n8 tiles of head columns
+  uint32_t qf[D / 16][4], gf[D / 16][4];  // the warp's Q and G rows as A fragments
+  load_a_frags<D>(qf, sq, warp * 16);
+  load_a_frags<D>(gf, sg, warp * 16);
+  float dq[D / 8][4];                  // dQ, 16 x D: n8 tiles of head columns
   zero_acc(dq);
   const float2 rs[2] = {st[warp * 16 + g], st[warp * 16 + g + 8]};  // rows row0, row0 + 8
 
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kAttnKeys;
-    bf16* ks = sk + (j & 1) * kAttnKeys * kAttnStride;
-    bf16* vs = sv + (j & 1) * kAttnKeys * kAttnStride;
+    bf16* ks = sk + (j & 1) * kAttnKeys * kStride;
+    bf16* vs = sv + (j & 1) * kAttnKeys * kStride;
     if (j + 1 < n_kv) {  // the next tile's stage was last read before the previous barrier
       const int next = (j + 1) & 1;
-      stage_tile(hd.k, hd.stride, k0 + kAttnKeys, L, sk + next * kAttnKeys * kAttnStride,
-                 copy_row, copy_col);
-      stage_tile(hd.v, hd.stride, k0 + kAttnKeys, L, sv + next * kAttnKeys * kAttnStride,
-                 copy_row, copy_col);
+      stage_tile<D>(hd.k, hd.stride, k0 + kAttnKeys, L, sk + next * kAttnKeys * kStride,
+                    copy_row, copy_col);
+      stage_tile<D>(hd.v, hd.stride, k0 + kAttnKeys, L, sv + next * kAttnKeys * kStride,
+                    copy_row, copy_col);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this thread's pieces of tile j have landed
     if constexpr (kBias) {
-      add_bias_tile(ks, k_bias, copy_row, copy_col);
-      add_bias_tile(vs, v_bias, copy_row, copy_col);
+      add_bias_tile<D>(ks, k_bias, copy_row, copy_col);
+      add_bias_tile<D>(vs, v_bias, copy_row, copy_col);
     }
     __syncthreads();
 
@@ -204,8 +207,8 @@ __device__ __forceinline__ void attn_bwd_dq_tile(const AttnBwdHead& hd, int L, i
     float s[8][4], dp[8][4];
     zero_acc(s);
     zero_acc(dp);
-    mma_a_bt(s, qf, ks);
-    mma_a_bt(dp, gf, vs);
+    mma_a_bt<D>(s, qf, ks);
+    mma_a_bt<D>(dp, gf, vs);
     const bool edge = k0 + kAttnKeys > L || (kCausal && k0 + kAttnKeys > q0);
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
@@ -224,12 +227,12 @@ __device__ __forceinline__ void attn_bwd_dq_tile(const AttnBwdHead& hd, int L, i
     // dQ += dS K.
     uint32_t dsf[4][4];
     c_to_a(dsf, s);
-    mma_a_b(dq, dsf, ks);
+    mma_a_b<D>(dq, dsf, ks);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
   // The warp's rows of the Q tile were read only for its fragments.
-  store_warp_rows(dq, sq + warp * 16 * kAttnStride, hd.dq, hd.d_stride, q0 + warp * 16, L);
+  store_warp_rows<D>(dq, sq + warp * 16 * kStride, hd.dq, hd.d_stride, q0 + warp * 16, L);
 }
 
 // (lse, delta) of query row i for the second pass; (+inf, 0) past L.
@@ -239,15 +242,16 @@ __device__ __forceinline__ float2 row_stats(const float2* stats, int i, int L) {
 
 // Pass 2 for keys k0 .. k0 + 63 (those < L) of one head: dK and dV, from the
 // statistics pass 1 wrote. Called as attn_bwd_dq_tile.
-template <bool kBias, bool kCausal>
+template <int D, bool kBias, bool kCausal>
 __device__ __forceinline__ void attn_bwd_dkv_tile(const AttnBwdHead& hd, int L, int k0,
                                                   float scale, float ds_scale,
                                                   unsigned char* smem) {
+  constexpr int kStride = kAttnStride<D>;
   bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = sk + kAttnKeys * kAttnStride;
-  bf16* sq = sv + kAttnKeys * kAttnStride;        // two stages of kAttnRows rows
-  bf16* sg = sq + 2 * kAttnRows * kAttnStride;    // likewise
-  float2* st = reinterpret_cast<float2*>(sg + 2 * kAttnRows * kAttnStride);  // likewise
+  bf16* sv = sk + kAttnKeys * kStride;
+  bf16* sq = sv + kAttnKeys * kStride;            // two stages of kAttnRows rows
+  bf16* sg = sq + 2 * kAttnRows * kStride;        // likewise
+  float2* st = reinterpret_cast<float2*>(sg + 2 * kAttnRows * kStride);  // likewise
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -262,49 +266,47 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(const AttnBwdHead& hd, int L, 
   const int i_begin = kCausal ? k0 : 0;
   const int n_q = (L - i_begin + kAttnRows - 1) / kAttnRows;
 
-  stage_tile(hd.k, hd.stride, k0, L, sk, copy_row, copy_col);
-  stage_tile(hd.v, hd.stride, k0, L, sv, copy_row, copy_col);
-  stage_tile(hd.q, hd.stride, i_begin, L, sq, copy_row, copy_col);
-  stage_tile(hd.g, hd.g_stride, i_begin, L, sg, copy_row, copy_col);
+  stage_tile<D>(hd.k, hd.stride, k0, L, sk, copy_row, copy_col);
+  stage_tile<D>(hd.v, hd.stride, k0, L, sv, copy_row, copy_col);
+  stage_tile<D>(hd.q, hd.stride, i_begin, L, sq, copy_row, copy_col);
+  stage_tile<D>(hd.g, hd.g_stride, i_begin, L, sg, copy_row, copy_col);
   cp_async_commit();
   if (tid < kAttnRows) st[tid] = row_stats(hd.stats, i_begin + tid, L);
 
-  uint4 q_bias = make_uint4(0, 0, 0, 0);
-  if constexpr (kBias) q_bias = *reinterpret_cast<const uint4*>(hd.q_bias + copy_col);
+  TileBias<D> q_bias{};
+  if constexpr (kBias) q_bias = load_tile_bias<D>(hd.q_bias, copy_col);
 
-  uint32_t kf[4][4], vf[4][4];         // the warp's K and V rows as A fragments
-  float dk[8][4], dv[8][4];            // dK and dV, 16 x 64: n8 tiles of head columns
+  uint32_t kf[D / 16][4], vf[D / 16][4];  // the warp's K and V rows as A fragments
+  float dk[D / 8][4], dv[D / 8][4];    // dK and dV, 16 x D: n8 tiles of head columns
   zero_acc(dk);
   zero_acc(dv);
 
   for (int j = 0; j < n_q; ++j) {
     const int i0 = i_begin + j * kAttnRows;
-    bf16* qs = sq + (j & 1) * kAttnRows * kAttnStride;
-    bf16* gs = sg + (j & 1) * kAttnRows * kAttnStride;
+    bf16* qs = sq + (j & 1) * kAttnRows * kStride;
+    bf16* gs = sg + (j & 1) * kAttnRows * kStride;
     float2 next_st = make_float2(0.f, 0.f);
     if (j + 1 < n_q) {  // the next tile's stage was last read before the previous barrier
       const int next = (j + 1) & 1;
-      stage_tile(hd.q, hd.stride, i0 + kAttnRows, L, sq + next * kAttnRows * kAttnStride,
-                 copy_row, copy_col);
-      stage_tile(hd.g, hd.g_stride, i0 + kAttnRows, L, sg + next * kAttnRows * kAttnStride,
-                 copy_row, copy_col);
+      stage_tile<D>(hd.q, hd.stride, i0 + kAttnRows, L, sq + next * kAttnRows * kStride,
+                    copy_row, copy_col);
+      stage_tile<D>(hd.g, hd.g_stride, i0 + kAttnRows, L, sg + next * kAttnRows * kStride,
+                    copy_row, copy_col);
       if (tid < kAttnRows) next_st = row_stats(hd.stats, i0 + kAttnRows + tid, L);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this thread's pieces of tile j (and of K, V) have landed
     if constexpr (kBias) {
       if (j == 0) {
-        add_bias_tile(sk, *reinterpret_cast<const uint4*>(hd.k_bias + copy_col), copy_row,
-                      copy_col);
-        add_bias_tile(sv, *reinterpret_cast<const uint4*>(hd.v_bias + copy_col), copy_row,
-                      copy_col);
+        add_bias_tile<D>(sk, load_tile_bias<D>(hd.k_bias, copy_col), copy_row, copy_col);
+        add_bias_tile<D>(sv, load_tile_bias<D>(hd.v_bias, copy_col), copy_row, copy_col);
       }
-      add_bias_tile(qs, q_bias, copy_row, copy_col);
+      add_bias_tile<D>(qs, q_bias, copy_row, copy_col);
     }
     __syncthreads();
     if (j == 0) {
-      load_a_frags(kf, sk, warp * 16);
-      load_a_frags(vf, sv, warp * 16);
+      load_a_frags<D>(kf, sk, warp * 16);
+      load_a_frags<D>(vf, sv, warp * 16);
     }
 
     // S^T = K Q^T and dP^T = V G^T: element (t, 2 rr + e) is key key0 + 8 rr,
@@ -313,8 +315,8 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(const AttnBwdHead& hd, int L, 
     float s[8][4], dp[8][4];
     zero_acc(s);
     zero_acc(dp);
-    mma_a_bt(s, kf, qs);
-    mma_a_bt(dp, vf, gs);
+    mma_a_bt<D>(s, kf, qs);
+    mma_a_bt<D>(dp, vf, gs);
     const float4* cols = reinterpret_cast<const float4*>(st + (j & 1) * kAttnRows);
     const bool diag = kCausal && i0 == k0;
 #pragma unroll
@@ -334,16 +336,16 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(const AttnBwdHead& hd, int L, 
     // dV += P^T G and dK += dS^T Q.
     uint32_t af[4][4];
     c_to_a(af, s);
-    mma_a_b(dv, af, gs);
+    mma_a_b<D>(dv, af, gs);
     c_to_a(af, dp);
-    mma_a_b(dk, af, qs);
+    mma_a_b<D>(dk, af, qs);
     if (j + 1 < n_q && tid < kAttnRows) st[((j + 1) & 1) * kAttnRows + tid] = next_st;
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
   // The warp's rows of the K and V tiles were read only for its fragments.
-  store_warp_rows(dk, sk + warp * 16 * kAttnStride, hd.dk, hd.d_stride, k0 + warp * 16, L);
-  store_warp_rows(dv, sv + warp * 16 * kAttnStride, hd.dv, hd.d_stride, k0 + warp * 16, L);
+  store_warp_rows<D>(dk, sk + warp * 16 * kStride, hd.dk, hd.d_stride, k0 + warp * 16, L);
+  store_warp_rows<D>(dv, sv + warp * 16 * kStride, hd.dv, hd.d_stride, k0 + warp * 16, L);
 }
 
 // ---------------------------------------------------------------------------
@@ -356,7 +358,7 @@ constexpr size_t kAttnBwdF32SmemBytes =
     6 * static_cast<size_t>(kAttnF32Tile) * sizeof(float) + 2 * kAttnRows * sizeof(float2);
 
 // One (sequence, head) of the float32 backward on the head-major layout:
-// row r of Q, K, V, G, O, dQ, dK and dV at the pointer plus r * kAttnDim
+// row r of Q, K, V, G, O, dQ, dK and dV at the pointer plus r * kAttnF32Dim
 // (contiguous floats, 16-byte aligned); lse and stats as in AttnBwdHead. A
 // pass leaves the pointers it does not use null.
 struct AttnBwdHeadF32 {
@@ -452,7 +454,7 @@ __device__ __forceinline__ void mma_tf32_a_bt(float (&c)[8][4], const float* a, 
 }
 
 // The warp's 16 x 64 float32 accumulator rows r0 .. r0 + 15 (those < L) into
-// dst + r * kAttnDim, as float2 stores (a quad writes 32 contiguous bytes).
+// dst + r * kAttnF32Dim, as float2 stores (a quad writes 32 contiguous bytes).
 __device__ __forceinline__ void store_warp_rows_f32(const float (&c)[8][4], float* dst, int r0,
                                                     int L) {
   const int lane = threadIdx.x % 32;
@@ -462,7 +464,7 @@ __device__ __forceinline__ void store_warp_rows_f32(const float (&c)[8][4], floa
   for (int rr = 0; rr < 2; ++rr) {
     const int r = r0 + g + 8 * rr;
     if (r >= L) continue;
-    float* row = dst + static_cast<size_t>(r) * kAttnDim + 2 * tig;
+    float* row = dst + static_cast<size_t>(r) * kAttnF32Dim + 2 * tig;
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       *reinterpret_cast<float2*>(row + 8 * t) = make_float2(c[t][2 * rr], c[t][2 * rr + 1]);
@@ -510,7 +512,7 @@ __device__ __forceinline__ void attn_bwd_dq_tile_f32(const AttnBwdHeadF32& hd, i
     const int qi = q0 + r;
     float delta = 0.f;
     if (qi < L) {
-      const size_t at = static_cast<size_t>(qi) * kAttnDim + c0;
+      const size_t at = static_cast<size_t>(qi) * kAttnF32Dim + c0;
       const float4* grow = reinterpret_cast<const float4*>(hd.g + at);
       const float4* orow = reinterpret_cast<const float4*>(hd.out + at);
 #pragma unroll

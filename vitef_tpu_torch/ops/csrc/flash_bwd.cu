@@ -72,7 +72,7 @@
 
 namespace {
 
-static_assert(kAttnDim == kHeadDim, "flash_bwd takes one head width");
+static_assert(kAttnF32Dim == kFlashDim, "flash_bwd takes one head width");
 
 // Head `head` (n * n_heads + h) of the head-major layout: every row 64
 // contiguous bf16. A pass leaves the pointers it does not use null.
@@ -80,14 +80,14 @@ __device__ __forceinline__ AttnBwdHead flash_head(const bf16* q, const bf16* k, 
                                                   const bf16* g, const bf16* out,
                                                   const float* lse, float2* stats, bf16* dq,
                                                   bf16* dk, bf16* dv, size_t head, int L) {
-  const size_t off = head * L * kAttnDim;
+  const size_t off = head * L * kFlashDim;
   const size_t row_off = head * L;
-  return AttnBwdHead{q + off, k + off, v + off, kAttnDim,
+  return AttnBwdHead{q + off, k + off, v + off, kFlashDim,
                      nullptr, nullptr, nullptr,
-                     g + off, out == nullptr ? nullptr : out + off, kAttnDim,
+                     g + off, out == nullptr ? nullptr : out + off, kFlashDim,
                      lse == nullptr ? nullptr : lse + row_off, stats + row_off,
                      dq == nullptr ? nullptr : dq + off, dk == nullptr ? nullptr : dk + off,
-                     dv == nullptr ? nullptr : dv + off, kAttnDim};
+                     dv == nullptr ? nullptr : dv + off, kFlashDim};
 }
 
 // The same head in float32: rows of 64 contiguous floats.
@@ -96,7 +96,7 @@ __device__ __forceinline__ AttnBwdHeadF32 flash_head(const float* q, const float
                                                      const float* out, const float* lse,
                                                      float2* stats, float* dq, float* dk,
                                                      float* dv, size_t head, int L) {
-  const size_t off = head * L * kAttnDim;
+  const size_t off = head * L * kFlashDim;
   const size_t row_off = head * L;
   return AttnBwdHeadF32{q + off, k + off, v + off, g + off,
                         out == nullptr ? nullptr : out + off,
@@ -119,7 +119,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);
   const AttnBwdHead head = flash_head(q, k, v, g, out, lse, stats, dq, nullptr, nullptr,
                                       blockIdx.x / n_tiles, L);
-  attn_bwd_dq_tile<false, kCausal>(head, L, tile * kAttnRows, scale, ds_scale, smem);
+  attn_bwd_dq_tile<kFlashDim, false, kCausal>(head, L, tile * kAttnRows, scale, ds_scale,
+                                              smem);
 }
 
 // bfloat16, pass 2: dK and dV from the first pass's statistics; the
@@ -135,7 +136,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tile = static_cast<int>(blockIdx.x % n_tiles);
   const AttnBwdHead head = flash_head(q, k, v, g, nullptr, nullptr, stats, nullptr, dk, dv,
                                       blockIdx.x / n_tiles, L);
-  attn_bwd_dkv_tile<false, kCausal>(head, L, tile * kAttnKeys, scale, ds_scale, smem);
+  attn_bwd_dkv_tile<kFlashDim, false, kCausal>(head, L, tile * kAttnKeys, scale, ds_scale,
+                                               smem);
 }
 
 // float32, pass 1, in split TF32; tiles in the order of flash_bwd_dq_kernel.
@@ -176,8 +178,8 @@ cudaError_t launch(DqKernel dq_kernel, DkvKernel dkv_kernel, size_t smem, const 
                    const void* k, const void* v, const void* g, const void* out,
                    const float* lse, void* dq, void* dk, void* dv, float2* stats,
                    long long heads, int L, cudaStream_t stream) {
-  const float scale = kLog2e / sqrtf(static_cast<float>(kAttnDim));
-  const float ds_scale = 1.f / sqrtf(static_cast<float>(kAttnDim));
+  const float scale = kLog2e / sqrtf(static_cast<float>(kFlashDim));
+  const float ds_scale = 1.f / sqrtf(static_cast<float>(kFlashDim));
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -205,7 +207,7 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                          const void* out, const void* lse, void* dq, void* dk, void* dv,
                          void* stats, int n, int n_heads, int L, int head_dim, int fp32,
                          int causal, void* stream) {
-  if (head_dim != kHeadDim || n <= 0 || L <= 0 || n_heads <= 0) {
+  if (head_dim != kFlashDim || n <= 0 || L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long heads = static_cast<long long>(n) * n_heads;
@@ -220,6 +222,6 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
   }
   return static_cast<int>(launch<bf16>(
       causal ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>,
-      causal ? flash_bwd_dkv_kernel<true> : flash_bwd_dkv_kernel<false>, kAttnBwdSmemBytes, q,
-      k, v, g, out, lse_p, dq, dk, dv, stats_p, heads, L, s));
+      causal ? flash_bwd_dkv_kernel<true> : flash_bwd_dkv_kernel<false>,
+      kAttnBwdSmemBytes<kFlashDim>, q, k, v, g, out, lse_p, dq, dk, dv, stats_p, heads, L, s));
 }

@@ -63,7 +63,7 @@
 
 namespace {
 
-static_assert(kAttnDim == kHeadDim, "flash_fwd takes one head width");
+static_assert(kAttnF32Dim == kFlashDim, "flash_fwd takes one head width");
 
 // The bfloat16 path: one (sequence, head, 64-row query tile) per block on
 // the tensor-core core of attn_fwd_mma.cuh.
@@ -76,11 +76,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);  // longest first
   const size_t head = blockIdx.x / n_tiles;                              // n * n_heads + h
-  const size_t head_off = head * L * kAttnDim;
-  const AttnHead view{q + head_off, k + head_off, v + head_off, kAttnDim,
-                      nullptr, nullptr, nullptr, out + head_off, kAttnDim,
+  const size_t head_off = head * L * kFlashDim;
+  const AttnHead view{q + head_off, k + head_off, v + head_off, kFlashDim,
+                      nullptr, nullptr, nullptr, out + head_off, kFlashDim,
                       lse == nullptr ? nullptr : lse + head * L, nullptr};
-  attn_fwd_tile<false, kCausal, false>(view, L, tile * kAttnRows, score_scale, smem);
+  attn_fwd_tile<kFlashDim, false, kCausal, false>(view, L, tile * kAttnRows, score_scale,
+                                                  smem);
 }
 
 constexpr size_t kF32SmemBytes = 4 * static_cast<size_t>(kAttnF32Tile) * sizeof(float);
@@ -105,7 +106,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);  // longest first
   const size_t head = blockIdx.x / n_tiles;                              // n * n_heads + h
-  const size_t head_off = head * L * kAttnDim;
+  const size_t head_off = head * L * kFlashDim;
   const float* qh = q + head_off;
   const float* kh = k + head_off;
   const float* vh = v + head_off;
@@ -255,7 +256,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = row0 + 8 * rr;
     if (qi >= L) continue;
     const float inv = 1.f / row_l[rr];
-    float* orow = out + head_off + static_cast<size_t>(qi) * kAttnDim + 2 * tig;
+    float* orow = out + head_off + static_cast<size_t>(qi) * kFlashDim + 2 * tig;
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       *reinterpret_cast<float2*>(orow + 8 * t) =
@@ -270,12 +271,12 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                          int n, int n_heads, int L, int head_dim, int fp32, int causal,
                          void* stream) {
-  if (head_dim != kHeadDim || n <= 0 || L <= 0 || n_heads <= 0) {
+  if (head_dim != kFlashDim || n <= 0 || L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks =
       static_cast<long long>(n) * n_heads * ((L + kAttnRows - 1) / kAttnRows);
-  const float score_scale = kLog2e / sqrtf(static_cast<float>(kHeadDim));
+  const float score_scale = kLog2e / sqrtf(static_cast<float>(kFlashDim));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (fp32) {
@@ -288,9 +289,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
         score_scale);
   } else {
     const auto kernel = causal ? flash_fwd_bf16_kernel<true> : flash_fwd_bf16_kernel<false>;
-    err = allow_smem(kernel, kAttnSmemBytes);
+    constexpr size_t smem = kAttnSmemBytes<kFlashDim>;
+    err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<static_cast<unsigned>(blocks), kAttnThreads, kAttnSmemBytes, s>>>(
+    kernel<<<static_cast<unsigned>(blocks), kAttnThreads, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(out), static_cast<float*>(lse), L, score_scale);
   }

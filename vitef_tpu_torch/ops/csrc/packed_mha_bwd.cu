@@ -49,8 +49,12 @@
 //           in registers;
 //       (c) db_partial_kernel and db_final_kernel, a column reduction of the
 //           bf16 dqkv in a fixed order (row segments, then the segments).
-//     Shared memory is fixed at 55 KB a block in (a) and (b), whatever L is.
+//     Shared memory is fixed at 55 KB a block at d = 64 and 67 KB at d = 80
+//     in (a) and (b), whatever L is.
 // wgmma, TMA and warp specialisation are later work.
+//
+// Head widths: both modes are instantiated at d = 64 and d = 80 (ViT-H/14),
+// the widths the wrapper's gate admits, as csrc/packed_mha_fwd.cu is.
 //
 // C interface:
 //   packed_mha_bwd(qkv, bias, g, out, lse, dqkv, db, stats, partial,
@@ -60,7 +64,7 @@
 // stats is float32 scratch of N * n_heads * L * 2 and partial float32
 // scratch of db_segments * 3E. Returns a cudaError_t as int: the last
 // launch's cudaGetLastError(), or cudaErrorInvalidValue for a shape this
-// kernel does not take.
+// kernel does not take (head_dim other than 64 and 80 among them).
 
 #include "packed_mha_common.cuh"
 #include "attn_bwd_mma.cuh"
@@ -71,23 +75,24 @@ constexpr int kDbWarps = 8;
 
 // Head h of sequence n in the packed layout: Q, K, V and dQ, dK, dV are
 // column blocks of qkv and dqkv (row stride 3E), G and O of g and out (row
-// stride E). The dK/dV pass passes no out and no lse.
+// stride E), all at head width D. The dK/dV pass passes no out and no lse.
+template <int D>
 __device__ __forceinline__ AttnBwdHead packed_head(const bf16* qkv, const bf16* bias,
                                                    const bf16* g, const bf16* out,
                                                    const float* lse, bf16* dqkv,
                                                    float2* stats, int n, int h, int L,
                                                    int n_heads) {
-  const int E = n_heads * kAttnDim;
+  const int E = n_heads * D;
   const size_t F = 3 * static_cast<size_t>(E);
   const size_t row0 = static_cast<size_t>(n) * L;
   const size_t head_row0 = (static_cast<size_t>(n) * n_heads + h) * L;
-  const bf16* slab = qkv + row0 * F + h * kAttnDim;
-  const bf16* head_bias = bias + h * kAttnDim;
-  bf16* dslab = dqkv + row0 * F + h * kAttnDim;
+  const bf16* slab = qkv + row0 * F + h * D;
+  const bf16* head_bias = bias + h * D;
+  bf16* dslab = dqkv + row0 * F + h * D;
   return AttnBwdHead{slab, slab + E, slab + 2 * E, F,
                      head_bias, head_bias + E, head_bias + 2 * E,
-                     g + row0 * E + h * kAttnDim,
-                     out == nullptr ? nullptr : out + row0 * E + h * kAttnDim,
+                     g + row0 * E + h * D,
+                     out == nullptr ? nullptr : out + row0 * E + h * D,
                      static_cast<size_t>(E), lse == nullptr ? nullptr : lse + head_row0,
                      stats + head_row0,
                      dslab, dslab + E, dslab + 2 * E, F};
@@ -95,7 +100,7 @@ __device__ __forceinline__ AttnBwdHead packed_head(const bf16* qkv, const bf16* 
 
 // (a) dQ and the per-row statistics; the heaviest (causal: the last) query
 // tiles first.
-template <bool kCausal>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kAttnThreads)
 packed_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
                      const bf16* __restrict__ g, const bf16* __restrict__ out,
@@ -107,12 +112,13 @@ packed_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);
   const int h = (blockIdx.x / n_tiles) % n_heads;
   const int n = blockIdx.x / (n_tiles * n_heads);
-  const AttnBwdHead head = packed_head(qkv, bias, g, out, lse, dqkv, stats, n, h, L, n_heads);
-  attn_bwd_dq_tile<true, kCausal>(head, L, tile * kAttnRows, scale, ds_scale, smem);
+  const AttnBwdHead head =
+      packed_head<D>(qkv, bias, g, out, lse, dqkv, stats, n, h, L, n_heads);
+  attn_bwd_dq_tile<D, true, kCausal>(head, L, tile * kAttnRows, scale, ds_scale, smem);
 }
 
 // (b) dK and dV; the heaviest (causal: the first) key tiles first.
-template <bool kCausal>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kAttnThreads)
 packed_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
                       const bf16* __restrict__ g, float2* __restrict__ stats,
@@ -124,8 +130,8 @@ packed_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
   const int h = (blockIdx.x / n_tiles) % n_heads;
   const int n = blockIdx.x / (n_tiles * n_heads);
   const AttnBwdHead head =
-      packed_head(qkv, bias, g, nullptr, nullptr, dqkv, stats, n, h, L, n_heads);
-  attn_bwd_dkv_tile<true, kCausal>(head, L, tile * kAttnKeys, scale, ds_scale, smem);
+      packed_head<D>(qkv, bias, g, nullptr, nullptr, dqkv, stats, n, h, L, n_heads);
+  attn_bwd_dkv_tile<D, true, kCausal>(head, L, tile * kAttnKeys, scale, ds_scale, smem);
 }
 
 // (c) db, in two passes with a fixed order: column pair `lane` of a 64-column
@@ -170,30 +176,32 @@ __global__ void db_final_kernel(const float* __restrict__ partial, float* __rest
   db[c] = s;
 }
 
-// The three passes in order on `stream`; returns the first launch error.
-template <bool kCausal>
+// The three passes in order on `stream` at head width D; returns the first
+// launch error.
+template <int D, bool kCausal>
 cudaError_t launch(const bf16* qkv, const bf16* bias, const bf16* g, const bf16* out,
                    const float* lse, bf16* dqkv, float* db, float2* stats, float* partial,
                    int n, int L, int n_heads, int db_segments, cudaStream_t stream) {
-  const float scale = kLog2e / sqrtf(static_cast<float>(kAttnDim));
-  const float ds_scale = 1.f / sqrtf(static_cast<float>(kAttnDim));
+  const float scale = kLog2e / sqrtf(static_cast<float>(D));
+  const float ds_scale = 1.f / sqrtf(static_cast<float>(D));
   const long long tiles = static_cast<long long>(n) * n_heads * ((L + kAttnRows - 1) / kAttnRows);
   const unsigned blocks = static_cast<unsigned>(tiles);  // query tiles = key tiles
-  cudaError_t err = allow_smem(packed_bwd_dq_kernel<kCausal>, kAttnBwdSmemBytes);
+  constexpr size_t smem = kAttnBwdSmemBytes<D>;
+  cudaError_t err = allow_smem(packed_bwd_dq_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
-  packed_bwd_dq_kernel<kCausal><<<blocks, kAttnThreads, kAttnBwdSmemBytes, stream>>>(
+  packed_bwd_dq_kernel<D, kCausal><<<blocks, kAttnThreads, smem, stream>>>(
       qkv, bias, g, out, lse, dqkv, stats, L, n_heads, scale, ds_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = allow_smem(packed_bwd_dkv_kernel<kCausal>, kAttnBwdSmemBytes);
+  err = allow_smem(packed_bwd_dkv_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
-  packed_bwd_dkv_kernel<kCausal><<<blocks, kAttnThreads, kAttnBwdSmemBytes, stream>>>(
+  packed_bwd_dkv_kernel<D, kCausal><<<blocks, kAttnThreads, smem, stream>>>(
       qkv, bias, g, stats, dqkv, L, n_heads, scale, ds_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int F = 3 * n_heads * kAttnDim;
+  const int F = 3 * n_heads * D;
   const long long n_rows = static_cast<long long>(n) * L;
   const long long seg_rows = (n_rows + db_segments - 1) / db_segments;
   const dim3 db_grid((F / 2 + 31) / 32, db_segments);
@@ -210,10 +218,12 @@ extern "C" int packed_mha_bwd(const void* qkv, const void* bias, const void* g, 
                               const void* lse, void* dqkv, void* db, void* stats, void* partial,
                               int n, int L, int n_heads, int head_dim, int db_segments,
                               int causal, void* stream) {
-  if (head_dim != kAttnDim || n <= 0 || L <= 0 || n_heads <= 0 || db_segments <= 0) {
+  if ((head_dim != 64 && head_dim != 80) || n <= 0 || L <= 0 || n_heads <= 0 ||
+      db_segments <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto run = causal ? launch<true> : launch<false>;
+  const auto run = head_dim == 64 ? (causal ? launch<64, true> : launch<64, false>)
+                                  : (causal ? launch<80, true> : launch<80, false>);
   return static_cast<int>(run(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(g), static_cast<const bf16*>(out),

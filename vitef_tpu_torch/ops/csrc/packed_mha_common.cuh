@@ -6,10 +6,12 @@
 //
 // qkv (N, L, 3E) holds [q | k | v] columns, head-major within each, with the
 // qkv bias (3E,) added in the kernels and rounded to bfloat16 as the plain
-// PyTorch version rounds qkv + bias. K1-K5 are instantiated for head width
-// 64.
+// PyTorch version rounds qkv + bias. K1-K3 are instantiated for head widths
+// 64 and 80 (ViT-H/14), each a template argument of their tiles; K4 and K5
+// for 64 only, kFlashDim; K9 for 64 and 128 (csrc/ring_hop.cu).
 //
-// Shared here: the head width, the bf16 pair load, log2(e) and allow_smem.
+// Shared here: the flash kernels' head width, the bf16 pair load, log2(e)
+// and allow_smem.
 
 #pragma once
 
@@ -23,7 +25,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDim = 64;               // the one instantiated head width
+constexpr int kFlashDim = 64;              // K4's and K5's one head width
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float2 load_pair(const bf16* base, int pair) {

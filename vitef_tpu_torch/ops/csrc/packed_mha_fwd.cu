@@ -22,11 +22,11 @@
 // What bounds it on this card: per sequence and head, two L x L x d products
 // (4*L*L*d FLOPs; causal, the lower triangle's half) and as many
 // exponentials as scores, against (N*L*3E + N*L*E) * 2 bytes of device
-// memory for the whole call: about 98 FLOPs per byte at ViT-B/16 (L=197) and
-// 256 causal at GPT-2 (L=1024). A kernel that keeps the L x L scores on chip
-// is bound by the products, and those belong on the tensor cores: on the
-// CUDA cores, shared-memory reads and FMA issue hold such a kernel to 12-14
-// TFLOP/s on this card.
+// memory for the whole call: about 98 FLOPs per byte at ViT-B/16 (L=197),
+// 128 at ViT-H/14 (L=257) and 256 causal at GPT-2 (L=1024). A kernel that
+// keeps the L x L scores on chip is bound by the products, and those belong
+// on the tensor cores: on the CUDA cores, shared-memory reads and FMA issue
+// hold such a kernel to 12-14 TFLOP/s on this card.
 //
 // What the design does about it: both products run on the tensor cores
 // (mma.sync m16n8k16, bf16 in, float32 accumulators) in the FlashAttention-2
@@ -37,8 +37,13 @@
 // the scores, the online softmax and P in registers, P fed to the second
 // product straight from the first one's accumulators; no tile above the
 // causal diagonal is loaded. The L x L scores never reach device or shared
-// memory. Shared memory is fixed at 45 KB a block, whatever L is. wgmma, TMA
-// and warp specialisation are the next step.
+// memory. Shared memory is fixed at 45 KB a block at d = 64 and 55 KB at
+// d = 80, whatever L is. wgmma, TMA and warp specialisation are the next
+// step.
+//
+// Head widths: every mode is instantiated at d = 64 and d = 80 (ViT-H/14),
+// the widths the wrapper's gate admits (vitef_tpu_torch/ops/attention.py
+// packed_mha_supported), so no mode of an admitted width lacks its kernel.
 //
 // The key mask (serving's ragged prefill) is a compile-time flag. The masked
 // instantiation reads a (N, L) byte mask, nonzero for a valid key, and gives
@@ -57,8 +62,8 @@
 // C interface: packed_mha_fwd(qkv, bias, key_mask, out, lse, N, L, n_heads,
 // head_dim, causal, stream) returns a cudaError_t as int: the launch's
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape this kernel does
-// not take. key_mask (uint8, (N, L)) may be null for the unmasked kernel;
-// lse may be null.
+// not take (head_dim other than 64 and 80 among them). key_mask (uint8,
+// (N, L)) may be null for the unmasked kernel; lse may be null.
 
 #include <cstdint>
 
@@ -67,26 +72,45 @@
 
 namespace {
 
-template <bool kCausal, bool kMasked>
+template <int D, bool kCausal, bool kMasked>
 __global__ void __launch_bounds__(kAttnThreads)
 packed_mha_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
                       const uint8_t* __restrict__ key_mask, bf16* __restrict__ out,
                       float* __restrict__ lse, int L, int n_heads, float score_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int E = n_heads * kAttnDim;
+  const int E = n_heads * D;
   const int F = 3 * E;
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);  // longest first
   const int h = (blockIdx.x / n_tiles) % n_heads;
   const int n = blockIdx.x / (n_tiles * n_heads);
-  const bf16* slab = qkv + static_cast<size_t>(n) * L * F + h * kAttnDim;
-  const bf16* head_bias = bias + h * kAttnDim;
+  const bf16* slab = qkv + static_cast<size_t>(n) * L * F + h * D;
+  const bf16* head_bias = bias + h * D;
   const AttnHead head{slab, slab + E, slab + 2 * E, static_cast<size_t>(F),
                       head_bias, head_bias + E, head_bias + 2 * E,
-                      out + static_cast<size_t>(n) * L * E + h * kAttnDim, static_cast<size_t>(E),
+                      out + static_cast<size_t>(n) * L * E + h * D, static_cast<size_t>(E),
                       lse == nullptr ? nullptr : lse + (static_cast<size_t>(n) * n_heads + h) * L,
                       kMasked ? key_mask + static_cast<size_t>(n) * L : nullptr};
-  attn_fwd_tile<true, kCausal, kMasked>(head, L, tile * kAttnRows, score_scale, smem);
+  attn_fwd_tile<D, true, kCausal, kMasked>(head, L, tile * kAttnRows, score_scale, smem);
+}
+
+// The mode's kernel at head width D on `stream`.
+template <int D>
+cudaError_t launch(const bf16* qkv, const bf16* bias, const uint8_t* key_mask, bf16* out,
+                   float* lse, int n, int L, int n_heads, bool causal, cudaStream_t stream) {
+  const long long blocks =
+      static_cast<long long>(n) * n_heads * ((L + kAttnRows - 1) / kAttnRows);
+  const float score_scale = kLog2e / sqrtf(static_cast<float>(D));
+  const auto kernel =
+      causal ? (key_mask != nullptr ? packed_mha_fwd_kernel<D, true, true>
+                                    : packed_mha_fwd_kernel<D, true, false>)
+             : (key_mask != nullptr ? packed_mha_fwd_kernel<D, false, true>
+                                    : packed_mha_fwd_kernel<D, false, false>);
+  const cudaError_t err = allow_smem(kernel, kAttnSmemBytes<D>);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kAttnThreads, kAttnSmemBytes<D>, stream>>>(
+      qkv, bias, key_mask, out, lse, L, n_heads, score_scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -94,24 +118,12 @@ packed_mha_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bia
 extern "C" int packed_mha_fwd(const void* qkv, const void* bias, const void* key_mask,
                               void* out, void* lse, int n, int L, int n_heads, int head_dim,
                               int causal, void* stream) {
-  if (head_dim != kAttnDim || n <= 0 || L <= 0 || n_heads <= 0) {
+  if ((head_dim != 64 && head_dim != 80) || n <= 0 || L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long blocks =
-      static_cast<long long>(n) * n_heads * ((L + kAttnRows - 1) / kAttnRows);
-  const float score_scale = kLog2e / sqrtf(static_cast<float>(kAttnDim));
-  const uint8_t* mask_p = static_cast<const uint8_t*>(key_mask);
-  const auto kernel =
-      causal ? (mask_p != nullptr ? packed_mha_fwd_kernel<true, true>
-                                  : packed_mha_fwd_kernel<true, false>)
-             : (mask_p != nullptr ? packed_mha_fwd_kernel<false, true>
-                                  : packed_mha_fwd_kernel<false, false>);
-
-  const cudaError_t err = allow_smem(kernel, kAttnSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kAttnThreads, kAttnSmemBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias), mask_p,
-      static_cast<bf16*>(out), static_cast<float*>(lse), L, n_heads, score_scale);
-  return static_cast<int>(cudaGetLastError());
+  const auto run = head_dim == 64 ? launch<64> : launch<80>;
+  return static_cast<int>(run(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
+      static_cast<const uint8_t*>(key_mask), static_cast<bf16*>(out), static_cast<float*>(lse),
+      n, L, n_heads, causal != 0, static_cast<cudaStream_t>(stream)));
 }
