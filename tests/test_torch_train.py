@@ -15,6 +15,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from vitef_tpu import optim as jax_optim
@@ -149,6 +150,136 @@ def test_augment_train_matches_jax():
     half = transforms.augment_train_reference(*targs, 224, torch.bfloat16)
     assert half.dtype == torch.bfloat16
     np.testing.assert_allclose(half.float().numpy(), plain.numpy(), atol=2e-2, rtol=0)
+
+
+def _crop_inputs(seed: int, h: int, w: int, n: int = 4):
+    """A seeded uint8 batch with crops drawn as the loader draws them, the
+    first box the whole image (a crop of a source over ``size`` then
+    downscales), flips on and off."""
+    rng = np.random.default_rng(seed)
+    batch = rng.integers(0, 256, size=(n, h, w, 3), dtype=np.uint8)
+    boxes, flips = jax_transforms.sample_crop_batch(rng, n, h, w)
+    boxes[0] = (0, 0, h, w)
+    flips[:2] = [True, False]
+    return batch, boxes, flips
+
+
+# Against what the JAX package runs for the shape: the Pallas kernel for a
+# square source (every square size; here past the first CUDA design's 48 KB
+# cap, with downscaling crops, and at a size that is not a multiple of 8),
+# XLA's scale_and_translate for a non-square one whose sides are within
+# ``size`` (every crop upscales, where both are the two-tap map). With the
+# coordinate rounded as XLA rounds it, the two differ only in the products'
+# order: worst of 4 seeds 2.4e-7 at 96 -> 64 and 97 -> 50, 9.5e-7 at
+# 160 -> 224 and 32 -> 224.
+@pytest.mark.parametrize("h,w,size,atol", [
+    (96, 96, 64, 5e-6), (97, 97, 50, 5e-6), (160, 160, 224, 5e-6), (17, 31, 224, 1e-4),
+], ids=["96-to-64", "97-to-50", "160-to-224", "17x31-to-224"])
+def test_augment_train_matches_jax_route(h, w, size, atol):
+    batch, boxes, flips = _crop_inputs(h * w + size, h, w)
+    args = (jnp.asarray(batch), jnp.asarray(boxes), jnp.asarray(flips))
+    if h == w:
+        with pltpu.force_tpu_interpret_mode():
+            ref = np.asarray(jax_transforms._augment_pallas(
+                *args, size=size, compute_dtype=jnp.float32))
+    else:
+        ref = np.asarray(jax_transforms.augment_train_device(
+            *args, size=size, compute_dtype=jnp.float32))
+    targs = (_t(batch), _t(boxes), _t(flips))
+    for ours in (transforms.augment_train_reference(*targs, size),
+                 transforms.augment_train_device(*targs, size=size)):
+        assert ours.shape == (4, 3, size, size)
+        np.testing.assert_allclose(ours.numpy(), ref, atol=atol, rtol=0)
+
+
+def _jax_bilinear_weights(start: int, length: int, size: int, src: int, flip: bool):
+    """The JAX kernel's ``_bilinear_weights`` as the Pallas kernel computes it
+    (interpret mode), the box and flip read from a ref as there."""
+    def kernel(box_ref, o_ref):
+        o_ref[...] = jax_transforms._bilinear_weights(
+            box_ref[0, 0], box_ref[0, 1], size, src, box_ref[0, 2] != 0)
+    box = jnp.asarray([[start, length, float(flip)]], jnp.float32)
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(pl.pallas_call(
+            kernel, out_shape=jax.ShapeDtypeStruct((size, src), jnp.float32))(box))
+
+
+# The crop coordinate u = (o + 0.5) * (length / size) + start - 0.5 rounds
+# differently by how ``length / size`` and the sum are computed. XLA turns
+# the division into a product with the float32 reciprocal and contracts the
+# sum into a fused multiply-add; the port's weights (those of its plain
+# version and of K10) must be the JAX kernel's bit for bit, at lengths where
+# dividing and multiplying by the reciprocal round apart.
+@pytest.mark.parametrize("src,size", [(97, 50), (160, 224), (1024, 224)],
+                         ids=["97-to-50", "160-to-224", "1024-to-224"])
+def test_bilinear_weights_round_as_jax(src, size):
+    f = np.float32
+    lengths = [n for n in range(1, src + 1) if f(n) / f(size) != f(n) * (f(1) / f(size))][:4]
+    cases = [(start, n, flip) for n in lengths for start, flip in ((0, True), (src - n, False))]
+    start, length, flip = (torch.tensor(c) for c in zip(*cases))
+    ours = transforms._bilinear_weights(start, length, size, src, flip).numpy()
+    for i, (s, n, flipped) in enumerate(cases):
+        np.testing.assert_array_equal(ours[i], _jax_bilinear_weights(s, n, size, src, flipped))
+
+
+def test_augment_train_refuses_non_square_downscale():
+    """A non-square source with a side over ``size``: the JAX package resizes
+    it with XLA's antialiased scale_and_translate, whose kernel widens on a
+    downscaling crop, so the two-tap map differs from it by whole units;
+    the port refuses it rather than compute another result."""
+    batch, boxes, flips = _crop_inputs(12, 120, 160)
+    targs = (_t(batch), _t(boxes), _t(flips))
+    with pytest.raises(NotImplementedError, match="antialiased scale_and_translate"):
+        transforms.augment_train_device(*targs, size=64)
+    xla = np.asarray(jax_transforms.augment_train_device(
+        jnp.asarray(batch), jnp.asarray(boxes), jnp.asarray(flips), size=64,
+        compute_dtype=jnp.float32))
+    two_tap = transforms.augment_train_reference(*targs, 64).numpy()
+    assert np.abs(xla - two_tap).max() > 1.0
+
+
+def _source_rows_read(top, h, size, src, rows):
+    """The most source rows that ``rows`` consecutive output rows read, by
+    the plain version's float32 coordinate (taps floor(u), floor(u) + 1
+    clamped into [0, src))."""
+    f = np.float32
+    inv_s = f(h) * (f(1) / f(size))
+    u = ((np.arange(size, dtype=f) + f(0.5)).astype(np.float64) * np.float64(inv_s)
+         + top).astype(f) - f(0.5)
+    lo = np.clip(np.floor(u), 0, src - 1).astype(np.int64)
+    hi = np.clip(np.floor(u) + 1, 0, src - 1).astype(np.int64)
+    return max(hi[min(r + rows, size) - 1] - lo[r] + 1 for r in range(0, size, rows))
+
+
+# K10's plan: R output rows a block, as few bands as keep a block's shared
+# memory within 64 KB (else R = 1) and R within 64, evened out, and within
+# the 227 KB a block may have; every band of R rows reads at most
+# floor((R - 1) H / size) + 3 source rows, one fewer than it holds.
+@pytest.mark.parametrize("src,size,rows", [
+    (32, 224, 56), (512, 224, 6), (1024, 224, 3), (127, 50, 17), (32, 7, 7), (20000, 224, 1),
+    (32, 2640, 1),
+], ids=["32-to-224", "512-to-224", "1024-to-224", "127-to-50", "32-to-7", "20000-to-224",
+        "32-to-2640"])
+def test_augment_band_rows(src, size, rows):
+    assert transforms.augment_band_rows(src, src, size) == rows
+    smem = transforms.augment_smem_bytes(rows, src, size)
+    assert smem <= 227 * 1024 and (rows == 1 or smem <= 64 * 1024)
+    bands = -(-size // rows)
+    assert rows * bands - size < bands  # bands within one row of each other
+    if bands > 1:  # one band fewer would not fit
+        wider = -(-size // (bands - 1))
+        assert wider > 64 or transforms.augment_smem_bytes(wider, src, size) > 64 * 1024
+    boxes, _ = transforms.sample_crop_batch(np.random.default_rng(src + size), 64, src, src)
+    most = max(_source_rows_read(top, h, size, src, rows)
+               for top, _, h, _ in [(0, 0, src, src), *boxes])
+    assert most <= (rows - 1) * src // size + 3
+
+
+def test_augment_band_rows_refuses_past_limit():
+    with pytest.raises(NotImplementedError, match="limit of 2640"):
+        transforms.augment_band_rows(32, 32, 2641)
+    with pytest.raises(NotImplementedError, match="limit of 2640"):
+        transforms.augment_band_rows(1, 1, 4096)
 
 
 # ---------------------------------------------------------------------------

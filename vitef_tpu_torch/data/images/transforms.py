@@ -88,8 +88,13 @@ def _bilinear_weights(start, length, size: int, src: int, flip):
     o = torch.arange(size, dtype=torch.float32, device=start.device)[None, :, None]
     o = torch.where(flip[:, None, None], (size - 1.0) - o, o)
     x = torch.arange(src, dtype=torch.float32, device=start.device)[None, None, :]
-    inv_s = length.float()[:, None, None] / size
-    u = (o + 0.5) * inv_s + start.float()[:, None, None] - 0.5
+    # u rounded as the JAX kernel computes it: XLA turns ``length / size``
+    # into a product with the float32 reciprocal of ``size`` and contracts
+    # ``(o + 0.5) * inv_s + start`` into one fused multiply-add. That sum is
+    # exact in float64 for sources under 2^16 rows, so one rounding to
+    # float32 gives the fused multiply-add's value on any device.
+    inv_s = length.float()[:, None, None] * float(np.float32(1) / np.float32(size))
+    u = ((o + 0.5).double() * inv_s.double() + start.double()[:, None, None]).float() - 0.5
     w = torch.clamp(1.0 - torch.abs(u - x), min=0.0)
     return w / w.sum(dim=2, keepdim=True)
 
@@ -117,7 +122,67 @@ def augment_train_reference(batch_u8: torch.Tensor, boxes: torch.Tensor,
     return (out * scale + shift).to(compute_dtype)
 
 
-_MAX_IMAGE_BYTES = 48 * 1024   # kMaxImageBytes in csrc/train_augment.cu
+# K10's shared-memory plan, computed alike by csrc/train_augment.cu
+# (kBandRows, kStageBytes, kMaxSmemBytes and plan_of there; chip_smoke.py
+# holds the two equal through its train_augment_plan). A block takes R
+# output rows of one image and holds, as 16-byte records: the x taps of
+# every output column (8 per group of 8 columns), the y taps of its R rows,
+# and the source rows those R rows read, each resized along x to the output
+# width (9 float4 slots per group of 8 columns: one of padding, so that
+# neighbouring threads read other banks).
+_BAND_ROWS = 64                 # output rows a block takes at most
+_STAGE_BYTES = 64 * 1024        # a block's aim, so that several share an SM
+_MAX_SMEM_BYTES = 227 * 1024    # the most a block may opt in to on Hopper
+
+
+def augment_smem_bytes(rows: int, h: int, size: int) -> int:
+    """Shared memory of a K10 block that takes ``rows`` output rows of an
+    ``h``-row source resized to ``size``. R consecutive output rows read at
+    most floor((R - 1) h / size) + 3 source rows (two taps a row, one more
+    where float32 rounding of the coordinate crosses a row); one row more is
+    kept as a margin."""
+    groups = -(-size // 8)
+    src_rows = (rows - 1) * h // size + 4
+    return 16 * (8 * groups + rows + 9 * groups * src_rows)
+
+
+def augment_band_rows(h: int, w: int, size: int) -> int:
+    """Output rows R that one K10 block takes for (h, w) sources resized to
+    ``size``: the largest R <= 64 whose shared memory stays within 64 KB
+    (else 1), then evened out over the bands it makes (224 rows: 4 bands of
+    56). Larger bands spend a block's fixed work (its taps, two
+    synchronisations) on more values: on an H100, bands of up to 64 rows ran
+    6% faster than bands of 32, and bands of 16 31% slower
+    (``tools/profile_train_augment.py``). The source's width costs no shared
+    memory and a band of one row holds four source rows whatever the height,
+    so every source is taken; the limit is the output width: ``size`` up to
+    2640, where one row's band fills the 227 KB a block may have. Raises
+    NotImplementedError past it."""
+    if h <= 0 or w <= 0 or size <= 0:
+        raise ValueError(f"train_augment: empty shape {h}x{w} -> {size}")
+    if augment_smem_bytes(1, h, size) > _MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"train_augment: size {size} is past the limit of 2640; one output row's band "
+            f"needs {augment_smem_bytes(1, h, size)} bytes of shared memory, over the "
+            f"{_MAX_SMEM_BYTES} a block may have")
+    rows = min(_BAND_ROWS, size)
+    while rows > 1 and augment_smem_bytes(rows, h, size) > _STAGE_BYTES:
+        rows -= 1
+    bands = -(-size // rows)
+    return -(-size // bands)
+
+
+def _refuse_downscaled_non_square(h: int, w: int, size: int) -> None:
+    """The JAX package runs the two-tap map only on square sources; it resizes
+    any other through XLA's antialiased ``scale_and_translate``
+    (``_crop_resize_one`` :138-156), whose kernel widens on a crop that
+    downscales. Where a side is over ``size`` a crop can downscale, and that
+    resize is not ported."""
+    if h != w and max(h, w) > size:
+        raise NotImplementedError(
+            f"augment_train_device: a non-square {h}x{w} source with a side over size={size} "
+            "can downscale, and there the JAX package takes XLA's antialiased "
+            "scale_and_translate, which the port has not ported")
 
 
 def augment_train_device(batch_u8: torch.Tensor, boxes: torch.Tensor, flips: torch.Tensor,
@@ -129,10 +194,17 @@ def augment_train_device(batch_u8: torch.Tensor, boxes: torch.Tensor, flips: tor
 
     A CPU tensor goes through :func:`augment_train_reference`. A CUDA tensor
     launches K10 (``csrc/train_augment.cu``), or raises if the kernel does not
-    take it: uint8 images of 3 channels (at most 48 KB each), boxes and flips
-    on the same device, a float32 or bfloat16 output.
-    ``augment_train_device.launches`` counts its launches.
+    take it: uint8 images of 3 channels, ``size`` up to 2640
+    (:func:`augment_band_rows`), boxes and flips on the same device, a float32
+    or bfloat16 output. On both, a non-square source with a side over
+    ``size`` raises NotImplementedError (the JAX package resizes it otherwise).
+    Each box lies within its image, as :func:`sample_crop_batch` draws them;
+    they are not read on the host, and past that K10 stays inside its own
+    memory but its values are undefined. ``augment_train_device.launches``
+    counts its launches.
     """
+    if batch_u8.dim() == 4:
+        _refuse_downscaled_non_square(batch_u8.shape[1], batch_u8.shape[2], size)
     if batch_u8.device.type == "cpu":
         return augment_train_reference(batch_u8, boxes, flips, size, compute_dtype)
     if batch_u8.device.type != "cuda":
@@ -141,9 +213,7 @@ def augment_train_device(batch_u8: torch.Tensor, boxes: torch.Tensor, flips: tor
         raise ValueError("augment_train_device takes (N, H, W, 3) uint8, got "
                          f"{tuple(batch_u8.shape)} {batch_u8.dtype}")
     n, h, w, _ = batch_u8.shape
-    if h * w * 3 > _MAX_IMAGE_BYTES:
-        raise NotImplementedError(f"train_augment stages a whole image in shared "
-                                  f"memory: {h}x{w}x3 is over {_MAX_IMAGE_BYTES} bytes")
+    augment_band_rows(h, w, size)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"train_augment writes float32 or bfloat16, not {compute_dtype}")
     if tuple(boxes.shape) != (n, 4) or tuple(flips.shape) != (n,) \
@@ -151,7 +221,9 @@ def augment_train_device(batch_u8: torch.Tensor, boxes: torch.Tensor, flips: tor
         raise ValueError(f"boxes (N, 4) and flips (N,) must lie on {batch_u8.device}")
     images = batch_u8.contiguous()
     boxes = boxes.to(torch.int32).contiguous()
-    flips = flips.to(torch.uint8).contiguous()
+    # a bool tensor is read as its bytes, 0 or 1, without a conversion launch
+    flips = (flips.view(torch.uint8) if flips.dtype == torch.bool
+             else flips.to(torch.uint8)).contiguous()
     out = torch.empty((n, 3, size, size), dtype=compute_dtype, device=batch_u8.device)
     with torch.cuda.device(batch_u8.device):
         stream = torch.cuda.current_stream(batch_u8.device).cuda_stream
