@@ -142,10 +142,9 @@ Phases (each raises on failure, so the run exits non-zero):
     per-sample distances (``make_decomposition_distance_fn``): 48 K6
     launches per call, against the plain LayerNorm within 1e-4, timed;
 24. probing: ViT-B/16 in bfloat16 with K6 and K1 pools and normalises the
-    96 probe keys' features over synthetic train and test loaders at batch
-    512 (``get_embeddings``: 24 K6 and 12 K1 launches per batch, against
-    the plain path), then ``run_linear_probing(probe_impl="torch")`` fits
-    the L-BFGS probe per key on the card;
+    96 probe keys' features over a synthetic train loader at batch 512
+    (``get_embeddings``: 24 K6 and 12 K1 launches per batch, against the
+    plain path); the probe's fit runs in 34;
 25. K1 masked phase: K1's key-masked mode (the ragged serving prefill) in
     bfloat16 against its float32 plain version at the serving prefill's
     shape (N=256, L=128, causal, left-pad lengths 16-128 from
@@ -226,7 +225,29 @@ Phases (each raises on failure, so the run exits non-zero):
 33. ViT-H/14 cross-check at full width and 4 blocks: logits kernel vs plain
     attention path under the ViT gates, one microbatch's (128) gradients
     within 5e-2 relative L2 overall and in every block, and a loss that
-    falls over 20 steps on one fixed batch.
+    falls over 20 steps on one fixed batch;
+34. ViT apps (after 24): the paper's experiment through the port's command
+    lines. CIFAR-10 files at CIFAR-10's size (50,000 + 10,000 class-separable
+    images from ``np.random.default_rng(0)``) in a temporary directory, which
+    is also ``VITEF_SAVING_DIR``; the train command line in this process
+    (``vitef_tpu_torch.apps.vit.train.main``: ``apps/vit/configs/cifar10.yaml``,
+    ViT-B/16 from random weights, batch 512 as 2 x 256, 60 steps with warmup
+    10 and an evaluation every 30, the blocks frozen as one of
+    ``sweep_lib.sh``'s configs): K10 one launch a step, K1 and K2 24 a step,
+    K1 12 an evaluation batch, no plain version; the run dir against the JAX
+    package's contract (files, jsonl fields, one checkpoint at the best
+    evaluated step with the JAX dotted keys and layout, the frozen tensors
+    bit-equal to their initial values), a loss that falls and an eval_acc
+    above chance; img/s per logged period, each evaluation's and each
+    checkpoint's staging and writing seconds, the peak memory; a resume to
+    step 70 (the first logged step after the best one, the optimizer buffers
+    loaded as saved); the eval command line as a subprocess (exit 0;
+    ``test_acc`` that of all 10,000 test images, the last batch of 272,
+    recomputed in this process); ``linear_probing(probe_impl="torch")`` on a
+    second set of 5,000 + 1,000 images (a test accuracy for each of the 96
+    keys); then ``train_phase``'s protocol with the same freeze at 1 x 512
+    and 2 x 256 (2 warm-up and 10 timed steps each), with the peak memory of
+    each and what the command line adds per step.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -242,20 +263,35 @@ import ctypes
 import dataclasses
 import gc
 import json
+import logging
 import math
+import os
+import pickle
 import re
+import shutil
 import subprocess
+import sys
+import tempfile
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+# The ViT apps phase writes its run dirs, probes and datasets under a fresh
+# temporary directory; the port reads VITEF_SAVING_DIR when it is imported.
+APPS_ROOT = Path(tempfile.gettempdir()) / f"vitef_chip_smoke_{os.getpid()}"
+os.environ["VITEF_SAVING_DIR"] = str(APPS_ROOT / "savings")
+
 from vitef_tpu_torch.apps.gpt2 import sample as SAMPLE_APP
 from vitef_tpu_torch.apps.gpt2 import serve as SERVE_APP
 from vitef_tpu_torch.apps.vit import analysis as AN
 from vitef_tpu_torch.apps.vit import linear_probing as LP
+from vitef_tpu_torch.apps.vit import train as TRAIN_APP
+from vitef_tpu_torch.monitor import checkpoint as CK
+from vitef_tpu_torch.optim import freeze_components
 from vitef_tpu_torch.data.images import build_loader, build_train_val_loader, make_iterable
 from vitef_tpu_torch.data.images import transforms as T
 from vitef_tpu_torch.eval import run_evaluation
@@ -483,7 +519,7 @@ VIT_B16_K6 = {**VIT_B16, "norm_impl": "kernel"}
 # (apps/vit/analysis.py's defaults, AnalysisConfig :90, :99, with analysis()'s
 # in21k model), two synthetic batches from different seeds; the linear
 # probing features in bfloat16 at batch 512 (LinearProbingConfig :129) over
-# synthetic train and test loaders, then the on-device probe per key.
+# a synthetic train loader (the on-device probe runs in the ViT apps phase).
 VIT_B16_ANALYSIS = {"implementation": "vit", "model_name": "base", "patch_size": 16,
                     "image_dim": (3, 224, 224), "pretrained": True, "in21k": True,
                     "compute_dtype": "float32", "norm_impl": "kernel", "seed": 0}
@@ -495,12 +531,33 @@ ANALYSIS_REL = 1e-4
 VIT_B16_PROBING = {**VIT_B16_ANALYSIS, "compute_dtype": "bfloat16"}
 PROBING_TRAIN = {"dataset_name": "synthetic-2048", "batch_size": 512, "val_batch_size": 512,
                  "size": 224, "compute_dtype": "bfloat16", "seed": 0}
-PROBING_TEST = {"dataset_name": "synthetic-1024", "mode": "test", "batch_size": 512,
-                "size": 224, "compute_dtype": "bfloat16", "seed": 0}
 # The L2-normalised bf16 embeddings of each key, kernel path (K1 + K6) vs the
 # plain path: both bf16 through up to 12 blocks, as the eval logits, so the
 # gradients' relative L2 bound holds them.
 PROBE_EMB_REL_L2 = GRAD_REL_L2
+
+# The ViT apps phase: the paper's train command line as the sweep runs it
+# (apps/vit/configs/cifar10.yaml: ViT-B/16, batch 512 as 2 x 256, bf16, SGD
+# momentum 0.9, lr 1e-2, cosine schedule, clip 1) with one of sweep_lib.sh's
+# freeze configs (the embedding and the head train), from random weights, on
+# CIFAR-10 files at CIFAR-10's size (class-separable pixels from
+# default_rng(0), as tests/test_apps_train_eval.py builds them). 60 steps
+# with warmup 10 (the config's 2000 would hold the lr near 0) and an
+# evaluation every 30; then a resume to step 70, the eval command line as a
+# subprocess, and linear probing on a second set of 5,000 + 1,000 images.
+REPO_ROOT = Path(__file__).resolve().parent
+APPS_CIFAR = (50_000, 10_000)
+APPS_PROBE_CIFAR = (5_000, 1_000)
+APPS_COMPONENTS = ["attn_norm", "mha", "ffn_norm", "ffn_fc1", "ffn_fc2"]
+APPS_MODEL = {"implementation": "vit", "model_name": "base", "pretrained": False,
+              "in21k": True, "patch_size": 16, "image_dim": (3, 224, 224), "finetuning": True,
+              "n_classes": 10, "compute_dtype": "bfloat16"}
+APPS_STEPS, APPS_RESUMED_STEPS, APPS_EVAL_PERIOD, APPS_LOGGING_PERIOD = 60, 70, 30, 10
+APPS_SPLIT_TIMED = 10     # steps timed at 1 x 512 and at 2 x 256
+APPS_BATCH = 512
+TRAIN_RECORD_KEYS = {"loss", "step", "lr", "grad_norm", "elapsed_steps", "ts"}
+EVAL_RECORD_KEYS = {"eval_acc", "eval_loss", "step", "ts"}
+CHECKPOINT_FILES = {"model.npz", "optim.npz", "training.json", "params.json"}
 
 # The serving slice: GPT-2 base in bf16 (random weights from seed 0;
 # pretrained=True falls back to them without a local cache) at
@@ -1821,8 +1878,9 @@ def train_phase(model, device, label: str = "ViT-B/16", microbatch: int = AUTO_M
     SGD, cosine schedule; with ``norm_impl="kernel"`` every LayerNorm takes
     K6 (forward and dx), else its plain version. ``warmup`` untimed and
     ``timed`` timed steps through the loader, then as many device-only.
-    Returns the main path's launch counts, a device-only step and the train
-    dataset."""
+    Returns the main path's launch counts, a device-only step, the train
+    dataset and the rates (img/s loader included and device-only) and peak
+    memory (GiB)."""
     schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
     optimizer, scheduler = build_optimizer(OPTIMIZER, model.module, schedule=schedule)
     batch = TRAIN_DATA["batch_size"]
@@ -1915,7 +1973,8 @@ def train_phase(model, device, label: str = "ViT-B/16", microbatch: int = AUTO_M
           f"{device_rate * flops / PEAK_BF16_FLOPS:.4f} of the bf16 peak; loss {loss:.4f}")
     if not math.isfinite(loss):
         raise AssertionError("device-only train loss is not finite")
-    return launches, one_step, train_loader.dataset
+    return launches, one_step, train_loader.dataset, {
+        "loader_img_s": loader_rate, "device_img_s": device_rate, "peak_gib": peak_gib}
 
 
 @contextlib.contextmanager
@@ -2142,8 +2201,8 @@ def size_phase(device, label: str) -> tuple[dict, object]:
           f"{cfg.emb_dim // cfg.n_heads}, L={cfg.seq_len}; built in "
           f"{time.perf_counter() - t0:.2f} s; the card holds "
           f"{torch.cuda.get_device_properties(device).total_memory / 2**30:.2f} GiB")
-    launches, one_step, dataset = train_phase(model, device, label, microbatch, SIZE_WARMUP,
-                                              SIZE_TIMED)
+    launches, one_step, dataset, _ = train_phase(model, device, label, microbatch,
+                                                 SIZE_WARMUP, SIZE_TIMED)
     require_kinds(profile_train_step(one_step, VIT_KINDS, label), VIT_KERNEL_KINDS, label)
     return launches, dataset
 
@@ -2214,14 +2273,14 @@ def analysis_phase(device) -> None:
 
 def probing_phase(device) -> None:
     """The linear-probing features on ViT-B/16 in bfloat16 with K6 and K1:
-    ``get_embeddings`` over synthetic train and test loaders (24 K6 and 12
-    K1 launches per batch, no plain version) against the plain path; then
-    ``run_linear_probing`` with the on-device probe over every key."""
+    ``get_embeddings`` over a synthetic train loader (24 K6 and 12 K1
+    launches per batch, no plain version) against the plain path. The
+    on-device probe itself runs in the ViT apps phase, through the
+    ``linear_probing`` entry point."""
     model = build_model(VIT_B16_PROBING, device=device)
     np.random.seed(0)  # the train/val split, as the app seeds it
     train_loader, _ = build_train_val_loader(PROBING_TRAIN, device=device)
     train = list(train_loader)  # one epoch, so that both paths see the same images
-    test = list(build_loader(PROBING_TEST, device=device, drop_last=False))
     LP.get_embeddings(model, train[:1], cls_pooling=False)  # warm-up
     torch.cuda.synchronize()
     with no_plain_versions() as (plain_calls, _), \
@@ -2250,20 +2309,6 @@ def probing_phase(device) -> None:
             and all(np.isfinite(v).all() for v in emb.values())
             and rel[worst] <= PROBE_EMB_REL_L2):
         raise AssertionError(f"the K6 probe features disagree with the plain path: {rel}")
-
-    t0 = time.perf_counter()
-    accs = LP.run_linear_probing(model, train, test, cls_pooling=False, seed=0,
-                                 probe_impl="torch")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    best = max(accs, key=accs.get)
-    print(f"linear probing on the card over {len(accs)} keys ({len(labels)} train, "
-          f"{sum(len(y) for _, y in test)} test images, 10 classes): "
-          f"{seconds:.2f} s; accuracy {min(accs.values()):.4f}..{accs[best]:.4f} (best "
-          f"{best}); " + " ".join(f"{accs[f'block{i}_ffn_res']:.3f}" for i in range(layers))
-          + " after each block")
-    if not (len(accs) == 8 * layers and all(0.0 <= a <= 1.0 for a in accs.values())):
-        raise AssertionError(f"linear probing gave {accs}")
 
 
 # The kernels of one K2/K3 launch (csrc/packed_mha_bwd.cu).
@@ -3385,6 +3430,306 @@ def apps_phase(device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The ViT apps: the train, eval and linear-probing command lines
+# ---------------------------------------------------------------------------
+
+
+def write_cifar10(root: Path, n_train: int, n_test: int, seed: int = 0) -> Path:
+    """CIFAR-10's on-disk format (``cifar-10-batches-py``: five train batches
+    and a test batch of pickled uint8 rows of 3072) with class-separable
+    pixels: noise in [0, 64) plus 19 x label in the red channel."""
+    rng = np.random.default_rng(seed)
+    base = root / "cifar-10-batches-py"
+    base.mkdir(parents=True)
+    for name, n in [(f"data_batch_{i}", n_train // 5) for i in range(1, 6)] + [
+            ("test_batch", n_test)]:
+        labels = rng.integers(0, 10, size=n)
+        data = rng.integers(0, 64, size=(n, 3072), dtype=np.uint8)
+        data[:, :1024] += (labels[:, None] * 19).astype(np.uint8)
+        with open(base / name, "wb") as f:
+            pickle.dump({b"data": data, b"labels": labels.tolist()}, f)
+    return root
+
+
+def apps_train_argv(data_dir: Path, log_dir: str) -> list[str]:
+    return [f"config={REPO_ROOT / 'apps/vit/configs/cifar10.yaml'}", "pretrained=False",
+            f"data_dir={data_dir}", f"n_steps={APPS_STEPS}", "warmup=10",
+            f"eval_period={APPS_EVAL_PERIOD}", f"logging_period={APPS_LOGGING_PERIOD}",
+            "components=" + json.dumps(APPS_COMPONENTS, separators=(",", ":")),
+            f"log_dir={log_dir}"]
+
+
+@contextlib.contextmanager
+def apps_probes(n_layers: int):
+    """Wrap the train command line's evaluation (seconds and K1 launches of
+    each call, which must be n_layers per batch), its Checkpointer (kept, for
+    their save timings) and its optimizer loading (the buffers loaded must
+    equal optim.npz's)."""
+    evals, checkpointers, loads = [], [], []
+    real_eval, real_checkpointer = TRAIN_APP.run_evaluation, TRAIN_APP.Checkpointer
+    real_load = TRAIN_APP.load_optimizer_state
+
+    def timed_eval(model, loader):
+        torch.cuda.synchronize()
+        k1, t0 = A.fused_mha_packed.launches, time.perf_counter()
+        metrics = real_eval(model, loader)
+        torch.cuda.synchronize()
+        evals.append({"seconds": time.perf_counter() - t0, "batches": len(loader),
+                      "images": len(loader.indices),
+                      "k1": A.fused_mha_packed.launches - k1})
+        if evals[-1]["k1"] != n_layers * len(loader):
+            raise AssertionError(f"an evaluation launched K1 {evals[-1]['k1']} times over "
+                                 f"{len(loader)} batches, want {n_layers} a batch")
+        return metrics
+
+    class KeptCheckpointer(real_checkpointer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            checkpointers.append(self)
+
+    def checked_load(optimizer, module, flat):
+        real_load(optimizer, module, flat)
+        params = dict(module.named_parameters())
+        for key, value in flat.items():
+            if key != CK.OPTIM_LAYOUT_KEY:
+                name, _, buffer = key.rpartition(".")
+                got = optimizer.state[params[name]][buffer].cpu().numpy()
+                if not np.array_equal(got, value):
+                    raise AssertionError(f"optimizer buffer {key} not loaded as saved")
+        loads.append(len(flat) - 1)
+
+    TRAIN_APP.run_evaluation, TRAIN_APP.Checkpointer = timed_eval, KeptCheckpointer
+    TRAIN_APP.load_optimizer_state = checked_load
+    try:
+        yield evals, checkpointers, loads
+    finally:
+        TRAIN_APP.run_evaluation, TRAIN_APP.Checkpointer = real_eval, real_checkpointer
+        TRAIN_APP.load_optimizer_state = real_load
+
+
+def jsonl(path: Path) -> list[dict]:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def check_run_dir(run: Path, steps: int, init: dict) -> tuple[list, list, Path]:
+    """The JAX package's run dir contract: its files, the jsonl fields, one
+    checkpoint at the best evaluated step holding the JAX dotted keys in the
+    JAX layout, and every parameter the freeze leaves out bit-equal to its
+    initial value (``init``: the model built from the same seed)."""
+    tree = {str(p.relative_to(run)) for p in run.rglob("*") if "checkpoints/" not in str(
+        p.relative_to(run))}
+    want = {"config.json", "checkpoints", "logs", "logs/device_0.log", "metrics",
+            "metrics/raw_0.jsonl", "metrics/info_model.jsonl"}
+    if tree != want:
+        raise AssertionError(f"run dir {sorted(tree)}, want {sorted(want)}")
+    records = jsonl(run / "metrics" / "raw_0.jsonl")
+    train = [r for r in records if "loss" in r]
+    evals = [r for r in records if "eval_acc" in r]
+    if any(set(r) != TRAIN_RECORD_KEYS for r in train) or any(
+            set(r) != EVAL_RECORD_KEYS for r in evals) or len(train) + len(evals) != len(
+            records):
+        raise AssertionError(f"metric records off the contract: {records[:3]}")
+    if [r["step"] for r in train] != list(range(APPS_LOGGING_PERIOD, steps + 1,
+                                                APPS_LOGGING_PERIOD)):
+        raise AssertionError(f"logged steps {[r['step'] for r in train]}")
+    best = max(evals, key=lambda r: r["eval_acc"])  # the first of equals, as the app keeps
+    ckpts = sorted((run / "checkpoints").iterdir())
+    if [c.name for c in ckpts] != [f"{best['step']:010d}"] or {
+            f.name for f in ckpts[0].iterdir()} != CHECKPOINT_FILES:
+        raise AssertionError(f"checkpoints {[c.name for c in ckpts]} (best eval step "
+                             f"{best['step']})")
+    with np.load(ckpts[0] / "model.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    if set(saved) != set(init) or any(saved[k].shape != init[k].shape for k in init):
+        raise AssertionError("model.npz keys or shapes differ from the JAX layout")
+    return train, evals, ckpts[0]
+
+
+def vit_apps_phase(device, card_line: str) -> None:
+    """The paper's experiment through the port's command lines on the card:
+    train (K10, K1, K2 each step, K1 in every evaluation batch, no plain
+    version), the run dir's contract, a resume, the eval command line as a
+    subprocess and linear probing; then 10 steps at 1 x 512 and 2 x 256."""
+    log_dir = "vit_cifar10_smoke"
+    run = APPS_ROOT / "savings" / "runs" / log_dir
+    try:
+        t0 = time.perf_counter()
+        data = write_cifar10(APPS_ROOT / "cifar10", *APPS_CIFAR)
+        probe_data = write_cifar10(APPS_ROOT / "cifar10_probe", *APPS_PROBE_CIFAR, seed=1)
+        print(f"ViT apps ({card_line}): CIFAR-10 files of {APPS_CIFAR[0]:,} + "
+              f"{APPS_CIFAR[1]:,} and {APPS_PROBE_CIFAR[0]:,} + {APPS_PROBE_CIFAR[1]:,} "
+              f"images written in {time.perf_counter() - t0:.2f} s")
+        argv = apps_train_argv(data, log_dir)
+        # the model the command line builds (the config's seed 42, in21k=True
+        # with the head swapped for 10 classes), built again on the host
+        init_model = build_model(APPS_MODEL, device="cpu",
+                                 generator=torch.Generator().manual_seed(42))
+        init = CK.model_state(init_model.module)
+        frozen = {k for k, v in freeze_components(init_model.module, APPS_COMPONENTS).items()
+                  if not v}
+        n_layers = init_model.config.n_layers
+        del init_model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        counters = (A.fused_mha_packed, A.packed_mha_bwd, T.augment_train_device)
+        torch.cuda.synchronize(device)  # the context, if no phase made it yet
+        torch.cuda.reset_peak_memory_stats(device)
+        with no_plain_versions() as (plain_calls, aug_calls), \
+                apps_probes(n_layers) as (evals, checkpointers, loads):
+            for counter in counters:
+                counter.launches = 0
+            t0 = time.perf_counter()
+            TRAIN_APP.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+        grad_acc = APPS_BATCH // AUTO_MICROBATCH
+        eval_k1 = sum(e["k1"] for e in evals)
+        want = {"fused_mha_packed": n_layers * grad_acc * APPS_STEPS + eval_k1,
+                "packed_mha_bwd": n_layers * grad_acc * APPS_STEPS,
+                "augment_train_device": APPS_STEPS}
+        print(f"train command line, {APPS_STEPS} steps in {seconds:.2f} s (start-up, "
+              f"evaluations and checkpoints included): launches {launches} (want {want}; "
+              f"K1 {n_layers} a batch over {sum(e['batches'] for e in evals)} evaluation "
+              f"batches); plain calls {len(plain_calls) + len(aug_calls)}; peak memory "
+              f"{peak_gib:.3f} GiB")
+        if launches != want or plain_calls or aug_calls or len(evals) != 2:
+            raise AssertionError("the train command line did not take K10, K1 and K2 as "
+                                 "it should")
+
+        train, eval_records, ckpt = check_run_dir(run, APPS_STEPS, init)
+        with np.load(ckpt / "model.npz") as z:
+            moved = sorted(k for k in z.files if not np.array_equal(z[k], init[k]))
+            changed_frozen = [k for k in frozen if not np.array_equal(z[k], init[k])]
+        losses = [r["loss"] for r in train]
+        accs = [r["eval_acc"] for r in eval_records]
+        print(f"train.jsonl (metrics/raw_0.jsonl): loss {' '.join(f'{v:.4f}' for v in losses)}"
+              f" at steps {[r['step'] for r in train]}; eval_acc {accs} (eval_loss "
+              f"{[round(r['eval_loss'], 4) for r in eval_records]}); checkpoint {ckpt.name}; "
+              f"{len(frozen)} frozen tensors bit-equal to their init, {len(moved)} trained "
+              f"ones moved ({', '.join(moved)})")
+        if not (losses[-1] < losses[0] and max(accs) > 0.1 and not changed_frozen and moved):
+            raise AssertionError(f"the run did not learn, or a frozen tensor moved "
+                                 f"({changed_frozen})")
+
+        # Rates: ts is the seconds since the logger started, so a period's rate
+        # is its steps over the difference of two ts; a period after an eval
+        # step carries that evaluation and its checkpoint.
+        eval_steps = {r["step"] for r in eval_records}
+        periods = [(b["step"], b["elapsed_steps"] * APPS_BATCH / (b["ts"] - a["ts"]),
+                    a["step"] in eval_steps) for a, b in zip(train, train[1:])]
+        steady = [rate for _, rate, with_eval in periods if not with_eval]
+        print("train command line img/s per logged period: " + ", ".join(
+            f"to step {step} {rate:.2f}{' (with an evaluation)' if with_eval else ''}"
+            for step, rate, with_eval in periods) +
+            f"; median of the periods without one {float(np.median(steady)):.2f} img/s")
+        for e in evals:
+            print(f"evaluation: {e['images']} images in {e['batches']} batches, "
+                  f"{e['seconds']:.3f} s ({e['images'] / e['seconds']:.2f} img/s), K1 "
+                  f"{e['k1']}")
+        for timing in checkpointers[0].timings:
+            print(f"checkpoint at step {timing['step']}: device->host staging "
+                  f"{timing['stage_s']:.3f} s, write {timing['write_s']:.3f} s")
+
+        # Resume: the same command line to step 70 from the best checkpoint.
+        with apps_probes(n_layers) as (evals2, _, loads):
+            TRAIN_APP.main(argv + [f"n_steps={APPS_RESUMED_STEPS}", "overwrite=False"])
+        resumed = [r for r in jsonl(run / "metrics" / "raw_0.jsonl") if "loss" in r][len(train):]
+        best = int(ckpt.name)
+        if not (loads and resumed and resumed[0]["step"] == best + APPS_LOGGING_PERIOD
+                and resumed[-1]["step"] == APPS_RESUMED_STEPS):
+            raise AssertionError(f"the resume did not continue from step {best}: loaded "
+                                 f"{loads}, logged {[r['step'] for r in resumed]}")
+        print(f"resume to step {APPS_RESUMED_STEPS}: loaded the checkpoint of step {best} "
+              f"with {loads[0]} optimizer buffers (bit-equal to optim.npz); logged steps "
+              f"{[r['step'] for r in resumed]}, loss {resumed[-1]['loss']:.4f}")
+
+        # The eval command line as a user runs it, then in this process with
+        # the batches counted.
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "vitef_tpu_torch.apps.vit.eval",
+             f"config={REPO_ROOT / 'apps/vit/configs/eval.yaml'}", f"log_dir={log_dir}",
+             f"data_dir={data}"], cwd=REPO_ROOT, capture_output=True, text=True,
+            timeout=600)
+        eval_seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the eval command line exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        (record,) = jsonl(run / "metrics" / "eval.jsonl")
+        test_ckpt = Path(CK.Checkpointer.get_last_checkpoint_path(run / "checkpoints"))
+        model = build_model(json.loads((test_ckpt / "params.json").read_text()), device=device)
+        CK.load_checkpoint_params(test_ckpt, model.module)
+        test_loader = build_loader({"dataset_name": "cifar10", "mode": "test",
+                                    "batch_size": APPS_BATCH, "size": 224,
+                                    "save_dir": str(data)}, device=device, drop_last=False)
+        sizes = []
+        A.fused_mha_packed.launches = 0
+        metrics = run_evaluation(model, ((sizes.append(len(y)) or x, y) for x, y in test_loader))
+        print(f"eval command line (subprocess): exit 0 in {eval_seconds:.2f} s, test_acc "
+              f"{record['test_acc']:.6f}; in this process over {sum(sizes)} test images in "
+              f"{len(sizes)} batches (the last {sizes[-1]}), K1 {A.fused_mha_packed.launches}: "
+              f"{metrics['eval_acc']:.6f}")
+        if not (sum(sizes) == APPS_CIFAR[1] and sizes[-1] == APPS_CIFAR[1] % APPS_BATCH
+                and abs(metrics["eval_acc"] - record["test_acc"]) <= 1e-6
+                and A.fused_mha_packed.launches == n_layers * len(sizes)):
+            raise AssertionError("the eval command line's test_acc is not that of the "
+                                 "whole test split")
+        del model, test_loader
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        accs = LP.linear_probing(LP.LinearProbingConfig(
+            log_dir=log_dir, data_dir=str(probe_data), probe_impl="torch"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        saved = json.loads((LP.PROBE_DIR / log_dir / "linear_probing.json").read_text())
+        best_key = max(accs, key=accs.get)
+        print(f"linear probing ({probe_data.name}: {APPS_PROBE_CIFAR[0]:,} train, "
+              f"{APPS_PROBE_CIFAR[1]:,} test images; probe_impl torch) in {seconds:.2f} s: "
+              f"{len(saved)} keys, accuracy {min(accs.values()):.4f}..{accs[best_key]:.4f} "
+              f"(best {best_key})")
+        if not (saved == accs and len(saved) == 8 * n_layers
+                and all(0.0 <= a <= 1.0 for a in saved.values())):
+            raise AssertionError(f"linear_probing.json holds {saved}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 1 x 512 beside 2 x 256 with the run's freeze (train_phase's protocol).
+        split = {}
+        for microbatch in (APPS_BATCH, AUTO_MICROBATCH):
+            model = build_model(VIT_B16, device=device)
+            freeze_components(model.module, APPS_COMPONENTS)
+            label = f"ViT-B/16 frozen blocks {APPS_BATCH // microbatch} x {microbatch}"
+            *_, split[microbatch] = train_phase(model, device, label, microbatch, warmup=2,
+                                                timed=APPS_SPLIT_TIMED)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        step_ms = APPS_BATCH / float(np.median(steady)) * 1e3
+        loop_ms = APPS_BATCH / split[AUTO_MICROBATCH]["loader_img_s"] * 1e3
+        print(f"ViT apps summary ({card_line}): command line {float(np.median(steady)):.2f} "
+              f"img/s ({step_ms:.3f} ms a step) against train_phase's loop "
+              f"{split[AUTO_MICROBATCH]['loader_img_s']:.2f} img/s ({loop_ms:.3f} ms) at "
+              f"2 x 256 with the same freeze: the command line adds {step_ms - loop_ms:.3f} "
+              f"ms a step; 1 x 512 {split[APPS_BATCH]['loader_img_s']:.2f} img/s loader "
+              f"included, {split[APPS_BATCH]['device_img_s']:.2f} device-only, peak "
+              f"{split[APPS_BATCH]['peak_gib']:.3f} GiB; 2 x 256 "
+              f"{split[AUTO_MICROBATCH]['loader_img_s']:.2f}, "
+              f"{split[AUTO_MICROBATCH]['device_img_s']:.2f}, peak "
+              f"{split[AUTO_MICROBATCH]['peak_gib']:.3f} GiB")
+    finally:
+        # the command lines' Logger left its file and stream handlers on "vitef"
+        for handler in logging.getLogger("vitef").handlers[:]:
+            logging.getLogger("vitef").removeHandler(handler)
+            handler.close()
+        shutil.rmtree(APPS_ROOT, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # K9, the ring hop, and the sequence-parallel train slice
 # ---------------------------------------------------------------------------
 
@@ -3841,7 +4186,7 @@ def main() -> None:
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
-    launches, one_step, dataset = train_phase(model, device)
+    launches, one_step, dataset, _ = train_phase(model, device)
     require_kinds(profile_train_step(one_step, VIT_KINDS, "ViT-B/16"), VIT_KERNEL_KINDS,
                   "ViT-B/16")
     train_cross_check(model, dataset, device)
@@ -3850,7 +4195,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     model = build_model(VIT_B16_K6, device=device)
-    k6_launches, one_step, _ = train_phase(model, device, label="ViT-B/16 with K6")
+    k6_launches, one_step, _, _ = train_phase(model, device, label="ViT-B/16 with K6")
     require_kinds(profile_train_step(one_step, VIT_K6_KINDS, "ViT-B/16 with K6"),
                   [*VIT_KERNEL_KINDS, "K6 layernorm_fwd", "K6 layernorm_bwd_dx"],
                   "ViT-B/16 with K6")
@@ -3872,6 +4217,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     probing_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vit_apps_phase(device, card_line)
     gc.collect()
     torch.cuda.empty_cache()
 

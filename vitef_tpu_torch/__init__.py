@@ -9,7 +9,10 @@ at first use and bound with ``ctypes`` (``ops/_build.py``).
 Ported so far: ViT-B/16 inference (``models.build_model`` →
 ``eval.run_evaluation``), finetuning (``parallel.make_train_step``) and the
 paper's read-outs (``Model.get_decomposition``/``get_probes``,
-``apps.vit.analysis``, ``apps.vit.linear_probing``, ``probe``), GPT-2,
+``apps.vit.analysis``, ``apps.vit.linear_probing``, ``probe``), the ViT
+command lines (``apps.vit.train``, ``eval``, ``linear_probing``,
+``analysis``) with the run monitor (``monitor``) and the file-backed
+datasets (``data.images.datasets``), GPT-2,
 Llama and MoE causal-LM training with the fused head + CE loss
 (``ops.make_fused_head_loss``), and serving (``Model.generate``,
 ``models.serving.DecodeServer``, ``apps.gpt2.sample``/``serve``), through

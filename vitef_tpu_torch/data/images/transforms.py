@@ -1,7 +1,10 @@
 """Image transforms: the eval-path normalize and the train augment.
 
 Counterpart of ``vitef_tpu/data/images/transforms.py``: IMAGENET_MEAN/STD
-(:33-34), ``sample_resized_crop_params`` and ``sample_crop_batch`` (:89-130),
+(:33-34), the host PIL eval transform of file-backed images
+(``resize_shorter_pil``, ``center_crop_pil``, ``eval_transform_host``
+:42-81; PIL is imported inside them), ``sample_resized_crop_params`` and
+``sample_crop_batch`` (:89-130),
 the train augment ``augment_train_device`` (:237-255) with its kernel K10
 (``_augment_kernel`` :187-201, weights ``_bilinear_weights`` :173-184), and
 ``normalize_device`` / ``normalize_host`` (:258-271).
@@ -26,6 +29,57 @@ from ...ops._build import kernel_function
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def resize_shorter_pil(img, size: int):
+    """torchvision ``Resize(size)`` of a PIL image: the shorter side to
+    ``size``, the longer truncated to keep the aspect, PIL bilinear."""
+    from PIL import Image
+
+    w, h = img.size
+    if w <= h:
+        ow, oh = size, max(1, int(size * h / w))
+    else:
+        oh, ow = size, max(1, int(size * w / h))
+    if (ow, oh) == (w, h):
+        return img
+    return img.resize((ow, oh), Image.BILINEAR)
+
+
+def center_crop_pil(img, size: int):
+    """torchvision ``CenterCrop(size)`` of a PIL image, zero-padding a side
+    shorter than ``size``; the offsets round half to even, as Python's
+    ``round`` (torchvision's)."""
+    from PIL import Image
+
+    w, h = img.size
+    if w < size or h < size:
+        padded = Image.new(img.mode, (max(w, size), max(h, size)))
+        padded.paste(img, ((max(w, size) - w) // 2, (max(h, size) - h) // 2))
+        img = padded
+        w, h = img.size
+    left = int(round((w - size) / 2.0))
+    top = int(round((h - size) / 2.0))
+    return img.crop((left, top, left + size, top + size))
+
+
+def eval_transform_host(img, size: int) -> np.ndarray:
+    """Resize + CenterCrop of a PIL image on the host -> (size, size, 3) uint8
+    (the device normalizes)."""
+    arr = np.asarray(center_crop_pil(resize_shorter_pil(img, size), size), dtype=np.uint8)
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    return arr
+
+
+def resized_crop_pil(img, box, size: int) -> np.ndarray:
+    """The (top, left, h, w) ``box`` of a PIL image resized to (size, size)
+    by PIL's bilinear ``resize(box=...)`` -> uint8 (size, size, C)."""
+    from PIL import Image
+
+    top, left, h, w = box
+    img = img.resize((size, size), Image.BILINEAR, box=(left, top, left + w, top + h))
+    return np.asarray(img, np.uint8)
 
 
 def sample_resized_crop_params(

@@ -1,7 +1,6 @@
-"""Evaluation loop. Counterpart of ``run_evaluation`` in ``apps/vit/eval.py`` (:36-66).
-
-The checkpoint-backed ``eval`` command line comes with the monitor and
-checkpointer port.
+"""Evaluation loop. Counterpart of ``run_evaluation`` in ``apps/vit/eval.py``
+(:36-66); the ``eval`` command line that reads a run's checkpoint is
+:mod:`vitef_tpu_torch.apps.vit.eval`.
 """
 
 from __future__ import annotations

@@ -4,6 +4,8 @@ from .convert import (  # noqa: F401
     from_vitef_state_dict,
     hf_gpt2_to_vitef,
     hf_llama_to_vitef,
+    hf_vit_to_vitef,
+    to_jax_params,
 )
 from .gpt2 import (  # noqa: F401
     GPT2_SIZES,

@@ -15,6 +15,10 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
   E_model), while the 3-D expert stacks (n_experts, in, out) and the
   (n_experts, ·) expert biases keep their layout, which the port's grouped
   kernels read as they are.
+- :func:`to_jax_params` is its inverse: a port state dict as host arrays
+  under the same dotted names in the JAX layout, which is how
+  ``model.npz`` checkpoints hold parameters, so that either package loads
+  the other's.
 - :func:`from_vitef_state_dict` loads a torch-layout state dict with the
   reference vitef names (the ``checkpoints/{vit,gpt2}/<name>.npz`` caches;
   the inverse direction of ``torch_import.from_vitef_state_dict``), which
@@ -24,7 +28,9 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
   against the JAX package's from one cache.
 - :func:`hf_gpt2_to_vitef` renames a HuggingFace ``GPT2LMHeadModel`` state
   dict to those reference names (``torch_import.hf_gpt2_to_vitef`` :169-198),
-  and :func:`hf_llama_to_vitef` a ``LlamaForCausalLM`` one (:201-229).
+  :func:`hf_llama_to_vitef` a ``LlamaForCausalLM`` one (:201-229) and
+  :func:`hf_vit_to_vitef` a ``ViTForImageClassification`` one (:129-166).
+  Each converts a state dict already on disk; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -90,6 +96,20 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
             array = array.T
         state[name] = torch.tensor(array)
     return state
+
+
+def to_jax_params(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Port state dict -> ``{dotted name: host array}`` in the JAX layout, the
+    inverse of :func:`from_jax_params`: every 2-D ``weight`` but the token
+    table is transposed to (in, out), every other tensor keeps its shape and
+    dtype. The arrays are copies (off the card, synchronously)."""
+    out = {}
+    for name, value in state.items():
+        value = value.detach()
+        if name.endswith("weight") and value.dim() == 2 and name not in _TABLES:
+            value = value.t().contiguous()
+        out[name] = value.to("cpu", copy=True).numpy()
+    return out
 
 
 def _array_to_tensor(array) -> torch.Tensor:
@@ -201,4 +221,39 @@ def hf_llama_to_vitef(hf: dict[str, np.ndarray], n_layers: int) -> dict[str, np.
         out[v + "ffn.fc1.weight"] = np.concatenate(
             [hf[h + "mlp.gate_proj.weight"], hf[h + "mlp.up_proj.weight"]], axis=0)
         out[v + "ffn.fc2.weight"] = hf[h + "mlp.down_proj.weight"]
+    return out
+
+
+def hf_vit_to_vitef(hf: dict[str, np.ndarray], n_layers: int) -> dict[str, np.ndarray]:
+    """HuggingFace ``ViTForImageClassification`` state dict -> reference vitef
+    names, torch layout (numpy arrays), as :func:`load_weight_cache` reads
+    them. q/k/v (weights and biases) concatenate into the packed qkv; the
+    patch projection keeps its Conv2d shape."""
+    out = {
+        "embedding.cls_token": hf["vit.embeddings.cls_token"],
+        "embedding.patching.patching.0.weight":
+            hf["vit.embeddings.patch_embeddings.projection.weight"],
+        "embedding.patching.patching.0.bias": hf["vit.embeddings.patch_embeddings.projection.bias"],
+        "embedding.pos_emb": hf["vit.embeddings.position_embeddings"],
+        "output.output_layer.output_norm.weight": hf["vit.layernorm.weight"],
+        "output.output_layer.output_norm.bias": hf["vit.layernorm.bias"],
+        "output.output_layer.output.weight": hf["classifier.weight"],
+        "output.output_layer.output.bias": hf["classifier.bias"],
+    }
+    for i in range(n_layers):
+        h, v = f"vit.encoder.layer.{i}.", f"blocks.{i}."
+        out[v + "attn_norm.weight"] = hf[h + "layernorm_before.weight"]
+        out[v + "attn_norm.bias"] = hf[h + "layernorm_before.bias"]
+        out[v + "attn.output.weight"] = hf[h + "attention.output.dense.weight"]
+        out[v + "attn.output.bias"] = hf[h + "attention.output.dense.bias"]
+        out[v + "ffn_norm.weight"] = hf[h + "layernorm_after.weight"]
+        out[v + "ffn_norm.bias"] = hf[h + "layernorm_after.bias"]
+        out[v + "ffn.fc1.weight"] = hf[h + "intermediate.dense.weight"]
+        out[v + "ffn.fc1.bias"] = hf[h + "intermediate.dense.bias"]
+        out[v + "ffn.fc2.weight"] = hf[h + "output.dense.weight"]
+        out[v + "ffn.fc2.bias"] = hf[h + "output.dense.bias"]
+        for kind in ("weight", "bias"):
+            out[v + f"attn.qkv_mat.{kind}"] = np.concatenate(
+                [hf[h + f"attention.attention.{m}.{kind}"] for m in ("query", "key", "value")],
+                axis=0)
     return out

@@ -88,8 +88,10 @@ class Model:
 
 
 def build_model(config: dict[str, Any], *, device,
-                generator: torch.Generator | None = None) -> Model:
-    """Build a model on ``device`` from a flat dict config.
+                generator: torch.Generator | None = None, return_config: bool = False):
+    """Build a model on ``device`` from a flat dict config; with
+    ``return_config``, also the family config's fields as a json-ready dict
+    (what a checkpoint's ``params.json`` holds, as in the JAX package).
 
     Parameters are drawn on the CPU from ``generator`` (default: seeded with
     ``config["seed"]``, else 0) and then moved to ``device``. The module is
@@ -134,4 +136,9 @@ def build_model(config: dict[str, Any], *, device,
     else:
         raise ValueError(f"Implementation {implementation} not found.")
 
-    return Model(module=module.eval(), config=tcfg, name=name)
+    model = Model(module=module.eval(), config=tcfg, name=name)
+    if return_config:
+        from ..utils.typed import asdict_filtered
+
+        return model, asdict_filtered(cfg)
+    return model

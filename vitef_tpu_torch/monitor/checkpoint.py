@@ -1,0 +1,370 @@
+"""Checkpoint manager: saves written in the background, in the JAX package's
+on-disk layout. Counterpart of ``vitef_tpu/monitor/checkpoint.py``
+(``CheckpointerConfig`` :50-60, the single-file layout :89-103 and
+:185-201, ``Checkpointer`` :204-462).
+
+- Step dirs ``{:010d}`` under ``<run>/checkpoints/``, each written into a
+  temporary dir and renamed, so a dir appears whole: ``model.npz``,
+  ``optim.npz``, ``training.json``, the model's ``params.json`` and an
+  optional ``eval_<flag>`` marker that keeps the dir from the keep-last-
+  ``n_kept`` clean-up.
+- ``model.npz`` holds the parameters under the JAX package's dotted keys in
+  its layout, linear weights (in, out) (:func:`model_state`, through
+  :func:`~vitef_tpu_torch.models.convert.to_jax_params`), so either package
+  loads the other's checkpoints.
+- ``optim.npz`` holds torch's optimizer buffers (SGD's ``momentum_buffer``,
+  AdamW's ``exp_avg``, ``exp_avg_sq`` and ``step``) under
+  ``<parameter name>.<buffer>``, with an entry naming the optimizer class
+  (:func:`optimizer_state`). An ``optim.npz`` the JAX package wrote holds
+  optax state, which the port does not read: loading it raises
+  NotImplementedError rather than starting from a fresh optimizer.
+- Staging: torch's optimizers update the parameters in place, so
+  :meth:`Checkpointer.save` copies the whole state to the host, synchronously
+  on the caller's thread, before it returns; only the file writes run on
+  the worker thread, one save at a time. ``Checkpointer.timings`` records
+  each save's staging and writing seconds.
+- Entering the checkpointer resumes from the newest complete checkpoint;
+  ``sync_step`` makes the exit-time save a no-op once the wanted checkpoint
+  (the best evaluated one) is on disk.
+
+The sharded layout of several processes (``model.shard<rank>.npz`` and
+``index.json``) is not ported: saving it or loading from it raises.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import re
+import shutil
+import tempfile
+import time
+from collections import defaultdict
+from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from ..models.convert import from_jax_params, to_jax_params
+from ..parallel.mesh import get_rank, is_master_process
+from ..utils.tree import json_serializable
+
+logger = logging.getLogger("vitef")
+
+# The entry of optim.npz that names the torch optimizer class of its buffers.
+OPTIM_LAYOUT_KEY = "torch_optimizer"
+
+
+@dataclass
+class CheckpointerConfig:
+    period: int = 0
+    n_kept: int = 0
+    path: str = ""
+
+    def __post_init__(self):
+        if self.period > 0 and not self.path:
+            raise ValueError("Path was not set.")
+
+
+# ------------------------------------------------------------------------------
+# State <-> flat host arrays
+# ------------------------------------------------------------------------------
+
+
+def _host(value) -> np.ndarray:
+    """``value`` on the host: a tensor is copied, synchronously, off its device;
+    an array is taken as it is."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", copy=True).numpy()
+    return np.asarray(value)
+
+
+def model_state(module: nn.Module) -> dict[str, np.ndarray]:
+    """The module's state as ``model.npz`` holds it: host copies under the
+    JAX package's dotted keys, linear weights (in, out)."""
+    return to_jax_params(module.state_dict())
+
+
+def load_model_state(module: nn.Module, flat: dict[str, np.ndarray]) -> None:
+    """Load ``model.npz``'s entries into ``module`` in place. Every entry of
+    the module must be there (KeyError names the first missing one); extra
+    entries are ignored, as the JAX package ignores them."""
+    state = from_jax_params(flat)
+    own = module.state_dict()
+    for key in own:
+        if key not in state:
+            raise KeyError(f"checkpoint missing entry {key!r}")
+    module.load_state_dict({key: state[key].reshape(value.shape)
+                            for key, value in own.items()})
+
+
+def optimizer_state(optimizer: torch.optim.Optimizer, module: nn.Module) -> dict[str, np.ndarray]:
+    """The optimizer's buffers as ``optim.npz`` holds them: host copies under
+    ``<parameter name>.<buffer>``, and the optimizer's class under
+    ``OPTIM_LAYOUT_KEY``."""
+    names = {p: name for name, p in module.named_parameters()}
+    flat = {OPTIM_LAYOUT_KEY: np.array(type(optimizer).__name__)}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            for key, value in optimizer.state.get(p, {}).items():
+                if value is not None:
+                    flat[f"{names[p]}.{key}"] = _host(value)
+    return flat
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, module: nn.Module,
+                         flat: dict[str, np.ndarray]) -> None:
+    """Load ``optim.npz``'s buffers (:func:`optimizer_state`'s layout) into
+    ``optimizer``. Raises NotImplementedError for an ``optim.npz`` of the
+    JAX package (optax state), ValueError for another optimizer class or a
+    buffer of a parameter this optimizer does not update."""
+    if OPTIM_LAYOUT_KEY not in flat:
+        raise NotImplementedError(
+            "optim.npz holds optax state (the JAX package's layout), which the port does "
+            "not load; resume it with the JAX package, or start the port from model.npz "
+            "alone by removing optim.npz")
+    kind = str(flat[OPTIM_LAYOUT_KEY])
+    if kind != type(optimizer).__name__:
+        raise ValueError(f"optim.npz holds {kind} state, the optimizer is "
+                         f"{type(optimizer).__name__}")
+    params = dict(module.named_parameters())
+    updated = {p for group in optimizer.param_groups for p in group["params"]}
+    entries: dict[str, dict] = defaultdict(dict)
+    for key, value in flat.items():
+        if key != OPTIM_LAYOUT_KEY:
+            name, _, buffer = key.rpartition(".")
+            entries[name][buffer] = value
+    for name, buffers in entries.items():
+        p = params.get(name)
+        if p is None or p not in updated:
+            raise ValueError(f"optim.npz holds state of {name!r}, which this optimizer "
+                             "does not update")
+        # a 0-d step counter stays on the host, as torch keeps it
+        optimizer.state[p] = {
+            buffer: torch.as_tensor(value) if buffer == "step"
+            else torch.as_tensor(value).to(p.device)
+            for buffer, value in buffers.items()}
+
+
+def _write_state(path: Path, state: dict[str, Any]) -> None:
+    """Write host state into ``path`` atomically (tmp dir + rename)."""
+    tmp = Path(tempfile.mkdtemp(prefix=f".tmp_{path.name}_", dir=path.parent))
+    try:
+        np.savez(tmp / "model.npz", **state["model"])
+        if state.get("optim") is not None:
+            np.savez(tmp / "optim.npz", **state["optim"])
+        with open(tmp / "training.json", "w") as f:
+            json.dump(state.get("training", {}), f)
+        if path.exists():  # re-save at the same step
+            shutil.rmtree(path)
+        tmp.rename(path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def _load_flat(path: Path, prefix: str) -> dict[str, np.ndarray] | None:
+    """A state entry's ``<prefix>.npz`` as a dict, None when absent."""
+    if (path / f"{prefix}.npz").exists():
+        with np.load(path / f"{prefix}.npz") as z:
+            return {k: z[k] for k in z.files}
+    if (path / f"{prefix}.shard0.npz").exists():
+        raise NotImplementedError(
+            f"{path} holds a sharded checkpoint of several processes, which the port "
+            "does not load")
+    return None
+
+
+def load_checkpoint_params(path, module: nn.Module) -> nn.Module:
+    """Load only the ``model`` entry of the checkpoint dir ``path`` into
+    ``module`` (what eval and linear probing read) and return it."""
+    flat = _load_flat(Path(path), "model")
+    if flat is None:
+        raise FileNotFoundError(f"no model entry in checkpoint {path}")
+    load_model_state(module, flat)
+    return module
+
+
+class Checkpointer:
+    """The JAX package's checkpoint lifecycle over host-staged state.
+
+    ``get_state() -> {"model": flat, "optim": flat | None, "training": dict}``
+    gives the state to save (tensors or arrays; tensors are copied to the
+    host); ``set_state(model_flat, optim_flat, training)`` applies a loaded
+    checkpoint.
+    """
+
+    folder_name = "{:010d}"
+    re_folder = r"\d{10}"
+    re_digits = re.compile(r"\d+")
+
+    def __init__(self, config: CheckpointerConfig, get_state, set_state=None,
+                 model_config: dict | None = None):
+        self.period = config.period
+        self.n_kept = config.n_kept
+        self.path = Path(config.path)
+        self.path.mkdir(parents=True, exist_ok=True)
+
+        self.get_state = get_state
+        self.set_state = set_state
+        self.model_config = model_config
+
+        self.device_rank = get_rank()
+        self.saved_step = 0
+        self.step = 0
+        self.process: Future | None = None
+        self._executor = ThreadPoolExecutor(max_workers=1)
+        self.timings: list[dict] = []
+
+    def sync_step(self, step: int) -> None:
+        """Set both the current and the saved step to ``step``."""
+        self.saved_step = self.step = step
+
+    def __enter__(self) -> "Checkpointer":
+        path = self.get_last_checkpoint_path(self.path)
+        if path:
+            self.load(path)
+        return self
+
+    def __exit__(self, exc, value, tb):
+        try:
+            if self.saved_step != self.step:
+                self.update()
+            if self.process is not None:
+                logger.info("Waiting for final checkpoint to complete.")
+                self.process.result()
+        finally:
+            self._executor.shutdown(wait=True)
+
+    def __call__(self) -> None:
+        """A train step's tick: saves every ``period`` steps."""
+        self.step += 1
+        if self.period > 0 and self.step % self.period == 0:
+            self.update()
+
+    def update(self, eval_flag: str = "") -> None:
+        """Save at the current step; at a step already saved, only add the flag."""
+        path = self.path / self.folder_name.format(self.step)
+        if self.saved_step == self.step:
+            if eval_flag:
+                self._wait()
+                if path.exists():
+                    (path / f"eval_{eval_flag}").touch()
+            return
+        self.save(path, eval_flag)
+        self._cleaning()
+        self.saved_step = self.step
+
+    def load(self, path) -> None:
+        logger.info(f"Loading checkpoint from {str(path)}.")
+        path = Path(path)
+        model_flat = _load_flat(path, "model")
+        if model_flat is None:
+            raise FileNotFoundError(f"no model entry in checkpoint {path}")
+        optim_flat = _load_flat(path, "optim")
+        with open(path / "training.json") as f:
+            training = json.load(f)
+        if self.set_state is None:
+            raise RuntimeError("Checkpointer has no set_state; cannot resume.")
+        self.set_state(model_flat, optim_flat, training)
+        self.sync_step(int(training.get("step", 0)))
+
+    def save(self, path, eval_flag: str = "") -> None:
+        """Join the previous save, copy the state to the host on this thread,
+        and write it on the worker thread."""
+        self._wait()
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            raise NotImplementedError("the sharded checkpoint of several processes is not "
+                                      "ported")
+        if not is_master_process():
+            return
+        logger.info(f"Saving checkpoint at step {self.step} to {str(path)}.")
+        t0 = time.perf_counter()
+        state = self.get_state()
+        staged = {
+            "model": {k: _host(v) for k, v in state["model"].items()},
+            "optim": ({k: _host(v) for k, v in state["optim"].items()}
+                      if state.get("optim") is not None else None),
+            "training": dict(state.get("training", {})),
+        }
+        timing = {"step": self.step, "stage_s": time.perf_counter() - t0}
+        self.timings.append(timing)
+        model_config = self.model_config
+
+        def write():
+            t1 = time.perf_counter()
+            _write_state(Path(path), staged)
+            if eval_flag:
+                (Path(path) / f"eval_{eval_flag}").touch()
+            if model_config is not None:
+                with open(Path(path) / "params.json", "w") as f:
+                    json.dump(json_serializable(model_config), f)
+            timing["write_s"] = time.perf_counter() - t1
+
+        self.process = self._executor.submit(write)
+
+    @classmethod
+    def is_complete(cls, path) -> bool:
+        """A dir is complete when its ``model.npz`` and ``training.json`` are
+        there, or (a sharded one) its ``index.json``, ``training.json`` and
+        every shard."""
+        path = Path(path)
+        if (path / "model.npz").exists():
+            return (path / "training.json").exists()
+        index_file = path / "index.json"
+        if not index_file.exists() or not (path / "training.json").exists():
+            return False
+        try:
+            with open(index_file) as f:
+                n = int(json.load(f)["n_processes"])
+        except (ValueError, KeyError, json.JSONDecodeError):
+            return False
+        return all((path / f"model.shard{r}.npz").exists() for r in range(n))
+
+    @classmethod
+    def get_last_checkpoint_path(cls, path) -> str:
+        """The newest complete checkpoint dir, "" when there is none: a dir
+        still being written, or left by a crash, never shadows it."""
+        folders = [p for p in cls._list_checkpoints(Path(path)) if cls.is_complete(p)]
+        if folders:
+            return str(max(folders, key=lambda p: cls._get_key_step(p.name)))
+        return ""
+
+    def _wait(self) -> None:
+        if self.process is not None:
+            self.process.result()
+            self.process = None
+
+    def _cleaning(self) -> None:
+        """Keep the newest ``n_kept`` complete checkpoints, and any with an
+        ``eval_*`` marker; incomplete dirs older than the newest complete
+        one are removed too."""
+        if self.n_kept <= 0 or not is_master_process():
+            return
+        self._wait()
+        all_checkpoints = sorted(self._list_checkpoints(self.path),
+                                 key=lambda p: self._get_key_step(p.name))
+        complete = [p for p in all_checkpoints if self.is_complete(p)]
+        removable = set(complete[: -self.n_kept])
+        if complete:
+            newest_complete = self._get_key_step(complete[-1].name)
+            removable |= {p for p in all_checkpoints
+                          if not self.is_complete(p)
+                          and self._get_key_step(p.name) < newest_complete}
+        for prefix in sorted(removable, key=lambda p: self._get_key_step(p.name)):
+            if not any(prefix.glob("eval_*")):
+                logger.info(f"Removing: {str(prefix)}")
+                shutil.rmtree(prefix)
+
+    @classmethod
+    def _list_checkpoints(cls, path: Path) -> list[Path]:
+        return [p for p in path.iterdir() if p.is_dir() and re.match(cls.re_folder, p.name)]
+
+    @classmethod
+    def _get_key_step(cls, name: str) -> int:
+        return int(re.findall(cls.re_digits, name)[-1])

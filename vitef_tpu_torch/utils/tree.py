@@ -1,6 +1,6 @@
-"""Tensor and dict helpers of the read-outs. Counterpart of
-``vitef_tpu/utils/tree.py`` (:16-93): ``get_valid_tensor``, ``get_numpy``,
-``json_serializable`` and ``update_dict``.
+"""Tensor and dict helpers. Counterpart of ``vitef_tpu/utils/tree.py``
+(:16-107): ``get_valid_tensor``, ``get_numpy``, ``json_serializable``,
+``update_dict`` and ``deterministic_split``.
 """
 
 from __future__ import annotations
@@ -47,3 +47,17 @@ def update_dict(acc: dict, new: dict) -> dict:
         v = get_numpy(v)
         acc[k] = np.concatenate([acc[k], v], axis=0) if k in acc else v
     return acc
+
+
+def deterministic_split(n: int, split: float = 0.8) -> tuple[np.ndarray, np.ndarray]:
+    """The first ``int(split * n)`` indices of a permutation of ``n`` drawn from
+    numpy's global RNG seeded with 42, and the rest; the global RNG's state is
+    saved before and restored after, so that the caller's draws are not
+    moved. The JAX package draws the same permutation, so both packages put
+    the same images in each split."""
+    state = np.random.get_state()
+    np.random.seed(42)
+    perm = np.random.permutation(n)
+    np.random.set_state(state)
+    n_train = int(split * n)
+    return perm[:n_train], perm[n_train:]
