@@ -247,7 +247,22 @@ Phases (each raises on failure, so the run exits non-zero):
     second set of 5,000 + 1,000 images (a test accuracy for each of the 96
     keys); then ``train_phase``'s protocol with the same freeze at 1 x 512
     and 2 x 256 (2 warm-up and 10 timed steps each), with the peak memory of
-    each and what the command line adds per step.
+    each and what the command line adds per step;
+35. the paper's figures (after 34, on its CIFAR-10 files, then removed):
+    the loss-landscape ``save`` command (``apps/plots/loss_landscape.py``'s
+    ``save_results``: ln1, fc1 and mha at block 0 of ViT-B/16 in float32
+    from random weights, batch 4, 20 SGD steps at lr 1e-3, a 20 x 20 grid
+    over +-0.5; no kernel: float32 at L = 197 takes the plain attention),
+    each surface recomputed on the host CPU at its four corners and one
+    interior point from the card's weights, batch and directions within
+    1e-4 relative (TF32 off), each PCA plane orthonormal and equal to
+    numpy's SVD of the same trajectory under the sign rule; the token radius
+    at ``print_radius``'s settings (batch 16, 1,000 steps), its first 20
+    steps equal on the card and the host; the bounds' ``save`` at base/16,
+    large/16 and huge/14, a few blocks of each against scipy's float64 SVDs
+    of the same weights within 1e-5; phase 34's run read back by
+    ``get_single_exp`` under its sweep name; seconds per SGD step, per
+    surface, for the radius and for each model's bounds.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -259,6 +274,7 @@ The second-to-last line is a JSON object describing each kernel; the last is
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import gc
@@ -286,6 +302,9 @@ APPS_ROOT = Path(tempfile.gettempdir()) / f"vitef_chip_smoke_{os.getpid()}"
 os.environ["VITEF_SAVING_DIR"] = str(APPS_ROOT / "savings")
 
 from vitef_tpu_torch.apps.gpt2 import sample as SAMPLE_APP
+from vitef_tpu_torch.apps.plots import finetuning as PLOT_FT
+from vitef_tpu_torch.apps.plots import loss_landscape as LL
+from vitef_tpu_torch.apps.plots import theory as TH
 from vitef_tpu_torch.apps.gpt2 import serve as SERVE_APP
 from vitef_tpu_torch.apps.vit import analysis as AN
 from vitef_tpu_torch.apps.vit import linear_probing as LP
@@ -558,6 +577,29 @@ APPS_BATCH = 512
 TRAIN_RECORD_KEYS = {"loss", "step", "lr", "grad_norm", "elapsed_steps", "ts"}
 EVAL_RECORD_KEYS = {"eval_acc", "eval_loss", "step", "ts"}
 CHECKPOINT_FILES = {"model.npz", "optim.npz", "training.json", "params.json"}
+# The sweep's name of that run (sweep_lib.sh: its freeze config is comp_1),
+# which the plots' readers parse.
+APPS_LOG_DIR = "vit_cifar10_seed_42_lr_1e-2_comp_1"
+
+# The plots phase, on phase 34's CIFAR-10 files: the loss-landscape ``save``
+# command (save_results' defaults: ln1, fc1 and mha at block 0 of ViT-B/16
+# in float32, batch 4, 20 SGD steps at lr 1e-3, a 20 x 20 grid over +-0.5),
+# each surface recomputed on the host CPU at its four corners and one
+# interior point within PLOTS_REL of the card's (float32 both, TF32 off:
+# the card and the host sum in different orders, ~1e-6 relative); each PCA
+# plane against numpy's SVD of the same trajectory in float64. Then the
+# token radius at print_radius's settings and the bounds of ViT-B/16,
+# ViT-L/16 and ViT-H/14, a few blocks of each against scipy's float64 SVDs
+# on the host (float32 SVDs on the card, ~1e-6 relative).
+PLOTS_POINTS = [(0, 0), (0, 19), (19, 0), (19, 19), (7, 12)]   # (row j, column i)
+PLOTS_REL = 1e-4
+PCA_ABS = 1e-6
+RADIUS = {"model_name": "base", "patch_size": 16, "dataset_name": "cifar10",
+          "batch_size": 16, "max_steps": 1000}
+RADIUS_HOST_STEPS = 20
+BOUND_MODELS = [("base", 16), ("large", 16), ("huge", 14)]
+BOUND_CHECK_BLOCKS = {"base": [0, 11], "large": [23], "huge": [31]}
+BOUND_REL = 1e-5
 
 # The serving slice: GPT-2 base in bf16 (random weights from seed 0;
 # pretrained=True falls back to them without a local cache) at
@@ -3453,7 +3495,7 @@ def write_cifar10(root: Path, n_train: int, n_test: int, seed: int = 0) -> Path:
 
 def apps_train_argv(data_dir: Path, log_dir: str) -> list[str]:
     return [f"config={REPO_ROOT / 'apps/vit/configs/cifar10.yaml'}", "pretrained=False",
-            f"data_dir={data_dir}", f"n_steps={APPS_STEPS}", "warmup=10",
+            "seed=42", "lr=1e-2", f"data_dir={data_dir}", f"n_steps={APPS_STEPS}", "warmup=10",
             f"eval_period={APPS_EVAL_PERIOD}", f"logging_period={APPS_LOGGING_PERIOD}",
             "components=" + json.dumps(APPS_COMPONENTS, separators=(",", ":")),
             f"log_dir={log_dir}"]
@@ -3545,12 +3587,13 @@ def check_run_dir(run: Path, steps: int, init: dict) -> tuple[list, list, Path]:
     return train, evals, ckpts[0]
 
 
-def vit_apps_phase(device, card_line: str) -> None:
+def vit_apps_phase(device, card_line: str) -> Path:
     """The paper's experiment through the port's command lines on the card:
     train (K10, K1, K2 each step, K1 in every evaluation batch, no plain
     version), the run dir's contract, a resume, the eval command line as a
-    subprocess and linear probing; then 10 steps at 1 x 512 and 2 x 256."""
-    log_dir = "vit_cifar10_smoke"
+    subprocess and linear probing; then 10 steps at 1 x 512 and 2 x 256.
+    Returns the CIFAR-10 files' dir; the caller removes ``APPS_ROOT``."""
+    log_dir = APPS_LOG_DIR
     run = APPS_ROOT / "savings" / "runs" / log_dir
     try:
         t0 = time.perf_counter()
@@ -3721,12 +3764,229 @@ def vit_apps_phase(device, card_line: str) -> None:
               f"{split[AUTO_MICROBATCH]['loader_img_s']:.2f}, "
               f"{split[AUTO_MICROBATCH]['device_img_s']:.2f}, peak "
               f"{split[AUTO_MICROBATCH]['peak_gib']:.3f} GiB")
+        return data
     finally:
         # the command lines' Logger left its file and stream handlers on "vitef"
         for handler in logging.getLogger("vitef").handlers[:]:
             logging.getLogger("vitef").removeHandler(handler)
             handler.close()
-        shutil.rmtree(APPS_ROOT, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The paper's figures: the loss-landscape surfaces, the radius and the bounds
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def landscape_probes():
+    """Keep each ``compute_landscape`` result, and time (synchronized) each
+    SGD trajectory and each surface grid."""
+    kept, timings = [], {"sgd": [], "grid": []}
+    real = LL.compute_landscape, LL.sgd_trajectory, LL.surface_grid
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timings[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def keep(*args, **kwargs):
+        kept.append(real[0](*args, **kwargs))
+        return kept[-1]
+
+    LL.compute_landscape, LL.sgd_trajectory, LL.surface_grid = (
+        keep, timed(real[1], "sgd"), timed(real[2], "grid"))
+    try:
+        yield kept, timings
+    finally:
+        LL.compute_landscape, LL.sgd_trajectory, LL.surface_grid = real
+
+
+def sign_rule(components: np.ndarray) -> np.ndarray:
+    """Each row flipped so that its entry of largest magnitude is positive."""
+    largest = np.abs(components).argmax(axis=1)
+    return components * np.sign(components[np.arange(len(components)), largest])[:, None]
+
+
+def landscape_check(result, comp: str) -> str:
+    """One component's surfaces at PLOTS_POINTS recomputed on the host CPU
+    from the card's weights, batch and directions, and its PCA plane against
+    numpy's SVD of the same trajectory."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on for the float32 surfaces")
+    model = result.component.model
+    host = Model(module=copy.deepcopy(model.module).cpu(), config=model.config, name=model.name)
+    host_component = LL.Component(host, 0, comp)
+    host_plane = result.plane.to("cpu")
+    worst = 0.0
+    for j, i in PLOTS_POINTS:
+        z_loss, z_func = LL.surface_point(host_component, host_plane, result.u_coords[i],
+                                          result.v_coords[j])
+        for got, want, label in [(result.Z_loss[j, i], float(z_loss), "loss"),
+                                 (result.Z_func[j, i], float(z_func), "rate of change")]:
+            rel = abs(float(got) - want) / abs(want)
+            worst = max(worst, rel)
+            if not (np.isfinite(got) and rel <= PLOTS_REL):
+                raise AssertionError(f"{comp} {label} at (u, v) = ({result.u_coords[i]:.4f}, "
+                                     f"{result.v_coords[j]:.4f}): card {got}, host {want}")
+    trajectory = result.params.cpu().double().numpy()
+    trajectory -= trajectory.mean(axis=0)
+    _, svals, vt = np.linalg.svd(trajectory, full_matrices=False)
+    want = sign_rule(vt[:2])
+    got = torch.stack([result.plane.p_dx, result.plane.p_dy]).cpu().double().numpy()
+    gram = got @ got.T
+    pca_err = float(np.abs(got - want).max())
+    if pca_err > PCA_ABS or np.abs(gram - np.eye(2)).max() > PCA_ABS:
+        raise AssertionError(f"{comp}'s PCA plane is {pca_err} from numpy's SVD (Gram "
+                             f"{gram.tolist()})")
+    del host, host_component, host_plane
+    return (f"{comp}: 5 points within {worst:.2e} of the host's; PCA plane within "
+            f"{pca_err:.2e} of numpy's SVD, singular values {svals[0]:.4e}, {svals[1]:.4e}")
+
+
+def bounds_check(model, name: str, r: float, bounds: tuple, blocks: list[int]) -> float:
+    """The bounds of ``blocks`` recomputed on the host from the card's weights
+    with scipy's SVDs in float64; the largest relative difference."""
+    from scipy.linalg import svdvals
+
+    ln1, mha, ln2, fc1, fc2 = bounds
+    n_heads, e, seq_len = TH.N_HEADS[name], TH.EMB_DIM[name], TH.SEQ_LEN[model.config.patch_size]
+    d = e // n_heads
+    worst = 0.0
+    for b in blocks:
+        block = model.module.blocks[b]
+        w = {k: v.detach().cpu().double().numpy() for k, v in block.state_dict().items()}
+        q, k, v = np.split(w["attn.qkv_mat.weight"], 3)
+        out = w["attn.output.weight"]
+        comp = 0.0
+        for h in range(n_heads):
+            sl = slice(h * d, (h + 1) * d)
+            s_qk = svdvals(q[:, sl] @ k[:, sl].T / math.sqrt(d))[0]
+            comp += svdvals(out[:, sl])[0] * svdvals(v[:, sl])[0] * math.sqrt(
+                3 * seq_len + (12 * seq_len + 3) * r**4 * s_qk**2)
+        want = {"LN1": w["attn_norm.weight"].max(), "LN2": w["ffn_norm.weight"].max(),
+                "FC1": svdvals(w["ffn.fc1.weight"])[0], "FC2": svdvals(w["ffn.fc2.weight"])[0],
+                "MHA": comp}
+        got = {"LN1": ln1[b], "LN2": ln2[b], "FC1": fc1[b], "FC2": fc2[b], "MHA": mha[b]}
+        for key in want:
+            rel = abs(got[key] - want[key]) / abs(want[key])
+            worst = max(worst, rel)
+            if rel > BOUND_REL:
+                raise AssertionError(f"{name} block {b} {key} bound: card {got[key]}, host "
+                                     f"{want[key]}")
+    return worst
+
+
+def landscape_phase(card_line: str, data: Path) -> None:
+    """The loss-landscape ``save`` command on the card, each surface and PCA
+    plane checked on the host."""
+    with landscape_probes() as (kept, timings):
+        t0 = time.perf_counter()
+        LL.save_results(data_dir=str(data), device="cuda")
+        save_seconds = time.perf_counter() - t0
+    comps = ["ln1", "fc1", "mha"]
+    if len(kept) != 3:
+        raise AssertionError(f"save_results computed {len(kept)} landscapes")
+    for comp, result, sgd_s, grid_s in zip(comps, kept, timings["sgd"], timings["grid"]):
+        saved = {}
+        for key in ("loss", "func", "u_coords", "v_coords", "traj"):
+            with open(LL.SAVE_DIR / f"{comp}_block_0" / f"{key}.pkl", "rb") as f:
+                saved[key] = pickle.load(f)
+        if not (saved["loss"].shape == saved["func"].shape == (20, 20)
+                and np.isfinite(saved["loss"]).all() and (saved["func"] > 0).all()
+                and len(saved["traj"]) == 20 and np.array_equal(saved["loss"], result.Z_loss)):
+            raise AssertionError(f"{comp}'s pickled surfaces are off")
+        n_params = result.params.shape[1]
+        print(f"loss landscape {comp} block 0 ({card_line}): {n_params:,} parameters; "
+              f"{sgd_s / 20 * 1e3:.3f} ms per SGD step (20 steps, batch 4, loss "
+              f"{float(result.losses[0]):.4f} -> {float(result.losses[-1]):.4f}); surface "
+              f"grid of 400 points {grid_s:.3f} s ({grid_s / 400 * 1e3:.3f} ms a point, "
+              f"both surfaces); loss {saved['loss'].min():.4f}..{saved['loss'].max():.4f}, "
+              f"rate of change {saved['func'].min():.4f}..{saved['func'].max():.4f}; "
+              + landscape_check(result, comp))
+    print(f"loss landscape save command: {save_seconds:.2f} s for 3 components")
+
+
+def theory_phase(card_line: str, data: Path) -> None:
+    """The token radius at print_radius's settings and the ``save`` command's
+    bounds at base/16, large/16 and huge/14 on the card, checked on the host."""
+    t0 = time.perf_counter()
+    r = TH.get_radius(**RADIUS, data_dir=str(data), device="cuda")
+    radius_s = time.perf_counter() - t0
+    short = {**RADIUS, "max_steps": RADIUS_HOST_STEPS, "data_dir": str(data)}
+    r_card, r_host = TH.get_radius(**short, device="cuda"), TH.get_radius(**short, device="cpu")
+    if not (np.isfinite(r) and r > 0 and abs(r_card - r_host) <= BOUND_REL * r_host):
+        raise AssertionError(f"radius {r}; over {RADIUS_HOST_STEPS} batches card {r_card}, "
+                             f"host {r_host}")
+    print(f"radius ({card_line}): r = {r:.6f} over {RADIUS['max_steps']} batches of "
+          f"{RADIUS['batch_size']} in {radius_s:.3f} s ({radius_s / RADIUS['max_steps'] * 1e3:.3f}"
+          f" ms a batch); over {RADIUS_HOST_STEPS} batches card {r_card:.7f}, host CPU "
+          f"{r_host:.7f}")
+
+    built = []
+    real_build = TH._build_vit
+    TH._build_vit = lambda *args: built.append(real_build(*args)) or built[-1]
+    try:
+        for name, patch in BOUND_MODELS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = TH.save_bounds(name, patch, r=r, device="cuda")
+            seconds = time.perf_counter() - t0
+            with open(path, "rb") as f:
+                bounds = pickle.load(f)
+            n_layers = TH.N_LAYERS[name]
+            if not (len(bounds) == 5 and all(len(b) == n_layers for b in bounds)
+                    and np.isfinite(bounds).all() and (np.asarray(bounds) > 0).all()):
+                raise AssertionError(f"{name}'s bounds are off: {bounds}")
+            model = built.pop()
+            t1 = time.perf_counter()
+            blocks = BOUND_CHECK_BLOCKS[name]
+            worst = bounds_check(model, name, r, bounds, blocks)
+            print(f"bounds ViT-{name}/{patch} ({card_line}): {seconds:.3f} s (model build "
+                  f"included); blocks {blocks} within {worst:.2e} of scipy's "
+                  f"float64 SVDs on the host ({time.perf_counter() - t1:.2f} s); MHA "
+                  f"{bounds[1][0]:.4e}..{bounds[1][-1]:.4e}, FC1 {bounds[3][0]:.4f}, "
+                  f"FC2 {bounds[4][0]:.4f}, LN1 {bounds[0][0]:.4f}")
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        TH._build_vit = real_build
+
+
+def plots_reader_check() -> None:
+    """Phase 34's run read back by the plots' reader under its sweep name."""
+    training, validation, eval_data = PLOT_FT.get_single_exp("cifar10", 42, "1e-2", 1)
+    run = PLOT_FT.RUNS_DIR / APPS_LOG_DIR
+    records = jsonl(run / "metrics" / "raw_0.jsonl")
+    (test,) = jsonl(run / "metrics" / "eval.jsonl")
+    ckpt = sorted(p.name for p in (run / "checkpoints").iterdir())[-1]
+    if not (eval_data["trainable_components"] == "emb" and eval_data["n_step"] == ckpt
+            and eval_data["test_acc"] == test["test_acc"]
+            and list(training[0]) == [r["step"] for r in records if "loss" in r]
+            and list(validation[2]) == [r["eval_acc"] for r in records if "eval_acc" in r]):
+        raise AssertionError(f"get_single_exp read {eval_data}")
+    print(f"plots reader: get_single_exp('cifar10', 42, '1e-2', 1) on {APPS_LOG_DIR}: "
+          f"trainable {eval_data['trainable_components']}, checkpoint {eval_data['n_step']}, "
+          f"test_acc {eval_data['test_acc']:.6f}, {len(training[0])} train and "
+          f"{len(validation[0])} eval records")
+
+
+def plots_phase(card_line: str, data: Path) -> None:
+    """The paper's figures' computations on the card: the loss-landscape
+    ``save`` command, the token radius and the bounds at three sizes, each
+    checked on the host; then phase 34's run read back by the plots' reader."""
+    t0 = time.perf_counter()
+    landscape_phase(card_line, data)
+    gc.collect()
+    torch.cuda.empty_cache()
+    theory_phase(card_line, data)
+    plots_reader_check()
+    print(f"plots phase: {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4219,7 +4479,13 @@ def main() -> None:
     probing_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
-    vit_apps_phase(device, card_line)
+    try:
+        data = vit_apps_phase(device, card_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        plots_phase(card_line, data)
+    finally:
+        shutil.rmtree(APPS_ROOT, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 
