@@ -262,7 +262,45 @@ Phases (each raises on failure, so the run exits non-zero):
     large/16 and huge/14, a few blocks of each against scipy's float64 SVDs
     of the same weights within 1e-5; phase 34's run read back by
     ``get_single_exp`` under its sweep name; seconds per SGD step, per
-    surface, for the radius and for each model's bounds.
+    surface, for the radius and for each model's bounds;
+36. head width 128 (Llama-3.1-8B: 32 heads over E = 4096): K1 in its four
+    modes against its float32 plain version under the bf16 gates, lse
+    within 1e-3, bit-identical over two launches: causal at an admission
+    (N=1, L=512; timed with the plain version, the bound and SDPA) and at
+    L = 1, 16, 17, 64, 65, 129, 257, 512, 577, 578 (N=8), non-causal at
+    N=32, L=512 and those lengths, key-masked at the 8B generate prefill
+    (N=32, L=512, causal, left-pad lengths 64-512 from default_rng(0);
+    timed with SDPA under a boolean mask) and at those lengths, causal and
+    not, with empty rows; the wrappers raise NotImplementedError for a
+    gradient at d = 128 (K2 and K3 are not instantiated there), masked or
+    not, for d = 96 and for the backward at d = 128, before any launch
+    (this runs with the other kernel phases, after 31);
+37. Llama-3.1-8B serving (last; every earlier model freed): the "8b"
+    preset at full width and depth (8.03 B parameters, random weights from
+    seed 0, bf16, seq_len 1024), drawn on the host and moved (seconds
+    printed). One decode step of the generate batch timed on the float32
+    weights (each linear casting its weight) and on ``generate``'s bf16
+    copy of the weight matrices. ``Model.generate`` for 32 prompts of
+    64-512 tokens left-padded to 512, 64 new tokens, greedy and top-k 40 at
+    T 0.8: 32 masked K1 launches per call at d = 128, none unmasked, no
+    plain version; prefill ms, decode ms per step, tokens/s, peak memory,
+    a profile of one decode step (the idle share). The serving cross-check
+    (27) on that batch and the server cross-check on 4 of the server's
+    requests, each with its planted faults. ``DecodeServer`` (16 slots of
+    1,024, bucket 64) serves 64 requests (prompts 32-480, 16-128 new
+    tokens) greedily: 32 unmasked K1 launches per admission, every request
+    its max_new_tokens, requests/s and tokens/s;
+38. int8 weights on the 8B model: ``quantize_decode_params`` on the card
+    bit-equal to the host's on block 0's weights; ``Model.quantize_int8``
+    (seconds, ``quantized_nbytes``); the int8 model's prefill logits
+    against a bf16 model holding the dequantized weights within relative
+    L2 2e-2 (max |d| printed); int8 greedy generate (32 masked K1
+    launches; decode ms per step and tokens/s beside bf16's) and the server
+    on int8 weights. ``python -m vitef_tpu_torch.apps.gpt2.serve run
+    --implementation llama --model_name 8b --quantize int8 --demo 16`` runs
+    as a process of its own, started before 37's build so that the two
+    processes' host draws overlap, and waited for before 37 times anything:
+    exit 0, 16 results. The phases' peak memory must stay under 79 GiB.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -320,6 +358,7 @@ from vitef_tpu_torch.models.registry import Model
 from vitef_tpu_torch.models.transformer import Transformer
 from vitef_tpu_torch.models.vit import ViTConfig, vit_transformer_config
 from vitef_tpu_torch.models import generation as GEN
+from vitef_tpu_torch.models import quantize as Q
 from vitef_tpu_torch.models import serving as SRV
 from vitef_tpu_torch.models.norms import LayerNorm
 from vitef_tpu_torch.ops import _build
@@ -379,6 +418,7 @@ LSE_MAX_ABS = 1e-3
 # bf16, float16 x 64, 128.
 TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd", "flash_bwd", "ring_hop")
 SASS_KERNELS = [("packed_mha_fwd", "packed_mha_fwd_kernel<80,", "HMMA", "HMMA", 4),
+                ("packed_mha_fwd", "packed_mha_fwd_kernel<128,", "HMMA", "HMMA", 4),
                 ("packed_mha_bwd", "packed_bwd_dq_kernel<80,", "HMMA", "HMMA", 2),
                 ("packed_mha_bwd", "packed_bwd_dkv_kernel<80,", "HMMA", "HMMA", 2),
                 ("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32", 2),
@@ -620,6 +660,34 @@ SERVE_REL_L2 = 2e-2
 # 0) through 64 slots of 256 positions, bucket 64, a harvest every 8 ticks.
 SERVER_REQUESTS = 256
 SERVER = {"n_slots": 64, "max_len": 256, "bucket": 64}
+
+# Llama-3.1-8B serving: the JAX package's "8b" preset (vitef_tpu/models/
+# llama.py:47-49: E = 4096, 32 heads of 128, 8 KV heads, 32 layers,
+# V = 128,256) at full width and depth, random weights from seed 0, bf16,
+# seq_len 1024. K1 at d = 128 first: its four modes against the float32
+# plain version at L8B_K1_LENGTHS (N = 8, the masked mode with left-pad
+# lengths that leave rows empty) and at the path's shapes, the generate
+# prefill (masked, causal) and an admission (unmasked causal, one prompt at
+# the largest bucket); timed at those two.
+LLAMA_8B = {"implementation": "llama", "model_name": "8b", "seq_len": 1024,
+            "pretrained": False, "compute_dtype": "bfloat16", "seed": 0}
+L8B_HEADS = (32, 4096)
+L8B_K1_LENGTHS = (1, 16, 17, 64, 65, 129, 257, 512, 577, 578)
+L8B_ADMISSION = (1, 512)
+# generate: 32 prompts of 64-512 tokens (lengths from default_rng(0)),
+# left-padded to 512, 64 new tokens, greedy and top-k 40 at T 0.8.
+L8B_BATCH, L8B_PROMPT, L8B_NEW = 32, 512, 64
+# the server: 64 requests (prompts 32-480, 16-128 new tokens, default_rng(0))
+# through 16 slots of 1024 positions, bucket 64.
+L8B_REQUESTS = 64
+L8B_SERVER = {"n_slots": 16, "max_len": 1024, "bucket": 64}
+# int8 weights against a bf16 model holding their dequantized values: the
+# power-of-two scales commute with the sums and int8 x 2^k is exact in bf16,
+# so the two differ where bf16 rounds outputs of other sums (the scale is
+# applied to the float32 sum before its rounding, not after); held to the
+# serving checks' bound.
+L8B_SERVE_ARGV = ["run", "--implementation", "llama", "--model_name", "8b", "--quantize",
+                  "int8", "--demo", "16"]
 
 # K9, the ring hop, as (N, h, segment, d): the GPT-2 sp step's hop (zigzag
 # at sp = 1 and L = 1024; timed, the main path's shape), then
@@ -973,7 +1041,7 @@ def bwd_phase(device, shapes, causal: bool, seed: int, iters: int,
     lse = torch.zeros((n, h, l), dtype=torch.float32, device=device)
     # a head count whose width the kernel is not instantiated for: 48 at
     # ViT-B/16's E, 128 at ViT-H/14's
-    bad_h = next(c for c in (16, 10) if e % c == 0 and e // c not in A._PACKED_HEAD_DIMS)
+    bad_h = next(c for c in (16, 10) if e % c == 0 and e // c not in A._PACKED_BWD_HEAD_DIMS)
     refused = [(TypeError, lambda: A.packed_mha_bwd(qkv.float(), bias, g, out, lse, h,
                                                     causal=causal)),
                (NotImplementedError, lambda: A.packed_mha_bwd(qkv, bias, g, out, lse, bad_h,
@@ -2979,13 +3047,14 @@ def visible_rows(mask, causal: bool) -> torch.Tensor:
     return mask.any(dim=1, keepdim=True).expand_as(mask)
 
 
-def masked_flops(lengths, causal: bool) -> float:
+def masked_flops(lengths, causal: bool, emb: int = EMB) -> float:
     """The FLOPs this batch needs: two products over each row's valid
     (query, key) pairs only, m(m+1)/2 causal or m² for a row of m valid
-    tokens (padded rows and keys need none)."""
+    tokens (padded rows and keys need none), over heads of total width
+    ``emb``."""
     m = np.asarray(lengths, dtype=np.float64)
     pairs = (m * (m + 1) / 2 if causal else m * m).sum()
-    return 2.0 * 2 * N_HEADS * pairs * (EMB // N_HEADS)
+    return 2.0 * 2 * pairs * emb
 
 
 def masked_cases(device, gen, cases, heads: tuple[int, int] = (N_HEADS, EMB)) -> tuple:
@@ -3130,30 +3199,38 @@ DECODE_KINDS = ("attention over the cache", "sampling", "linears (cuBLAS)",
                 "elementwise and other")
 
 
-def profile_decode_step(model, prompt, mask, sampling: dict) -> None:
-    """torch.profiler over one decode step of the serving batch (all blocks,
-    the head, the sampler) after its prefill: device time by kind (kernels
-    inside the "attention" and "sampling" ranges, then cuBLAS by name, the
-    rest) and the device's idle share of the step's window."""
+def decode_step(module, cfg, prompt, mask, new: int, sampling: dict):
+    """(one decode step of the batch after its prefill, as ``generate``
+    takes it: all blocks, the head and the sampler, each call at the first
+    decode position; the prefill's cache) on ``module``."""
     from torch.profiler import record_function
 
-    cfg, module = model.config, model.module
+    p = prompt.shape[1]
     gen = torch.Generator(device=prompt.device).manual_seed(0)
     with torch.inference_mode():
-        logits, cache = GEN.prefill(module, cfg, prompt, SERVE_PROMPT + SERVE_NEW, mask)
+        logits, cache = GEN.prefill(module, cfg, prompt, p + new, mask)
         token = GEN.sample_token(logits, gen, **sampling)
-        key_mask = torch.cat([mask, torch.ones_like(mask)], dim=1)
-        logical = mask.sum(dim=1)
+    key_mask = torch.cat([mask, torch.ones((mask.shape[0], new), dtype=torch.bool,
+                                           device=mask.device)], dim=1)
+    logical = mask.sum(dim=1)
 
-        def step():
-            x = GEN._embed_token(module, cfg, token, logical)
-            for block, lc in zip(module.blocks, cache):
-                x, _ = GEN._block_decode(block, cfg, x, lc, SERVE_PROMPT, key_mask,
-                                         positions=logical)
-            head = GEN._logits(module, cfg, x)
-            with record_function("sampling"):
-                return GEN.sample_token(head, gen, **sampling)
+    @torch.inference_mode()
+    def step():
+        x = GEN._embed_token(module, cfg, token, logical)
+        for block, lc in zip(module.blocks, cache):
+            x, _ = GEN._block_decode(block, cfg, x, lc, p, key_mask, positions=logical)
+        head = GEN._logits(module, cfg, x)
+        with record_function("sampling"):
+            return GEN.sample_token(head, gen, **sampling)
 
+    return step, cache
+
+
+def traced_step(step) -> tuple[list, list, float, int]:
+    """One call of ``step`` (after one untraced call) under torch.profiler,
+    with ``GEN._attend_cached`` in an "attention" range: (the device
+    events, its kernels, the host wall ms, the marker kernels dropped)."""
+    with torch.inference_mode():
         with annotated(GEN, "_attend_cached", "attention"):
             step()
             torch.cuda.synchronize()
@@ -3163,10 +3240,35 @@ def profile_decode_step(model, prompt, mask, sampling: dict) -> None:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
     events, dropped = device_events(prof)
+    return events, [e for e in events if not e.is_user_annotation], wall_ms, dropped
+
+
+def busy_and_window_ms(kernels) -> tuple[float, float]:
+    """The device's busy ms (the union of the kernels' spans) and the ms
+    from the first kernel's start to the last one's end."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            busy += (stop - max(start, end)) / 1e3
+            end = stop
+    return busy, (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+
+
+def profile_decode_step(model, prompt, mask, sampling: dict, new: int = SERVE_NEW,
+                        name: str = "GPT-2 base") -> float:
+    """torch.profiler over one decode step of the serving batch (all blocks,
+    the head, the sampler) after its prefill, on ``generate``'s decoding
+    copy of the weights: device time by kind (kernels inside the "attention"
+    and "sampling" ranges, then cuBLAS by name, the rest) and the device's
+    idle share of the step's window, which is returned."""
+    cfg = model.config
+    module = GEN.decode_module(model.module, cfg)
+    step, _ = decode_step(module, cfg, prompt, mask, new, sampling)
+    events, kernels, wall_ms, dropped = traced_step(step)
     ranges = {label: [(e.time_range.start, e.time_range.end) for e in events
                       if e.is_user_annotation and e.name == label]
               for label in ("attention", "sampling")}
-    kernels = [e for e in events if not e.is_user_annotation]
     totals = dict.fromkeys(DECODE_KINDS, 0.0)
     for e in kernels:
         start = e.time_range.start
@@ -3176,21 +3278,16 @@ def profile_decode_step(model, prompt, mask, sampling: dict) -> None:
             kind = DECODE_KINDS[2] if any(key in e.name.lower() for key in (
                 "gemm", "nvjet", "cutlass", "xmma", "sm90_")) else DECODE_KINDS[3]
         totals[kind] += e.time_range.elapsed_us() / 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, -math.inf
-    for start, stop in spans:
-        if stop > end:
-            busy += (stop - max(start, end)) / 1e3
-            end = stop
-    window = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
-    print(f"profile of one decode step (batch {SERVE_BATCH}, position {SERVE_PROMPT}, "
-          f"{sampling}): host wall {wall_ms:.3f} ms, {len(kernels)} kernels, device window "
-          f"{window:.3f} ms, busy {busy:.3f} ms, idle {100 * (1 - busy / max(window, 1e-9)):.1f}%"
-          f" of the window (device-side ranges found: "
-          f"{ {k: len(v) for k, v in ranges.items()} }; {dropped} of {TRACE_MARKERS} marker "
-          "kernels dropped)")
+    busy, window = busy_and_window_ms(kernels)
+    idle = 1 - busy / max(window, 1e-9)
+    print(f"profile of one {name} decode step (batch {prompt.shape[0]}, position "
+          f"{prompt.shape[1]}, {sampling}): host wall {wall_ms:.3f} ms, {len(kernels)} kernels, "
+          f"device window {window:.3f} ms, busy {busy:.3f} ms, idle {100 * idle:.1f}% of the "
+          f"window (device-side ranges found: { {k: len(v) for k, v in ranges.items()} }; "
+          f"{dropped} of {TRACE_MARKERS} marker kernels dropped)")
     for kind, ms in totals.items():
         print(f"  {kind}: {ms:.3f} ms")
+    return idle
 
 
 def generate_phase(device):
@@ -3273,26 +3370,30 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def serve_cross_check(model, greedy, device) -> None:
+def serve_cross_check(model, greedy, device, batch=None, new: int = SERVE_NEW,
+                      name: str = "GPT-2 base") -> None:
     """The serving path's kernel route against its plain route (plain
-    attention in the prefill): the last prefill logits of the ragged batch;
-    4 of its rows against the same prompts prefilled alone and unpadded; one
-    teacher-forced decode step's logits; then each of these limits with K1's
-    mask dropped, which must fail it. The greedy tokens' agreement is
-    printed, not gated: at random weights the tied head echoes its input."""
+    attention in the prefill): the last prefill logits of the ragged batch
+    (``batch``, (prompt, mask, lengths); GPT-2's ``serve_batch`` by
+    default); 4 of its rows against the same prompts prefilled alone and
+    unpadded; one teacher-forced decode step's logits; then each of these
+    limits with K1's mask dropped, which must fail it. The agreement of the
+    ``greedy`` tokens (``new`` of them) with the plain route's is printed,
+    not gated: at random weights an argmax flips where two logits are
+    within a bf16 rounding (GPT-2's tied head echoes its input)."""
     cfg, module = model.config, model.module
-    prompt, mask, lengths = serve_batch(cfg.vocab_size, device)
+    prompt, mask, lengths = serve_batch(cfg.vocab_size, device) if batch is None else batch
+    n, p = prompt.shape
     key_mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1)
     logical = mask.sum(dim=1)
 
     def prefill():
-        return GEN.prefill(module, cfg, prompt, SERVE_PROMPT + 1, mask)
+        return GEN.prefill(module, cfg, prompt, p + 1, mask)
 
-    def decode_step(cache, token):
+    def step_logits(cache, token):
         x = GEN._embed_token(module, cfg, token, logical)
         for block, lc in zip(module.blocks, cache):
-            x, _ = GEN._block_decode(block, cfg, x, lc, SERVE_PROMPT, key_mask,
-                                     positions=logical)
+            x, _ = GEN._block_decode(block, cfg, x, lc, p, key_mask, positions=logical)
         return GEN._logits(module, cfg, x)
 
     real = A.fused_mha_packed
@@ -3304,27 +3405,28 @@ def serve_cross_check(model, greedy, device) -> None:
         kernel_logits, kernel_cache = prefill()
         with config_set(cfg, attn_impl="plain"):
             plain_logits, plain_cache = prefill()
-        alone = torch.cat([GEN.prefill(module, cfg, prompt[i:i + 1, SERVE_PROMPT - m:], m)[0]
+        alone = torch.cat([GEN.prefill(module, cfg, prompt[i:i + 1, p - m:], m)[0]
                            for i, m in enumerate(lengths[:4])])
         token = kernel_logits.argmax(dim=-1)
-        plain_step = decode_step(plain_cache, token)
-        kernel_step = decode_step(kernel_cache, token)
+        plain_step = step_logits(plain_cache, token)
+        kernel_step = step_logits(kernel_cache, token)
         GEN.fused_mha_packed = mask_dropped
         try:
             faulty_logits, faulty_cache = prefill()
         finally:
             GEN.fused_mha_packed = real
-        faulty_step = decode_step(faulty_cache, token)
+        faulty_step = step_logits(faulty_cache, token)
+        del kernel_cache, plain_cache, faulty_cache
         with config_set(cfg, attn_impl="plain"):
-            plain_greedy = model.generate(prompt, SERVE_NEW, temperature=0.0, prompt_mask=mask)
+            plain_greedy = model.generate(prompt, new, temperature=0.0, prompt_mask=mask)
     checks = {"prefill logits, kernel vs plain": rel_l2(kernel_logits, plain_logits),
               "4 ragged rows vs alone unpadded": rel_l2(kernel_logits[:4], alone),
               "decode step logits, kernel vs plain": rel_l2(kernel_step, plain_step)}
     agree = (greedy == plain_greedy).float().mean().item()
-    print("serving cross-check (relative L2): " + ", ".join(
+    print(f"{name} serving cross-check (relative L2): " + ", ".join(
         f"{k} {v:.3e}" for k, v in checks.items()) + f"; greedy tokens equal on "
-        f"{100 * agree:.2f}% of {SERVE_BATCH} x {SERVE_NEW} (kernel vs plain route, not gated: "
-        f"at random weights the tied head echoes its input, so agreement tells nothing)")
+        f"{100 * agree:.2f}% of {n} x {new} (kernel vs plain route, not gated: at random "
+        f"weights an argmax flips where two logits lie within a bf16 rounding)")
     if not all(math.isfinite(v) and v <= SERVE_REL_L2 for v in checks.values()):
         raise AssertionError(f"the serving kernel route disagrees with the plain one: {checks}")
     planted({"prefill logits, K1's mask dropped": rel_l2(faulty_logits, plain_logits),
@@ -3343,17 +3445,21 @@ def planted(readings: dict) -> None:
         raise AssertionError(f"a planted fault passed its serving check: {readings}")
 
 
-def server_cross_check(model, device) -> None:
+def server_cross_check(model, device, reqs=None, server: dict = SERVER,
+                       name: str = "GPT-2 base") -> None:
     """The server's logits against ``generate()``'s, bf16 on the kernel
     route: the first 4 of the server's requests admitted into 4 slots of a
     ``DecodeServer`` (right-padded to a bucket, unmasked K1) against each
     prompt prefilled alone at its own length; then one window tick of the 4
     slots, each at its own position, teacher-forced with each prompt's
     greedy token, against that prompt's first decode step after its own
-    prefill. Then each limit with a fault planted."""
-    cfg, module = model.config, model.module
-    reqs = server_requests(cfg.vocab_size)[:4]
-    srv = SRV.DecodeServer(module, cfg, **{**SERVER, "n_slots": len(reqs)})
+    prefill. Then each limit with a fault planted. ``reqs`` (default the
+    GPT-2 mix's first 4) and ``server`` set the requests and the server;
+    every call runs on the server's own decoding weights."""
+    cfg = model.config
+    reqs = server_requests(cfg.vocab_size)[:4] if reqs is None else reqs
+    srv = SRV.DecodeServer(model.module, cfg, **{**server, "n_slots": len(reqs)})
+    module = srv.module
     prompts = [torch.tensor(r.prompt, device=device) for r in reqs]
     with torch.inference_mode():
         alone, steps = [], []
@@ -3385,7 +3491,7 @@ def server_cross_check(model, device) -> None:
         other_rows = tick(rows, pos)
     checks = {"4 admissions vs prefill alone": rel_l2(torch.stack(admitted), alone),
               "window tick vs first decode step": rel_l2(window, steps)}
-    print(f"server cross-check, prompts {[len(p) for p in prompts]} (relative L2): " +
+    print(f"{name} server cross-check, prompts {[len(p) for p in prompts]} (relative L2): " +
           ", ".join(f"{k} {v:.3e}" for k, v in checks.items()))
     if not all(math.isfinite(v) and v <= SERVE_REL_L2 for v in checks.values()):
         raise AssertionError(f"the server's logits disagree with generate()'s: {checks}")
@@ -3469,6 +3575,384 @@ def apps_phase(device) -> None:
         raise AssertionError(f"the gpt2 apps returned {new_ids} and {len(reqs)} requests")
     print(f"apps: sample.run gave {len(new_ids)} tokens; serve.run --demo 16 --n_slots 4 "
           f"served {len(reqs)} requests, {sum(len(r.tokens) for r in reqs)} tokens")
+
+
+# ---------------------------------------------------------------------------
+# Llama-3.1-8B serving: K1 at d = 128, generate, the server, int8 weights
+# ---------------------------------------------------------------------------
+
+
+def l8b_prompts(vocab: int, device):
+    """(prompt (N, P), mask (N, P), lengths): the 8B generate batch, each
+    row's tokens right-aligned, pads 0."""
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(64, L8B_PROMPT + 1, size=L8B_BATCH)
+    tokens = torch.from_numpy(rng.integers(0, vocab, size=(L8B_BATCH, L8B_PROMPT)))
+    mask = left_pad_mask(lengths, L8B_PROMPT, device)
+    return tokens.to(device) * mask, mask, lengths
+
+
+def k1_d128_phase(device, seed: int, iters: int) -> dict:
+    """K1 at head width 128 (32 heads over E = 4096, Llama-3.1-8B's
+    attention) in its four modes against the float32 plain version under the
+    bf16 gates, lse within 1e-3 and bit-identical over two launches: causal
+    at an admission (timed) and at L8B_K1_LENGTHS, non-causal at the
+    generate shape and those lengths (no path runs it: checked all the
+    same), key-masked causal at the generate prefill's batch (timed with its
+    plain version, its bound and SDPA with a boolean mask) and both masked
+    modes at those lengths; then the wrappers' refusals (a gradient at
+    d = 128, d = 96). Returns the rows of packed_mha_fwd:d128 and
+    packed_mha_fwd:masked:d128."""
+    h, e = L8B_HEADS
+    edges = [(8, l) for l in L8B_K1_LENGTHS]
+    timing = {"packed_mha_fwd:d128": fwd_phase(device, [L8B_ADMISSION] + edges, True,
+                                               seed=seed, iters=iters, heads=L8B_HEADS)}
+    fwd_phase(device, [(L8B_BATCH, L8B_PROMPT)] + edges, False, seed=seed + 1, iters=iters,
+              heads=L8B_HEADS)
+    gen = torch.Generator().manual_seed(seed + 2)
+    lengths = np.random.default_rng(0).integers(64, L8B_PROMPT + 1, size=L8B_BATCH)
+    cases = [(L8B_BATCH, L8B_PROMPT, True, lengths)] + [
+        (8, l, causal, edge_lengths(l)) for l in L8B_K1_LENGTHS for causal in (True, False)]
+    (qkv, bias, mask), main_err = masked_cases(device, gen, cases, heads=L8B_HEADS)
+
+    launches = (A.fused_mha_packed.launches, A.fused_mha_packed.masked_launches)
+    wide = torch.zeros(1, 16, 3 * 3072, dtype=torch.bfloat16, device=device)
+    refusals = {
+        "a gradient at d=128": lambda: A.fused_mha_packed(
+            qkv[:1].detach().requires_grad_(), h, causal=True),
+        "a gradient at d=128, masked": lambda: A.fused_mha_packed(
+            qkv[:1].detach().requires_grad_(), h, causal=True, key_mask=mask[:1]),
+        "d=96": lambda: A.fused_mha_packed(wide, 32, causal=True),
+        "the backward at d=128": lambda: A.packed_mha_bwd(
+            qkv[:1], bias, qkv[:1, :, :e], qkv[:1, :, :e],
+            torch.zeros(1, h, L8B_PROMPT, device=device), h, causal=True),
+    }
+    for what, call in refusals.items():
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"the K1 wrapper took {what}")
+    if (A.fused_mha_packed.launches, A.fused_mha_packed.masked_launches) != launches:
+        raise AssertionError("a refused call launched K1")
+    print("K1 d=128 wrappers raise NotImplementedError for " + ", ".join(refusals))
+
+    n, l = L8B_BATCH, L8B_PROMPT
+    with torch.inference_mode():
+        ms, plain_ms, times = in_turns(
+            lambda: A.fused_mha_packed(qkv, h, causal=True, bias=bias, key_mask=mask),
+            lambda: A.packed_mha_reference(qkv, h, causal=True, bias=bias, key_mask=mask),
+            iters)
+        out = A.fused_mha_packed(qkv, h, causal=True, bias=bias, key_mask=mask)
+        q, k, v = split_heads(qkv, bias, h)
+        allowed = torch.ones(l, l, dtype=torch.bool, device=device).tril()[None, None] \
+            & mask[:, None, None, :]
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                     attn_mask=allowed), iters)
+    flops = masked_flops(lengths, True, e)
+    limit = bound(flops, PEAK_BF16_FLOPS, (qkv, bias, mask, out))
+    print(f"K1 masked d=128 at N={n} L={l} causal ragged (the 8B generate prefill): kernel "
+          f"{times[1]:.4f}/{times[2]:.4f} ms ({tflops(flops, ms):.1f} TFLOP/s of valid pairs), "
+          f"plain {times[0]:.4f}/{times[3]:.4f} ms, SDPA with a boolean mask {library_ms:.4f} ms "
+          f"({tflops(flops, library_ms):.1f}), bound {limit['bound_ms']:.4f} ms "
+          f"({limit['bound_by']})")
+    timing["packed_mha_fwd:masked:d128"] = {"max_abs_err": main_err, "ms": ms,
+                                            "plain_ms": plain_ms, **limit,
+                                            "library_ms": library_ms}
+    return timing
+
+
+def build_8b(device):
+    """The 8B preset on the card: its parameters drawn on the host's CPU one
+    tensor at a time and moved; the seconds, the count and the card's
+    memory printed."""
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = build_model(LLAMA_8B, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.module.parameters())
+    print(f"Llama-3.1-8B: {n_params:,} parameters (float32, "
+          f"{Q.quantized_nbytes(model.module) / 2**30:.3f} GiB), {model.config.n_layers} blocks, "
+          f"E={model.config.emb_dim}, {model.config.n_heads} heads of {model.config.head_dim}, "
+          f"{model.config.n_kv_heads} KV heads; drawn on the host and moved in {seconds:.2f} s; "
+          f"peak {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
+    return model
+
+
+def l8b_generate_phase(model, device, card_line: str, peaks: list):
+    """Llama-3.1-8B generates for the 8B batch through ``Model.generate``,
+    greedy and top-k 40 at T 0.8: a warm-up, then a timed run (32 launches
+    of K1's masked mode at d = 128, none unmasked, no plain version), the
+    prefill timed alone, decode ms per step, tokens/s and the peak memory;
+    one decode step timed on the float32 weights (each linear casting its
+    weight) and on ``generate``'s bf16 copy; a profile of one decode step
+    (the idle share). Before each reset of the card's peak memory its value
+    is appended to ``peaks``. Returns the greedy tokens, the last run's
+    masked launches and the rates."""
+    cfg = model.config
+    prompt, mask, lengths = l8b_prompts(cfg.vocab_size, device)
+    t0 = time.perf_counter()
+    copy_module = GEN.decode_module(model.module, cfg)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    matrices = Q.decode_matrices(copy_module.state_dict())
+    copy_gib = sum(copy_module.get_parameter(n).numel() * 2 for n in matrices) / 2**30
+    readings = {}
+    for label, module in (("float32 weights", model.module), ("bf16 copy", copy_module)):
+        step, cache = decode_step(module, cfg, prompt, mask, L8B_NEW, SERVE_MODES["greedy"])
+        _, kernels, wall_ms, _ = traced_step(step)
+        readings[label] = (busy_and_window_ms(kernels)[0], wall_ms, len(kernels))
+        del step, cache
+    del copy_module
+    print(f"Llama-3.1-8B decode step at batch {L8B_BATCH} ({card_line}), device busy ms "
+          f"(torch.profiler) / host wall ms / kernels: on the float32 weights (each linear "
+          f"casts its weight to bf16 at every call) "
+          f"{' / '.join(f'{x:.3f}' for x in readings['float32 weights'][:2])} / "
+          f"{readings['float32 weights'][2]}, on generate()'s bf16 copy of the {len(matrices)} "
+          f"weight matrices ({copy_gib:.3f} GiB, cast in {copy_s * 1e3:.1f} ms) "
+          f"{' / '.join(f'{x:.3f}' for x in readings['bf16 copy'][:2])} / "
+          f"{readings['bf16 copy'][2]}")
+
+    outputs, rates = {}, {}
+    for mode, sampling in SERVE_MODES.items():
+        def run():
+            return model.generate(prompt, L8B_NEW, prompt_mask=mask, generator=torch.Generator(
+                device=device).manual_seed(0), **sampling)
+
+        run()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(device))
+        torch.cuda.reset_peak_memory_stats(device)
+        with no_plain_versions() as (plain_calls, aug_calls):
+            A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            masked, unmasked = A.fused_mha_packed.masked_launches, A.fused_mha_packed.launches
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+        t0 = time.perf_counter()
+        GEN.prefill(model.module, cfg, prompt, L8B_PROMPT + L8B_NEW, mask)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        steps = L8B_NEW - 1
+        decode_s = seconds - prefill_s
+        rates[mode] = {"prefill_ms": prefill_s * 1e3, "step_ms": decode_s / steps * 1e3,
+                       "tokens_s": L8B_BATCH * L8B_NEW / seconds}
+        print(f"Llama-3.1-8B bf16 generate ({card_line}), {mode} {sampling}, batch {L8B_BATCH}, "
+              f"prompts {lengths.min()}..{lengths.max()} left-padded to {L8B_PROMPT}, {L8B_NEW} "
+              f"new: {seconds * 1e3:.3f} ms in all; prefill {prefill_s * 1e3:.3f} ms (timed "
+              f"alone, {L8B_BATCH * L8B_PROMPT / prefill_s:.1f} prompt tokens/s); decode "
+              f"{decode_s / steps * 1e3:.3f} ms per step, {L8B_BATCH * steps / decode_s:.2f} "
+              f"decode tokens/s; end to end {L8B_BATCH * L8B_NEW / seconds:.2f} tokens/s; peak "
+              f"memory {peak_gib:.3f} GiB; K1 masked {masked}, unmasked {unmasked}; plain calls "
+              f"{dict(Counter(plain_calls + aug_calls))}")
+        if masked != cfg.n_layers or unmasked:
+            raise AssertionError(f"generate launched K1 masked {masked} and unmasked "
+                                 f"{unmasked} times, want {cfg.n_layers} and 0")
+        if plain_calls or aug_calls:
+            raise AssertionError(f"plain versions ran on CUDA: {Counter(plain_calls)}")
+        if not (tuple(out.shape) == (L8B_BATCH, L8B_NEW)
+                and bool(((out >= 0) & (out < cfg.vocab_size)).all())):
+            raise AssertionError(f"generate returned {tuple(out.shape)} or ids out of range")
+        outputs[mode] = out
+    rates["idle"] = profile_decode_step(model, prompt, mask, SERVE_MODES["greedy"], L8B_NEW,
+                                        name="Llama-3.1-8B")
+    return outputs["greedy"], masked, rates
+
+
+def l8b_requests(vocab: int) -> list:
+    """The 8B server's mix: L8B_REQUESTS requests, prompts of 32-480 tokens
+    and 16-128 new tokens, from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    reqs = []
+    for _ in range(L8B_REQUESTS):
+        plen, mnew = int(rng.integers(32, 481)), int(rng.integers(16, 129))
+        reqs.append(SRV.Request(prompt=rng.integers(0, vocab, size=(plen,)).tolist(),
+                                max_new_tokens=mnew))
+    return reqs
+
+
+def l8b_server_phase(module, cfg, device, label: str) -> tuple[int, dict]:
+    """``DecodeServer`` (L8B_SERVER) serves the 8B mix greedily (no EOS, so
+    every request gets its max_new_tokens) after a warm-up on 2 requests:
+    32 unmasked K1 launches per admission, none masked, no plain version;
+    requests/s, tokens/s, ticks. Returns the K1 launches and the rates."""
+    srv = SRV.DecodeServer(module, cfg, **L8B_SERVER)
+    srv.serve([SRV.Request(prompt=r.prompt, max_new_tokens=4)
+               for r in l8b_requests(cfg.vocab_size)[:2]])
+    srv.reset()
+    torch.cuda.synchronize()
+    reqs = l8b_requests(cfg.vocab_size)
+    useful = sum(r.max_new_tokens for r in reqs)
+    with no_plain_versions() as (plain_calls, _):
+        A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+        t0 = time.perf_counter()
+        srv.serve(reqs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (A.fused_mha_packed.launches, A.fused_mha_packed.masked_launches)
+    print(f"Llama-3.1-8B {label} DecodeServer greedy {L8B_SERVER}, {len(reqs)} requests "
+          f"({useful} tokens): {seconds:.3f} s, {len(reqs) / seconds:.3f} requests/s, "
+          f"{useful / seconds:.2f} tokens/s, {srv.steps} ticks "
+          f"({useful / (srv.steps * L8B_SERVER['n_slots']):.3f} of the slot-ticks useful); "
+          f"K1 unmasked {launches[0]} ({launches[0] / len(reqs):.1f} per admission), masked "
+          f"{launches[1]}")
+    if launches != (cfg.n_layers * len(reqs), 0) or plain_calls:
+        raise AssertionError(f"the server's admissions launched K1 {launches}, plain calls "
+                             f"{Counter(plain_calls)}")
+    if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
+        raise AssertionError("a request did not get its max_new_tokens from the server")
+    return launches[0], {"requests_s": len(reqs) / seconds, "tokens_s": useful / seconds}
+
+
+def l8b_int8_phase(model, device, card_line: str, bf16_rates: dict) -> None:
+    """int8 weights for the 8B model: ``quantize_decode_params`` on the card
+    bit-equal to the same function on the host copy of block 0's weights;
+    ``Model.quantize_int8`` (timed; ``quantized_nbytes``); the int8 model's
+    prefill logits against a bf16 model holding the dequantized weights
+    (relative L2 within SERVE_REL_L2, max |d| printed); greedy generate on
+    int8 weights (32 masked K1 launches, no plain version; decode ms per
+    step and tokens/s beside bf16's); the server on int8 weights."""
+    cfg = model.config
+    block = {name: t for name, t in model.module.state_dict().items()
+             if name.startswith("blocks.0.")}
+    on_card = Q.quantize_decode_params(block)
+    on_host = Q.quantize_decode_params({k: v.cpu() for k, v in block.items()})
+    unequal = [k for k in on_card if not torch.equal(on_card[k].cpu(), on_host[k])]
+    n_int8 = sum(t.dtype == torch.int8 for t in on_card.values())
+    print(f"quantize_decode_params of block 0 ({n_int8} int8 tables and their scales): card "
+          f"and host bit-equal: {not unequal}")
+    if unequal or n_int8 != 4:
+        raise AssertionError(f"quantize_decode_params differs between card and host: {unequal}")
+    del block, on_card, on_host
+
+    t0 = time.perf_counter()
+    qmodule = model.quantize_int8()
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    state = qmodule.state_dict()
+    matrices = Q.decode_matrices(state)
+    deq = Q.module_with(model.module, {
+        name: Q.dequantize_weight({"weight": state[name],
+                                   "scale": state[name[:-len("weight")] + "scale"]},
+                                  torch.bfloat16, channel_axis=axes)
+        for name, axes in matrices.items()})
+    bf16_bytes = sum(deq.get_parameter(n).numel() * 2 for n in matrices)
+    int8_bytes = Q.quantized_nbytes(qmodule)
+    prompt, mask, _ = l8b_prompts(cfg.vocab_size, device)
+    with torch.inference_mode():
+        int8_logits, _ = GEN.prefill(qmodule, cfg, prompt, L8B_PROMPT + 1, mask)
+        deq_logits, _ = GEN.prefill(deq, cfg, prompt, L8B_PROMPT + 1, mask)
+    del deq
+    rel, max_abs = rel_l2(int8_logits, deq_logits), (int8_logits - deq_logits).abs().max().item()
+    print(f"Llama-3.1-8B int8 ({card_line}): quantize_int8 {quantize_s:.3f} s; weights "
+          f"{int8_bytes / 2**30:.3f} GiB (quantized_nbytes: int8 matrices, float32 scales and "
+          f"norms) against {bf16_bytes / 2**30:.3f} GiB of bf16 matrices; prefill logits vs "
+          f"the dequantized bf16 model: relative L2 {rel:.3e}, max|d| {max_abs:.3e} (logits "
+          f"up to {deq_logits.abs().max().item():.3f})")
+    if not (math.isfinite(rel) and rel <= SERVE_REL_L2):
+        raise AssertionError(f"int8 prefill logits disagree with the dequantized model: {rel}")
+
+    def run():
+        return GEN.generate(qmodule, cfg, prompt, L8B_NEW, temperature=0.0, prompt_mask=mask)
+
+    run()
+    torch.cuda.synchronize()
+    with no_plain_versions() as (plain_calls, _):
+        A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        masked = A.fused_mha_packed.masked_launches
+    t0 = time.perf_counter()
+    GEN.prefill(qmodule, cfg, prompt, L8B_PROMPT + L8B_NEW, mask)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    steps = L8B_NEW - 1
+    step_ms = (seconds - prefill_s) / steps * 1e3
+    bf16 = bf16_rates["greedy"]
+    print(f"Llama-3.1-8B int8 greedy generate ({card_line}), batch {L8B_BATCH}: prefill "
+          f"{prefill_s * 1e3:.3f} ms (bf16 {bf16['prefill_ms']:.3f}), decode {step_ms:.3f} ms "
+          f"per step (bf16 {bf16['step_ms']:.3f}), end to end {L8B_BATCH * L8B_NEW / seconds:.2f} "
+          f"tokens/s (bf16 {bf16['tokens_s']:.2f}); K1 masked {masked}")
+    if masked != cfg.n_layers or plain_calls:
+        raise AssertionError(f"int8 generate launched K1 masked {masked} times, plain calls "
+                             f"{Counter(plain_calls)}")
+    if not (tuple(out.shape) == (L8B_BATCH, L8B_NEW)
+            and bool(((out >= 0) & (out < cfg.vocab_size)).all())):
+        raise AssertionError(f"int8 generate returned {tuple(out.shape)} or ids out of range")
+    l8b_server_phase(qmodule, cfg, device, "int8")
+
+
+def l8b_serve_command():
+    """The serve command line with int8 weights as a user runs it, in a
+    process of its own, started now: it draws its own 8B parameters on the
+    host while this process draws the same preset's (two single-threaded
+    draws on a host of 8 cores), so the two draws overlap. Returns the
+    process and its start time for ``l8b_serve_result``."""
+    return subprocess.Popen([sys.executable, "-m", "vitef_tpu_torch.apps.gpt2.serve",
+                             *L8B_SERVE_ARGV], cwd=REPO_ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def l8b_serve_result(started, card_line: str) -> None:
+    """Wait for the serve command line: exit 0, one result line per
+    request; its seconds (the draw included) and log lines printed."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    seconds = time.perf_counter() - t0
+    lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    tail = [line for line in err.splitlines() if "served" in line or "mode" in line]
+    print(f"python -m vitef_tpu_torch.apps.gpt2.serve {' '.join(L8B_SERVE_ARGV)} "
+          f"({card_line}): exit {proc.returncode} in {seconds:.2f} s (its 8.03 B parameters "
+          f"drawn on the host included, beside this process's draw), {len(lines)} results; "
+          f"{' | '.join(tail)}")
+    if proc.returncode != 0 or len(lines) != 16 or not all(line["tokens"] for line in lines):
+        raise AssertionError(f"the 8b serve command line failed:\n{err[-4000:]}")
+
+
+def l8b_phase(device, card_line: str) -> dict:
+    """The Llama-3.1-8B serving path: the serve command line with int8
+    weights in its own process beside this process's build of the preset,
+    waited for before anything here is timed; then generate (bf16), its
+    cross-check, the server and its cross-check, int8 weights. Returns the
+    launches of K1 d = 128 by mode."""
+    command = l8b_serve_command()
+    model = build_8b(device)
+    free, total = torch.cuda.mem_get_info(device)
+    print(f"the card after both processes' 8B builds: {(total - free) / 2**30:.3f} of "
+          f"{total / 2**30:.3f} GiB in use (torch.cuda.mem_get_info)")
+    l8b_serve_result(command, card_line)
+    peaks = []
+    greedy, masked, rates = l8b_generate_phase(model, device, card_line, peaks)
+    serve_cross_check(model, greedy, device, batch=l8b_prompts(model.config.vocab_size, device),
+                      new=L8B_NEW, name="Llama-3.1-8B")
+    del greedy
+    server_cross_check(model, device, reqs=l8b_requests(model.config.vocab_size)[:4],
+                       server=L8B_SERVER, name="Llama-3.1-8B")
+    gc.collect()
+    torch.cuda.empty_cache()
+    unmasked, _ = l8b_server_phase(model.module, model.config, device, "bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    l8b_int8_phase(model, device, card_line, rates)
+    peak = max(peaks + [torch.cuda.max_memory_allocated(device)]) / 2**30
+    print(f"Llama-3.1-8B serving phases: peak memory {peak:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated) of the card's "
+          f"{torch.cuda.get_device_properties(device).total_memory / 2**30:.2f}; the idle share "
+          f"of a bf16 decode step {100 * rates['idle']:.1f}%")
+    if peak > 79:
+        raise AssertionError(f"the 8B serving phases peaked at {peak:.3f} GiB, over 79")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"packed_mha_fwd:d128": unmasked, "packed_mha_fwd:masked:d128": masked}
 
 
 # ---------------------------------------------------------------------------
@@ -4443,6 +4927,7 @@ def main() -> None:
                                                    k1_ms=timing["packed_mha_fwd"]["ms"])
     timing["ring_hop"] = ring_hop_phase(device, seed=50, iters=10)
     timing.update(d80_phases(device, SIZES["ViT-H/14"][1]))
+    timing.update(k1_d128_phase(device, seed=70, iters=10))
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
@@ -4532,6 +5017,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     ring_launches = sp_train_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    l8b_launches = l8b_phase(device, card_line)
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -4571,6 +5059,10 @@ def main() -> None:
          "vitef_tpu/ops/attention.py:99"),
         ("packed_mha_bwd:d80", "packed_mha_bwd", size_launches["ViT-H/14"]["packed_mha_bwd"],
          "vitef_tpu/ops/attention.py:270"),
+        ("packed_mha_fwd:d128", "packed_mha_fwd", l8b_launches["packed_mha_fwd:d128"],
+         "vitef_tpu/ops/attention.py:99"),
+        ("packed_mha_fwd:masked:d128", "packed_mha_fwd",
+         l8b_launches["packed_mha_fwd:masked:d128"], "vitef_tpu/ops/attention.py:99"),
     ]
     print(card_line)
     print(json.dumps({"kernels": [{

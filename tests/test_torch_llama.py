@@ -246,26 +246,31 @@ def test_llama_bf16_flash_route_matches_jax(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("l,e,h", [
-    (197, 768, 12),     # ViT-B/16
-    (197, 1024, 16),    # ViT-L/16
-    (257, 1280, 16),    # ViT-H/14: head width 80
-    (1024, 768, 12),    # GPT-2 base
-    (1024, 1600, 25),   # GPT-2 xl
-    (512, 768, 12),     # Llama 124m
-    (1024, 768, 12),    # Llama 124m
-    (512, 2048, 32),    # Llama 1b
-    (1024, 2048, 32),   # Llama 1b: past the budget (46.1 MB)
+@pytest.mark.parametrize("l,e,h,packed", [
+    (197, 768, 12, True),      # ViT-B/16
+    (197, 1024, 16, True),     # ViT-L/16
+    (257, 1280, 16, True),     # ViT-H/14: head width 80
+    (1024, 768, 12, True),     # GPT-2 base
+    (1024, 1600, 25, True),    # GPT-2 xl
+    (512, 768, 12, True),      # Llama 124m
+    (1024, 768, 12, True),     # Llama 124m
+    (512, 2048, 32, True),     # Llama 1b
+    (1024, 2048, 32, False),   # Llama 1b: past the budget (46.1 MB)
+    (512, 4096, 32, True),     # Llama 8b: head width 128
+    (578, 4096, 32, True),     # Llama 8b: the budget's last L (41.9 MB)
+    (579, 4096, 32, False),    # Llama 8b: past the budget
+    (1024, 4096, 32, False),   # Llama 8b
 ], ids=["vit_b_197", "vit_l_197", "vit_h_257", "gpt2_base_1024", "gpt2_xl_1024",
-        "llama_124m_512", "llama_124m_1024", "llama_1b_512", "llama_1b_1024"])
-def test_packed_gate_matches_jax(l, e, h):
+        "llama_124m_512", "llama_124m_1024", "llama_1b_512", "llama_1b_1024", "llama_8b_512",
+        "llama_8b_578", "llama_8b_579", "llama_8b_1024"])
+def test_packed_gate_matches_jax(l, e, h, packed):
     want = jax_attention.packed_mha_supported(l, e, 2)
     assert A.packed_mha_supported(l, e, h) == want
     for grouped in (False, True):
         route = A.attention_route("auto", "cuda", seq_len=l, emb_dim=e, n_heads=h,
                                   dtype=torch.bfloat16, grouped=grouped)
         assert route == ("packed" if want else "flash")
-    assert want == ((l, e) != (1024, 2048))
+    assert want == packed
 
 
 def test_float32_long_attention_routes_to_flash(monkeypatch):

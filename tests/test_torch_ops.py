@@ -120,9 +120,12 @@ def test_packed_mha_supported_gate():
     assert A.packed_mha_supported(197, 768, 12)      # ViT-B/16
     assert A.packed_mha_supported(577, 1024, 16)     # ViT-L at 384
     assert A.packed_mha_supported(257, 1280, 16)      # ViT-H/14: head width 80
-    # widths the packed kernels are not instantiated for stay outside the gate
+    # K1 at head width 128 (Llama-3.1-8B's serving prefill) is inside the gate
+    assert A.packed_mha_supported(257, 2048, 16)      # head width 128
+    assert A.packed_mha_supported(578, 4096, 32)      # Llama-3.1-8B: the budget's last L
+    assert not A.packed_mha_supported(579, 4096, 32)
+    # a width K1 is not instantiated for stays outside the gate
     assert not A.packed_mha_supported(257, 1536, 16)  # head width 96
-    assert not A.packed_mha_supported(257, 2048, 16)  # head width 128
     # K1, K2 and K3 tile over keys: GPT-2's lengths and widths at d = 64 pass
     assert A.packed_mha_supported(1024, 768, 12)      # GPT-2 base
     assert A.packed_mha_supported(1, 768, 12)

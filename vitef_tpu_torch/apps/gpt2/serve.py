@@ -12,8 +12,13 @@ through ``generate()``:
 ``{"token_ids": [464, 3280, ...], "max_new_tokens": 32}``; results stream to
 stdout as jsonl, ``{"id": i, "tokens": [...]}``. The port has no GPT-2
 tokenizer, so text prompts exit. Runs on the card unless ``--device cpu``.
-Not ported yet: ``--quantize int8`` (int8 weights) and ``--prefix`` (the
-prefix cache).
+``--quantize int8`` serves weight-only int8 weights (``models/quantize.py``),
+for example Llama-3.1-8B:
+
+    python -m vitef_tpu_torch.apps.gpt2.serve run --implementation llama --model_name 8b \
+        --demo 16 --quantize int8
+
+Not ported yet: ``--prefix`` (the prefix cache), which raises.
 """
 
 from __future__ import annotations
@@ -122,11 +127,13 @@ def run(requests: str | None = None, demo: int = 0, model_name: str = "base",
     syncs of continuous batching cost more than its saved ticks. Greedy wave
     outputs equal the continuous server's. ``--implementation llama`` or
     ``moe`` (with their ``--model_name``) serves those families by token ids.
+    ``--quantize int8``: weight-only int8 weights (``Model.quantize_int8``),
+    the full-precision ones freed before serving.
     """
     if (requests is None) == (demo == 0):
         raise SystemExit("pass exactly one of --requests or --demo N")
-    if quantize is not None:
-        raise NotImplementedError("--quantize (int8 weights) is not ported yet")
+    if quantize not in (None, "int8"):
+        raise SystemExit(f"--quantize must be int8, got {quantize!r}")
     if prefix is not None:
         raise NotImplementedError("--prefix (the prefix cache) is not ported yet")
     if mode not in ("auto", "continuous", "wave"):
@@ -138,6 +145,8 @@ def run(requests: str | None = None, demo: int = 0, model_name: str = "base",
     if implementation in ("llama", "moe"):
         build_args["seq_len"] = max_len  # cap the rope/cache length
     model = build_model(build_args, device=device)
+    if quantize is not None:
+        model.module = model.quantize_int8()
 
     reqs = _load_requests(requests, demo, model.config.vocab_size, max_new_tokens)
     eos_id = (EOS_ID if eos and implementation == "gpt2"

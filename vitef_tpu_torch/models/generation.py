@@ -23,7 +23,12 @@ The serving path of a causal decoder, with the JAX module's names:
   ``jax.random``'s; the distributions are the same);
 - :func:`generate` (:507-586): a Python loop of decode steps under
   ``torch.inference_mode``, the cache preallocated at ``P + max_new_tokens``,
-  EOS handled on the device (no host sync per step).
+  EOS handled on the device (no host sync per step), on
+  :func:`decode_module`'s copy of the weight matrices in the compute dtype.
+
+A module from ``Model.quantize_int8`` (``models/quantize.py``) decodes with
+int8 weights through the same functions: its linears take the int8 branch,
+and the token table and a tied head read its int8 rows times their scales.
 
 The functions take the model's :class:`~vitef_tpu_torch.models.transformer.Transformer`
 module where the JAX ones take its parameter tree, and use its submodules
@@ -37,8 +42,8 @@ import math
 import torch
 
 from ..ops.attention import attention_route, fused_mha_packed
-from ..ops.common import mm_f32
-from .quantize import embed_rows
+from ..ops.common import bmm_f32, mm_f32
+from .quantize import decode_matrices, embed_rows, module_with
 from .rope import apply_rope, rope_angles
 from .transformer import TransformerConfig, split_qkv
 
@@ -56,6 +61,23 @@ def _check_decoder(cfg: TransformerConfig) -> None:
         raise ValueError("generate() requires output_type=sequence_to_sequence")
     if cfg.norm.lower() == "batch":
         raise ValueError("batch-norm models are not supported for decoding")
+
+
+def decode_module(module, cfg: TransformerConfig):
+    """The module that :func:`generate` and ``DecodeServer`` decode with:
+    ``module`` itself, or, where its weight matrices (``decode_matrices``)
+    are float but not in the compute dtype (the float32 weights of a
+    bfloat16 model), a copy holding them cast to the compute dtype once,
+    every other tensor shared. Each linear casts its weight at every call,
+    and each product and gather reads exactly the cast values, so the
+    outputs are the same; the copy costs the matrices' bytes in the compute
+    dtype while it lives (16 GB for Llama-3.1-8B in bfloat16) and saves a
+    decode step reading the float32 weights and writing their cast."""
+    cd = cfg.cdtype()
+    state = module.state_dict()
+    cast = {name: state[name].to(cd) for name in decode_matrices(state)
+            if state[name].is_floating_point() and state[name].dtype != cd}
+    return module_with(module, cast) if cast else module
 
 
 def _check_kv_dtype(kv_cache_dtype) -> None:
@@ -96,19 +118,6 @@ def quantize_kv(t: torch.Tensor):
     return q.clamp(-127, 127).to(torch.int8), scale
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` over equal leading batch axes with a float32 result, as an
-    einsum with ``preferred_element_type=float32``: bfloat16 operands on CUDA
-    go to cuBLAS with a float32 output; elsewhere they are widened first (a
-    product of two bfloat16 values is exact in float32)."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        batch = a.shape[:-2]
-        out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
-                        out_dtype=torch.float32)
-        return out.reshape(*batch, *out.shape[-2:])
-    return torch.matmul(a.float(), b.float())
-
-
 def _attend_cached(q, k_cache, v_cache, n_heads: int, pos, key_mask=None,
                    k_scale=None, v_scale=None):
     """One-token attention against the (N, kv_heads, Lmax, d) cache.
@@ -137,7 +146,7 @@ def _attend_cached(q, k_cache, v_cache, n_heads: int, pos, key_mask=None,
     quantized = k_cache.dtype == torch.int8
     kc = k_cache.to(cd) if quantized else k_cache
     vc = v_cache.to(cd) if quantized else v_cache
-    scores = _bmm_f32(q.reshape(n, kvh, g, d), kc.transpose(-1, -2))  # (N, kvh, g, P)
+    scores = bmm_f32(q.reshape(n, kvh, g, d), kc.transpose(-1, -2))  # (N, kvh, g, P)
     if quantized:
         scores = scores * k_scale[:, :, None, :]
     scores = scores * (1.0 / math.sqrt(d))
@@ -146,7 +155,7 @@ def _attend_cached(q, k_cache, v_cache, n_heads: int, pos, key_mask=None,
     weights = torch.softmax(scores, dim=-1)
     if quantized:
         weights = weights * v_scale[:, :, None, :]
-    out = _bmm_f32(weights.to(vc.dtype), vc).to(cd)
+    out = bmm_f32(weights.to(vc.dtype), vc).to(cd)
     return out.reshape(n, n_heads * d)
 
 
@@ -404,6 +413,7 @@ def generate(module, cfg: TransformerConfig, prompt, max_new_tokens: int, *,
     device = prompt.device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
+    module = decode_module(module, cfg)
     key_mask = None
     lengths = torch.full((n,), p, dtype=torch.long, device=device)
     if prompt_mask is not None:

@@ -71,6 +71,18 @@ class Model:
                         prompt_mask=prompt_mask, kv_cache_dtype=kv_cache_dtype, top_p=top_p,
                         eos_token_id=eos_token_id)
 
+    def quantize_int8(self):
+        """The decoding copy of this model's module with weight-only int8
+        weights (:121-132): every block's linears, the token table and the
+        untied head as int8 with a power-of-two float32 scale per output
+        channel, the rest shared
+        (:func:`~vitef_tpu_torch.models.quantize.quantize_module`). Pass it
+        to ``generate`` or ``DecodeServer`` where the JAX package passes the
+        quantized params; inference only."""
+        from .quantize import quantize_module
+
+        return quantize_module(self.module)
+
     def get_decomposition(self, x: torch.Tensor) -> dict:
         """The per-block component outputs on the embedding output
         (:meth:`Transformer.get_decomposition`), in eval mode under

@@ -22,7 +22,10 @@ request of a wave:
   exactly as a per-tick protocol would.
 
 Greedy invariant: every request's output through the server equals a
-standalone ``generate()`` on its prompt, whatever its co-tenants.
+standalone ``generate()`` on its prompt, whatever its co-tenants. The server
+decodes with ``generation.decode_module``'s copy of the weight matrices in
+the compute dtype, made once, and serves a module from
+``Model.quantize_int8`` (int8 weights) through the same functions.
 Not ported yet (they raise ``NotImplementedError``): the prefix cache
 (``register_prefix``), speculative windows (``draft_params``) and the
 multi-device server (``mesh``).
@@ -36,7 +39,7 @@ from typing import Any
 import torch
 
 from .generation import (_block_decode, _block_prefill, _check_decoder, _embed_token, _logits,
-                         _split_heads, init_kv_cache, sample_token)
+                         _split_heads, decode_module, init_kv_cache, sample_token)
 from .quantize import embed_rows
 from .transformer import TransformerConfig
 
@@ -122,7 +125,7 @@ class DecodeServer:
             raise NotImplementedError("multi-device serving (mesh=) is not ported yet")
         if draft_params is not None:
             raise NotImplementedError("speculative serving (draft_params=) is not ported yet")
-        self.module, self.cfg = module, cfg
+        self.module, self.cfg = decode_module(module, cfg), cfg
         self.device = next(module.parameters()).device
         self.n_slots = n_slots
         self.max_len = max_len or cfg.seq_len

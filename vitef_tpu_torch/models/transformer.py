@@ -8,7 +8,9 @@ numerics:
 
 - linear weights are stored in the torch layout (out, in) and in float32;
   each matmul casts them to the compute dtype, and its output and bias add
-  are in the compute dtype;
+  are in the compute dtype. A decoding copy may hold them as int8 with a
+  float32 scale per output channel (``models/quantize.py``), whose product
+  is the JAX ``_linear``'s int8 branch (:408-413);
 - the residual stream is in the compute dtype (bfloat16 on the card);
 - hybrid image patching replaces the token embedding by the identity, the
   cls token is prepended, then ``pos_emb[:, :l]`` is added;
@@ -244,7 +246,15 @@ def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
 
 class Linear(nn.Module):
     """Linear layer: float32 ``weight`` (out, in) and ``bias`` (out,), applied in
-    the compute dtype."""
+    the compute dtype: the product's output is in the compute dtype (float32
+    accumulation inside), as the JAX einsum with
+    ``preferred_element_type=compute_dtype``.
+
+    An int8 ``weight`` beside a float32 ``scale`` (out,) (the decoding copy
+    of :func:`~vitef_tpu_torch.models.quantize.quantize_module`) is the JAX
+    package's int8 linear: the int8 values cast to the compute dtype (exact),
+    the product accumulated and returned in float32, times the scale, then
+    cast to the compute dtype."""
 
     def __init__(self, fan_in: int, fan_out: int, bias: bool, *,
                  device: torch.device, generator: torch.Generator):
@@ -255,7 +265,12 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-        out = F.linear(x.to(compute_dtype), self.weight.to(compute_dtype))
+        if self.weight.dtype == torch.int8:
+            flat = x.to(compute_dtype).reshape(-1, x.shape[-1])
+            out = mm_f32(flat, self.weight.to(compute_dtype).t()) * self.scale
+            out = out.to(compute_dtype).reshape(*x.shape[:-1], -1)
+        else:
+            out = F.linear(x.to(compute_dtype), self.weight.to(compute_dtype))
         if self.bias is not None:
             out = out + self.bias.to(compute_dtype)
         return out

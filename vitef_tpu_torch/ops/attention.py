@@ -17,9 +17,11 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
   when causal, any L), as ``_packed_mha``'s custom VJP (:390-441) does; on a
   CPU tensor it runs :func:`packed_mha_reference`, and autograd
   differentiates that. With ``key_mask`` (the ragged serving prefill,
-  :459-479) it launches the kernel's key-masked mode, forward only;
+  :459-479) it launches the kernel's key-masked mode, forward only. At head
+  width 128 (Llama-3.1-8B's serving prefill) it is forward only too: K2 and
+  K3 are not instantiated there;
 - :func:`packed_mha_supported` (:443-456) — the packed kernels' gate: a head
-  width the kernels are instantiated for (64, 80) and the JAX package's byte
+  width K1 is instantiated for (64, 80, 128) and the JAX package's byte
   budget;
 - :func:`flash_attention` (:680-698) — the K4 wrapper on (N, h, L, d): on a
   CUDA tensor it launches ``csrc/flash_fwd.cu`` (bfloat16 or float32, causal
@@ -51,7 +53,8 @@ from ._build import kernel_function
 from .common import resolve_impl
 
 _NEG_INF = -1e30
-_PACKED_HEAD_DIMS = (64, 80)   # the head widths csrc/packed_mha_*.cu instantiate, every mode
+_PACKED_FWD_HEAD_DIMS = (64, 80, 128)  # the head widths csrc/packed_mha_fwd.cu instantiates
+_PACKED_BWD_HEAD_DIMS = (64, 80)       # and csrc/packed_mha_bwd.cu, every mode of each
 _FLASH_HEAD_DIM = 64           # the head width csrc/flash_*.cu instantiate
 
 
@@ -156,19 +159,24 @@ _PACKED_BUDGET = 40 * 1024 * 1024
 
 def packed_mha_supported(l: int, e: int, n_heads: int) -> bool:
     """Whether bfloat16 attention takes the packed kernels for this geometry:
-    a head width K1, K2 and K3 are instantiated for, 64 or 80 (ViT-H/14),
-    each in every mode (they tile over keys and take every L, causal or
-    not), and the JAX package's budget ``2·(4·E·L·2) + 3·L²·4 <= 40 MiB``, so
-    that both packages take the same branch. Past the budget (Llama-1B,
-    E=2048 at L=1024: 46.1 MB) attention takes the flash kernels K4 and K5.
-    The JAX gate checks the budget only; at another head width (96, 128) the
-    port takes the flash route, whose kernels raise for any width but 64."""
-    return (l > 0 and e % n_heads == 0 and e // n_heads in _PACKED_HEAD_DIMS
+    a head width K1 is instantiated for, 64, 80 (ViT-H/14) or 128
+    (Llama-3.1-8B), each in every mode (it tiles over keys and takes every
+    L, causal or not), and the JAX package's budget
+    ``2·(4·E·L·2) + 3·L²·4 <= 40 MiB``, so that both packages take the same
+    branch. Past the budget (Llama-1B, E=2048 at L=1024: 46.1 MB;
+    Llama-3.1-8B, E=4096, from L=579) attention takes the flash kernels K4
+    and K5, and the serving prefill the grouped einsum. K2 and K3 take 64
+    and 80 only, so a forward at 128 that wants a gradient raises
+    (:func:`fused_mha_packed`). The JAX gate checks the budget only; at
+    another head width (96) the port takes the flash route, whose kernels
+    raise for any width but 64."""
+    return (l > 0 and e % n_heads == 0 and e // n_heads in _PACKED_FWD_HEAD_DIMS
             and 2 * (4 * e * l * 2) + 3 * l * l * 4 <= _PACKED_BUDGET)
 
 
-def _check_cuda(name: str, qkv, n_heads: int):
-    """Raise unless the packed kernel ``name`` takes qkv (N, L, 3E) on CUDA."""
+def _check_cuda(name: str, qkv, n_heads: int, head_dims: tuple):
+    """Raise unless the packed kernel ``name``, instantiated at ``head_dims``,
+    takes qkv (N, L, 3E) on CUDA."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {qkv.device}")
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
@@ -176,9 +184,9 @@ def _check_cuda(name: str, qkv, n_heads: int):
     e = qkv.shape[2] // 3
     if e % n_heads:
         raise ValueError(f"{name}: E={e} is not a multiple of n_heads={n_heads}")
-    if e // n_heads not in _PACKED_HEAD_DIMS:
+    if e // n_heads not in head_dims:
         raise NotImplementedError(
-            f"{name} is instantiated for head widths {_PACKED_HEAD_DIMS}, got {e // n_heads}")
+            f"{name} is instantiated for head widths {head_dims}, got {e // n_heads}")
 
 
 def _kernel_operand(t, name: str, shape: tuple, device):
@@ -248,9 +256,11 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None, key_mas
 
     A CPU tensor goes through :func:`packed_mha_reference` (and autograd
     differentiates it). A CUDA tensor launches the forward kernel, or raises
-    if the kernel does not take it: bfloat16, head width 64 or 80. When qkv or bias
-    requires a gradient the call is differentiable, and its backward launches
-    K2 or, causal, K3 (:func:`packed_mha_bwd`).
+    if the kernel does not take it: bfloat16, head width 64, 80 or 128. When
+    qkv or bias requires a gradient the call is differentiable, and its
+    backward launches K2 or, causal, K3 (:func:`packed_mha_bwd`); at head
+    width 128, where K2 and K3 are not instantiated, such a call raises
+    ``NotImplementedError`` on every device before anything runs.
 
     ``key_mask`` (N, L) bool marks each sequence's valid keys (False: the
     left padding of a ragged serving batch). It is forward only, as in the
@@ -265,16 +275,23 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None, key_mas
     ``fused_mha_packed.launches`` counts the unmasked forward kernel's
     launches, ``fused_mha_packed.masked_launches`` the masked mode's.
     """
+    wants_grad = torch.is_grad_enabled() and (qkv.requires_grad
+                                              or (bias is not None and bias.requires_grad))
     if key_mask is not None:
         if tuple(key_mask.shape) != tuple(qkv.shape[:2]) or key_mask.device != qkv.device:
             raise ValueError(f"key_mask must be {tuple(qkv.shape[:2])} on {qkv.device}, got "
                              f"{tuple(key_mask.shape)} on {key_mask.device}")
-        if torch.is_grad_enabled() and (qkv.requires_grad
-                                        or (bias is not None and bias.requires_grad)):
+        if wants_grad:
             raise NotImplementedError("the key-masked packed attention is forward only")
+    d = qkv.shape[-1] // 3 // n_heads
+    if wants_grad and d in _PACKED_FWD_HEAD_DIMS and d not in _PACKED_BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the packed attention at head width {d} is forward only: its backward, K2 and "
+            f"K3 (csrc/packed_mha_bwd.cu), is instantiated for head widths "
+            f"{_PACKED_BWD_HEAD_DIMS}")
     if qkv.device.type == "cpu":
         return packed_mha_reference(qkv, n_heads, causal=causal, bias=bias, key_mask=key_mask)
-    _check_cuda("packed_mha_fwd", qkv, n_heads)
+    _check_cuda("packed_mha_fwd", qkv, n_heads, _PACKED_FWD_HEAD_DIMS)
     n, l, f = qkv.shape
     if bias is None:
         bias = torch.zeros(f, dtype=qkv.dtype, device=qkv.device)
@@ -283,7 +300,7 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None, key_mas
     if key_mask is not None:
         mask = key_mask.to(torch.bool).contiguous().view(torch.uint8)
         return _launch_fwd(qkv, bias, n_heads, causal, key_mask=mask)[0]
-    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+    if wants_grad:
         return _PackedMHA.apply(qkv, bias, n_heads, causal)
     return _launch_fwd(qkv, bias, n_heads, causal)[0]
 
@@ -311,7 +328,7 @@ def packed_mha_bwd(qkv, bias, g, out, lse, n_heads: int, causal: bool = False):
     """
     if qkv.device.type == "cpu":
         return packed_mha_bwd_reference(qkv, bias, g, n_heads, causal=causal)
-    _check_cuda("packed_mha_bwd", qkv, n_heads)
+    _check_cuda("packed_mha_bwd", qkv, n_heads, _PACKED_BWD_HEAD_DIMS)
     n, l, f = qkv.shape
     if tuple(lse.shape) != (n, n_heads, l) or lse.dtype != torch.float32 \
             or lse.device != qkv.device:

@@ -1,8 +1,8 @@
 """Shared op policy: which implementation runs, and what float32 means.
 
 Counterpart of ``vitef_tpu/ops/common.py`` (``best_precision`` :9-18,
-``resolve_impl`` :21-59), and :func:`mm_f32` for the JAX package's
-``preferred_element_type=float32`` products.
+``resolve_impl`` :21-59), and :func:`mm_f32` and :func:`bmm_f32` for the JAX
+package's ``preferred_element_type=float32`` products.
 """
 
 from __future__ import annotations
@@ -87,3 +87,16 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda and not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over equal leading batch axes with a float32 result, as an
+    einsum with ``preferred_element_type=float32``: bfloat16 operands on CUDA
+    go to cuBLAS with a float32 output; elsewhere they are widened first (a
+    product of two bfloat16 values is exact in float32). No autograd."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        batch = a.shape[:-2]
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                        out_dtype=torch.float32)
+        return out.reshape(*batch, *out.shape[-2:])
+    return torch.matmul(a.float(), b.float())

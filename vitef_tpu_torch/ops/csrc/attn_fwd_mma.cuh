@@ -5,20 +5,22 @@
 // also the backward's (attn_bwd_mma.cuh).
 //
 // One block of 4 warps computes 64 query rows of one head at head width D,
-// a template parameter (64, or 80 for ViT-H/14; K1-K3 take both, K4 and K5
-// 64), in a FlashAttention-2 schedule on mma.sync.m16n8k16 (bf16 in, float32
-// accumulators):
+// a template parameter (64; 80 for ViT-H/14; 128 for Llama-3.1-8B's
+// serving prefill, K1 only: K1 takes all three, K2 and K3 64 and 80, K4 and
+// K5 64), in a FlashAttention-2 schedule on mma.sync.m16n8k16 (bf16 in,
+// float32 accumulators):
 //
 // - the block's Q tile goes to shared memory once, and each warp keeps its
 //   16 rows as A fragments in registers (ldmatrix, D/16 k16 steps) for the
 //   whole key loop;
 // - 64-key tiles of K and V are staged with 16-byte cp.async copies, double
 //   buffered (tile j + 1 is in flight while tile j is multiplied), in rows
-//   padded by 8 elements (D + 8: 144 or 176 bytes, whose eight rows of an
-//   ldmatrix fall in eight distinct 16-byte bank groups, so every ldmatrix is
-//   free of bank conflicts); rows past L (of Q, K and V) are zero-filled,
-//   never left stale. A 64-row tile is 8 D pieces of 16 bytes, D/16 a thread:
-//   four in the first 64 columns and, at D = 80, one in the last 16;
+//   padded by 8 elements (D + 8: 144, 176 or 272 bytes, an odd number of
+//   16-byte groups, so the eight rows of an ldmatrix fall in eight distinct
+//   bank groups and every ldmatrix is free of bank conflicts); rows past L
+//   (of Q, K and V) are zero-filled, never left stale. A 64-row tile is 8 D
+//   pieces of 16 bytes, D/16 a thread: four in each 64 columns and, at
+//   D = 80, one in the last 16;
 // - with a bias (K1) each staged row gets it added in one in-place pass,
 //   rounded to bf16 as the plain version rounds qkv + bias;
 // - per warp S = Q K^T is 16 x 64 float32 scores in registers (8 n8-tiles x
@@ -33,15 +35,17 @@
 // - O += P V without shared memory: P is rounded to bf16 in registers and
 //   two adjacent n8 accumulator tiles are one k16 A fragment (the m16n8k16
 //   C -> A layout identity); V comes through ldmatrix.trans. The row sum adds
-//   the unrounded p. The 16 x D O accumulator (D/8 n8 tiles) stays in
-//   registers;
+//   the unrounded p. The 16 x D O accumulator (D/8 n8 tiles, D/2 floats a
+//   thread: 64 at D = 128, beside D/4 registers of Q fragments and 32 of S)
+//   stays in registers;
 // - the epilogue divides by the row sum, rounds to bf16, stages the warp's
 //   16 rows in its own rows of the Q tile and writes them with 16-byte
 //   stores; on request each row's m + log2(l), the log2-sum-exp of the
 //   scaled scores (the units K2, K3 and K5 rebuild P from), is written.
 //
 // No atomics: two launches on the same inputs give bit-identical results.
-// Shared memory: Q and two K/V stages, 45 KB at D = 64 and 55 KB at D = 80.
+// Shared memory: Q and two K/V stages, 45 KB at D = 64, 55 KB at D = 80 and
+// 85 KB at D = 128 (above 48 KB only through allow_smem's opt-in).
 //
 // The float32 paths of K4 and K5 share its tiles and its thread mapping in
 // split TF32 (m16n8k8) at head width 64 only: stage_tile_f32 stages rows of
@@ -64,7 +68,7 @@ constexpr int kAttnThreads = 32 * kAttnWarps;
 constexpr float kAttnMaskedScore = -1e30f;   // a key-masked key's scaled score
 
 template <int D>
-constexpr bool kAttnWidthOk = D == 64 || D == 80;  // the head widths the bf16 tiles take
+constexpr bool kAttnWidthOk = D == 64 || D == 80 || D == 128;  // the bf16 tiles' head widths
 template <int D>
 constexpr int kAttnStride = D + 8;           // bf16 elements per padded shared row
 template <int D>
@@ -92,10 +96,11 @@ struct AttnHead {
   const uint8_t* key_mask;
 };
 
-// Where piece i of this thread's pieces of a 64-row tile lies: pieces 0-3 at
-// rows first_row + 16 i, columns col .. col + 7 (the first 64 columns, eight
-// pieces a row; first_row = threadIdx.x / 8, col = 8 (threadIdx.x % 8)), and
-// at D = 80 piece 4 at row threadIdx.x / 2, columns 64 + 8 (threadIdx.x % 2)
+// Where piece i of this thread's pieces of a 64-row tile lies: pieces 4 c
+// .. 4 c + 3 at rows first_row + 16 (i % 4), columns 64 c + col .. + 7 (the
+// c-th 64 columns, eight pieces a row; first_row = threadIdx.x / 8, col =
+// 8 (threadIdx.x % 8)): pieces 0-3 at D = 64 and 80, 0-7 at D = 128; and at
+// D = 80 piece 4 at row threadIdx.x / 2, columns 64 + 8 (threadIdx.x % 2)
 // .. + 7 (the last 16 columns, two pieces a row). The copies and bias passes
 // map their threads so.
 struct TilePiece {
@@ -105,9 +110,11 @@ struct TilePiece {
 
 template <int D>
 __device__ __forceinline__ TilePiece tile_piece(int i, int first_row, int col) {
-  static_assert(kAttnWidthOk<D>, "the bf16 attention tiles take head widths 64 and 80");
-  if (i < 4) return {first_row + 16 * i, col};
-  return {static_cast<int>(threadIdx.x >> 1), 64 + 8 * static_cast<int>(threadIdx.x & 1)};
+  static_assert(kAttnWidthOk<D>, "the bf16 attention tiles take head widths 64, 80 and 128");
+  if (D == 80 && i == 4) {
+    return {static_cast<int>(threadIdx.x >> 1), 64 + 8 * static_cast<int>(threadIdx.x & 1)};
+  }
+  return {first_row + 16 * (i & 3), 64 * (i >> 2) + col};
 }
 
 // This thread's pieces of a 64-row tile of D columns, rows r0 + row of
@@ -125,7 +132,8 @@ __device__ __forceinline__ void stage_tile(const bf16* base, size_t stride, int 
 }
 
 // The bias of this thread's pieces' columns, eight bf16 in 16 bytes each:
-// b[0] for pieces 0-3 and, at D = 80, b[1] for piece 4.
+// b[0] for pieces 0-3 and, past D = 64, b[1] for the others (piece 4 at
+// D = 80, pieces 4-7 at D = 128: the same columns in the second 64).
 template <int D>
 struct TileBias {
   uint4 b[D > 64 ? 2 : 1];

@@ -7,8 +7,9 @@
 // qkv (N, L, 3E) holds [q | k | v] columns, head-major within each, with the
 // qkv bias (3E,) added in the kernels and rounded to bfloat16 as the plain
 // PyTorch version rounds qkv + bias. K1-K3 are instantiated for head widths
-// 64 and 80 (ViT-H/14), each a template argument of their tiles; K4 and K5
-// for 64 only, kFlashDim; K9 for 64 and 128 (csrc/ring_hop.cu).
+// 64 and 80 (ViT-H/14), and K1 also for 128 (Llama-3.1-8B), each a template
+// argument of their tiles; K4 and K5 for 64 only, kFlashDim; K9 for 64 and
+// 128 (csrc/ring_hop.cu).
 //
 // Shared here: the flash kernels' head width, the bf16 pair load, log2(e)
 // and allow_smem.

@@ -23,7 +23,8 @@
 // (4*L*L*d FLOPs; causal, the lower triangle's half) and as many
 // exponentials as scores, against (N*L*3E + N*L*E) * 2 bytes of device
 // memory for the whole call: about 98 FLOPs per byte at ViT-B/16 (L=197),
-// 128 at ViT-H/14 (L=257) and 256 causal at GPT-2 (L=1024). A kernel that
+// 128 at ViT-H/14 (L=257), 256 causal at GPT-2 (L=1024) and about 128
+// causal at Llama-3.1-8B's serving prefill (d=128, L=512). A kernel that
 // keeps the L x L scores on chip is bound by the products, and those belong
 // on the tensor cores: on the CUDA cores, shared-memory reads and FMA issue
 // hold such a kernel to 12-14 TFLOP/s on this card.
@@ -37,13 +38,18 @@
 // the scores, the online softmax and P in registers, P fed to the second
 // product straight from the first one's accumulators; no tile above the
 // causal diagonal is loaded. The L x L scores never reach device or shared
-// memory. Shared memory is fixed at 45 KB a block at d = 64 and 55 KB at
-// d = 80, whatever L is. wgmma, TMA and warp specialisation are the next
-// step.
+// memory. Shared memory is fixed at 45 KB a block at d = 64, 55 KB at
+// d = 80 and 85 KB at d = 128, whatever L is. wgmma, TMA and warp
+// specialisation are the next step.
 //
-// Head widths: every mode is instantiated at d = 64 and d = 80 (ViT-H/14),
-// the widths the wrapper's gate admits (vitef_tpu_torch/ops/attention.py
+// Head widths: every mode is instantiated at d = 64, d = 80 (ViT-H/14) and
+// d = 128 (Llama-3.1-8B, whose serving prefill runs the causal modes), the
+// widths the wrapper's gate admits (vitef_tpu_torch/ops/attention.py
 // packed_mha_supported), so no mode of an admitted width lacks its kernel.
+// At d = 128 a thread holds 64 float32 of O, 32 registers of Q fragments
+// and 32 of scores; the backward (csrc/packed_mha_bwd.cu) is not
+// instantiated there, and the wrapper refuses a d = 128 call that wants a
+// gradient.
 //
 // The key mask (serving's ragged prefill) is a compile-time flag. The masked
 // instantiation reads a (N, L) byte mask, nonzero for a valid key, and gives
@@ -62,7 +68,7 @@
 // C interface: packed_mha_fwd(qkv, bias, key_mask, out, lse, N, L, n_heads,
 // head_dim, causal, stream) returns a cudaError_t as int: the launch's
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape this kernel does
-// not take (head_dim other than 64 and 80 among them). key_mask (uint8,
+// not take (head_dim other than 64, 80 and 128 among them). key_mask (uint8,
 // (N, L)) may be null for the unmasked kernel; lse may be null.
 
 #include <cstdint>
@@ -118,10 +124,11 @@ cudaError_t launch(const bf16* qkv, const bf16* bias, const uint8_t* key_mask, b
 extern "C" int packed_mha_fwd(const void* qkv, const void* bias, const void* key_mask,
                               void* out, void* lse, int n, int L, int n_heads, int head_dim,
                               int causal, void* stream) {
-  if ((head_dim != 64 && head_dim != 80) || n <= 0 || L <= 0 || n_heads <= 0) {
+  if ((head_dim != 64 && head_dim != 80 && head_dim != 128) || n <= 0 || L <= 0 ||
+      n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto run = head_dim == 64 ? launch<64> : launch<80>;
+  const auto run = head_dim == 64 ? launch<64> : head_dim == 80 ? launch<80> : launch<128>;
   return static_cast<int>(run(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
       static_cast<const uint8_t*>(key_mask), static_cast<bf16*>(out), static_cast<float*>(lse),

@@ -22,9 +22,11 @@ The single-device part of the JAX module, with its names:
   fused or unfused branch for a geometry: the CUDA kernels pick their own
   tiles.
 
-Not ported: the expert-parallel paths (``apply_moe_ffn_ep`` :758,
-``apply_moe_ffn_ep_sparse`` :822, ``make_moe_ep_train_step`` :1026) and int8
-expert stacks, which raise.
+Int8 expert stacks (``models/quantize.py``: one float32 scale per (expert,
+out column)) take the dense oracle, as in the JAX package; the sparse
+dispatch refuses them. Not ported: the expert-parallel paths
+(``apply_moe_ffn_ep`` :758, ``apply_moe_ffn_ep_sparse`` :822,
+``make_moe_ep_train_step`` :1026), which raise.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.transformer import _uniform, get_activation
+from ..ops.common import bmm_f32
 from ..ops.gmm import gmm, gmm_autograd, tgmm
 from ..ops.gmm_fused import gmm_dual, gmm_dy_swiglu, gmm_swiglu, tgmm_swiglu
 
@@ -144,11 +147,14 @@ def router_aux(params, cfg, x, top_k: int) -> dict:
 
 
 def _expert_matmul(p, x, cd, spec: str):
-    """Stacked expert linear in the compute dtype (:180-196). int8 stacks
-    (the JAX package's weight-only quantized path) are not ported."""
+    """Stacked expert linear (E, C, in) x (E, in, out) in the compute dtype
+    (:180-196). An int8 stack is the JAX package's int8 path: its values
+    cast to the compute dtype, the product accumulated and returned in
+    float32, times the (E, out) scale, then cast."""
     if p["weight"].dtype == torch.int8:
-        raise NotImplementedError("int8 expert stacks are not ported yet")
-    out = torch.einsum(spec, x, p["weight"].to(cd))
+        out = (bmm_f32(x, p["weight"].to(cd)) * p["scale"][:, None, :]).to(cd)
+    else:
+        out = torch.einsum(spec, x, p["weight"].to(cd))
     if "bias" in p:
         out = out + p["bias"][:, None, :].to(cd)
     return out
