@@ -10,7 +10,11 @@ seeded numpy inputs, to ``jax.grad`` of the JAX package's
 (the JAX package's full-L kernel in its causal mode), causal at 512 (its
 block-triangular causal kernel, taken when L % 256 == 0 and L >= 512) and
 non-causal at 17 and 129. At head width 80 (ViT-H/14, whose K2 and K3 tiles
-hold 80 columns): causal at 17, non-causal at 129 and at ViT-H/14's 257.
+hold 80 columns): causal at 17, non-causal at 129 and at ViT-H/14's 257. At
+head width 128 (Llama-3.1-8B, whose K2 and K3 tiles hold 128 columns and
+read K and V from shared memory at each use): causal at 17, causal at 512
+(the block-triangular kernel, as the 8B packed training route at 8 x 512
+takes it) and non-causal at 129.
 """
 
 import numpy as np
@@ -32,10 +36,12 @@ TOL = dict(atol=5e-5, rtol=1e-3)
 
 @pytest.mark.parametrize("l,causal,d", [(17, True, D), (65, True, D), (129, True, D),
                                         (512, True, D), (17, False, D), (129, False, D),
-                                        (17, True, 80), (129, False, 80), (257, False, 80)],
+                                        (17, True, 80), (129, False, 80), (257, False, 80),
+                                        (17, True, 128), (512, True, 128), (129, False, 128)],
                          ids=["causal17", "causal65", "causal129", "causal512_blocked",
                               "full17", "full129", "d80_causal17", "d80_full129",
-                              "d80_full257"])
+                              "d80_full257", "d128_causal17", "d128_causal512_blocked",
+                              "d128_full129"])
 def test_packed_mha_bwd_reference_matches_jax_kernels(l, causal, d):
     rng = np.random.default_rng(400 + l + (d - D))  # d = 64 keeps its seeds
     e = H * d

@@ -5,11 +5,13 @@ kernel K4's plain version against the JAX package's ``flash_attention``
 (Pallas kernel in interpret mode, as tests/test_ops.py runs it), with L not a
 multiple of its 128-row blocks; K5's plain version against ``jax.vjp`` of it
 in both of the JAX backward's branches (its kernel, and the XLA recompute past
-its VMEM budget); rope and the rms norm; a tiny Llama's logits and three
-AdamW train steps with the fused untied head loss in float32; the tiny Llama
-in bfloat16 through the flash route; the attention routing of both packages
-for the repo's geometries; the "1b" preset's names and shapes; and the
-HuggingFace weight map.
+its VMEM budget), each at head width 16 and at Llama-3.1-8B's 128; rope and
+the rms norm; a tiny Llama's logits and three AdamW train steps with the
+fused untied head loss in float32, also at head width 128 (E = 256, 2 heads,
+1 KV head); the tiny Llama in bfloat16 through the flash route; the
+attention routing of both packages for the repo's geometries and the head
+widths each kernel wrapper takes; the "1b" preset's names and shapes; and
+the HuggingFace weight map.
 """
 
 import numpy as np
@@ -76,12 +78,18 @@ def _qkv(n, h, l, d, seed):
 # ---------------------------------------------------------------------------
 
 
+# (causal, head width): 16, and 128 (Llama-3.1-8B's, whose K4 and K5
+# instantiations the 8B flash training route runs)
+FLASH_CASES = dict(argvalues=[(False, 16), (True, 16), (False, 128), (True, 128)],
+                   ids=["full", "causal", "d128_full", "d128_causal"])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_attention_matches_jax_kernel(causal, dtype):
+@pytest.mark.parametrize("causal,d", **FLASH_CASES)
+def test_flash_attention_matches_jax_kernel(causal, d, dtype):
     """L=130 pads to 256 in the JAX version (two 128-row blocks, keys past
     kv_len masked); the port masks by index."""
-    q, k, v, _ = _qkv(2, 2, 130, 16, seed=31)
+    q, k, v, _ = _qkv(2, 2, 130, d, seed=31)
     with pltpu.force_tpu_interpret_mode():
         ref = jax_attention.flash_attention(*(jnp.asarray(t, dtype) for t in (q, k, v)),
                                             causal=causal, impl="pallas")
@@ -96,14 +104,14 @@ def test_flash_attention_matches_jax_kernel(causal, dtype):
 
 
 @pytest.mark.parametrize("branch", ["kernel", "xla"])
-@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_bwd_matches_jax_vjp(causal, branch, monkeypatch):
+@pytest.mark.parametrize("causal,d", **FLASH_CASES)
+def test_flash_bwd_matches_jax_vjp(causal, d, branch, monkeypatch):
     """K5's plain version against jax.vjp of flash_attention, through the
     JAX backward's kernel (2·h·L_pad²·4 = 1 MiB, inside its 10 MiB budget)
     and, with the budget set to 0, its XLA recompute."""
     if branch == "xla":
         monkeypatch.setattr(jax_attention, "_BWD_VMEM_BUDGET", 0)
-    q, k, v, g = _qkv(2, 2, 130, 16, seed=32)
+    q, k, v, g = _qkv(2, 2, 130, d, seed=32)
 
     def f(q, k, v):
         return jax_attention.flash_attention(q, k, v, causal=causal, impl="pallas")
@@ -185,12 +193,36 @@ def test_llama_tiny_matches_jax():
     np.testing.assert_allclose(att.numpy(), np.asarray(ref_att), atol=ATOL, rtol=RTOL)
 
 
+# A decoder with the Llama options at Llama-3.1-8B's head width: E = 256, 2
+# heads of 128 over 1 KV head, RoPE at θ = 500,000, rms norm, swiglu, an
+# untied head; 2 layers, V = 256.
+LLAMA_D128 = {"implementation": "transformer", "vocab_size": 256, "emb_type": "dict",
+              "emb_dim": 256, "n_heads": 2, "n_kv_heads": 1, "n_layers": 2, "seq_len": 32,
+              "causal": True, "pre_norm": True, "weight_tying": False,
+              "output_type": "sequence_to_sequence", "attn_bias": False, "ffn_bias": False,
+              "ffn_type": "swiglu", "ffn_dim": 512, "norm": "rms", "norm_bias": False,
+              "norm_eps": 1e-5, "pos_emb_type": "rope", "rope_theta": 500000.0,
+              "cls_token": False}
+
+
 def test_llama_train_steps_match_jax():
     """Three AdamW steps (weight decay on every parameter), cosine schedule,
     clip 1.0 and the fused loss through the untied head."""
+    _train_steps_match_jax(_llama())
+
+
+def test_llama_d128_train_steps_match_jax():
+    """The same three steps at head width 128 (LLAMA_D128)."""
+    assert _train_steps_match_jax(LLAMA_D128).head_dim == 128
+
+
+def _train_steps_match_jax(config):
     opt_cfg = {"optimizer": "adamw", "lr": 1e-3, "weight_decay": 0.1}
     sched_cfg = {"scheduler": "cosine", "warmup": 1}
-    jm, tm = _pair(_llama())
+    """Three steps of both packages' train steps from the same weights:
+    losses, grad norms, lrs and the updated weights. Returns the port's
+    config."""
+    jm, tm = _pair(config)
     jschedule = jax_optim.build_scheduler(sched_cfg, n_steps=10)
     tx, _ = jax_optim.build_optimizer(opt_cfg, schedule=jschedule, grad_clip=1.0)
     jstep = jax_make_train_step(jm.apply, tx, schedule=jschedule, base_lr=1e-3, donate=False,
@@ -217,6 +249,7 @@ def test_llama_train_steps_match_jax():
         np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(), atol=1e-5, rtol=1e-4,
                                    err_msg=name)
         assert not torch.equal(p.detach(), start[name]), name
+    return tm.config
 
 
 def test_llama_bf16_flash_route_matches_jax(monkeypatch):
@@ -271,6 +304,41 @@ def test_packed_gate_matches_jax(l, e, h, packed):
                                   dtype=torch.bfloat16, grouped=grouped)
         assert route == ("packed" if want else "flash")
     assert want == packed
+
+
+@pytest.mark.parametrize("kernel,dtype,d,taken", [
+    ("packed", torch.bfloat16, 64, True), ("packed", torch.bfloat16, 80, True),
+    ("packed", torch.bfloat16, 128, True), ("packed", torch.bfloat16, 96, False),
+    ("flash", torch.bfloat16, 64, True), ("flash", torch.bfloat16, 128, True),
+    ("flash", torch.bfloat16, 96, False), ("flash", torch.float32, 64, True),
+    ("flash", torch.float32, 128, False)],
+    ids=["packed_d64", "packed_d80", "packed_d128", "packed_d96", "flash_bf16_d64",
+         "flash_bf16_d128", "flash_bf16_d96", "flash_f32_d64", "flash_f32_d128"])
+def test_kernel_wrappers_head_width_gates(kernel, dtype, d, taken):
+    """The head widths each wrapper takes before its device check: K1, K2
+    and K3 at 64, 80 and 128; K4 and K5 at 64 and 128 in bfloat16 and 64 in
+    float32. A width the kernels are not instantiated for raises
+    NotImplementedError; one they take goes on to refuse the CPU tensor."""
+    assert A._PACKED_BWD_HEAD_DIMS == A._PACKED_FWD_HEAD_DIMS == (64, 80, 128)
+    assert A._FLASH_HEAD_DIMS == {torch.bfloat16: (64, 128), torch.float32: (64,)}
+    if kernel == "packed":
+        qkv = torch.zeros(1, 5, 3 * 2 * d, dtype=dtype)
+        checks = [lambda: A._check_cuda(name, qkv, 2, dims) for name, dims in (
+            ("packed_mha_fwd", A._PACKED_FWD_HEAD_DIMS),
+            ("packed_mha_bwd", A._PACKED_BWD_HEAD_DIMS))]
+    else:
+        t = torch.zeros(1, 2, 5, d, dtype=dtype)
+        checks = [lambda: A._flash_operands("flash_fwd", t, t, t),
+                  lambda: A._flash_operands("flash_bwd", t, t, t, t, t)]
+    for check in checks:
+        with pytest.raises(ValueError if taken else NotImplementedError,
+                           match="unsupported device" if taken else "instantiated"):
+            check()
+    # a packed forward at a width K2 and K3 take is differentiable
+    if kernel == "packed" and taken:
+        qkv = torch.randn(1, 5, 3 * 2 * d, requires_grad=True)
+        A.fused_mha_packed(qkv, 2, causal=True).sum().backward()
+        assert qkv.grad is not None and torch.isfinite(qkv.grad).all()
 
 
 def test_float32_long_attention_routes_to_flash(monkeypatch):

@@ -93,20 +93,31 @@ def test_quantize_decode_params_bit_equal_to_jax(name):
 
 
 def test_quantize_weight_int8_edges_match_jax():
-    """A zero row (the 1e-12 floor), values at a power of two, both scale
-    kinds, and the (0, 2) axes of an expert stack: equal to the JAX
-    function's output bit for bit, but for the zero row's power-of-two
-    scale. There the port gives 2^-39 exactly and the JAX package
-    ``exp2(-39)`` as XLA's CPU exp2 computes it, within 1e-6 of it (that
-    exp2 misses 2^k by a few ulp at some k, -39 among them); its int8
+    """A zero row (the 1e-12 floor), values at a power of two, channels
+    whose max|w| / 127 lies one to three float32 ulps above a power of two
+    (max|w| = 127 · 2^k · (1 + n·2⁻²³), k in -4, -7, -10, -14, n in 1-3:
+    the JAX scale is 2^k where float32's log(s) / log(2) rounds to k, else
+    2^(k+1)), both scale kinds, and the (0, 2) axes of an expert stack:
+    equal to the JAX function's output bit for bit, but for the zero row's
+    power-of-two scale. There the port gives 2^-39 exactly and the JAX
+    package ``exp2(-39)`` as XLA's CPU exp2 computes it, within 1e-6 of it
+    (that exp2 misses 2^k by a few ulp at some k, -39 among them); its int8
     values are 0 in both."""
     rng = np.random.default_rng(3)
     w = rng.normal(size=(6, 40)).astype(np.float32)
     w[1] = 0.0
     w[2, :3] = (127 * 2.0**-5, -127 * 2.0**-5, 3.0 * 2.0**-5)
     w[2, 3:] = 0.0
+    near = []
+    for k in (-4, -7, -10, -14):
+        for n in (1, 2, 3):
+            row = rng.uniform(-1.0, 1.0, size=40) * 2.0**k
+            row[n] = (-1) ** n * 127 * 2.0**k * (1 + n * 2.0**-23)
+            near.append(row)
+    near = np.asarray(near, np.float32)
     stack = rng.normal(size=(3, 8, 5)).astype(np.float32)
-    for array, axes, zero in ((w, 0, 1), (w.T.copy(), 1, 1), (stack, (0, 2), None)):
+    for array, axes, zero in ((w, 0, 1), (w.T.copy(), 1, 1), (near, 0, None),
+                              (near.T.copy(), 1, None), (stack, (0, 2), None)):
         for pow2 in (True, False):
             want = JQ.quantize_weight_int8(jnp.asarray(array), channel_axis=axes,
                                            power_of_two_scales=pow2)

@@ -125,7 +125,20 @@ def test_probe_embeddings_match_jax(cls_pooling):
     np.testing.assert_array_equal(labels, want_labels)
 
 
-def test_linear_probing_torch_and_sklearn_probes():
+@pytest.fixture
+def one_thread():
+    """torch on one intra-op thread. The torch probe fits 16 keys by L-BFGS,
+    thousands of tiny steps; beside the other test workers of a shared CPU,
+    each step's thread-pool hand-off costs far more than its arithmetic (the
+    test took 616 s with 8 threads and 27 s with 1, on 8 cores under six
+    workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_linear_probing_torch_and_sklearn_probes(one_thread):
     """Both probe impls run over every key (``"jax"`` is the on-device
     probe's alias); an unknown impl raises."""
     _, tm = _pair(VIT)

@@ -7,9 +7,9 @@ Llama options (GQA 2 : 1, RoPE, rms norm, swiglu, untied head; E = 256, two
 layers, V = 512) through ``prefill``, ragged greedy ``generate`` and the
 ``DecodeServer`` in float32, and through the bfloat16 prefill on the kernel
 route, where both packages take K1 (the JAX kernel in interpret mode, the
-port's wrapper with its plain version on the CPU) in every layer; and the
-refusal of a d = 128 forward that wants a gradient (K2 and K3 are not
-instantiated there).
+port's wrapper with its plain version on the CPU) in every layer; and a
+d = 128 forward that wants a gradient: refused in the key-masked mode,
+differentiable otherwise (K2 and K3 are instantiated at d = 128).
 """
 
 import functools
@@ -111,27 +111,30 @@ def test_k1_plain_version_at_d128_matches_jax_kernel(mode, l):
 
 
 def test_d128_gradient_refused_before_any_work():
-    """K2 and K3 are not instantiated at d = 128: a forward that wants a
-    gradient raises, on every device, where the JAX package would compute
-    it; without a gradient the forward runs. The masked mode refuses a
-    gradient at every width."""
+    """The key-masked mode refuses a gradient at every width, d = 128
+    included, before any work. Since K2 and K3 are instantiated at d = 128,
+    an unmasked forward that wants a gradient is differentiable there, as at
+    64: its gradient is K2/K3's plain version's, and the bf16 model on the
+    kernel route trains as well as it evaluates."""
     qkv = torch.randn(1, 9, 3 * H * D)
-    with pytest.raises(NotImplementedError, match="head width 128 is forward only"):
-        A.fused_mha_packed(qkv.clone().requires_grad_(), H, causal=True)
     with pytest.raises(NotImplementedError, match="forward only"):
         A.fused_mha_packed(qkv.clone().requires_grad_(), H, causal=True,
                            key_mask=torch.ones(1, 9, dtype=torch.bool))
     assert A.fused_mha_packed(qkv, H, causal=True).shape == (1, 9, H * D)
-    # at head width 64 the same call is differentiable
-    out = A.fused_mha_packed(torch.randn(1, 9, 3 * 4 * 64, requires_grad=True), 4, causal=True)
-    assert out.requires_grad
+    leaf = qkv.clone().requires_grad_()
+    out = A.fused_mha_packed(leaf, H, causal=True)
+    g = torch.randn_like(out)
+    out.backward(g)
+    want, _ = A.packed_mha_bwd_reference(qkv, None, g, H, causal=True)
+    np.testing.assert_allclose(leaf.grad.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
 
-    # the bf16 model on the kernel route: the train forward raises, eval runs
+    # the bf16 model on the kernel route: the train forward and its backward run
     tm = build_model({**LLAMA_D128, "compute_dtype": "bfloat16", "attn_impl": "kernel"},
                      device="cpu")
     tokens = torch.randint(0, 512, (1, 9))
-    with pytest.raises(NotImplementedError, match="K2 and K3"):
-        tm.module(tokens)
+    tm.module(tokens).float().square().mean().backward()
+    grad = tm.module.blocks[0].attn.qkv_mat.weight.grad
+    assert grad is not None and torch.isfinite(grad).all() and grad.abs().max() > 0
     with torch.no_grad():
         assert tm.module(tokens).shape == (1, 9, 512)
 

@@ -32,6 +32,7 @@ out): the same int8 values transposed, the same scales. Inference only.
 from __future__ import annotations
 
 import copy
+import math
 
 import torch
 from torch import nn
@@ -43,15 +44,26 @@ def _scale_shape(w: torch.Tensor, channel_axis) -> tuple[tuple[int, ...], tuple[
     return axes, tuple(w.shape[a] if a in axes else 1 for a in range(w.dim()))
 
 
-def _pow2_ceil(s: torch.Tensor) -> torch.Tensor:
-    """The least power of two >= each normal positive float32 ``s``, made
-    from its bits, so every device gives the same: s itself when its
-    mantissa bits are 0, else its exponent raised by one and the mantissa
-    cleared. The JAX package computes ``exp2(ceil(log2(s)))``, the same
-    value wherever float32 log2 is exact at a power of two."""
-    bits = s.view(torch.int32)
-    exponent = bits & 0x7F800000
-    return torch.where(bits & 0x007FFFFF == 0, exponent, exponent + (1 << 23)).view(torch.float32)
+_LN2_F32 = float(torch.tensor(math.log(2.0), dtype=torch.float32))
+
+
+def _pow2_scale(s: torch.Tensor) -> torch.Tensor:
+    """``exp2(ceil(log2(s)))`` for each normal positive float32 ``s`` as the
+    JAX package computes it in float32 (:65), where ``jnp.log2`` is
+    ``log(s) / log(2)``: float32's log of s, divided in float32 by float32's
+    ln 2, its ceiling k, and 2^k. So a channel whose s lies one float32 ulp
+    above 2^k gets 2^k where that quotient rounds to k, as in the JAX
+    package, and not the least power of two above s.
+
+    The log is float64's rounded to float32 (the correctly rounded float32
+    log), so the CPU and CUDA give the same; 2^k is built from its bits, so
+    every scale is a power of two. XLA's CPU float32 log is not correctly
+    rounded everywhere, nor its exp2 exact at every k: the two packages
+    agree wherever those are (every 2^k · (1 + n·2⁻²³) with n ≤ 3 and
+    -14 ≤ k ≤ -4 among them)."""
+    log = torch.log(s.double()).to(torch.float32)
+    k = torch.ceil(log / _LN2_F32).to(torch.int32)
+    return ((k + 127) << 23).view(torch.float32)
 
 
 def quantize_weight_int8(w: torch.Tensor, *, channel_axis=0,
@@ -63,9 +75,10 @@ def quantize_weight_int8(w: torch.Tensor, *, channel_axis=0,
     ``channel_axis`` indexes the out-feature axes that keep a scale each: 0
     for the port's (out, in) linear weights and for a (vocab, emb) token
     table, ``(0, 2)`` for the MoE (E, in, out) stacks. The scale is each
-    channel's max |w| / 127 (at least 1e-12), rounded up to a power of two
-    when ``power_of_two_scales``; values are rounded half to even and
-    clipped to ±127.
+    channel's max |w| / 127 (at least 1e-12), rounded to a power of two as
+    the JAX package rounds it when ``power_of_two_scales``
+    (:func:`_pow2_scale`); values are rounded half to even and clipped to
+    ±127.
     """
     wf = w.float()
     axes, shape = _scale_shape(wf, channel_axis)
@@ -73,7 +86,7 @@ def quantize_weight_int8(w: torch.Tensor, *, channel_axis=0,
     amax = wf.abs().amax(dim=reduce) if reduce else wf.abs()
     scale = (amax / 127.0).clamp_min(1e-12)
     if power_of_two_scales:
-        scale = _pow2_ceil(scale)
+        scale = _pow2_scale(scale)
     q = torch.round(wf / scale.reshape(shape)).clamp(-127, 127).to(torch.int8)
     return {"weight": q, "scale": scale}
 

@@ -17,18 +17,17 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
   when causal, any L), as ``_packed_mha``'s custom VJP (:390-441) does; on a
   CPU tensor it runs :func:`packed_mha_reference`, and autograd
   differentiates that. With ``key_mask`` (the ragged serving prefill,
-  :459-479) it launches the kernel's key-masked mode, forward only. At head
-  width 128 (Llama-3.1-8B's serving prefill) it is forward only too: K2 and
-  K3 are not instantiated there;
+  :459-479) it launches the kernel's key-masked mode, forward only;
 - :func:`packed_mha_supported` (:443-456) — the packed kernels' gate: a head
-  width K1 is instantiated for (64, 80, 128) and the JAX package's byte
-  budget;
+  width K1, K2 and K3 are instantiated for (64, 80, 128) and the JAX
+  package's byte budget;
 - :func:`flash_attention` (:680-698) — the K4 wrapper on (N, h, L, d): on a
   CUDA tensor it launches ``csrc/flash_fwd.cu`` (bfloat16 or float32, causal
   or not, any L: it masks by index where the JAX version pads L to its
   blocks and masks with ``kv_len``), and when a gradient is wanted it runs
   under :class:`_Flash`, whose backward is :func:`flash_bwd`
-  (``csrc/flash_bwd.cu``, K5), as ``_flash``'s custom VJP (:578-677) does; on
+  (``csrc/flash_bwd.cu``, K5), as ``_flash``'s custom VJP (:578-677) does
+  (head width 64 or 128 in bfloat16, 64 in float32); on
   a CPU tensor it runs :func:`attention_reference`. The JAX backward takes
   its kernel only while two (h, L, L) float32 tensors fit a 10 MiB budget,
   and above it differentiates an XLA recompute of ``attention_reference``
@@ -54,8 +53,10 @@ from .common import resolve_impl
 
 _NEG_INF = -1e30
 _PACKED_FWD_HEAD_DIMS = (64, 80, 128)  # the head widths csrc/packed_mha_fwd.cu instantiates
-_PACKED_BWD_HEAD_DIMS = (64, 80)       # and csrc/packed_mha_bwd.cu, every mode of each
-_FLASH_HEAD_DIM = 64           # the head width csrc/flash_*.cu instantiate
+_PACKED_BWD_HEAD_DIMS = (64, 80, 128)  # and csrc/packed_mha_bwd.cu, every mode of each
+# The head widths csrc/flash_*.cu instantiate, by dtype: bfloat16 on the
+# bf16 tensor-core tiles, float32 in split TF32 (kAttnF32Dim).
+_FLASH_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (64,)}
 
 
 def attention_reference(q, k, v, *, causal: bool = False, kv_len: int | None = None,
@@ -159,26 +160,23 @@ _PACKED_BUDGET = 40 * 1024 * 1024
 
 def packed_mha_supported(l: int, e: int, n_heads: int) -> bool:
     """Whether bfloat16 attention takes the packed kernels for this geometry:
-    a head width K1 is instantiated for, 64, 80 (ViT-H/14) or 128
-    (Llama-3.1-8B), each in every mode (it tiles over keys and takes every
-    L, causal or not), and the JAX package's budget
+    a head width K1, K2 and K3 are instantiated for, 64, 80 (ViT-H/14) or
+    128 (Llama-3.1-8B), each in every mode (they tile over keys and take
+    every L, causal or not), and the JAX package's budget
     ``2·(4·E·L·2) + 3·L²·4 <= 40 MiB``, so that both packages take the same
     branch. Past the budget (Llama-1B, E=2048 at L=1024: 46.1 MB;
     Llama-3.1-8B, E=4096, from L=579) attention takes the flash kernels K4
-    and K5, and the serving prefill the grouped einsum. K2 and K3 take 64
-    and 80 only, so a forward at 128 that wants a gradient raises
-    (:func:`fused_mha_packed`). The JAX gate checks the budget only; at
-    another head width (96) the port takes the flash route, whose kernels
-    raise for any width but 64."""
+    and K5, and the serving prefill the grouped einsum. The JAX gate checks
+    the budget only; at another head width (96) the port takes the flash
+    route, whose kernels raise for any width but 64 and 128."""
     return (l > 0 and e % n_heads == 0 and e // n_heads in _PACKED_FWD_HEAD_DIMS
             and 2 * (4 * e * l * 2) + 3 * l * l * 4 <= _PACKED_BUDGET)
 
 
 def _check_cuda(name: str, qkv, n_heads: int, head_dims: tuple):
     """Raise unless the packed kernel ``name``, instantiated at ``head_dims``,
-    takes qkv (N, L, 3E) on CUDA."""
-    if qkv.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {qkv.device}")
+    takes qkv (N, L, 3E) on CUDA: the shape and the width first, then the
+    device."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"{name}: qkv must be (N, L, 3E), got {tuple(qkv.shape)}")
     e = qkv.shape[2] // 3
@@ -187,6 +185,8 @@ def _check_cuda(name: str, qkv, n_heads: int, head_dims: tuple):
     if e // n_heads not in head_dims:
         raise NotImplementedError(
             f"{name} is instantiated for head widths {head_dims}, got {e // n_heads}")
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv.device}")
 
 
 def _kernel_operand(t, name: str, shape: tuple, device):
@@ -258,9 +258,8 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None, key_mas
     differentiates it). A CUDA tensor launches the forward kernel, or raises
     if the kernel does not take it: bfloat16, head width 64, 80 or 128. When
     qkv or bias requires a gradient the call is differentiable, and its
-    backward launches K2 or, causal, K3 (:func:`packed_mha_bwd`); at head
-    width 128, where K2 and K3 are not instantiated, such a call raises
-    ``NotImplementedError`` on every device before anything runs.
+    backward launches K2 or, causal, K3 (:func:`packed_mha_bwd`), at the
+    same widths.
 
     ``key_mask`` (N, L) bool marks each sequence's valid keys (False: the
     left padding of a ragged serving batch). It is forward only, as in the
@@ -283,12 +282,6 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None, key_mas
                              f"{tuple(key_mask.shape)} on {key_mask.device}")
         if wants_grad:
             raise NotImplementedError("the key-masked packed attention is forward only")
-    d = qkv.shape[-1] // 3 // n_heads
-    if wants_grad and d in _PACKED_FWD_HEAD_DIMS and d not in _PACKED_BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the packed attention at head width {d} is forward only: its backward, K2 and "
-            f"K3 (csrc/packed_mha_bwd.cu), is instantiated for head widths "
-            f"{_PACKED_BWD_HEAD_DIMS}")
     if qkv.device.type == "cpu":
         return packed_mha_reference(qkv, n_heads, causal=causal, bias=bias, key_mask=key_mask)
     _check_cuda("packed_mha_fwd", qkv, n_heads, _PACKED_FWD_HEAD_DIMS)
@@ -321,7 +314,7 @@ def packed_mha_bwd(qkv, bias, g, out, lse, n_heads: int, causal: bool = False):
     the tensor cores, causal over the lower triangle only, then a
     fixed-order column sum for db, so two launches on the same inputs give
     bit-identical results), or raises if the kernel does not take it:
-    bfloat16 qkv, g and out, head width 64 or 80; every L. The kernel rounds P and
+    bfloat16 qkv, g and out, head width 64, 80 or 128; every L. The kernel rounds P and
     dS to bfloat16 before their products, as the TPU kernel rounds them; the
     plain version keeps them in float32.
     ``packed_mha_bwd.launches`` counts its launches.
@@ -388,12 +381,10 @@ _FLASH_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _flash_operands(name: str, *tensors):
-    """Check that the flash kernel ``name`` takes ``tensors``: CUDA, one
-    shape (N, h, L, 64), one dtype, bfloat16 or float32; return them
-    contiguous and 16-byte aligned."""
+    """Check that the flash kernel ``name`` takes ``tensors``: one shape
+    (N, h, L, d) and one dtype, bfloat16 at d = 64 or 128 or float32 at
+    d = 64, then CUDA; return them contiguous and 16-byte aligned."""
     first = tensors[0]
-    if first.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {first.device}")
     if first.dim() != 4:
         raise ValueError(f"{name}: tensors must be (N, h, L, d), got {tuple(first.shape)}")
     if first.dtype not in _FLASH_DTYPES:
@@ -403,9 +394,12 @@ def _flash_operands(name: str, *tensors):
             raise ValueError(f"{name}: operands must share shape, dtype and device, got "
                              f"{tuple(t.shape)} {t.dtype} {t.device} beside "
                              f"{tuple(first.shape)} {first.dtype} {first.device}")
-    if first.shape[3] != _FLASH_HEAD_DIM:
-        raise NotImplementedError(f"{name} is instantiated for head width {_FLASH_HEAD_DIM} "
-                                  f"only, got {first.shape[3]}")
+    widths = _FLASH_HEAD_DIMS[first.dtype]
+    if first.shape[3] not in widths:
+        raise NotImplementedError(f"{name} is instantiated for head widths {widths} in "
+                                  f"{first.dtype}, got {first.shape[3]}")
+    if first.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {first.device}")
     out = []
     for t in tensors:
         t = t.contiguous()
@@ -458,10 +452,10 @@ def flash_attention(q, k, v, *, causal: bool = False, impl: str = "auto"):
     sequence length only); ``"plain"`` runs :func:`attention_reference`. The
     kernel route on a CPU tensor runs :func:`attention_reference` too (and
     autograd differentiates it). A CUDA tensor launches K4, or raises if the
-    kernel does not take it: q, k and v of one shape and dtype, bfloat16 or
-    float32, head width 64. Both types multiply on the tensor cores, float32
-    in split TF32 (three TF32 products per float32 product), which keeps
-    float32's accuracy. When a gradient is wanted the call runs under
+    kernel does not take it: q, k and v of one shape and dtype, bfloat16 at
+    head width 64 or 128, or float32 at 64. Both types multiply on the
+    tensor cores, float32 in split TF32 (three TF32 products per float32
+    product), which keeps float32's accuracy. When a gradient is wanted the call runs under
     :class:`_Flash`, whose backward launches K5 (:func:`flash_bwd`).
     ``flash_attention.launches`` counts K4's launches.
     """
@@ -487,9 +481,10 @@ def flash_bwd(q, k, v, g, out, lse, causal: bool = False):
     over query tiles and a dK/dV pass over key tiles, causal over the lower
     triangle only, no atomics: two launches on the same inputs give
     bit-identical results), or raises if the kernel does not take it: every
-    operand of one shape and dtype, bfloat16 or float32, head width 64; every
-    L. Both types run on the tensor cores: bfloat16 rounds P and dS to
-    bfloat16 before their products, as the TPU kernel rounds them; float32
+    operand of one shape and dtype, bfloat16 at head width 64 or 128, or
+    float32 at 64; every L. Both types run on the tensor cores: bfloat16
+    rounds P and dS to bfloat16 before their products, as the TPU kernel
+    rounds them; float32
     runs every product in split TF32 (three TF32 products per float32
     product, P and dS kept in float32), each tile's products summed in
     registers and added to the running sums in float32.

@@ -2,7 +2,7 @@
 // K2 and K3 (csrc/packed_mha_bwd.cu, packed qkv with its bias) and K5
 // (csrc/flash_bwd.cu, head-major, no bias; float32 in split TF32, below). It
 // is the backward of attn_fwd_mma.cuh and is built from its pieces: head
-// width D (64 or 80 in bf16, 64 in float32), 64-row query tiles and 64-key
+// width D (64, 80 or 128 in bf16, 64 in float32), 64-row query tiles and 64-key
 // tiles, 4 warps of 16 rows, rows padded by 8 elements in shared memory,
 // 16-byte cp.async copies double buffered, rows past L zero-filled, the bias
 // added in place as bf16(x + b), and the warp products on 16 x 64 and
@@ -27,12 +27,23 @@
 //   m16n8k16 C -> A layout identity) and K through ldmatrix.trans. It writes
 //   dQ and each row's (lse, delta) for the second pass;
 // - attn_bwd_dkv_tile, a block per key tile: each warp keeps its 16 K and V
-//   rows as A fragments and walks the query tiles (causal: from the diagonal
-//   one on) with their (lse, delta); it computes S^T = K Q^T and
-//   dP^T = V G^T, then P^T and dS^T in registers, and dV += P^T G and
-//   dK += dS^T Q through the same identity, with G and Q through
-//   ldmatrix.trans. In this layout a thread's accumulator columns are query
-//   rows, so it reads their statistics from shared memory by column.
+//   rows as A fragments (kDkvHeld<D>, below) and walks the query tiles
+//   (causal: from the diagonal one on) with their (lse, delta); it computes
+//   S^T = K Q^T and dP^T = V G^T, then P^T and dS^T in registers, and
+//   dV += P^T G and dK += dS^T Q through the same identity, with G and Q
+//   through ldmatrix.trans. In this layout a thread's accumulator columns are
+//   query rows, so it reads their statistics from shared memory by column.
+//
+// At D = 128 the dK/dV pass cannot hold everything in registers: K and V as
+// A fragments take 64, dK and dV in float32 128, S^T and dP^T 64, which is
+// 256 before an address (D = 80 already takes 250-255). The K and V tiles
+// stay in shared memory for the whole pass anyway, so at D = 128 the warp
+// reads its own 16 rows of them by ldmatrix at each k16 step of S^T and dP^T
+// instead (mma_rows_bt): one more ldmatrix for every four, and 64 registers
+// fewer. kDkvHeld<D> says how many of the two operands a width holds (2, 1
+// or 0); tools/profile_attn_bwd.py rebuilds the pass with each and times it.
+// The dQ pass holds Q and G at every width: 64 registers of fragments at
+// D = 128, 64 of dQ and 64 of S and dP.
 //
 // Tiles above the causal diagonal are neither loaded nor multiplied; only
 // the diagonal tile and the last partial key tile are masked by index. A
@@ -40,8 +51,8 @@
 // without a test: exp2(s - inf) = 0 for every finite score.
 //
 // Shared memory: six 64-row tiles (two of them double buffered) and the
-// statistics, 56,320 bytes a block at D = 64 and 68,608 at D = 80, in either
-// pass.
+// statistics, 56,320 bytes a block at D = 64, 68,608 at D = 80 and 105,472
+// at D = 128 (two blocks an SM), in either pass.
 //
 // K5's float32 path takes the same two passes in split TF32
 // (attn_bwd_dq_tile_f32, attn_bwd_dkv_tile_f32; head-major, no bias): all
@@ -235,6 +246,35 @@ __device__ __forceinline__ void attn_bwd_dq_tile(const AttnBwdHead& hd, int L, i
   store_warp_rows<D>(dq, sq + warp * 16 * kStride, hd.dq, hd.d_stride, q0 + warp * 16, L);
 }
 
+// How many of the warp's K and V operands the dK/dV pass holds as A
+// fragments for its whole query loop: 2 (K and V), 1 (K; V read from shared
+// memory at each use) or 0 (both read at each use). Chosen per width by
+// timing the three at the main path's shapes (tools/profile_attn_bwd.py).
+template <int D>
+constexpr int kDkvHeld = D == 128 ? 0 : 2;
+
+// c (16 x 64) += rows row0 .. row0 + 15 of the staged tile a times tile b^T:
+// mma_a_bt with the A fragment of each k16 step read by ldmatrix as it is
+// used, so no A operand lives in registers across the caller's loop.
+template <int D>
+__device__ __forceinline__ void mma_rows_bt(float (&c)[8][4], const bf16* a, int row0,
+                                            const bf16* b) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    ldmatrix_x4(af, a + (row0 + (lane & 15)) * kAttnStride<D> + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kAttnStride<D> +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(c[2 * nj], af, bf);
+      mma_bf16(c[2 * nj + 1], af, bf + 2);
+    }
+  }
+}
+
 // (lse, delta) of query row i for the second pass; (+inf, 0) past L.
 __device__ __forceinline__ float2 row_stats(const float2* stats, int i, int L) {
   return i < L ? stats[i] : make_float2(INFINITY, 0.f);
@@ -276,7 +316,9 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(const AttnBwdHead& hd, int L, 
   TileBias<D> q_bias{};
   if constexpr (kBias) q_bias = load_tile_bias<D>(hd.q_bias, copy_col);
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];  // the warp's K and V rows as A fragments
+  constexpr int kHeld = kDkvHeld<D>;
+  // the warp's K and V rows as A fragments, those that kHeld holds
+  uint32_t kf[kHeld >= 1 ? D / 16 : 1][4], vf[kHeld >= 2 ? D / 16 : 1][4];
   float dk[D / 8][4], dv[D / 8][4];    // dK and dV, 16 x D: n8 tiles of head columns
   zero_acc(dk);
   zero_acc(dv);
@@ -305,8 +347,8 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(const AttnBwdHead& hd, int L, 
     }
     __syncthreads();
     if (j == 0) {
-      load_a_frags<D>(kf, sk, warp * 16);
-      load_a_frags<D>(vf, sv, warp * 16);
+      if constexpr (kHeld >= 1) load_a_frags<D>(kf, sk, warp * 16);
+      if constexpr (kHeld >= 2) load_a_frags<D>(vf, sv, warp * 16);
     }
 
     // S^T = K Q^T and dP^T = V G^T: element (t, 2 rr + e) is key key0 + 8 rr,
@@ -315,8 +357,16 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(const AttnBwdHead& hd, int L, 
     float s[8][4], dp[8][4];
     zero_acc(s);
     zero_acc(dp);
-    mma_a_bt<D>(s, kf, qs);
-    mma_a_bt<D>(dp, vf, gs);
+    if constexpr (kHeld >= 1) {
+      mma_a_bt<D>(s, kf, qs);
+    } else {
+      mma_rows_bt<D>(s, sk, warp * 16, qs);
+    }
+    if constexpr (kHeld >= 2) {
+      mma_a_bt<D>(dp, vf, gs);
+    } else {
+      mma_rows_bt<D>(dp, sv, warp * 16, gs);
+    }
     const float4* cols = reinterpret_cast<const float4*>(st + (j & 1) * kAttnRows);
     const bool diag = kCausal && i0 == k0;
 #pragma unroll
@@ -343,7 +393,8 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(const AttnBwdHead& hd, int L, 
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  // The warp's rows of the K and V tiles were read only for its fragments.
+  // The warp's rows of the K and V tiles were read only by this warp (for its
+  // fragments or at each use), never after the loop's last barrier.
   store_warp_rows<D>(dk, sk + warp * 16 * kStride, hd.dk, hd.d_stride, k0 + warp * 16, L);
   store_warp_rows<D>(dv, sv + warp * 16 * kStride, hd.dv, hd.d_stride, k0 + warp * 16, L);
 }

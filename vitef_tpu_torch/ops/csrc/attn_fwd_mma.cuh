@@ -5,10 +5,9 @@
 // also the backward's (attn_bwd_mma.cuh).
 //
 // One block of 4 warps computes 64 query rows of one head at head width D,
-// a template parameter (64; 80 for ViT-H/14; 128 for Llama-3.1-8B's
-// serving prefill, K1 only: K1 takes all three, K2 and K3 64 and 80, K4 and
-// K5 64), in a FlashAttention-2 schedule on mma.sync.m16n8k16 (bf16 in,
-// float32 accumulators):
+// a template parameter (64; 80 for ViT-H/14; 128 for Llama-3.1-8B: K1, K2
+// and K3 take all three, K4 and K5 64 and 128), in a FlashAttention-2
+// schedule on mma.sync.m16n8k16 (bf16 in, float32 accumulators):
 //
 // - the block's Q tile goes to shared memory once, and each warp keeps its
 //   16 rows as A fragments in registers (ldmatrix, D/16 k16 steps) for the

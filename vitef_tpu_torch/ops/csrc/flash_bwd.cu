@@ -7,9 +7,9 @@
 // differentiates it (:668-674); both branches compute the same gradient. This
 // kernel serves every L, so the backward of csrc/flash_fwd.cu (K4) never
 // takes a plain version. For sequence n and head h, with Q, K, V, the
-// cotangent G and the forward's output O (N, n_heads, L, d = 64), bfloat16 or
-// float32, and P = softmax(Q K^T / sqrt(d)) (causal: key j is visible to
-// query i iff j <= i):
+// cotangent G and the forward's output O (N, n_heads, L, d), bfloat16 at
+// d = 64 or 128 or float32 at d = 64, and P = softmax(Q K^T / sqrt(d))
+// (causal: key j is visible to query i iff j <= i):
 //     dV = P^T G,  dP = G V^T,  dS = P * (dP - delta) / sqrt(d),
 //     dQ = dS K,   dK = dS^T Q,  delta = rowsum(P * dP) = rowsum(G * O),
 // the algebra of _flash_bwd_kernel (:604-638), with dq, dk, dv in the input
@@ -39,9 +39,12 @@
 // past L zero-filled; S, dP, P and dS in registers; dQ, dK and dV in
 // registers):
 //
-// - bfloat16 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): K2/K3's core,
-//   mma.sync m16n8k16 with float32 accumulators, 55 KB of shared memory a
-//   block. P and dS are rounded to bfloat16 before their products, as the
+// - bfloat16 (flash_bwd_dq_kernel<D>, flash_bwd_dkv_kernel<D>): K2/K3's
+//   core, mma.sync m16n8k16 with float32 accumulators, 55 KB of shared
+//   memory a block at d = 64 and 103 KB at d = 128, where the dK/dV pass
+//   reads each warp's K and V rows from shared memory at every use
+//   (attn_bwd_mma.cuh, kDkvHeld). P and dS are rounded to bfloat16 before
+//   their products, as the
 //   TPU kernel rounds them (pb = p.astype(v.dtype), ds = (...).astype(q.dtype),
 //   :616, :627); dS is formed from the float32 P.
 // - float32 (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel): the same
@@ -65,38 +68,37 @@
 // fp32 is set, else bfloat16; lse (N, n_heads, L) is float32; stats is
 // float32 scratch of N * n_heads * L * 2. Returns a cudaError_t as int: the
 // last launch's cudaGetLastError(), or cudaErrorInvalidValue for a shape this
-// kernel does not take.
+// kernel does not take (float32 at d = 128 among them).
 
 #include "packed_mha_common.cuh"
 #include "attn_bwd_mma.cuh"
 
 namespace {
 
-static_assert(kAttnF32Dim == kFlashDim, "flash_bwd takes one head width");
-
-// Head `head` (n * n_heads + h) of the head-major layout: every row 64
+// Head `head` (n * n_heads + h) of the head-major layout: every row D
 // contiguous bf16. A pass leaves the pointers it does not use null.
+template <int D>
 __device__ __forceinline__ AttnBwdHead flash_head(const bf16* q, const bf16* k, const bf16* v,
                                                   const bf16* g, const bf16* out,
                                                   const float* lse, float2* stats, bf16* dq,
                                                   bf16* dk, bf16* dv, size_t head, int L) {
-  const size_t off = head * L * kFlashDim;
+  const size_t off = head * L * D;
   const size_t row_off = head * L;
-  return AttnBwdHead{q + off, k + off, v + off, kFlashDim,
+  return AttnBwdHead{q + off, k + off, v + off, D,
                      nullptr, nullptr, nullptr,
-                     g + off, out == nullptr ? nullptr : out + off, kFlashDim,
+                     g + off, out == nullptr ? nullptr : out + off, D,
                      lse == nullptr ? nullptr : lse + row_off, stats + row_off,
                      dq == nullptr ? nullptr : dq + off, dk == nullptr ? nullptr : dk + off,
-                     dv == nullptr ? nullptr : dv + off, kFlashDim};
+                     dv == nullptr ? nullptr : dv + off, D};
 }
 
-// The same head in float32: rows of 64 contiguous floats.
-__device__ __forceinline__ AttnBwdHeadF32 flash_head(const float* q, const float* k,
-                                                     const float* v, const float* g,
-                                                     const float* out, const float* lse,
-                                                     float2* stats, float* dq, float* dk,
-                                                     float* dv, size_t head, int L) {
-  const size_t off = head * L * kFlashDim;
+// The same head in float32: rows of kAttnF32Dim (64) contiguous floats.
+__device__ __forceinline__ AttnBwdHeadF32 flash_head_f32(const float* q, const float* k,
+                                                         const float* v, const float* g,
+                                                         const float* out, const float* lse,
+                                                         float2* stats, float* dq, float* dk,
+                                                         float* dv, size_t head, int L) {
+  const size_t off = head * L * kAttnF32Dim;
   const size_t row_off = head * L;
   return AttnBwdHeadF32{q + off, k + off, v + off, g + off,
                         out == nullptr ? nullptr : out + off,
@@ -105,9 +107,9 @@ __device__ __forceinline__ AttnBwdHeadF32 flash_head(const float* q, const float
                         dv == nullptr ? nullptr : dv + off};
 }
 
-// bfloat16, pass 1: dQ and the per-row statistics; the heaviest (causal:
-// the last) query tiles first.
-template <bool kCausal>
+// bfloat16 at head width D, pass 1: dQ and the per-row statistics; the
+// heaviest (causal: the last) query tiles first.
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kAttnThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -117,15 +119,14 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);
-  const AttnBwdHead head = flash_head(q, k, v, g, out, lse, stats, dq, nullptr, nullptr,
-                                      blockIdx.x / n_tiles, L);
-  attn_bwd_dq_tile<kFlashDim, false, kCausal>(head, L, tile * kAttnRows, scale, ds_scale,
-                                              smem);
+  const AttnBwdHead head = flash_head<D>(q, k, v, g, out, lse, stats, dq, nullptr, nullptr,
+                                         blockIdx.x / n_tiles, L);
+  attn_bwd_dq_tile<D, false, kCausal>(head, L, tile * kAttnRows, scale, ds_scale, smem);
 }
 
-// bfloat16, pass 2: dK and dV from the first pass's statistics; the
-// heaviest (causal: the first) key tiles first.
-template <bool kCausal>
+// bfloat16 at head width D, pass 2: dK and dV from the first pass's
+// statistics; the heaviest (causal: the first) key tiles first.
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kAttnThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -134,10 +135,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_tiles = (L + kAttnKeys - 1) / kAttnKeys;
   const int tile = static_cast<int>(blockIdx.x % n_tiles);
-  const AttnBwdHead head = flash_head(q, k, v, g, nullptr, nullptr, stats, nullptr, dk, dv,
-                                      blockIdx.x / n_tiles, L);
-  attn_bwd_dkv_tile<kFlashDim, false, kCausal>(head, L, tile * kAttnKeys, scale, ds_scale,
-                                               smem);
+  const AttnBwdHead head = flash_head<D>(q, k, v, g, nullptr, nullptr, stats, nullptr, dk,
+                                         dv, blockIdx.x / n_tiles, L);
+  attn_bwd_dkv_tile<D, false, kCausal>(head, L, tile * kAttnKeys, scale, ds_scale, smem);
 }
 
 // float32, pass 1, in split TF32; tiles in the order of flash_bwd_dq_kernel.
@@ -151,8 +151,8 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);
-  const AttnBwdHeadF32 head = flash_head(q, k, v, g, out, lse, stats, dq, nullptr, nullptr,
-                                         blockIdx.x / n_tiles, L);
+  const AttnBwdHeadF32 head = flash_head_f32(q, k, v, g, out, lse, stats, dq, nullptr,
+                                             nullptr, blockIdx.x / n_tiles, L);
   attn_bwd_dq_tile_f32<kCausal>(head, L, tile * kAttnRows, scale, ds_scale, smem);
 }
 
@@ -166,20 +166,21 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_tiles = (L + kAttnKeys - 1) / kAttnKeys;
   const int tile = static_cast<int>(blockIdx.x % n_tiles);
-  const AttnBwdHeadF32 head = flash_head(q, k, v, g, nullptr, nullptr, stats, nullptr, dk, dv,
-                                         blockIdx.x / n_tiles, L);
+  const AttnBwdHeadF32 head = flash_head_f32(q, k, v, g, nullptr, nullptr, stats, nullptr,
+                                             dk, dv, blockIdx.x / n_tiles, L);
   attn_bwd_dkv_tile_f32<kCausal>(head, L, tile * kAttnKeys, scale, ds_scale, smem);
 }
 
 // The two passes in order on `stream`, each with `smem` bytes of dynamic
-// shared memory, on operands of type T; returns the first launch error.
+// shared memory, on operands of type T at head width d; returns the first
+// launch error.
 template <typename T, typename DqKernel, typename DkvKernel>
-cudaError_t launch(DqKernel dq_kernel, DkvKernel dkv_kernel, size_t smem, const void* q,
+cudaError_t launch(DqKernel dq_kernel, DkvKernel dkv_kernel, size_t smem, int d, const void* q,
                    const void* k, const void* v, const void* g, const void* out,
                    const float* lse, void* dq, void* dk, void* dv, float2* stats,
                    long long heads, int L, cudaStream_t stream) {
-  const float scale = kLog2e / sqrtf(static_cast<float>(kFlashDim));
-  const float ds_scale = 1.f / sqrtf(static_cast<float>(kFlashDim));
+  const float scale = kLog2e / sqrtf(static_cast<float>(d));
+  const float ds_scale = 1.f / sqrtf(static_cast<float>(d));
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -207,7 +208,8 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                          const void* out, const void* lse, void* dq, void* dk, void* dv,
                          void* stats, int n, int n_heads, int L, int head_dim, int fp32,
                          int causal, void* stream) {
-  if (head_dim != kFlashDim || n <= 0 || L <= 0 || n_heads <= 0) {
+  const bool width_ok = fp32 ? head_dim == kAttnF32Dim : head_dim == 64 || head_dim == 128;
+  if (!width_ok || n <= 0 || L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long heads = static_cast<long long>(n) * n_heads;
@@ -218,10 +220,17 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
     return static_cast<int>(launch<float>(
         causal ? flash_bwd_dq_tf32_kernel<true> : flash_bwd_dq_tf32_kernel<false>,
         causal ? flash_bwd_dkv_tf32_kernel<true> : flash_bwd_dkv_tf32_kernel<false>,
-        kAttnBwdF32SmemBytes, q, k, v, g, out, lse_p, dq, dk, dv, stats_p, heads, L, s));
+        kAttnBwdF32SmemBytes, kAttnF32Dim, q, k, v, g, out, lse_p, dq, dk, dv, stats_p,
+        heads, L, s));
+  }
+  if (head_dim == 64) {
+    return static_cast<int>(launch<bf16>(
+        causal ? flash_bwd_dq_kernel<64, true> : flash_bwd_dq_kernel<64, false>,
+        causal ? flash_bwd_dkv_kernel<64, true> : flash_bwd_dkv_kernel<64, false>,
+        kAttnBwdSmemBytes<64>, 64, q, k, v, g, out, lse_p, dq, dk, dv, stats_p, heads, L, s));
   }
   return static_cast<int>(launch<bf16>(
-      causal ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>,
-      causal ? flash_bwd_dkv_kernel<true> : flash_bwd_dkv_kernel<false>,
-      kAttnBwdSmemBytes<kFlashDim>, q, k, v, g, out, lse_p, dq, dk, dv, stats_p, heads, L, s));
+      causal ? flash_bwd_dq_kernel<128, true> : flash_bwd_dq_kernel<128, false>,
+      causal ? flash_bwd_dkv_kernel<128, true> : flash_bwd_dkv_kernel<128, false>,
+      kAttnBwdSmemBytes<128>, 128, q, k, v, g, out, lse_p, dq, dk, dv, stats_p, heads, L, s));
 }

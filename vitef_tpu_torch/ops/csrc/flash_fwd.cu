@@ -4,7 +4,8 @@
 // launched by _flash_forward :543, call :558). For sequence n and head h it
 // computes
 //     out[n, h] = softmax(Q K^T / sqrt(d) [+ causal mask]) V
-// on q, k, v (N, n_heads, L, d = 64), contiguous, bfloat16 or float32. The
+// on q, k, v (N, n_heads, L, d), contiguous: bfloat16 at d = 64 or 128
+// (Llama-1B's and Llama-3.1-8B's head widths), float32 at d = 64. The
 // TPU kernel pads L to a multiple of its 128-row blocks and masks keys past
 // kv_len; this one takes any L and masks by index (the last tiles are
 // partial). Scores, the running max and sum and the P.V accumulator are
@@ -29,9 +30,14 @@
 // the causal diagonal loaded, the diagonal and last partial tiles masked by
 // index.
 //
-// - bfloat16 (flash_fwd_bf16_kernel): K1's core, attn_fwd_mma.cuh, on the
+// - bfloat16 (flash_fwd_bf16_kernel<D>): K1's core, attn_fwd_mma.cuh, on the
 //   head-major layout: m16n8k16 products, P fed from the score accumulators
-//   into P.V; 45 KB of shared memory a block.
+//   into P.V; 45 KB of shared memory a block at d = 64, 85 KB at d = 128. At
+//   d = 128 a thread holds 64 float32 of O, 32 registers of Q fragments and
+//   32 of scores (K1 at that width takes 229-251 registers), so that
+//   instantiation is bounded by the block size alone, as K1's are: the
+//   float32 kernel's cap of 168 registers (three blocks an SM) would spill
+//   it.
 // - float32 (flash_fwd_tf32_kernel): split TF32 ("3xTF32"). A single TF32
 //   product keeps about three decimal digits, so every float32 operand x
 //   (Q, K, P, V) is split into hi = tf32(x) and lo = tf32(x - hi), and each
@@ -55,19 +61,17 @@
 // C interface: flash_fwd(q, k, v, out, lse, N, n_heads, L, head_dim, fp32,
 // causal, stream) returns a cudaError_t as int: the launch's
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape this kernel does
-// not take. fp32 selects float32 inputs and output (else bfloat16); lse may
-// be null.
+// not take (float32 at d = 128 among them). fp32 selects float32 inputs and
+// output (else bfloat16); lse may be null.
 
 #include "packed_mha_common.cuh"
 #include "attn_fwd_mma.cuh"
 
 namespace {
 
-static_assert(kAttnF32Dim == kFlashDim, "flash_fwd takes one head width");
-
-// The bfloat16 path: one (sequence, head, 64-row query tile) per block on
-// the tensor-core core of attn_fwd_mma.cuh.
-template <bool kCausal>
+// The bfloat16 path at head width D: one (sequence, head, 64-row query tile)
+// per block on the tensor-core core of attn_fwd_mma.cuh.
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kAttnThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -76,12 +80,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);  // longest first
   const size_t head = blockIdx.x / n_tiles;                              // n * n_heads + h
-  const size_t head_off = head * L * kFlashDim;
-  const AttnHead view{q + head_off, k + head_off, v + head_off, kFlashDim,
-                      nullptr, nullptr, nullptr, out + head_off, kFlashDim,
+  const size_t head_off = head * L * D;
+  const AttnHead view{q + head_off, k + head_off, v + head_off, D,
+                      nullptr, nullptr, nullptr, out + head_off, D,
                       lse == nullptr ? nullptr : lse + head * L, nullptr};
-  attn_fwd_tile<kFlashDim, false, kCausal, false>(view, L, tile * kAttnRows, score_scale,
-                                                  smem);
+  attn_fwd_tile<D, false, kCausal, false>(view, L, tile * kAttnRows, score_scale, smem);
 }
 
 constexpr size_t kF32SmemBytes = 4 * static_cast<size_t>(kAttnF32Tile) * sizeof(float);
@@ -106,7 +109,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);  // longest first
   const size_t head = blockIdx.x / n_tiles;                              // n * n_heads + h
-  const size_t head_off = head * L * kFlashDim;
+  const size_t head_off = head * L * kAttnF32Dim;
   const float* qh = q + head_off;
   const float* kh = k + head_off;
   const float* vh = v + head_off;
@@ -256,7 +259,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = row0 + 8 * rr;
     if (qi >= L) continue;
     const float inv = 1.f / row_l[rr];
-    float* orow = out + head_off + static_cast<size_t>(qi) * kFlashDim + 2 * tig;
+    float* orow = out + head_off + static_cast<size_t>(qi) * kAttnF32Dim + 2 * tig;
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       *reinterpret_cast<float2*>(orow + 8 * t) =
@@ -266,35 +269,44 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The bfloat16 kernel of the mode at head width D on `stream`.
+template <int D>
+cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
+                        unsigned blocks, int L, bool causal, cudaStream_t stream) {
+  const auto kernel = causal ? flash_fwd_bf16_kernel<D, true> : flash_fwd_bf16_kernel<D, false>;
+  constexpr size_t smem = kAttnSmemBytes<D>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kAttnThreads, smem, stream>>>(q, k, v, out, lse, L,
+                                                 kLog2e / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                          int n, int n_heads, int L, int head_dim, int fp32, int causal,
                          void* stream) {
-  if (head_dim != kFlashDim || n <= 0 || L <= 0 || n_heads <= 0) {
+  const bool width_ok = fp32 ? head_dim == kAttnF32Dim : head_dim == 64 || head_dim == 128;
+  if (!width_ok || n <= 0 || L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks =
       static_cast<long long>(n) * n_heads * ((L + kAttnRows - 1) / kAttnRows);
-  const float score_scale = kLog2e / sqrtf(static_cast<float>(kFlashDim));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (fp32) {
     const auto kernel = causal ? flash_fwd_tf32_kernel<true> : flash_fwd_tf32_kernel<false>;
-    err = allow_smem(kernel, kF32SmemBytes);
+    const cudaError_t err = allow_smem(kernel, kF32SmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<static_cast<unsigned>(blocks), kAttnThreads, kF32SmemBytes, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), L,
-        score_scale);
-  } else {
-    const auto kernel = causal ? flash_fwd_bf16_kernel<true> : flash_fwd_bf16_kernel<false>;
-    constexpr size_t smem = kAttnSmemBytes<kFlashDim>;
-    err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<static_cast<unsigned>(blocks), kAttnThreads, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), static_cast<float*>(lse), L, score_scale);
+        kLog2e / sqrtf(static_cast<float>(kAttnF32Dim)));
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  const auto run = head_dim == 64 ? launch_bf16<64> : launch_bf16<128>;
+  return static_cast<int>(run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v), static_cast<bf16*>(out),
+                              static_cast<float*>(lse), static_cast<unsigned>(blocks), L,
+                              causal != 0, s));
 }

@@ -43,13 +43,12 @@
 // specialisation are the next step.
 //
 // Head widths: every mode is instantiated at d = 64, d = 80 (ViT-H/14) and
-// d = 128 (Llama-3.1-8B, whose serving prefill runs the causal modes), the
-// widths the wrapper's gate admits (vitef_tpu_torch/ops/attention.py
-// packed_mha_supported), so no mode of an admitted width lacks its kernel.
-// At d = 128 a thread holds 64 float32 of O, 32 registers of Q fragments
-// and 32 of scores; the backward (csrc/packed_mha_bwd.cu) is not
-// instantiated there, and the wrapper refuses a d = 128 call that wants a
-// gradient.
+// d = 128 (Llama-3.1-8B, whose serving prefill and training at L <= 578 run
+// the causal modes), the widths the wrapper's gate admits
+// (vitef_tpu_torch/ops/attention.py packed_mha_supported), so no mode of an
+// admitted width lacks its kernel, nor its backward (csrc/packed_mha_bwd.cu
+// is instantiated at the same widths). At d = 128 a thread holds 64 float32
+// of O, 32 registers of Q fragments and 32 of scores.
 //
 // The key mask (serving's ragged prefill) is a compile-time flag. The masked
 // instantiation reads a (N, L) byte mask, nonzero for a valid key, and gives
