@@ -247,7 +247,7 @@ Phases (each raises on failure, so the run exits non-zero):
     recomputed in this process); ``linear_probing(probe_impl="torch")`` on a
     second set of 5,000 + 1,000 images (a test accuracy for each of the 96
     keys); then ``train_phase``'s protocol with the same freeze at 1 x 512
-    and 2 x 256 (2 warm-up and 10 timed steps each), with the peak memory of
+    and 2 x 256 (2 warm-up and 5 timed steps each), with the peak memory of
     each and what the command line adds per step;
 35. the paper's figures (after 34, on its CIFAR-10 files, then removed):
     the loss-landscape ``save`` command (``apps/plots/loss_landscape.py``'s
@@ -296,7 +296,7 @@ Phases (each raises on failure, so the run exits non-zero):
     against a bf16 model holding the dequantized weights within relative
     L2 2e-2 (max |d| printed); int8 greedy generate (32 masked K1
     launches; decode ms per step and tokens/s beside bf16's) and the server
-    on int8 weights. ``python -m vitef_tpu_torch.apps.gpt2.serve run
+    on int8 weights (the first 16 requests). ``python -m vitef_tpu_torch.apps.gpt2.serve run
     --implementation llama --model_name 8b --quantize int8 --demo 16`` runs
     as a process of its own, started before 37's build so that the two
     processes' host draws overlap, and waited for before 37 times anything:
@@ -318,7 +318,52 @@ Phases (each raises on failure, so the run exits non-zero):
     launches each per step) and 4 x 1024 (K4 and K5), 3 warm-up and 10
     timed steps each, no plain version, a loss that falls; tokens/s, the
     roofline share, the peak memory, a profile of one step; one sequence's
-    gradients against the plain path, overall and per block.
+    gradients against the plain path, overall and per block;
+41. speculative decoding at batch 1 (after 38, on 37's model: its bf16
+    decoding copy, the float32 weights freed): the "1b" preset (Llama-3.2-1B's
+    geometry) at full width and depth drafts, random weights from seed 1,
+    drawn on the host in a thread beside 37's build; a 256-token prompt of
+    default_rng(0), 128 new, gamma 4. Plain batch-1 ``Model.generate`` gives
+    the reference stream, its float32 top-2 logit margins and its rate.
+    Greedy with the 1b draft and with the target as its own draft, sampled
+    at T 0.8 with the self-draft: the greedy streams equal the reference up
+    to its first near tie (margin below NEAR_TIE), any divergence printed
+    with its margin; the self-draft accepts every proposal but where two
+    routes' rounding decides (printed: acceptance exactly 1.0 or not), and
+    its cache holds the target's over the committed cells; K1 once per
+    layer and model per call (32 at d = 128 and 16 at d = 64 with the 1b
+    draft), no plain version; rounds, accepted/drafted, host syncs per
+    round, ms per round, tokens/s beside plain generate's. Two planted
+    faults must fail those checks: the draft's (gamma + 1)-th K/V write
+    skipped (32 new tokens), and the commit pointer one too far (16);
+42. the speculative server: ``DecodeServer`` on the 8B with the 1b draft
+    (16 slots of 1,024, gamma 4) serves the first 16 of 37's 64 requests
+    greedily: every request its max_new_tokens, each stream against the
+    plain server's of 37 under the near-tie rule (37's server records its
+    margins), K1 once
+    per layer and model per admission; spec_rounds, committed tokens per
+    round, requests/s, tokens/s beside 37's;
+43. the prefix cache on the 8B, 38's int8 weights then bf16: a 256-token
+    prefix registered (32 K1 launches), 4 admissions' logits and slot cache
+    rows against ``prefill`` of [prefix ++ prompt] within 2e-2 relative L2,
+    also with two planted faults that must fail it (the own tokens' RoPE not
+    offset by plen; the prefix rows copied one row off); in bf16, 32
+    requests of 32-224 own tokens and 16-64 new served under it (no K1: the
+    own tokens' attention is plain products), prefill_tokens_saved,
+    requests/s, tokens/s beside 37's;
+44. the apps, each as a process of its own started beside 37's build:
+    ``sample run --model_name medium --draft_model_name base`` (GPT-2 medium
+    drafted by GPT-2 base, sampled) and ``serve run --prefix ... --demo
+    16``: exit 0, their results and logged stats;
+45. MoE decode (last): "8x124m" in bf16, random weights from seed 0:
+    ``generate`` for 1 and 32 prompts of 128 tokens, 32 new (batch 1's
+    decode steps take the sparse route, K8 ``gmm`` and K7 ``gmm_swiglu`` 12
+    each per step; batch 32's prefill is sparse, its decode dense), the
+    server with 4 slots under "auto" (dense ticks) and "sparse" (K8 and K7
+    at 8 rows over 8 groups), each block's FFN at one routing on the sparse
+    route's recorded inputs (a prefill of 4 x 128 and one decode step)
+    against the dense oracle within 2e-2; tokens/s. Each of 41-45 prints
+    its seconds and peak memory.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -345,7 +390,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -379,6 +426,7 @@ from vitef_tpu_torch.models.vit import ViTConfig, vit_transformer_config
 from vitef_tpu_torch.models import generation as GEN
 from vitef_tpu_torch.models import quantize as Q
 from vitef_tpu_torch.models import serving as SRV
+from vitef_tpu_torch.models import speculative as SPEC
 from vitef_tpu_torch.models.norms import LayerNorm
 from vitef_tpu_torch.ops import _build
 from vitef_tpu_torch.ops import attention as A
@@ -638,7 +686,7 @@ APPS_MODEL = {"implementation": "vit", "model_name": "base", "pretrained": False
               "in21k": True, "patch_size": 16, "image_dim": (3, 224, 224), "finetuning": True,
               "n_classes": 10, "compute_dtype": "bfloat16"}
 APPS_STEPS, APPS_RESUMED_STEPS, APPS_EVAL_PERIOD, APPS_LOGGING_PERIOD = 60, 70, 30, 10
-APPS_SPLIT_TIMED = 10     # steps timed at 1 x 512 and at 2 x 256
+APPS_SPLIT_TIMED = 5      # steps timed at 1 x 512 and at 2 x 256
 APPS_BATCH = 512
 TRAIN_RECORD_KEYS = {"loss", "step", "lr", "grad_norm", "elapsed_steps", "ts"}
 EVAL_RECORD_KEYS = {"eval_acc", "eval_loss", "step", "ts"}
@@ -727,6 +775,9 @@ L8B_BATCH, L8B_PROMPT, L8B_NEW = 32, 512, 64
 # through 16 slots of 1024 positions, bucket 64.
 L8B_REQUESTS = 64
 L8B_SERVER = {"n_slots": 16, "max_len": 1024, "bucket": 64}
+# the server on int8 weights: the first 16 of those requests (all 64 took
+# 23-27 s of the script's time limit).
+L8B_INT8_REQUESTS = 16
 # int8 weights against a bf16 model holding their dequantized values: the
 # power-of-two scales commute with the sums and int8 x 2^k is exact in bf16,
 # so the two differ where bf16 rounds outputs of other sums (the scale is
@@ -734,6 +785,46 @@ L8B_SERVER = {"n_slots": 16, "max_len": 1024, "bucket": 64}
 # serving checks' bound.
 L8B_SERVE_ARGV = ["run", "--implementation", "llama", "--model_name", "8b", "--quantize",
                   "int8", "--demo", "16"]
+# Speculative decoding on Llama-3.1-8B (phases 41-42): the "1b" preset
+# (Llama-3.2-1B's geometry: E = 2048, 32 heads of 64, 8 KV heads, 16 layers,
+# FFN 8192, V = 128,256) drafts at full width and depth, random weights from
+# seed 1, bf16, seq_len 1024. Batch 1: a prompt of 256 tokens from
+# default_rng(0), 128 new, gamma 4, greedy and sampled at T 0.8; the planted
+# faults' runs take 32 (the skipped draft write, with the self-draft) and
+# 16 new tokens (the commit pointer, with the 1b draft).
+LLAMA_1B_DRAFT = {**LLAMA_1B, "seed": 1}
+SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA, SPEC_TEMPERATURE = 256, 128, 4, 0.8
+SPEC_FAULT_NEW = 16
+# The speculative server serves the first 16 of phase 37's 64 requests: at
+# random weights the 1b draft's proposals are rejected (acceptance ~0), so
+# a round commits one token a slot at 5 draft steps and a window of host
+# time (140-210 ms on the card), and all 64 took 47 s of the script's
+# 1,200 s limit (H100 80GB HBM3, 700 W).
+SPEC_SERVER_REQUESTS = 16
+# The near-tie rule for greedy streams of two bf16 routes (a verify window
+# and one-token steps, or two servers): they round at different places, so
+# an argmax may flip where the reference's float32 top-2 logit margin is
+# within their rounding (logits of relative L2 ~1e-2 apart at |logit| ~1,
+# phase 37's cross-checks). Two streams pass when they are equal up to the
+# first position where the reference's margin is below NEAR_TIE.
+NEAR_TIE = 5e-2
+# The prefix cache on the 8B (phase 43): a 256-token prefix, then 32
+# requests of 32-224 own tokens and 16-64 new (default_rng(0)) through the
+# 8B server's slots.
+PREFIX_LEN, PREFIX_REQUESTS = 256, 32
+# The apps (phase 44), each as a process of its own: GPT-2 medium drafted by
+# GPT-2 base (sampled, T 0.8), and GPT-2 base serving 16 requests under a
+# shared prefix.
+SPEC_SAMPLE_ARGV = ["run", "--model_name", "medium", "--draft_model_name", "base",
+                    "--token_ids", "[464, 3280, 318, 262, 3139]", "--max_new_tokens", "32"]
+PREFIX_SERVE_ARGV = ["run", "--prefix", "464,3280,318,262,3139,286,1204,318", "--demo", "16",
+                     "--n_slots", "4"]
+# MoE decode (phase 45): "8x124m" in bf16, random weights from seed 0;
+# prompts of 128 tokens (default_rng(0)), 32 new, batch 1 and 32; the server
+# with 4 slots of 256 over 16 requests (prompts 32-128, 16-48 new).
+MOE_SERVE_PROMPT, MOE_SERVE_NEW, MOE_SERVE_BATCHES = 128, 32, (1, 32)
+MOE_SERVER = {"n_slots": 4, "max_len": 256, "bucket": 64}
+MOE_SERVER_REQUESTS = 16
 
 # K9, the ring hop, as (N, h, segment, d): the GPT-2 sp step's hop (zigzag
 # at sp = 1 and L = 1024; timed, the main path's shape), then
@@ -920,13 +1011,32 @@ def ptxas_kernels(log: str) -> list[tuple[str, str, str, str]]:
     return found
 
 
+SASS = {}  # cuobjdump -sass of each library, read once by build_phase
+
+
+def read_sass(libs) -> None:
+    """``cuobjdump -sass`` of each ``lib<lib>.so``, one process each, all
+    started together, into SASS."""
+    procs = {lib: subprocess.Popen([_build.cuda_tool("cuobjdump"), "-sass",
+                                    str(_build.BUILD_DIR / f"lib{lib}.so")],
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for lib in libs}
+    for lib, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump -sass lib{lib}.so failed: {err[-2000:]}")
+        SASS[lib] = out
+
+
 def sass_ops(lib: str, opcode: str = "HMMA") -> dict[str, list[str]]:
     """The instructions of each kernel in ``lib<lib>.so`` whose text holds
     ``opcode`` (HMMA: mma.sync on the tensor cores; HGMMA: wgmma), as
-    ``cuobjdump -sass`` prints them, by the kernel's mangled name."""
-    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
-                           str(_build.BUILD_DIR / f"lib{lib}.so")],
-                          check=True, capture_output=True, text=True, timeout=120).stdout
+    ``cuobjdump -sass`` prints them (``read_sass``), by the kernel's
+    mangled name."""
+    sass = SASS[lib]
     found = {}
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
@@ -946,6 +1056,10 @@ def build_phase() -> None:
         for kernel, registers, smem, spills in ptxas_kernels(_build.build_log(name)):
             print(f"ptxas {name}: {kernel}: {registers} registers, {smem} bytes of static "
                   f"shared memory; {spills}")
+    t0 = time.perf_counter()
+    read_sass(sorted({*TENSOR_CORE_LIBS, *(lib for lib, *_ in SASS_KERNELS)}))
+    print(f"read the SASS of {len(SASS)} libraries in {time.perf_counter() - t0:.2f} s "
+          f"(parallel cuobjdump)")
     for name in TENSOR_CORE_LIBS:
         hmma = sum(len(lines) for lines in sass_ops(name).values())
         print(f"lib{name}.so: {hmma} HMMA (tensor-core) instructions in cuobjdump -sass")
@@ -3950,19 +4064,72 @@ def l8b_requests(vocab: int) -> list:
     return reqs
 
 
-def l8b_server_phase(module, cfg, device, label: str) -> tuple[int, dict]:
-    """``DecodeServer`` (L8B_SERVER) serves the 8B mix greedily (no EOS, so
-    every request gets its max_new_tokens) after a warm-up on 2 requests:
+def top2_margin(logits) -> torch.Tensor:
+    """Each row's float32 gap between its largest and second-largest logit."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+@contextlib.contextmanager
+def stream_margins(srv):
+    """Record the float32 top-2 margin of the logits behind each token that
+    ``srv`` (a plain server) gives a request inside the block: yields
+    ``{id(request): [margin, ...]}``, filled as the requests are served
+    (each window's margins read back with its tokens)."""
+    margins, ticks = {}, []
+    real_tick, real_admit, real_step = SRV._tick_logits, SRV._admit, srv.step
+
+    def tick(*args, **kwargs):
+        logits = real_tick(*args, **kwargs)
+        ticks.append(top2_margin(logits))
+        return logits
+
+    def admit(*args, **kwargs):
+        logits = real_admit(*args, **kwargs)
+        ticks.append(top2_margin(logits))
+        return logits
+
+    def step():
+        owners = [(slot, req, len(req.tokens)) for slot, req in enumerate(srv._owner)
+                  if req is not None]
+        ticks.clear()
+        real_step()
+        window = torch.stack(ticks).cpu()  # (window, S)
+        for slot, req, before in owners:
+            margins[id(req)] += window[:len(req.tokens) - before, slot].tolist()
+
+    def admit_request(req, slot):
+        ticks.clear()
+        real_admit_request(req, slot)
+        margins[id(req)] = [ticks[0].item()]
+
+    real_admit_request = srv.admit
+    SRV._tick_logits, SRV._admit, srv.step, srv.admit = tick, admit, step, admit_request
+    try:
+        yield margins
+    finally:
+        SRV._tick_logits, SRV._admit = real_tick, real_admit
+        del srv.step, srv.admit
+
+
+def l8b_server_phase(module, cfg, device, label: str, margins: bool = False,
+                     n_requests: int = L8B_REQUESTS):
+    """``DecodeServer`` (L8B_SERVER) serves the first ``n_requests`` of the
+    8B mix greedily (no EOS, so every request gets its max_new_tokens)
+    after a warm-up on 2 requests:
     32 unmasked K1 launches per admission, none masked, no plain version;
-    requests/s, tokens/s, ticks. Returns the K1 launches and the rates."""
+    requests/s, tokens/s, ticks. Returns the K1 launches, the rates and the
+    served requests, with ``margins`` also each token's float32 top-2 logit
+    margin by ``id(request)`` (``stream_margins``; else None)."""
     srv = SRV.DecodeServer(module, cfg, **L8B_SERVER)
     srv.serve([SRV.Request(prompt=r.prompt, max_new_tokens=4)
                for r in l8b_requests(cfg.vocab_size)[:2]])
     srv.reset()
     torch.cuda.synchronize()
-    reqs = l8b_requests(cfg.vocab_size)
+    reqs = l8b_requests(cfg.vocab_size)[:n_requests]
     useful = sum(r.max_new_tokens for r in reqs)
-    with no_plain_versions() as (plain_calls, _):
+    recorded = stream_margins(srv) if margins else contextlib.nullcontext()
+    with no_plain_versions() as (plain_calls, _), recorded as by_request:
         A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
         t0 = time.perf_counter()
         srv.serve(reqs)
@@ -3980,17 +4147,21 @@ def l8b_server_phase(module, cfg, device, label: str) -> tuple[int, dict]:
                              f"{Counter(plain_calls)}")
     if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
         raise AssertionError("a request did not get its max_new_tokens from the server")
-    return launches[0], {"requests_s": len(reqs) / seconds, "tokens_s": useful / seconds}
+    if margins and [len(by_request[id(r)]) for r in reqs] != [len(r.tokens) for r in reqs]:
+        raise AssertionError("the server's recorded margins do not cover its tokens")
+    rates = {"requests_s": len(reqs) / seconds, "tokens_s": useful / seconds}
+    return launches[0], rates, reqs, by_request
 
 
-def l8b_int8_phase(model, device, card_line: str, bf16_rates: dict) -> None:
+def l8b_int8_phase(model, device, card_line: str, bf16_rates: dict):
     """int8 weights for the 8B model: ``quantize_decode_params`` on the card
     bit-equal to the same function on the host copy of block 0's weights;
     ``Model.quantize_int8`` (timed; ``quantized_nbytes``); the int8 model's
     prefill logits against a bf16 model holding the dequantized weights
     (relative L2 within SERVE_REL_L2, max |d| printed); greedy generate on
     int8 weights (32 masked K1 launches, no plain version; decode ms per
-    step and tokens/s beside bf16's); the server on int8 weights."""
+    step and tokens/s beside bf16's); the server on int8 weights. Returns
+    the int8 module."""
     cfg = model.config
     block = {name: t for name, t in model.module.state_dict().items()
              if name.startswith("blocks.0.")}
@@ -4060,7 +4231,8 @@ def l8b_int8_phase(model, device, card_line: str, bf16_rates: dict) -> None:
     if not (tuple(out.shape) == (L8B_BATCH, L8B_NEW)
             and bool(((out >= 0) & (out < cfg.vocab_size)).all())):
         raise AssertionError(f"int8 generate returned {tuple(out.shape)} or ids out of range")
-    l8b_server_phase(qmodule, cfg, device, "int8")
+    l8b_server_phase(qmodule, cfg, device, "int8", n_requests=L8B_INT8_REQUESTS)
+    return qmodule
 
 
 def l8b_serve_command():
@@ -4095,29 +4267,66 @@ def l8b_serve_result(started, card_line: str) -> None:
 
 def l8b_phase(device, card_line: str) -> dict:
     """The Llama-3.1-8B serving path: the serve command line with int8
-    weights in its own process beside this process's build of the preset,
-    waited for before anything here is timed; then generate (bf16), its
-    cross-check, the server and its cross-check, int8 weights. Returns the
+    weights and the apps' command lines (phase 44) in processes of their
+    own, and the 1b draft drawn on the host in a thread, beside this
+    process's build of the preset, all waited for before anything here is
+    timed; then generate (bf16), its cross-check, the server and its
+    cross-check, int8 weights (37-38); then, on the bf16 decoding copy and
+    the int8 module, the float32 weights freed: speculative decoding (41),
+    the speculative server (42) and the prefix cache (43). Returns the
     launches of K1 d = 128 by mode."""
-    command = l8b_serve_command()
-    model = build_8b(device)
-    free, total = torch.cuda.mem_get_info(device)
-    print(f"the card after both processes' 8B builds: {(total - free) / 2**30:.3f} of "
-          f"{total / 2**30:.3f} GiB in use (torch.cuda.mem_get_info)")
-    l8b_serve_result(command, card_line)
-    peaks = []
-    greedy, masked, rates = l8b_generate_phase(model, device, card_line, peaks)
-    serve_cross_check(model, greedy, device, batch=l8b_prompts(model.config.vocab_size, device),
-                      new=L8B_NEW, name="Llama-3.1-8B")
-    del greedy
-    server_cross_check(model, device, reqs=l8b_requests(model.config.vocab_size)[:4],
-                       server=L8B_SERVER, name="Llama-3.1-8B")
+    command, apps = l8b_serve_command(), apps_commands()
+    with ThreadPoolExecutor(1) as pool:
+        draft_built = pool.submit(build_model, LLAMA_1B_DRAFT, device="cpu")
+        model = build_8b(device)
+        free, total = torch.cuda.mem_get_info(device)
+        print(f"the card after both processes' 8B builds: {(total - free) / 2**30:.3f} of "
+              f"{total / 2**30:.3f} GiB in use (torch.cuda.mem_get_info)")
+        l8b_serve_result(command, card_line)
+        with phase_clock("44 (the apps' command lines; the wait after the 8B's build)",
+                         device):
+            apps_results(apps, card_line)
+        peaks = []
+        greedy, masked, rates = l8b_generate_phase(model, device, card_line, peaks)
+        serve_cross_check(model, greedy, device,
+                          batch=l8b_prompts(model.config.vocab_size, device), new=L8B_NEW,
+                          name="Llama-3.1-8B")
+        del greedy
+        server_cross_check(model, device, reqs=l8b_requests(model.config.vocab_size)[:4],
+                           server=L8B_SERVER, name="Llama-3.1-8B")
+        gc.collect()
+        torch.cuda.empty_cache()
+        unmasked, server_rates, plain_reqs, plain_margins = l8b_server_phase(
+            model.module, model.config, device, "bf16", margins=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        qmodule = l8b_int8_phase(model, device, card_line, rates)
+        target = decoding_model(model, "llama-8b")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        draft = draft_built.result()
+    waited = time.perf_counter() - t0
+    draft.module.to(device)
+    draft = decoding_model(draft, "llama-1b")
     gc.collect()
     torch.cuda.empty_cache()
-    unmasked, _ = l8b_server_phase(model.module, model.config, device, "bf16")
+    print(f"the 1b draft: {sum(p.numel() for p in draft.module.parameters()):,} parameters "
+          f"(drawn on the host beside the 8B's build, waited {waited:.2f} s for), "
+          f"{draft.config.n_layers} blocks, E={draft.config.emb_dim}, {draft.config.n_heads} "
+          f"heads of {draft.config.head_dim}, {draft.config.n_kv_heads} KV heads, bf16 decoding "
+          f"copy on the card")
+    with phase_clock("41 (speculative decoding at batch 1)", device, peaks):
+        spec_phase(target, draft, device, card_line)
+    with phase_clock("42 (the speculative server)", device, peaks):
+        spec_server_phase(target, draft, plain_reqs[:SPEC_SERVER_REQUESTS], plain_margins,
+                          server_rates, device, card_line)
+    del draft, plain_reqs, plain_margins
     gc.collect()
     torch.cuda.empty_cache()
-    l8b_int8_phase(model, device, card_line, rates)
+    with phase_clock("43 (the prefix cache)", device, peaks):
+        prefix_phase(target, qmodule, server_rates, device, card_line)
     peak = max(peaks + [torch.cuda.max_memory_allocated(device)]) / 2**30
     print(f"Llama-3.1-8B serving phases: peak memory {peak:.3f} GiB "
           f"(torch.cuda.max_memory_allocated) of the card's "
@@ -4125,10 +4334,676 @@ def l8b_phase(device, card_line: str) -> dict:
           f"of a bf16 decode step {100 * rates['idle']:.1f}%")
     if peak > 79:
         raise AssertionError(f"the 8B serving phases peaked at {peak:.3f} GiB, over 79")
-    del model
+    del target, qmodule
     gc.collect()
     torch.cuda.empty_cache()
     return {"packed_mha_fwd:d128": unmasked, "packed_mha_fwd:masked:d128": masked}
+
+
+# ---------------------------------------------------------------------------
+# The rest of serving on Llama-3.1-8B: speculative decoding (batch 1 and the
+# server's windows) drafted by the 1b preset, the prefix cache; the apps;
+# MoE decode
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def phase_clock(name: str, device, peaks: list | None = None):
+    """Print the seconds and the peak memory of the block; the peak before
+    it (and the block's own) are appended to ``peaks``."""
+    torch.cuda.synchronize()
+    if peaks is not None:
+        peaks.append(torch.cuda.max_memory_allocated(device))
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    if peaks is not None:
+        peaks.append(peak)
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s, peak memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+
+
+def decoding_model(model: Model, label: str) -> Model:
+    """The model holding ``generate``'s decoding copy of its weight matrices
+    (``GEN.decode_module``: bf16), which every later decode reuses."""
+    return Model(module=GEN.decode_module(model.module, model.config), config=model.config,
+                 name=label)
+
+
+@contextlib.contextmanager
+def k1_widths():
+    """Count the prefill's K1 calls by head width: yields a Counter."""
+    widths, real = Counter(), GEN.fused_mha_packed
+
+    def counted(qkv, n_heads, *args, **kwargs):
+        widths[qkv.shape[-1] // (3 * n_heads)] += 1
+        return real(qkv, n_heads, *args, **kwargs)
+
+    GEN.fused_mha_packed = counted
+    try:
+        yield widths
+    finally:
+        GEN.fused_mha_packed = real
+
+
+@contextlib.contextmanager
+def host_syncs():
+    """Record the host-device synchronisations inside the block (torch.cuda's
+    sync debug mode, one warning each): yields the list of warnings."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def logits_margins():
+    """Record the float32 top-2 margin of every ``GEN._logits`` call's rows
+    (the prefill's last logits, then each decode step's): yields the list."""
+    margins, real = [], GEN._logits
+
+    def recorded(*args, **kwargs):
+        logits = real(*args, **kwargs)
+        margins.append(top2_margin(logits))
+        return logits
+
+    GEN._logits = recorded
+    try:
+        yield margins
+    finally:
+        GEN._logits = real
+
+
+def near_tie(got: list, want: list, margins: list) -> tuple[bool, str]:
+    """The near-tie rule (NEAR_TIE): ``got`` passes against the reference
+    stream ``want`` if the two are equal up to the first position where
+    the reference's float32 top-2 margin (``margins``) is below NEAR_TIE.
+    Returns (passes, what happened)."""
+    if len(got) != len(want):
+        return False, f"{len(got)} tokens against {len(want)}"
+    diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if diff is None:
+        return True, "equal"
+    low = min(range(diff + 1), key=lambda i: margins[i])
+    return margins[low] < NEAR_TIE, (f"first differs at {diff} (margin there "
+                                      f"{margins[diff]:.4f}; smallest up to there "
+                                      f"{margins[low]:.4f} at {low})")
+
+
+@contextlib.contextmanager
+def rejections():
+    """Record each greedy and sampled verification's first rejected
+    proposal: yields a list of (kind, the target's float32 top-2 margin at
+    that position, the target's over the draft's probability of the
+    proposal); a fully accepted window records nothing."""
+    seen = []
+    greedy, sampled = SPEC._accept_greedy, SPEC._accept_sampled
+
+    def accept_greedy(proposals, logits):
+        a, emit = greedy(proposals, logits)
+        seen.append(("greedy", a, top2_margin(logits), proposals.shape[0], None))
+        return a, emit
+
+    def accept_sampled(proposals, logits, draft_logits, temperature, generator):
+        a, emit = sampled(proposals, logits, draft_logits, temperature, generator)
+        p = torch.softmax(logits[:-1] / temperature, -1).gather(1, proposals[:, None])[:, 0]
+        q = torch.softmax(draft_logits / temperature, -1).gather(1, proposals[:, None])[:, 0]
+        seen.append(("sampled", a, top2_margin(logits), proposals.shape[0], p / q))
+        return a, emit
+
+    found = []
+    SPEC._accept_greedy, SPEC._accept_sampled = accept_greedy, accept_sampled
+    try:
+        yield found
+    finally:
+        SPEC._accept_greedy, SPEC._accept_sampled = greedy, sampled
+        for kind, a, margins, gamma, ratio in seen:
+            a = int(a)
+            if a < gamma:
+                found.append((kind, margins[a].item(),
+                              None if ratio is None else ratio[a].item()))
+
+
+@contextlib.contextmanager
+def draft_write_skipped():
+    """Planted fault: the draft's (gamma + 1)-th step leaves its K/V cell as
+    it found it (the write at c + gamma skipped)."""
+    real = SPEC._draft_step
+
+    def step(module, cfg, cache, token, pos, positions, *, logits):
+        if logits:
+            return real(module, cfg, cache, token, pos, positions, logits=logits)
+        saved = [(lc["k"][:, :, pos].clone(), lc["v"][:, :, pos].clone()) for lc in cache]
+        out = real(module, cfg, cache, token, pos, positions, logits=logits)
+        for lc, (k, v) in zip(cache, saved):
+            lc["k"][:, :, pos], lc["v"][:, :, pos] = k, v
+        return out
+
+    SPEC._draft_step = step
+    try:
+        yield
+    finally:
+        SPEC._draft_step = real
+
+
+@contextlib.contextmanager
+def commit_one_too_far():
+    """Planted fault: each greedy round commits one token past its accepted
+    run and the target's correction (the commit pointer one too far)."""
+    real = SPEC._accept_greedy
+
+    def accept(proposals, logits):
+        a, emit = real(proposals, logits)
+        return torch.clamp(a + 1, max=proposals.shape[0]), emit
+
+    SPEC._accept_greedy = accept
+    try:
+        yield
+    finally:
+        SPEC._accept_greedy = real
+
+
+@contextlib.contextmanager
+def kept_caches():
+    """Keep the caches that ``generate_speculative``'s prefills make (the
+    target's, then the draft's): yields the list."""
+    caches, real = [], SPEC.prefill
+
+    def prefill(*args, **kwargs):
+        logits, cache = real(*args, **kwargs)
+        caches.append(cache)
+        return logits, cache
+
+    SPEC.prefill = prefill
+    try:
+        yield caches
+    finally:
+        SPEC.prefill = real
+
+
+def cache_agreement(caches, cells: int) -> float:
+    """The largest relative L2, over layers and K/V, between the draft's
+    and the target's cache cells [0, cells): a self-draft's cells of
+    committed tokens hold what the target's hold, up to two routes'
+    rounding (one-token steps against windows)."""
+    target, draft = caches
+    return max(rel_l2(dl[name][:, :, :cells], tl[name][:, :, :cells])
+               for tl, dl in zip(target, draft) for name in ("k", "v"))
+
+
+def spec_run(target: Model, draft: Model, prompt, new: int, temperature: float = 0.0,
+             seed: int = 0) -> dict:
+    """One ``Model.generate_speculative`` call, greedy or sampled: its
+    tokens, stats, seconds, K1 calls by head width and launches, host
+    syncs, plain calls, first rejections (``rejections``) and, for a
+    self-draft, the agreement of the draft's cache with the target's over
+    the committed tokens' cells (``cache_agreement``)."""
+    device = prompt.device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with k1_widths() as widths, no_plain_versions() as (plain_calls, aug_calls), \
+            rejections() as rejected, kept_caches() as caches:
+        A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+        with host_syncs() as syncs:
+            t0 = time.perf_counter()
+            out, stats = target.generate_speculative(prompt, new, draft=draft, gamma=SPEC_GAMMA,
+                                                     temperature=temperature, generator=gen,
+                                                     return_stats=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = (A.fused_mha_packed.launches, A.fused_mha_packed.masked_launches)
+    if not (tuple(out.shape) == (1, new) and bool(((out >= 0)
+                                                   & (out < target.config.vocab_size)).all())):
+        raise AssertionError(f"generate_speculative returned {tuple(out.shape)} or ids out "
+                             "of range")
+    return {"tokens": out[0].tolist(), "stats": stats, "seconds": seconds,
+            "widths": dict(widths), "launches": launches,
+            "syncs": sum("ynchroniz" in str(w.message) for w in syncs),
+            "plain": plain_calls + aug_calls, "rejected": rejected,
+            "cache_rel": (cache_agreement(caches, prompt.shape[1] + new - 1)
+                          if draft is target else None)}
+
+
+def spec_phase(target: Model, draft: Model, device, card_line: str) -> None:
+    """Phase 41: speculative decoding at batch 1 on the 8B (bf16 decoding
+    copy), drafted by the 1b preset and by itself. Plain batch-1
+    ``Model.generate`` gives the reference stream, its float32 top-2 margins
+    and its rate. Greedy with the 1b draft and with the self-draft, then
+    sampled at T 0.8 with the self-draft: the greedy streams pass the
+    near-tie rule against the reference; the self-draft's proposals are all
+    accepted but where the window's own margin is a near tie (greedy) or the
+    target's over the draft's probability is within exp(-NEAR_TIE/T) of 1
+    (sampled): two routes' rounding, printed; the self-draft's cache holds
+    the target's over the committed cells (``cache_agreement``, within
+    SERVE_REL_L2); K1 once per layer and model
+    per call (32 at d = 128, 16 at d = 64 with the 1b draft), no plain
+    version; host syncs per round. Then two planted faults that must fail
+    those checks: the draft's (gamma + 1)-th K/V write skipped (self-draft),
+    and the commit pointer one too far (1b draft)."""
+    cfg = target.config
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, SPEC_PROMPT))).to(device)
+    target.generate(prompt, 4, temperature=0.0)
+    spec_run(target, draft, prompt, 8)  # the 1b draft's first launches
+    torch.cuda.synchronize()
+    with logits_margins() as margins:
+        t0 = time.perf_counter()
+        want = target.generate(prompt, SPEC_NEW, temperature=0.0)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    want, margins = want[0].tolist(), torch.cat(margins).tolist()
+    plain_rate = SPEC_NEW / plain_s
+    print(f"Llama-3.1-8B plain batch-1 generate ({card_line}), prompt {SPEC_PROMPT}, "
+          f"{SPEC_NEW} new: {plain_s:.3f} s, {plain_rate:.2f} tokens/s; float32 top-2 margins "
+          f"{min(margins):.4f}..{max(margins):.4f}, {sum(m < NEAR_TIE for m in margins)} below "
+          f"{NEAR_TIE:g}")
+
+    def report(label, run, width_want):
+        stats, rounds = run["stats"], run["stats"]["rounds"]
+        print(f"speculative {label} ({card_line}): {rounds} rounds, accepted "
+              f"{stats['accepted']}/{stats['drafted']} drafted "
+              f"({stats['accepted'] / max(stats['drafted'], 1):.4f}), {run['syncs']} host "
+              f"syncs ({run['syncs'] / rounds:.2f} per round), {run['seconds'] * 1e3 / rounds:.3f} "
+              f"ms per round (both prefills included), {len(run['tokens']) / run['seconds']:.2f} "
+              f"tokens/s against plain generate's {plain_rate:.2f}; K1 by head width "
+              f"{run['widths']}, launches (unmasked, masked) {run['launches']}; first rejections "
+              f"(kind, margin, p/q) {run['rejected'][:8]}")
+        if run["widths"] != width_want or run["launches"] != (sum(width_want.values()), 0):
+            raise AssertionError(f"{label}: K1 {run['widths']} {run['launches']}, want "
+                                 f"{width_want} unmasked")
+        if run["plain"]:
+            raise AssertionError(f"{label}: plain versions ran on CUDA: {Counter(run['plain'])}")
+
+    def self_draft_exact(run) -> bool:
+        """Every rejection of a self-draft is a rounding one, and its cache
+        holds what the target's holds."""
+        floor = math.exp(-NEAR_TIE / SPEC_TEMPERATURE)
+        return run["cache_rel"] <= SERVE_REL_L2 and all(
+            margin < NEAR_TIE if ratio is None else ratio >= floor
+            for _, margin, ratio in run["rejected"])
+
+    per_call = {128: cfg.n_layers, 64: draft.config.n_layers}
+    runs = {"greedy, 1b draft": spec_run(target, draft, prompt, SPEC_NEW),
+            "greedy, self-draft": spec_run(target, target, prompt, SPEC_NEW),
+            "sampled T 0.8, self-draft": spec_run(target, target, prompt, SPEC_NEW,
+                                                  temperature=SPEC_TEMPERATURE)}
+    for label, run in runs.items():
+        report(label, run, per_call if "1b" in label else {128: 2 * cfg.n_layers})
+        if label.startswith("greedy"):
+            ok, what = near_tie(run["tokens"], want, margins)
+            print(f"  tokens against plain batch-1 generate (near-tie rule, {NEAR_TIE:g}): {what}")
+            if not ok:
+                raise AssertionError(f"{label}: the speculative stream leaves plain greedy "
+                                     f"decode outside a near tie: {what}")
+        if "self" in label:
+            exact = run["stats"]["accepted"] == run["stats"]["drafted"]
+            print(f"  self-draft acceptance exactly 1.0: {exact}; the draft's cache against "
+                  f"the target's over the committed cells, largest relative L2 "
+                  f"{run['cache_rel']:.3e}; every rejection a rounding one and the caches "
+                  f"within {SERVE_REL_L2:g}: {self_draft_exact(run)}")
+            if not self_draft_exact(run):
+                raise AssertionError(f"{label}: the self-draft rejected a proposal outside a "
+                                     f"near tie or its cache left the target's: "
+                                     f"{run['rejected']}, {run['cache_rel']}")
+
+    with draft_write_skipped():
+        skipped = spec_run(target, target, prompt, 2 * SPEC_FAULT_NEW)
+    with commit_one_too_far():
+        too_far = spec_run(target, draft, prompt, SPEC_FAULT_NEW)
+    faults = {"the draft's (gamma + 1)-th K/V write skipped (self-draft)":
+              (self_draft_exact(skipped), f"accepted {skipped['stats']['accepted']}/"
+               f"{skipped['stats']['drafted']}, rejections {skipped['rejected'][:4]}, caches "
+               f"{skipped['cache_rel']:.3e} apart"),
+              "the commit pointer one too far (1b draft)":
+              near_tie(too_far["tokens"], want[:SPEC_FAULT_NEW], margins)}
+    print("planted faults (each must fail its check): " + "; ".join(
+        f"{k}: passes {ok} ({what})" for k, (ok, what) in faults.items()))
+    if any(ok for ok, _ in faults.values()):
+        raise AssertionError(f"a planted speculative fault passed its check: {faults}")
+
+
+def spec_server_phase(target: Model, draft: Model, plain_reqs, plain_margins,
+                      plain_rates: dict, device, card_line: str) -> None:
+    """Phase 42: ``DecodeServer`` on the 8B with the 1b draft (L8B_SERVER,
+    gamma 4) serves the first SPEC_SERVER_REQUESTS of phase 37's requests
+    greedily after a warm-up: every
+    request its max_new_tokens; K1 once per layer and model per admission
+    (32 at d = 128 and 16 at d = 64), no plain version; each stream against
+    the plain server's under the near-tie rule (its margins recorded in
+    phase 37); spec_rounds, committed tokens per round, requests/s and
+    tokens/s beside phase 37's."""
+    cfg = target.config
+    srv = SRV.DecodeServer(target.module, cfg, **L8B_SERVER, draft_params=draft,
+                           gamma=SPEC_GAMMA)
+    srv.serve([SRV.Request(prompt=r.prompt, max_new_tokens=4)
+               for r in l8b_requests(cfg.vocab_size)[:2]])
+    srv.reset()
+    torch.cuda.synchronize()
+    reqs = l8b_requests(cfg.vocab_size)[:SPEC_SERVER_REQUESTS]
+    useful = sum(r.max_new_tokens for r in reqs)
+    with k1_widths() as widths, no_plain_versions() as (plain_calls, _):
+        A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+        t0 = time.perf_counter()
+        srv.serve(reqs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (A.fused_mha_packed.launches, A.fused_mha_packed.masked_launches)
+    verdicts = [near_tie(r.tokens, p.tokens, plain_margins[id(p)])
+                for r, p in zip(reqs, plain_reqs)]
+    equal = sum(what == "equal" for _, what in verdicts)
+    print(f"Llama-3.1-8B speculative DecodeServer ({card_line}), 1b draft, gamma {SPEC_GAMMA}, "
+          f"{L8B_SERVER}, {len(reqs)} requests ({useful} tokens): {seconds:.3f} s, "
+          f"{len(reqs) / seconds:.3f} requests/s, {useful / seconds:.2f} tokens/s (the plain "
+          f"server, phase 37: {plain_rates['requests_s']:.3f} and {plain_rates['tokens_s']:.2f}); "
+          f"{srv.spec_rounds} rounds, {srv.spec_committed} tokens committed by them "
+          f"({srv.spec_committed / srv.spec_rounds:.3f} a round over {L8B_SERVER['n_slots']} "
+          f"slots); K1 by head width {dict(widths)}, launches (unmasked, masked) {launches}; "
+          f"streams equal to the plain server's: {equal} of {len(reqs)}; "
+          + "; ".join(f"request {i}: {what}" for i, (_, what) in enumerate(verdicts)
+                      if what != "equal")[:2000])
+    want = {128: cfg.n_layers * len(reqs), 64: draft.config.n_layers * len(reqs)}
+    if dict(widths) != want or launches != (sum(want.values()), 0) or plain_calls:
+        raise AssertionError(f"the speculative server launched K1 {dict(widths)} {launches}, "
+                             f"want {want}; plain calls {Counter(plain_calls)}")
+    if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
+        raise AssertionError("a request did not get its max_new_tokens from the speculative "
+                             "server")
+    if not all(ok for ok, _ in verdicts):
+        raise AssertionError("a speculative server stream leaves the plain server's outside "
+                             "a near tie")
+
+
+def prefix_requests(vocab: int) -> tuple[list, list]:
+    """(the prefix, PREFIX_REQUESTS requests of 32-224 own tokens and 16-64
+    new), from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, vocab, size=PREFIX_LEN).tolist()
+    reqs = []
+    for _ in range(PREFIX_REQUESTS):
+        own, new = int(rng.integers(32, 225)), int(rng.integers(16, 65))
+        reqs.append(SRV.Request(prompt=rng.integers(0, vocab, size=(own,)).tolist(),
+                                max_new_tokens=new))
+    return prefix, reqs
+
+
+@contextlib.contextmanager
+def rope_not_offset():
+    """Planted fault: the own tokens of a prefix admission rotated at
+    positions [0, Pb) instead of [plen, plen + Pb)."""
+    real = SRV._rope_cos_sin
+
+    def unshifted(cfg, positions):
+        return real(cfg, positions - positions[0])
+
+    SRV._rope_cos_sin = unshifted
+    try:
+        yield
+    finally:
+        SRV._rope_cos_sin = real
+
+
+def prefix_cross_check(srv, prefix: list, reqs: list, handle: int, label: str) -> None:
+    """4 requests admitted under the registered prefix (slots 0-3) against
+    ``prefill`` of [prefix ++ prompt] alone (K1 at d = 128): their last
+    logits, and the slot's cache rows [0, plen + len) against that
+    prefill's cache (the largest relative L2 over requests, layers, K and
+    V), each within SERVE_REL_L2; then the same with each of two planted
+    faults (the own tokens' RoPE not offset by plen; the prefix rows copied
+    one row off), which must fail it."""
+    cfg, module = srv.cfg, srv.module
+    kv = srv._prefixes[handle]["kv"]
+    plen = len(prefix)
+    with torch.inference_mode():
+        alone = [GEN.prefill(module, cfg, torch.tensor([prefix + r.prompt], device=srv.device),
+                             plen + len(r.prompt)) for r in reqs]
+
+        def admitted(prefix_kv):
+            """(relative L2 of the 4 admissions' logits, of their cache rows)."""
+            pos, logits, rows = srv.pos.clone(), [], []
+            for slot, (r, (_, cache)) in enumerate(zip(reqs, alone)):
+                padded, length = srv._bucketed(r.prompt, room=srv.max_len - plen)
+                logits.append(SRV._admit_prefix(module, cfg, srv.cache, pos, slot, prefix_kv,
+                                                padded, length))
+                rows += [rel_l2(lc[name][slot, :, :plen + length], ac[name][0])
+                         for lc, ac in zip(srv.cache, cache) for name in ("k", "v")]
+            return rel_l2(torch.stack(logits), torch.cat([a for a, _ in alone])), max(rows)
+
+        good = admitted(kv)
+        with rope_not_offset():
+            unshifted = admitted(kv)
+        off_by_one = admitted([{k: torch.cat([torch.zeros_like(v[:, :1]), v[:, :-1]], dim=1)
+                                for k, v in lc.items()} for lc in kv])
+    print(f"Llama-3.1-8B {label} prefix cache, a {plen}-token prefix, own prompts "
+          f"{[len(r.prompt) for r in reqs]}: 4 admissions vs prefill of [prefix ++ prompt] "
+          f"alone, relative L2 of the logits {good[0]:.3e}, of the slot's cache rows (largest "
+          f"over requests, layers, K and V) {good[1]:.3e}")
+    if not all(math.isfinite(v) and v <= SERVE_REL_L2 for v in good):
+        raise AssertionError(f"the prefix admissions disagree with the prefill: {good}")
+    print(f"  with the planted faults, (logits, cache rows): own tokens' RoPE not offset by "
+          f"plen {unshifted[0]:.3e}, {unshifted[1]:.3e}; prefix rows copied one row off "
+          f"{off_by_one[0]:.3e}, {off_by_one[1]:.3e}")
+    planted({"own tokens' RoPE not offset by plen": max(unshifted),
+             "prefix rows copied one row off": max(off_by_one)})
+
+
+def prefix_phase(target: Model, qmodule, plain_rates: dict, device, card_line: str) -> None:
+    """Phase 43: the prefix cache on the 8B, int8 then bf16 weights: a
+    256-token prefix registered (one prefill, 32 unmasked K1 launches) and
+    ``prefix_cross_check`` with its planted faults on each; then, in bf16,
+    64 requests served under it (no K1: the own tokens' attention over the
+    prefix rows is plain products, as the JAX package's einsum), every
+    request its max_new_tokens; prefill_tokens_saved, requests/s and
+    tokens/s beside phase 37's plain server."""
+    cfg = target.config
+    prefix, mix = prefix_requests(cfg.vocab_size)
+    for label, module in (("int8", qmodule), ("bf16", target.module)):
+        srv = SRV.DecodeServer(module, cfg, **L8B_SERVER)
+        A.fused_mha_packed.launches = 0
+        handle = srv.register_prefix(prefix)
+        if A.fused_mha_packed.launches != cfg.n_layers:
+            raise AssertionError(f"register_prefix launched K1 {A.fused_mha_packed.launches} "
+                                 f"times, want {cfg.n_layers}")
+        prefix_cross_check(srv, prefix, mix[:4], handle, label)
+        if label == "int8":
+            continue
+        srv.reset()
+        torch.cuda.synchronize()
+        reqs = [SRV.Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens, prefix=handle)
+                for r in mix]
+        useful = sum(r.max_new_tokens for r in reqs)
+        with no_plain_versions() as (plain_calls, _):
+            A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+            t0 = time.perf_counter()
+            srv.serve(reqs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = (A.fused_mha_packed.launches, A.fused_mha_packed.masked_launches)
+        own = sum(len(r.prompt) for r in reqs)
+        print(f"Llama-3.1-8B {label} DecodeServer under a {PREFIX_LEN}-token prefix "
+              f"({card_line}), {L8B_SERVER}, {len(reqs)} requests ({own} own prompt tokens, "
+              f"{useful} new): {seconds:.3f} s, {len(reqs) / seconds:.3f} requests/s, "
+              f"{useful / seconds:.2f} tokens/s (phase 37's plain server, other requests: "
+              f"{plain_rates['requests_s']:.3f} and {plain_rates['tokens_s']:.2f}); "
+              f"prefill_tokens_saved {srv.prefill_tokens_saved}; {srv.steps} ticks; K1 "
+              f"(unmasked, masked) {launches}")
+        if srv.prefill_tokens_saved != PREFIX_LEN * len(reqs) or launches != (0, 0) \
+                or plain_calls:
+            raise AssertionError(f"the prefix server saved {srv.prefill_tokens_saved} tokens, "
+                                 f"launched K1 {launches}, plain calls {Counter(plain_calls)}")
+        if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
+            raise AssertionError("a request did not get its max_new_tokens under the prefix")
+
+
+def apps_commands():
+    """Phase 44's command lines, each a process of its own, started now so
+    that they overlap the 8B's host draw: ``sample`` with GPT-2 medium
+    drafted by GPT-2 base, ``serve`` under a shared prefix. Returns (app,
+    argv, process, start time) for each."""
+    return [(app, argv, subprocess.Popen(
+        [sys.executable, "-m", f"vitef_tpu_torch.apps.gpt2.{app}", *argv], cwd=REPO_ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), time.perf_counter())
+            for app, argv in (("sample", SPEC_SAMPLE_ARGV), ("serve", PREFIX_SERVE_ARGV))]
+
+
+def apps_results(started, card_line: str) -> None:
+    """Phase 44: wait for each command line: exit 0, its results and the
+    stats it logs (the speculative rounds and acceptance; the requests
+    served and the prefix tokens not prefilled)."""
+    for app, argv, proc, t0 in started:
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        seconds = time.perf_counter() - t0
+        logged = [line for line in err.splitlines()
+                  if line.startswith(("speculative", "served", "serving mode"))]
+        print(f"python -m vitef_tpu_torch.apps.gpt2.{app} {' '.join(argv)} ({card_line}): exit "
+              f"{proc.returncode} in {seconds:.2f} s (beside the 8B's host draw); "
+              f"{' | '.join(logged)}; stdout {out[-300:]!r}")
+        if app == "sample":
+            ok = "'new_ids':" in out and any(line.startswith("speculative") for line in logged)
+        else:
+            lines = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+            ok = len(lines) == 16 and all(line["tokens"] for line in lines) and any(
+                "prefix tokens not prefilled" in line for line in logged)
+        if proc.returncode != 0 or not ok:
+            raise AssertionError(f"the command line {app} {argv} failed:\n{err[-4000:]}")
+
+
+def moe_routes_check(model: Model, device) -> None:
+    """MoE decode's sparse route against the dense oracle at one routing:
+    each block's FFN on the inputs recorded in a sparse-route prefill of 4
+    prompts and in one decode step after it (8 claims, on 8 groups), through
+    ``apply_moe_ffn_sparse`` and ``apply_moe_ffn``, relative L2 within
+    SERVE_REL_L2; the logits of the two whole routes printed beside the
+    share of tokens routed to other experts (random weights flip routings
+    on rounding)."""
+    cfg, module = model.config, model.module
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(4, MOE_SERVE_PROMPT))).to(device)
+    inputs = []
+    hooks = [block.ffn.register_forward_pre_hook(lambda mod, args: inputs.append(args[0]))
+             for block in module.blocks]
+    try:
+        with torch.inference_mode(), config_set(cfg, moe_impl="sparse"):
+            logits, cache = GEN.prefill(module, cfg, prompt, MOE_SERVE_PROMPT + 1)
+            x = GEN._embed_token(module, cfg, logits.argmax(dim=-1),
+                                 torch.full((4,), MOE_SERVE_PROMPT, device=device))
+            for block, lc in zip(module.blocks, cache):
+                x, _ = GEN._block_decode(block, cfg, x, lc, MOE_SERVE_PROMPT)
+            step_logits = GEN._logits(module, cfg, x)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    with torch.inference_mode(), config_set(cfg, moe_impl="dense"):
+        dense_logits, _ = GEN.prefill(module, cfg, prompt, MOE_SERVE_PROMPT + 1)
+    worst = {}
+    with torch.inference_mode():
+        for label, recorded in (("prefill", inputs[:cfg.n_layers]),
+                                ("decode step", inputs[cfg.n_layers:])):
+            rels = []
+            for block, xin in zip(module.blocks, recorded):
+                params = block.ffn.params()
+                rels.append(rel_l2(M.apply_moe_ffn_sparse(params, cfg, xin, top_k=cfg.moe_top_k),
+                                   M.apply_moe_ffn(params, cfg, xin, top_k=cfg.moe_top_k)))
+            worst[label] = rels
+    print(f"MoE 8x124m decode routes at one routing (each block's FFN on the sparse route's "
+          f"recorded inputs, sparse vs the dense oracle, relative L2): prefill of 4 x "
+          f"{MOE_SERVE_PROMPT} " + " ".join(f"{r:.2e}" for r in worst["prefill"])
+          + "; one decode step of 4 " + " ".join(f"{r:.2e}" for r in worst["decode step"])
+          + f"; whole-route prefill logits sparse vs dense {rel_l2(logits, dense_logits):.3e} "
+          f"(not gated: routings flip); decode step logits finite "
+          f"{bool(torch.isfinite(step_logits).all())}")
+    if not all(math.isfinite(r) and r <= SERVE_REL_L2 for rels in worst.values() for r in rels):
+        raise AssertionError(f"the sparse MoE decode route disagrees with the dense oracle: "
+                             f"{worst}")
+
+
+def moe_serve_phase(device, card_line: str) -> None:
+    """Phase 45: MoE "8x124m" decode in bf16 on the card. ``generate`` for 1
+    and for 32 prompts (resolve_moe_impl: batch 1's decode steps, 2 claims,
+    take the sparse route, its 128-token prefill the dense one; at 32 the
+    prefill is sparse and the decode dense): K1 12 per call, K8 gmm and K7
+    gmm_swiglu 12 per sparse evaluation (the forward passes only), no plain
+    version; tokens/s. ``DecodeServer`` with 4 slots under "auto" (its
+    ticks' 8 claims take the dense oracle) and under "sparse" (K8 and K7 at
+    8 rows over 8 groups), 12 of each per admission and tick. Then
+    ``moe_routes_check``."""
+    model = build_model(MOE_8X124M, device=device)
+    model = decoding_model(model, "moe-8x124m")
+    cfg = model.config
+    counters = (A.fused_mha_packed,) + GROUPED_WRAPPERS
+    rng = np.random.default_rng(0)
+
+    def counted(run):
+        with no_moe_plain_versions() as calls:
+            for counter in counters:
+                counter.launches = 0
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+        plain = Counter(name for group in calls[:4] for name in group)
+        if plain:
+            raise AssertionError(f"plain kernel versions ran on CUDA: {plain}")
+        return out, seconds, launches, len(calls[4])
+
+    for batch in MOE_SERVE_BATCHES:
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               size=(batch, MOE_SERVE_PROMPT))).to(device)
+        model.generate(prompt, 4, temperature=0.0)
+        out, seconds, launches, dense = counted(
+            lambda: model.generate(prompt, MOE_SERVE_NEW, temperature=0.0))
+        steps = MOE_SERVE_NEW - 1
+        sparse_prefill = 2 * batch * MOE_SERVE_PROMPT >= 4096
+        sparse_decode = 2 * batch <= max(2, cfg.n_experts // 2)
+        evaluations = int(sparse_prefill) + steps * int(sparse_decode)
+        want = {"fused_mha_packed": cfg.n_layers, "gmm": cfg.n_layers * evaluations,
+                "gmm_swiglu": cfg.n_layers * evaluations, "tgmm": 0, "gmm_dy_swiglu": 0,
+                "gmm_dual": 0, "tgmm_swiglu": 0}
+        print(f"MoE 8x124m bf16 generate ({card_line}), batch {batch}, prompt "
+              f"{MOE_SERVE_PROMPT}, {MOE_SERVE_NEW} new: {seconds:.3f} s, "
+              f"{batch * MOE_SERVE_NEW / seconds:.2f} tokens/s; prefill "
+              f"{'sparse' if sparse_prefill else 'dense'}, decode "
+              f"{'sparse' if sparse_decode else 'dense'}; launches {launches} (want {want}; "
+              f"per decode step K8 gmm {cfg.n_layers * int(sparse_decode)}, K7 gmm_swiglu "
+              f"{cfg.n_layers * int(sparse_decode)}); dense oracle calls {dense}")
+        if launches != want:
+            raise AssertionError(f"MoE generate at batch {batch} launched {launches}, want {want}")
+        if not (tuple(out.shape) == (batch, MOE_SERVE_NEW)
+                and bool(((out >= 0) & (out < cfg.vocab_size)).all())):
+            raise AssertionError(f"MoE generate returned {tuple(out.shape)} or ids out of range")
+
+    mix = np.random.default_rng(2)
+    lengths = [(int(mix.integers(32, 129)), int(mix.integers(16, 49)))
+               for _ in range(MOE_SERVER_REQUESTS)]
+    for impl in ("auto", "sparse"):
+        reqs = [SRV.Request(prompt=mix.integers(0, cfg.vocab_size, size=(n,)).tolist(),
+                            max_new_tokens=new) for n, new in lengths]
+        useful = sum(new for _, new in lengths)
+        with config_set(cfg, moe_impl=impl):
+            srv = SRV.DecodeServer(model.module, cfg, **MOE_SERVER)
+            srv.serve([SRV.Request(prompt=r.prompt, max_new_tokens=2) for r in reqs[:2]])
+            srv.reset()
+            _, seconds, launches, dense = counted(lambda: srv.serve(reqs))
+        ticks = srv.steps
+        per_eval = cfg.n_layers * (len(reqs) + ticks) if impl == "sparse" else 0
+        print(f"MoE 8x124m bf16 DecodeServer ({card_line}), moe_impl {impl!r}, {MOE_SERVER}, "
+              f"{len(reqs)} requests ({useful} tokens): {seconds:.3f} s, "
+              f"{len(reqs) / seconds:.2f} requests/s, {useful / seconds:.2f} tokens/s, {ticks} "
+              f"ticks; launches {launches} (K8 gmm and K7 gmm_swiglu want {per_eval}: 12 per "
+              f"admission and tick on the sparse route); dense oracle calls {dense}")
+        if launches["gmm"] != per_eval or launches["gmm_swiglu"] != per_eval \
+                or launches["fused_mha_packed"] != cfg.n_layers * len(reqs):
+            raise AssertionError(f"the MoE server ({impl}) launched {launches}")
+        if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
+            raise AssertionError("a request did not get its max_new_tokens from the MoE server")
+    moe_routes_check(model, device)
 
 
 # ---------------------------------------------------------------------------
@@ -5071,6 +5946,20 @@ def sp_cross_check(model, group, device) -> None:
         raise AssertionError(f"the sp fixed-batch loss did not fall: {losses}")
 
 
+def stopwatch():
+    """A function that prints the seconds since the script's start and since
+    its last call, beside a label: where the script's time limit goes."""
+    start = last = time.perf_counter()
+
+    def stamp(label: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        print(f"[{now - start:.1f} s] {label}: {now - last:.1f} s")
+        last = now
+
+    return stamp
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -5078,8 +5967,10 @@ def main() -> None:
     card_line = card()
     print(card_line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    stamp = stopwatch()
 
     build_phase()
+    stamp("the build")
     vit_shapes = [VIT_SHAPE, *EDGE_SHAPES]
     timing = {"packed_mha_fwd": fwd_phase(device, vit_shapes, False, seed=0, iters=20),
               "packed_mha_bwd": bwd_phase(device, vit_shapes, False, seed=2, iters=20),
@@ -5105,6 +5996,7 @@ def main() -> None:
     timing.update(d80_phases(device, SIZES["ViT-H/14"][1]))
     timing.update(k1_d128_phase(device, seed=70, iters=10))
     timing.update(d128_train_kernel_phases(device))
+    stamp("the kernel phases")
     model, x, _ = slice_phase(device)
     cross_check(model, x)
     del x
@@ -5135,21 +6027,25 @@ def main() -> None:
     del dataset
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("the ViT train phases")
     analysis_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
     probing_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("analysis and probing")
     try:
         data = vit_apps_phase(device, card_line)
         gc.collect()
         torch.cuda.empty_cache()
+        stamp("the ViT apps")
         plots_phase(card_line, data)
     finally:
         shutil.rmtree(APPS_ROOT, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("the figures")
 
     gpt2, gpt2_launches, gpt2_step = gpt2_train_phase(device)
     profile_train_step(gpt2_step, GPT2_KINDS, "GPT-2 base")
@@ -5170,6 +6066,7 @@ def main() -> None:
     del llama
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("GPT-2 and Llama-1B training")
 
     moe, moe_launches, moe_step = moe_train_phase(device)
     require_kinds(profile_train_step(moe_step, MOE_KINDS, "MoE 8x124m"),
@@ -5181,6 +6078,7 @@ def main() -> None:
     del moe
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("MoE training")
 
     gpt2, masked_launches, greedy = generate_phase(device)
     sampler_check(device)
@@ -5193,11 +6091,20 @@ def main() -> None:
     apps_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("GPT-2 serving")
     ring_launches = sp_train_phase(device)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("sequence parallelism")
     l8b_train = l8b_train_phase(device)
+    stamp("Llama-3.1-8B training")
     l8b_launches = l8b_phase(device, card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("Llama-3.1-8B serving")
+    with phase_clock("45 (MoE decode)", device):
+        moe_serve_phase(device, card_line)
+    stamp("MoE decode")
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [

@@ -36,6 +36,16 @@ ATOL, RTOL = 2e-5, 1e-4
 PREFILL_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Decoding is hundreds of tiny torch ops: on a CPU that the test workers
+    share, torch's intra-op thread pool costs more than their arithmetic."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.asarray(a))
 

@@ -35,6 +35,16 @@ TINY_LLAMA = {"implementation": "llama", "model_name": "tiny", "pretrained": Fal
               "seq_len": 48}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Decoding is hundreds of tiny torch ops: on a CPU that the test workers
+    share, torch's intra-op thread pool costs more than their arithmetic."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def pair(config, seed=0):
     """(JAX model, port model) of one config holding the same parameters."""
     jm = jax_build_model(config, key=jax.random.key(seed))
@@ -136,15 +146,19 @@ def test_window_matches_jax_from_shared_cache(decoder):
 
 
 def test_unported_options_and_oversized_requests_raise(decoder):
+    """The multi-device server (mesh=) is the one option still unported; the
+    prefix cache and speculative windows run (tests/test_torch_serving_spec.py
+    holds them against the JAX server); oversized requests raise."""
     _, tm = decoder
     srv = S.DecodeServer(tm.module, tm.config, n_slots=2, bucket=8)
+    handle = srv.register_prefix([1, 2, 3])
+    (req,) = srv.serve([S.Request(prompt=[4, 5], max_new_tokens=3, prefix=handle)])
+    assert req.done and req.tokens == alone(tm, [1, 2, 3, 4, 5], 3)
+    spec = S.DecodeServer(tm.module, tm.config, n_slots=2, bucket=8, draft_params=tm)
+    (req,) = spec.serve([S.Request(prompt=[4, 5], max_new_tokens=3)])
+    assert req.done and req.tokens == alone(tm, [4, 5], 3) and spec.spec_rounds > 0
     with pytest.raises(NotImplementedError):
-        srv.register_prefix([1, 2, 3])
-    with pytest.raises(NotImplementedError):
-        srv.admit(S.Request(prompt=[1, 2], max_new_tokens=2, prefix=0), 0)
-    for kw in ({"mesh": object()}, {"draft_params": object()}):
-        with pytest.raises(NotImplementedError):
-            S.DecodeServer(tm.module, tm.config, n_slots=2, **kw)
+        S.DecodeServer(tm.module, tm.config, n_slots=2, mesh=object())
     for prompt, max_new in (([1] * 40, 9), ([], 3), ([1, 2], 0)):  # max_len is 48
         with pytest.raises(ValueError, match="does not fit"):
             srv.admit(S.Request(prompt=prompt, max_new_tokens=max_new), 0)
@@ -185,8 +199,8 @@ def test_sample_run(apps, capsys):
     assert sampled == sample_app.run(top_k=40, temperature=0.8, **kw)  # one seed
     with pytest.raises(SystemExit, match="token_ids"):
         sample_app.run(prompt="The meaning of life", device="cpu")
-    with pytest.raises(NotImplementedError):
-        sample_app.run(draft_model_name="base", **kw)
+    with pytest.raises(SystemExit, match="top_k"):  # the speculative mode's refusal
+        sample_app.run(draft_model_name="base", top_k=40, **kw)
 
 
 def test_serve_run_modes_agree(apps, capsys):
@@ -202,8 +216,11 @@ def test_serve_run_modes_agree(apps, capsys):
         for req in reqs:
             assert req.done and 1 <= len(req.tokens) <= req.max_new_tokens
     assert outs["wave"] == outs["continuous"] == outs["auto"]
-    with pytest.raises(NotImplementedError):
-        serve_app.run(prefix="3,1,4", **kw)
+    reqs = serve_app.run(prefix="3,1,4", **kw)  # auto takes the slot server's prefix store
+    assert all(r.done and r.prefix == 0 and 1 <= len(r.tokens) <= r.max_new_tokens
+               for r in reqs)
+    with pytest.raises(SystemExit, match="prefix"):
+        serve_app.run(prefix="3,1,4", mode="wave", **kw)
 
 
 @pytest.mark.parametrize("argv", [

@@ -18,7 +18,8 @@ for example Llama-3.1-8B:
     python -m vitef_tpu_torch.apps.gpt2.serve run --implementation llama --model_name 8b \
         --demo 16 --quantize int8
 
-Not ported yet: ``--prefix`` (the prefix cache), which raises.
+``--prefix 464,3280,318`` prefills a shared system prompt once and admits
+every request after it from the prefix cache (continuous mode only).
 """
 
 from __future__ import annotations
@@ -128,16 +129,20 @@ def run(requests: str | None = None, demo: int = 0, model_name: str = "base",
     outputs equal the continuous server's. ``--implementation llama`` or
     ``moe`` (with their ``--model_name``) serves those families by token ids.
     ``--quantize int8``: weight-only int8 weights (``Model.quantize_int8``),
-    the full-precision ones freed before serving.
+    the full-precision ones freed before serving. ``--prefix``: the
+    comma-separated token ids of a shared system prompt, prefilled once and
+    copied into every admission (``DecodeServer.register_prefix``); it takes
+    the continuous mode under ``auto``, and ``wave`` refuses it (its
+    ``generate()`` batches have no prefix store).
     """
     if (requests is None) == (demo == 0):
         raise SystemExit("pass exactly one of --requests or --demo N")
     if quantize not in (None, "int8"):
         raise SystemExit(f"--quantize must be int8, got {quantize!r}")
-    if prefix is not None:
-        raise NotImplementedError("--prefix (the prefix cache) is not ported yet")
     if mode not in ("auto", "continuous", "wave"):
         raise SystemExit(f"--mode must be auto|continuous|wave, got {mode!r}")
+    if mode == "wave" and prefix is not None:
+        raise SystemExit("--mode wave does not support --prefix (use continuous)")
     build_args = dict(implementation=implementation, model_name=model_name,
                       compute_dtype=compute_dtype, seed=seed)
     if implementation != "moe":  # moe ships no pretrained-checkpoint map
@@ -151,7 +156,10 @@ def run(requests: str | None = None, demo: int = 0, model_name: str = "base",
     reqs = _load_requests(requests, demo, model.config.vocab_size, max_new_tokens)
     eos_id = (EOS_ID if eos and implementation == "gpt2"
               and model.config.vocab_size > EOS_ID else None)
-    if mode == "auto":
+    if mode == "auto" and prefix is not None:
+        mode = "continuous"
+        logger.info("serving mode: continuous (--prefix needs the slot server's prefix store)")
+    elif mode == "auto":
         rtt = measure_dispatch_rtt(device)
         mode = "wave" if rtt > RTT_WAVE_THRESHOLD_MS else "continuous"
         logger.info("serving mode: %s (measured dispatch RTT %.3f ms %s threshold %.1f ms)",
@@ -166,8 +174,17 @@ def run(requests: str | None = None, demo: int = 0, model_name: str = "base",
                            temperature=temperature, top_k=top_k, top_p=top_p,
                            eos_token_id=eos_id, bucket=bucket,
                            generator=torch.Generator(device=device).manual_seed(seed))
+        if prefix is not None:
+            # the command line hands over "3,1,4" (a string) or a parsed sequence
+            ids = ([int(t) for t in prefix] if isinstance(prefix, (tuple, list))
+                   else [int(t) for t in str(prefix).split(",") if t != ""])
+            handle = srv.register_prefix(ids)
+            for req in reqs:
+                req.prefix = handle
         srv.serve(reqs)
         ticks_note = f"{srv.steps} ticks"
+        if prefix is not None:
+            ticks_note += f", {srv.prefill_tokens_saved} prefix tokens not prefilled"
     dt = time.perf_counter() - t0
     total = 0
     for i, req in enumerate(reqs):

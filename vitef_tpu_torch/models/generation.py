@@ -228,6 +228,16 @@ def _block_prefill(block, cfg: TransformerConfig, x, key_mask=None, positions=No
     return out, k, v
 
 
+def _residual_block(block, cfg: TransformerConfig, x, attn):
+    """The block's residual structure around ``attn`` (its attention on the
+    normed input, pre-norm, or on ``x``, post-norm) and its FFN."""
+    if cfg.pre_norm:
+        out = x + attn(block.attn_norm(x))
+        return out + block.ffn(block.ffn_norm(out))
+    out = block.attn_norm(x + attn(x))
+    return block.ffn_norm(out + block.ffn(out))
+
+
 def _block_decode(block, cfg: TransformerConfig, x, layer_cache: dict, pos,
                   key_mask=None, positions=None):
     """One-token block step: writes this token's k/v into ``layer_cache`` at
@@ -263,13 +273,7 @@ def _block_decode(block, cfg: TransformerConfig, x, layer_cache: dict, pos,
                            layer_cache.get("k_scale"), layer_cache.get("v_scale"))
         return block.attn.output(z, cd)
 
-    if cfg.pre_norm:
-        out = x + attn(block.attn_norm(x))
-        out = out + block.ffn(block.ffn_norm(out))
-    else:
-        out = block.attn_norm(x + attn(x))
-        out = block.ffn_norm(out + block.ffn(out))
-    return out, layer_cache
+    return _residual_block(block, cfg, x, attn), layer_cache
 
 
 def _logits(module, cfg: TransformerConfig, x):

@@ -71,14 +71,33 @@ class Model:
                         prompt_mask=prompt_mask, kv_cache_dtype=kv_cache_dtype, top_p=top_p,
                         eos_token_id=eos_token_id)
 
+    def generate_speculative(self, prompt: torch.Tensor, max_new_tokens: int, *,
+                             draft: "Model", draft_params=None, gamma: int = 4,
+                             temperature: float = 0.0,
+                             generator: torch.Generator | None = None,
+                             return_stats: bool = False):
+        """Speculative decoding of ``prompt`` (1, P) with ``draft`` proposing
+        (:func:`~vitef_tpu_torch.models.speculative.generate_speculative`,
+        :93-119): greedy at temperature 0 is this model's greedy decode,
+        sampling follows Leviathan et al.'s rule. ``draft_params`` replaces
+        the draft's module (for example its ``quantize_int8()``); this
+        model's own ``module`` may be one from :meth:`quantize_int8` too."""
+        from .speculative import generate_speculative
+
+        return generate_speculative(
+            self.module, self.config, prompt, max_new_tokens,
+            draft_params=draft.module if draft_params is None else draft_params,
+            draft_cfg=draft.config, gamma=gamma, temperature=temperature, generator=generator,
+            return_stats=return_stats)
+
     def quantize_int8(self):
         """The decoding copy of this model's module with weight-only int8
         weights (:121-132): every block's linears, the token table and the
         untied head as int8 with a power-of-two float32 scale per output
         channel, the rest shared
         (:func:`~vitef_tpu_torch.models.quantize.quantize_module`). Pass it
-        to ``generate`` or ``DecodeServer`` where the JAX package passes the
-        quantized params; inference only."""
+        to ``generate``, ``generate_speculative`` or ``DecodeServer`` where the
+        JAX package passes the quantized params; inference only."""
         from .quantize import quantize_module
 
         return quantize_module(self.module)
