@@ -363,7 +363,36 @@ Phases (each raises on failure, so the run exits non-zero):
     at 8 rows over 8 groups), each block's FFN at one routing on the sparse
     route's recorded inputs (a prefill of 4 x 128 and one decode step)
     against the dense oracle within 2e-2; tokens/s. Each of 41-45 prints
-    its seconds and peak memory.
+    its seconds and peak memory;
+46. head width 8 (PatchTST: 16 heads over E = 128; with the kernel phases,
+    after 39): K1, K2, K1's causal mode and K3 against their float32 plain
+    versions under the bf16 gates at PatchTST-base's training microbatch
+    (N = 10,272 series, L = 64; each timed with the plain version, the bound
+    and SDPA; K3's dqkv there against its emulated algebra) and at L = 1, 7,
+    63, 65, 200, 1000 (N = 8), K1's lse within 1e-3, bit-identical over two
+    launches; K1's key-masked mode at those lengths, causal and not; the
+    HMMA instructions of each d = 8 instantiation (in 2);
+47. PatchTST-base (last but two, after 45): the JAX preset at the
+    PatchTST/64 supervised setting (look-back 512, patch 16, stride 8,
+    horizon 96) in bf16, random weights from seed 0, 10,272 seeded synthetic
+    series (Electricity's 321 channels at batch 32), AdamW 1e-4, MSE and the
+    running-stat update: 2 warm-up and 10 timed steps, K1 and K2 at d = 8 3
+    launches each per step, K4 and K5 none, no plain version, a loss that
+    falls; series/s, peak memory, a profile of one step; forecasts and
+    gradients against the plain route (relative L2 5e-2, overall and per
+    block), the running statistics after 3 steps of each route within 1e-2,
+    eval forecasts that read them and differ from the train-mode ones; then
+    the preset's default float32: the plain attention, no K1, a loss that
+    falls;
+48. remat: ViT-H/14 with ``remat=True`` at the paper's 2 x 256 (4 x 128 if
+    it does not fit) through 10's protocol (1 warm-up and 3 timed steps
+    each way; K1 twice per block per microbatch, K2 once); peak memory and
+    img/s; one microbatch's (128) gradients against the same step without
+    remat within relative L2 1e-3;
+49. dropout: ViT-B/16 at rate 0.1 on all four sites, one train step of 256
+    from a generator: each site's zeroed share within 5σ of 0.1, the same
+    seed's masks and loss bit-equal, another seed's masks different, eval
+    mode equal to rate 0. Each of 47-49 prints its seconds and peak memory.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -421,13 +450,14 @@ from vitef_tpu_torch import native
 from vitef_tpu_torch.models import build_model
 from vitef_tpu_torch.models.registry import Model
 from vitef_tpu_torch.models.llama import LlamaConfig, llama_transformer_config
+from vitef_tpu_torch.models import transformer as TR
 from vitef_tpu_torch.models.transformer import Transformer
 from vitef_tpu_torch.models.vit import ViTConfig, vit_transformer_config
 from vitef_tpu_torch.models import generation as GEN
 from vitef_tpu_torch.models import quantize as Q
 from vitef_tpu_torch.models import serving as SRV
 from vitef_tpu_torch.models import speculative as SPEC
-from vitef_tpu_torch.models.norms import LayerNorm
+from vitef_tpu_torch.models.norms import LayerNorm, batch_norm_sites
 from vitef_tpu_torch.ops import _build
 from vitef_tpu_torch.ops import attention as A
 from vitef_tpu_torch.ops import layernorm as LN
@@ -476,7 +506,7 @@ LSE_MAX_ABS = 1e-3
 # their SASS must hold HMMA instructions; then, per kernel, (library, a
 # piece of the kernel's name with its template arguments, opcode, wanted
 # text, instantiations): K1's four modes and K2/K3's two passes in both
-# modes at head width 80 (ViT-H/14), K1's four modes, K2/K3's two passes and
+# modes at head width 8 (PatchTST) and at 80 (ViT-H/14), K1's four modes, K2/K3's two passes and
 # K4's and K5's bf16 kernels in both modes at 128 (Llama-3.1-8B), the
 # float32 kernels whose products are
 # TF32 HMMA instructions (K4's and K5's, each in both instantiations), the TMA +
@@ -486,7 +516,10 @@ LSE_MAX_ABS = 1e-3
 # (K7 tgmm_swiglu), each at both column tiles, and K9 in each (type, d) of
 # bf16, float16 x 64, 128.
 TENSOR_CORE_LIBS = ("packed_mha_fwd", "packed_mha_bwd", "flash_fwd", "flash_bwd", "ring_hop")
-SASS_KERNELS = [("packed_mha_fwd", "packed_mha_fwd_kernel<80,", "HMMA", "HMMA", 4),
+SASS_KERNELS = [("packed_mha_fwd", "packed_mha_fwd_kernel<8,", "HMMA", "HMMA", 4),
+                ("packed_mha_bwd", "packed_bwd_dq_kernel<8,", "HMMA", "HMMA", 2),
+                ("packed_mha_bwd", "packed_bwd_dkv_kernel<8,", "HMMA", "HMMA", 2),
+                ("packed_mha_fwd", "packed_mha_fwd_kernel<80,", "HMMA", "HMMA", 4),
                 ("packed_mha_fwd", "packed_mha_fwd_kernel<128,", "HMMA", "HMMA", 4),
                 ("packed_mha_bwd", "packed_bwd_dq_kernel<80,", "HMMA", "HMMA", 2),
                 ("packed_mha_bwd", "packed_bwd_dkv_kernel<80,", "HMMA", "HMMA", 2),
@@ -570,6 +603,31 @@ D80_MODE_LENGTHS = (17, 65, 129, 257)
 # tensor cores' truncating accumulation over 257 keys read 4.9e-3 at
 # ViT-H/14's shape (PERF.md section 6), so the limit is about twice that.
 EMULATED_ABS = 1e-2
+# PatchTST-base's attention (vitef_tpu/models/patchtst.py): 16 heads of
+# width 8 over E = 128, L = 64 patches of a 512-step look-back (patch 16,
+# stride 8), at the PatchTST/64 supervised setting's batch of 32 windows of
+# Electricity's 321 channels, each channel a series of its own (N = 10,272).
+# K1, K2, K3 and K1's causal and masked modes at d = 8 at that shape and at
+# these lengths.
+PATCHTST_HEADS, PATCHTST_SHAPE = (16, 128), (32 * 321, 64)
+D8_EDGE_LENGTHS = (1, 7, 63, 65, 200, 1000)
+# PatchTST-base's training at that setting (the JAX preset's sizes and fixed
+# arguments, vitef_tpu/models/patchtst.py:21-81): bf16 compute, AdamW at the
+# paper's lr 1e-4, MSE, the running-stat update. 2 warm-up and 10 timed
+# steps; the cross-check's runs take 3 steps each, the float32 run 5.
+PATCHTST = {"implementation": "patchtst", "model_name": "base", "length": 512,
+            "patch_size": 16, "stride": 8, "forecasting_horizon": 96,
+            "compute_dtype": "bfloat16", "seed": 0}
+PATCHTST_OPTIMIZER = {"optimizer": "adamw", "lr": 1e-4}
+PATCHTST_WARMUP, PATCHTST_TIMED, PATCHTST_CHECK_STEPS, PATCHTST_FP32_STEPS = 2, 10, 3, 5
+# Running statistics after the cross-check's steps, kernel vs plain route:
+# batch means and variances of bf16 activations over 657,408 rows, each
+# step's rounding ~2^-9 relative.
+PATCHTST_STATS_REL = 1e-2
+# remat recomputes the same bf16 forward: the gradients of the two steps
+# differ only by the order of their float32 sums.
+REMAT_REL_L2, REMAT_TIMED = 1e-3, 3
+DROPOUT_RATE = 0.1
 # The ViT-H/14 cross-check runs its full width at 4 of its 32 blocks.
 VIT_H_CHECK_BLOCKS = 4
 # Whole-model logits, kernel path vs plain attention path, both bf16: the two
@@ -1210,8 +1268,8 @@ def bwd_phase(device, shapes, causal: bool, seed: int, iters: int,
     # What the kernel does not take raises on CUDA; nothing falls back.
     lse = torch.zeros((n, h, l), dtype=torch.float32, device=device)
     # a head count whose width the kernel is not instantiated for: 48 at
-    # ViT-B/16's E, 32 at ViT-H/14's, 256 at Llama-3.1-8B's
-    bad_h = next(c for c in (16, 10, 40)
+    # ViT-B/16's E, 32 at ViT-H/14's, 256 at Llama-3.1-8B's, 4 at PatchTST's
+    bad_h = next(c for c in (16, 10, 40, 32)
                  if e % c == 0 and e // c not in A._PACKED_BWD_HEAD_DIMS)
     refused = [(TypeError, lambda: A.packed_mha_bwd(qkv.float(), bias, g, out, lse, h,
                                                     causal=causal)),
@@ -2211,14 +2269,16 @@ def train_phase(model, device, label: str = "ViT-B/16", microbatch: int = AUTO_M
           f"{history[0][1]['loss'].item():.4f} -> {history[-1][1]['loss'].item():.4f}, "
           f"grad_norm {history[-1][1]['grad_norm'].item():.4f}, lr {history[-1][1]['lr']:.6f}")
     want = model.config.n_layers * grad_acc * timed
+    # remat recomputes each block's forward in the backward: K1 twice
+    want_k1 = want * (2 if model.config.remat else 1)
     # every LayerNorm of every microbatch, forward and dx, when K6 is asked for
     k6 = model.config.norm_impl in ("kernel", "pallas")
     want_k6 = (sum(isinstance(m, LayerNorm) for m in model.module.modules()) * grad_acc
                * timed if k6 else 0)
-    print(f"{label} train launches over {timed} steps: {launches} (K1 and K2 want "
+    print(f"{label} train launches over {timed} steps: {launches} (K1 wants {want_k1}, K2 "
           f"{want}, K10 {timed}, K6 forward and dx {want_k6}); plain calls "
           f"{dict(Counter(plain_calls + aug_calls + (ln_plain if k6 else [])))}")
-    if launches["fused_mha_packed"] != want or launches["packed_mha_bwd"] != want \
+    if launches["fused_mha_packed"] != want_k1 or launches["packed_mha_bwd"] != want \
             or launches["augment_train_device"] != timed \
             or launches["layer_norm"] != want_k6 or launches["layer_norm_bwd_dx"] != want_k6:
         raise AssertionError("the train path did not go through every kernel every step")
@@ -2482,6 +2542,34 @@ def d80_phases(device, n: int) -> dict:
     return timing
 
 
+def d8_phases(device) -> dict:
+    """K1, K2, K1's causal and key-masked modes and K3 at head width 8
+    (PatchTST's 16 heads over E = 128), each against its float32 plain
+    version under the bf16 gates, with lse and determinism checks, at
+    PatchTST-base's training microbatch (N = 10,272 series, L = 64 patches;
+    timed with the plain version, its bound and SDPA; K3's dqkv there against
+    its emulated algebra) and at N = 8 and D8_EDGE_LENGTHS; the masked mode
+    at those lengths, causal and not.
+    Returns the timing rows by name."""
+    shapes = [PATCHTST_SHAPE] + [(8, l) for l in D8_EDGE_LENGTHS]
+    timing = {}
+    for causal, fwd_seed, bwd_seed in ((False, 80, 81), (True, 82, 83)):
+        mode = ":causal" if causal else ""
+        timing[f"packed_mha_fwd{mode}:d8"] = fwd_phase(device, shapes, causal, seed=fwd_seed,
+                                                       iters=10, heads=PATCHTST_HEADS)
+        # K3's largest gradients (the first keys' dV, summed over every later
+        # row) lie past 8, where half a bf16 ulp of the output is 1.56e-2:
+        # at the main shape its dqkv is held to the emulated algebra, as at
+        # d = 80.
+        timing[f"packed_mha_bwd{mode}:d8"] = bwd_phase(
+            device, shapes, causal, seed=bwd_seed, iters=10, heads=PATCHTST_HEADS,
+            emulated=(PATCHTST_SHAPE,) if causal else ())
+    masked_cases(device, torch.Generator().manual_seed(84),
+                 [(8, l, causal, edge_lengths(l)) for l in D8_EDGE_LENGTHS
+                  for causal in (True, False)], heads=PATCHTST_HEADS)
+    return timing
+
+
 def size_phase(device, label: str) -> tuple[dict, object]:
     """One preset of the model-size ablation through ``train_phase`` at its
     microbatch (K1 and K2 n_layers x microbatches launches a step, K10 one),
@@ -2617,6 +2705,10 @@ VIT_KINDS = {"K1 packed_mha_fwd": ("packed_mha_fwd",),
 VIT_KERNEL_KINDS = ("K1 packed_mha_fwd", "K2 packed_mha_bwd", "K10 train_augment")
 VIT_K6_KINDS = {"K6 layernorm_fwd": ("layernorm_fwd_kernel",),
                 "K6 layernorm_bwd_dx": ("layernorm_bwd_dx_kernel",), **VIT_KINDS}
+PATCHTST_KINDS = {"K1 packed_mha_fwd": ("packed_mha_fwd",),
+                  "K2 packed_mha_bwd": PACKED_BWD_KERNELS,
+                  "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
+                  "optimizer (foreach / AdamW)": ("multi_tensor", "foreach")}
 GPT2_KINDS = {"K1 packed_mha_fwd (causal)": ("packed_mha_fwd",),
               "K3 packed_mha_bwd (causal)": PACKED_BWD_KERNELS,
               "cuBLAS GEMMs": ("gemm", "nvjet", "cutlass", "xmma", "sm90_"),
@@ -5946,6 +6038,292 @@ def sp_cross_check(model, group, device) -> None:
         raise AssertionError(f"the sp fixed-batch loss did not fall: {losses}")
 
 
+def mse(pred, target):
+    return ((pred.float() - target.float()) ** 2).mean()
+
+
+def patchtst_series(n: int, seed: int, device, length: int = PATCHTST["length"],
+                    horizon: int = PATCHTST["forecasting_horizon"]):
+    """(x (n, length), y (n, horizon)) float32 on ``device``: seeded
+    synthetic series, each a daily and a weekly cycle of an hourly series
+    (periods 24 and 168) of random amplitudes and phases, a level, a slope
+    and noise, drawn on the host with numpy (25 MB at Electricity's batch)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(length + horizon, dtype=np.float32)[None]
+    amp = rng.uniform(0.5, 2.0, size=(n, 2)).astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, size=(n, 2)).astype(np.float32)
+    s = (amp[:, :1] * np.sin(2 * np.pi * t / 24 + phase[:, :1])
+         + amp[:, 1:] * np.sin(2 * np.pi * t / 168 + phase[:, 1:])
+         + rng.normal(size=(n, 1)).astype(np.float32)
+         + rng.normal(scale=1e-3, size=(n, 1)).astype(np.float32) * t
+         + rng.normal(scale=0.2, size=(n, length + horizon)).astype(np.float32))
+    s = torch.from_numpy(s.astype(np.float32)).to(device)
+    return s[:, :length], s[:, length:]
+
+
+def bn_sites(module) -> dict:
+    """The running statistics of every batch norm, copied: path -> (mean, var)."""
+    return {name: (m.running_mean.clone(), m.running_var.clone())
+            for name, m in batch_norm_sites(module).items()}
+
+
+def patchtst_steps(model, device, x, y, steps: int, plain: bool = False) -> tuple[list, dict]:
+    """``steps`` AdamW steps with the running-stat update on one batch, on the
+    kernel route or (``plain``) the plain attention: (losses, running
+    statistics after them)."""
+    optimizer, scheduler = build_optimizer(PATCHTST_OPTIMIZER, model.module)
+    state = init_train_state(model, optimizer, scheduler)
+    step_fn = make_train_step(loss_fn=mse, update_stats=True)
+    with config_set(model.config, **({"attn_impl": "plain"} if plain else {})):
+        losses = [step_fn(state, (x, y))["loss"].item() for _ in range(steps)]
+    return losses, bn_sites(model.module)
+
+
+def patchtst_cross_check(model, device, x, y) -> None:
+    """PatchTST-base in bf16, kernel route (K1 and K2 at d = 8) against the
+    plain attention route from the same weights: the train-mode forecasts and
+    gradients on one batch (overall and per block), the running statistics
+    after PATCHTST_CHECK_STEPS steps, and the eval forecasts that read them,
+    which differ from the train-mode ones."""
+    module = model.module
+    start = {k: v.clone() for k, v in module.state_dict().items()}
+    module.train()
+    with torch.no_grad():
+        kernel_out = module(x)
+        with config_set(model.config, attn_impl="plain"):
+            plain_out = module(x)
+    out_rel = rel_l2(kernel_out, plain_out)
+    overall, blocks = kernel_and_plain_grads(model, lambda plain: mse(module(x), y))
+    print(f"PatchTST-base forecasts (train mode), kernel vs plain route: relative L2 "
+          f"{out_rel:.3e}; gradients {overall:.3e}, per block "
+          + " ".join(f"{r:.2e}" for r in blocks))
+    if not (math.isfinite(out_rel) and out_rel <= GRAD_REL_L2 and overall <= GRAD_REL_L2
+            and all(r <= GRAD_REL_L2 for r in blocks)):
+        raise AssertionError(f"PatchTST kernel route disagrees with the plain route: "
+                             f"{out_rel}, {overall}, {blocks}")
+
+    runs = {}
+    for plain in (False, True):
+        module.load_state_dict(start)
+        losses, stats = patchtst_steps(model, device, x, y, PATCHTST_CHECK_STEPS, plain)
+        with torch.no_grad():
+            train_out = module(x)
+            eval_out = model.apply_eval(x)
+        runs[plain] = losses, stats, eval_out, train_out
+    worst = max(max(rel_l2(runs[False][1][site][i], runs[True][1][site][i]) for i in (0, 1))
+                for site in runs[False][1])
+    eval_rel = rel_l2(runs[False][2], runs[True][2])
+    train_vs_eval = rel_l2(runs[False][2], runs[False][3])
+    print(f"PatchTST-base after {PATCHTST_CHECK_STEPS} steps, kernel vs plain route: running "
+          f"statistics' largest relative L2 {worst:.3e} over {len(runs[False][1])} sites; "
+          f"eval forecasts {eval_rel:.3e}; eval vs train-mode forecast {train_vs_eval:.3e}; "
+          f"losses {runs[False][0]} and {runs[True][0]}")
+    if not (worst <= PATCHTST_STATS_REL and eval_rel <= GRAD_REL_L2
+            and torch.isfinite(runs[False][2]).all() and train_vs_eval > PATCHTST_STATS_REL):
+        raise AssertionError(f"PatchTST running statistics or eval forecasts disagree: "
+                             f"{worst}, {eval_rel}, {train_vs_eval}")
+    module.load_state_dict(start)
+
+
+def patchtst_phase(device) -> dict:
+    """Phase 47: PatchTST-base trains in bf16 at the PatchTST/64 supervised
+    setting on seeded synthetic series (N = 10,272: Electricity's 321
+    channels at batch 32, channel-independent): AdamW and MSE with the
+    running-stat update, PATCHTST_WARMUP warm-up and PATCHTST_TIMED timed
+    steps, K1 and K2 at d = 8 n_layers launches each a step, K4 and K5 none,
+    no plain version, a loss that falls; series/s, peak memory and a profile
+    of one step; the cross-check against the plain route. Then the preset at
+    its default float32: the plain attention (no K1), a loss that falls.
+    Returns the main path's launch counts."""
+    model = build_model(PATCHTST, device=device)
+    cfg = model.config
+    n, _ = PATCHTST_SHAPE
+    x, y = patchtst_series(n, seed=0, device=device)
+    print(f"PatchTST-base: {sum(p.numel() for p in model.module.parameters()):,} parameters, "
+          f"{cfg.n_layers} blocks, E={cfg.emb_dim}, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"L={cfg.seq_len} patches of {cfg.patch_size} (stride {cfg.stride}) over "
+          f"{cfg.length} steps, horizon {cfg.forecasting_horizon}; batch {n} series")
+    optimizer, scheduler = build_optimizer(PATCHTST_OPTIMIZER, model.module)
+    state = init_train_state(model, optimizer, scheduler)
+    step_fn = make_train_step(loss_fn=mse, update_stats=True)
+    losses = [step_fn(state, (x, y))["loss"] for _ in range(PATCHTST_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    with no_plain_versions() as (plain_calls, _):
+        for counter in FLASH_COUNTERS:
+            counter.launches = 0
+        A.fused_mha_packed.masked_launches = 0
+        t0 = time.perf_counter()
+        losses += [step_fn(state, (x, y))["loss"] for _ in range(PATCHTST_TIMED)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in FLASH_COUNTERS}
+        launches["masked"] = A.fused_mha_packed.masked_launches
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    losses = [loss.item() for loss in losses]
+    want = cfg.n_layers * PATCHTST_TIMED
+    print(f"PatchTST-base bf16 train: {n * PATCHTST_TIMED / seconds:.2f} series/s "
+          f"({seconds / PATCHTST_TIMED * 1e3:.3f} ms per step of {n}); peak memory "
+          f"{peak_gib:.3f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches over "
+          f"{PATCHTST_TIMED} steps {launches} (K1 and K2 want {want}; K2 in its non-causal "
+          f"mode, so K3 none); plain calls {dict(Counter(plain_calls))}")
+    if (launches["fused_mha_packed"] != want or launches["packed_mha_bwd"] != want
+            or launches["flash_attention"] or launches["flash_bwd"] or launches["masked"]
+            or plain_calls or cfg.causal):
+        raise AssertionError("the PatchTST step did not take K1 and K2 in every block")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the PatchTST loss did not fall: {losses}")
+    require_kinds(profile_train_step(lambda: step_fn(state, (x, y)), PATCHTST_KINDS,
+                                     "PatchTST-base"),
+                  ("K1 packed_mha_fwd", "K2 packed_mha_bwd"), "PatchTST-base")
+    del state, optimizer, scheduler, step_fn
+    patchtst_cross_check(model, device, x, y)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build_model({**PATCHTST, "compute_dtype": "float32"}, device=device)
+    A.fused_mha_packed.launches = A.flash_attention.launches = 0
+    with counting(A, "attention_reference") as plain_calls:
+        t0 = time.perf_counter()
+        losses, _ = patchtst_steps(model, device, x, y, PATCHTST_FP32_STEPS)
+        seconds = time.perf_counter() - t0
+    print(f"PatchTST-base float32 (the preset's default): {PATCHTST_FP32_STEPS} steps, "
+          f"{n * PATCHTST_FP32_STEPS / seconds:.2f} series/s (synchronising each step), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; K1 {A.fused_mha_packed.launches}, K4 "
+          f"{A.flash_attention.launches}, plain attention calls {len(plain_calls)}")
+    if (A.fused_mha_packed.launches or A.flash_attention.launches
+            or len(plain_calls) != cfg.n_layers * PATCHTST_FP32_STEPS
+            or not losses[-1] < losses[0]):
+        raise AssertionError("PatchTST float32 did not take the plain attention, or its "
+                             "loss did not fall")
+    return launches
+
+
+def remat_phase(device) -> None:
+    """Phase 48: ViT-H/14 with ``remat=True`` at the paper's microbatch 2 x
+    256 (without it the model fits only 4 x 128, phase 32) through
+    ``train_phase`` (1 warm-up and REMAT_TIMED timed steps each way, K1
+    twice per block per microbatch: forward and recompute); 4 x 128 if
+    2 x 256 does not fit.
+    Then one microbatch (128) of gradients with remat against the same step
+    without it, within relative L2 REMAT_REL_L2."""
+    model = build_model({**VIT_H14, "remat": True}, device=device)
+    microbatch, ran = 256, None
+    try:
+        ran = train_phase(model, device, "ViT-H/14 remat", microbatch, 1, REMAT_TIMED)
+    except torch.cuda.OutOfMemoryError as error:
+        print(f"ViT-H/14 with remat at 2 x 256 does not fit: {str(error)[:200]}")
+    if ran is None:  # outside the handler, whose traceback holds the step's tensors
+        model.module.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        microbatch = 128
+        ran = train_phase(model, device, "ViT-H/14 remat", microbatch, 1, REMAT_TIMED)
+    # the step's SGD momentum and gradients go before the check, whose step
+    # without remat at 128 takes about 75 GiB
+    _, _, dataset, rates = ran
+    del ran
+    model.module.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"ViT-H/14 remat at {512 // microbatch} x {microbatch}: peak {rates['peak_gib']:.3f} "
+          f"GiB, {rates['loader_img_s']:.2f} img/s with the loader, {rates['device_img_s']:.2f} "
+          f"device-only (phase 32 reads ViT-H/14 without remat at 4 x 128)")
+    raw, boxes, flips, y = check_microbatch(dataset, device, 128)
+    x = T.augment_train_device(raw, boxes, flips, size=224, compute_dtype=torch.bfloat16)
+    module = model.module
+    overall, blocks = kernel_and_plain_grads(
+        model, lambda _: F.cross_entropy(module(x).float(), y), {"remat": False})
+    print(f"ViT-H/14 gradients of one microbatch (128), remat vs no remat: relative L2 "
+          f"{overall:.3e}; largest per block {max(blocks):.3e}")
+    if not (overall <= REMAT_REL_L2 and max(blocks) <= REMAT_REL_L2):
+        raise AssertionError(f"remat changes the ViT-H/14 gradients: {overall}, {blocks}")
+
+
+@contextlib.contextmanager
+def dropout_masks():
+    """Record what each dropout call of the model drops: a list, in call
+    order, of the (values nonzero before it, values it zeroed) masks (the
+    transformer's four sites: the embedding's output, each block's attention
+    and FFN outputs, the head's input)."""
+    masks, original = [], TR.dropout
+
+    def recording(x, rate, generator, deterministic):
+        out = original(x, rate, generator, deterministic)
+        if not deterministic and rate > 0:
+            live = x != 0
+            masks.append((live, live & (out == 0)))
+        return out
+
+    TR.dropout = recording
+    try:
+        yield masks
+    finally:
+        TR.dropout = original
+
+
+def dropout_phase(device) -> None:
+    """Phase 49: ViT-B/16 with dropout at rate DROPOUT_RATE on every site, one
+    train step (batch 256) from a generator: at each site the share of its
+    nonzero values that dropout zeroed within 5σ of the rate; a second step
+    from the same state and seed dropping the same values and giving the
+    same loss bit for bit, another seed other values; eval mode equal to the
+    model at rate 0."""
+    tcfg = dataclasses.replace(
+        vit_transformer_config(ViTConfig(model_name="base", compute_dtype="bfloat16")),
+        n_classes=N_CLASSES, emb_dropout=DROPOUT_RATE, attn_dropout=DROPOUT_RATE,
+        ffn_dropout=DROPOUT_RATE, output_dropout=DROPOUT_RATE)
+    module = Transformer(tcfg, device=device, generator=torch.Generator().manual_seed(0))
+    model = Model(module=module, config=tcfg, name="ViT-B/16 dropout")
+    start = {k: v.clone() for k, v in module.state_dict().items()}
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(256, 3, 224, 224, generator=gen).to(device, torch.bfloat16)
+    y = torch.randint(0, N_CLASSES, (256,), generator=gen).to(device)
+    runs = []
+    for seed in (7, 7, 8):
+        module.load_state_dict(start)
+        optimizer, scheduler = build_optimizer(OPTIMIZER, module)
+        step_fn = make_train_step(grad_clip=GRAD_CLIP)
+        with dropout_masks() as masks:
+            loss = step_fn(init_train_state(model, optimizer, scheduler), (x, y),
+                           generator=torch.Generator(device=device).manual_seed(seed))["loss"]
+        runs.append((loss.item(), masks))
+    loss, masks = runs[0]
+    n_blocks = len(module.blocks)
+    if len(masks) != 2 * n_blocks + 2:
+        raise AssertionError(f"{len(masks)} dropout calls, want {2 * n_blocks + 2}")
+    sites = {"embedding": masks[:1], "attention": masks[1:-1:2], "ffn": masks[2:-1:2],
+             "head input": masks[-1:]}
+    shares = {}
+    for kind, calls in sites.items():
+        dropped = sum(int(d.sum()) for _, d in calls)
+        total = sum(int(live.sum()) for live, _ in calls)
+        shares[kind] = dropped / total
+        sigma = math.sqrt(DROPOUT_RATE * (1 - DROPOUT_RATE) / total)
+        if not abs(shares[kind] - DROPOUT_RATE) <= 5 * sigma:
+            raise AssertionError(f"dropout at the {kind}: {dropped} of {total} nonzero values "
+                                 f"zeroed, {shares[kind]} against {DROPOUT_RATE} "
+                                 f"(5σ {5 * sigma:.2e})")
+    same = runs[1][0] == loss and all(torch.equal(a[1], b[1])
+                                      for a, b in zip(masks, runs[1][1]))
+    other = any(not torch.equal(a[1], b[1]) for a, b in zip(masks, runs[2][1]))
+    del runs, masks, sites
+    module.load_state_dict(start)
+    with torch.no_grad():
+        dropped_out = model.apply_eval(x)
+        with config_set(tcfg, emb_dropout=0.0, attn_dropout=0.0, ffn_dropout=0.0,
+                        output_dropout=0.0):
+            plain = model.apply_eval(x)
+    equal = torch.equal(dropped_out, plain)
+    print(f"ViT-B/16 dropout {DROPOUT_RATE}: share of nonzero values zeroed: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in shares.items()) + f"; loss {loss:.4f}; seed 7 twice: the "
+        f"same values dropped and loss bit-equal {same}; seed 8: other values {other}; eval "
+        f"mode equals rate 0: {equal}")
+    if not (same and other and equal and math.isfinite(loss)):
+        raise AssertionError("dropout is not repeatable per seed, or eval mode drops")
+
+
 def stopwatch():
     """A function that prints the seconds since the script's start and since
     its last call, beside a label: where the script's time limit goes."""
@@ -5996,6 +6374,7 @@ def main() -> None:
     timing.update(d80_phases(device, SIZES["ViT-H/14"][1]))
     timing.update(k1_d128_phase(device, seed=70, iters=10))
     timing.update(d128_train_kernel_phases(device))
+    timing.update(d8_phases(device))
     stamp("the kernel phases")
     model, x, _ = slice_phase(device)
     cross_check(model, x)
@@ -6105,6 +6484,17 @@ def main() -> None:
     with phase_clock("45 (MoE decode)", device):
         moe_serve_phase(device, card_line)
     stamp("MoE decode")
+    with phase_clock("47 (PatchTST)", device):
+        patchtst_launches = patchtst_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("48 (remat)", device):
+        remat_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("49 (dropout)", device):
+        dropout_phase(device)
+    stamp("PatchTST, remat and dropout")
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -6156,6 +6546,12 @@ def main() -> None:
          "vitef_tpu/ops/attention.py:490"),
         ("flash_bwd:d128", "flash_bwd", l8b_train["flash"]["flash_bwd"],
          "vitef_tpu/ops/attention.py:588"),
+        ("packed_mha_fwd:d8", "packed_mha_fwd", patchtst_launches["fused_mha_packed"],
+         "vitef_tpu/ops/attention.py:99"),
+        ("packed_mha_bwd:d8", "packed_mha_bwd", patchtst_launches["packed_mha_bwd"],
+         "vitef_tpu/ops/attention.py:270"),
+        # no preset takes the causal modes at d = 8: no launch on a path
+        ("packed_mha_bwd:causal:d8", "packed_mha_bwd", 0, "vitef_tpu/ops/attention.py:181"),
     ]
     print(card_line)
     print(json.dumps({"kernels": [{

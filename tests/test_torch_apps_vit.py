@@ -305,6 +305,23 @@ def test_preemption_saves_the_latest_step_and_resumes(runs, monkeypatch):
 @pytest.mark.parametrize("knobs", [{"dp": 2}, {"dp": 8}, {"tp": 2}, {"fsdp": True},
                                    {"remat": True}], ids=str)
 def test_train_refuses_more_than_one_card(runs, knobs):
+    """The mesh knobs past one card raise before a run dir is made. ``remat``
+    is ported: from the same step-0 checkpoint its run logs what the JAX
+    package's run without it logs (recomputation changes no value)."""
+    if "remat" in knobs:
+        log_dir = runs["root"] / "port" / "runs" / "remat"
+        shutil.copytree(runs["root"] / "step0", log_dir / "checkpoints" / f"{0:010d}")
+        train_app.train(train_app.TrainingConfig(**{**TRAIN, **knobs, "device": "cpu",
+                                                    "log_dir": "remat",
+                                                    "data_dir": str(runs["root"] / "cifar10")}))
+        assert json.loads((log_dir / "config.json").read_text())["remat"] is True
+        want = [r for r in _records(runs["jax_run"]) if "loss" in r]
+        got = [r for r in _records(log_dir) if "loss" in r]
+        assert [r["step"] for r in got] == [r["step"] for r in want] == [1, 2, 3, 4]
+        for w, g in zip(want, got):
+            for key in ("loss", "grad_norm"):
+                assert g[key] == pytest.approx(w[key], rel=REL), (g["step"], key)
+        return
     with pytest.raises(NotImplementedError):
         train_app.train(train_app.TrainingConfig(**{**TRAIN, **knobs, "device": "cpu",
                                                     "log_dir": "refused"}))

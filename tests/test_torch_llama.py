@@ -293,9 +293,10 @@ def test_llama_bf16_flash_route_matches_jax(monkeypatch):
     (578, 4096, 32, True),     # Llama 8b: the budget's last L (41.9 MB)
     (579, 4096, 32, False),    # Llama 8b: past the budget
     (1024, 4096, 32, False),   # Llama 8b
+    (64, 128, 16, True),       # PatchTST base: head width 8
 ], ids=["vit_b_197", "vit_l_197", "vit_h_257", "gpt2_base_1024", "gpt2_xl_1024",
         "llama_124m_512", "llama_124m_1024", "llama_1b_512", "llama_1b_1024", "llama_8b_512",
-        "llama_8b_578", "llama_8b_579", "llama_8b_1024"])
+        "llama_8b_578", "llama_8b_579", "llama_8b_1024", "patchtst_base_64"])
 def test_packed_gate_matches_jax(l, e, h, packed):
     want = jax_attention.packed_mha_supported(l, e, 2)
     assert A.packed_mha_supported(l, e, h) == want
@@ -307,19 +308,21 @@ def test_packed_gate_matches_jax(l, e, h, packed):
 
 
 @pytest.mark.parametrize("kernel,dtype,d,taken", [
+    ("packed", torch.bfloat16, 8, True),
     ("packed", torch.bfloat16, 64, True), ("packed", torch.bfloat16, 80, True),
     ("packed", torch.bfloat16, 128, True), ("packed", torch.bfloat16, 96, False),
     ("flash", torch.bfloat16, 64, True), ("flash", torch.bfloat16, 128, True),
     ("flash", torch.bfloat16, 96, False), ("flash", torch.float32, 64, True),
     ("flash", torch.float32, 128, False)],
-    ids=["packed_d64", "packed_d80", "packed_d128", "packed_d96", "flash_bf16_d64",
+    ids=["packed_d8", "packed_d64", "packed_d80", "packed_d128", "packed_d96", "flash_bf16_d64",
          "flash_bf16_d128", "flash_bf16_d96", "flash_f32_d64", "flash_f32_d128"])
 def test_kernel_wrappers_head_width_gates(kernel, dtype, d, taken):
     """The head widths each wrapper takes before its device check: K1, K2
-    and K3 at 64, 80 and 128; K4 and K5 at 64 and 128 in bfloat16 and 64 in
-    float32. A width the kernels are not instantiated for raises
-    NotImplementedError; one they take goes on to refuse the CPU tensor."""
-    assert A._PACKED_BWD_HEAD_DIMS == A._PACKED_FWD_HEAD_DIMS == (64, 80, 128)
+    and K3 at 8 (PatchTST), 64, 80 and 128; K4 and K5 at 64 and 128 in
+    bfloat16 and 64 in float32. A width the kernels are not instantiated for
+    raises NotImplementedError; one they take goes on to refuse the CPU
+    tensor."""
+    assert A._PACKED_BWD_HEAD_DIMS == A._PACKED_FWD_HEAD_DIMS == (8, 64, 80, 128)
     assert A._FLASH_HEAD_DIMS == {torch.bfloat16: (64, 128), torch.float32: (64,)}
     if kernel == "packed":
         qkv = torch.zeros(1, 5, 3 * 2 * d, dtype=dtype)

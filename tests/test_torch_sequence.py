@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from vitef_tpu_torch.models import build_model, from_jax_params
+from vitef_tpu_torch.models import transformer as TR
 from vitef_tpu_torch.models.transformer import Transformer, TransformerConfig
 from vitef_tpu_torch.ops import ring_hop as RH
 from vitef_tpu_torch.optim import build_optimizer
@@ -135,6 +136,31 @@ def _worker(sp: int, rank: int, port: int, out_dir: Path) -> None:
                 res[f"{name}/{key}{i}"] = metrics[key].numpy()
         for pname, p in m.module.named_parameters():
             res[f"{name}/param/{pname}"] = p.detach().numpy()
+    if sp == 2:
+        # Dropout at rate 0.5 on every site, the same seed on both ranks: the
+        # masks each site draws (its values zeroed), recorded per call.
+        drop = build_model({**LM, "dropout": 0.5}, device="cpu")
+        drop.module.load_state_dict(weights)
+        drop.module.train()
+        masks, original = [], SEQ.dropout
+
+        def recording(x, rate, generator, deterministic):
+            out = original(x, rate, generator, deterministic)
+            masks.append(((out != 0) | (x == 0)).reshape(-1))
+            return out
+
+        # the sp forward's own sites and the blocks' FFN and the head's
+        SEQ.dropout = TR.dropout = recording
+        try:
+            for seed in (3, 3, 4):
+                apply_transformer_sp(drop.module, tokens[:, rank * tloc:(rank + 1) * tloc],
+                                     group=group, chunk=8,
+                                     generator=torch.Generator().manual_seed(seed))
+        finally:
+            SEQ.dropout = TR.dropout = original
+        calls = len(masks) // 3
+        for run in range(3):
+            res[f"dropout/seed{run}"] = torch.stack(masks[run * calls:(run + 1) * calls]).numpy()
     if sp == 1:
         # The same two steps through the port's ordinary train step.
         m = model()
@@ -440,8 +466,10 @@ def test_hop_kernel_ok_routes_as_jax(monkeypatch):
 @pytest.mark.parametrize("kind", ["rope", "gqa", "dropout"])
 def test_sp_forward_raises_for_what_it_does_not_compute(kind):
     """The JAX sp forward never rotates q and k and splits qkv into three
-    equal parts, so rotary positions and grouped-query heads raise; dropout
-    is not ported and raises in train mode."""
+    equal parts, so rotary positions and grouped-query heads raise. Dropout
+    is ported (each rank on its own stream: test_sp_dropout_streams_per_rank);
+    in train mode without a generator it raises, as the JAX forward cannot
+    drop without an rng."""
     fields = {k: v for k, v in LM.items() if k != "implementation"}
     fields.update({"rope": {"pos_emb_type": "rope", "pos_emb": False},
                    "gqa": {"n_kv_heads": 1},
@@ -449,7 +477,7 @@ def test_sp_forward_raises_for_what_it_does_not_compute(kind):
     module = Transformer(TransformerConfig(**fields), device=torch.device("cpu"),
                          generator=torch.Generator().manual_seed(0))
     module.train(kind == "dropout")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if kind == "dropout" else NotImplementedError):
         apply_transformer_sp(module, torch.zeros((1, 8), dtype=torch.long))
 
 
@@ -541,6 +569,24 @@ def _jax_sp_steps(jax_model, arrays, sp, acc, zigzag):
         state, m = step(state, (jnp.asarray(arrays["tokens"]), jnp.asarray(arrays["labels"])))
         metrics.append({k: float(v) for k, v in m.items()})
     return metrics, from_jax_params(jax.tree.map(np.asarray, state.params))
+
+
+def test_sp_dropout_streams_per_rank(ranks):
+    """Two gloo ranks at sp = 2, dropout 0.5 at every site, both ranks handed
+    a generator of one seed: each site's mask keeps a share within 5σ of
+    0.5, one seed repeats every mask on its rank, another seed does not, and
+    the two ranks draw different masks (their own streams, as the JAX
+    forward folds the rank into its key)."""
+    launches, _ = ranks
+    results = launches[2].results()
+    for rank, res in enumerate(results):
+        first, again, other = (res[f"dropout/seed{i}"] for i in range(3))
+        assert first.shape[0] == 2 * LM["n_layers"] + 2, first.shape  # emb, 2 a block, head
+        kept = first.mean(axis=1)
+        assert np.all(np.abs(kept - 0.5) < 5 * np.sqrt(0.25 / first.shape[1])), kept
+        np.testing.assert_array_equal(first, again, err_msg=f"rank {rank}")
+        assert not np.array_equal(first, other), rank
+    assert not np.array_equal(results[0]["dropout/seed0"], results[1]["dropout/seed0"])
 
 
 @pytest.mark.parametrize("acc,zigzag", STEP_CASES[4], ids=["acc1-contiguous", "acc2-zigzag"])

@@ -458,15 +458,22 @@ def test_train_step_bf16_matches_jax():
                                     {"moe_aux_coefs": (0.1, 0.1)}],
                          ids=["update_stats", "mesh", "moe_aux_coefs"])
 def test_unported_train_step_options_raise(kwargs):
-    if "moe_aux_coefs" in kwargs:
-        # ported with the MoE family (tests/test_torch_moe.py): it builds, and
-        # the options still unported raise beside it
-        make_train_step(**kwargs)
+    """The mesh is not ported and raises. ``update_stats`` (ported with
+    PatchTST, tests/test_torch_patchtst.py) and ``moe_aux_coefs`` (with the
+    MoE family, tests/test_torch_moe.py) build, and the pairs the JAX step
+    refuses (:102-107) raise its ValueError."""
+    if "mesh" in kwargs:
         with pytest.raises(NotImplementedError):
-            make_train_step(update_stats=True, **kwargs)
+            make_train_step(**kwargs)
         return
-    with pytest.raises(NotImplementedError):
-        make_train_step(**kwargs)
+    make_train_step(**kwargs)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        make_train_step(**{"update_stats": True, "moe_aux_coefs": (0.1, 0.1), **kwargs})
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        make_train_step(update_stats=True, hidden_loss=lambda *a: None)
+    for pair in ({"moe_aux_coefs": (0.1, 0.1)}, {"hidden_loss": lambda *a: None}):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            jax_make_train_step(None, None, update_stats=True, **pair)
 
 
 @pytest.mark.parametrize("components", [["mha"], ["ffn_fc2", "attn_norm"]],
@@ -514,13 +521,32 @@ def test_auto_grad_acc_matches_app():
 
 @pytest.mark.parametrize("rate", ["dropout", "attn_dropout", "ffn_dropout"])
 def test_train_mode_with_dropout_raises(rate):
+    """Train mode with a dropout rate > 0 raises without a generator, as the
+    JAX forward does without an rng; with one it runs (dropout is ported:
+    tests/test_torch_patchtst.py holds each site), one seed repeating its
+    output and the train step's, another seed not; eval mode ignores it."""
     tm = build_model({**TRANSFORMER, rate: 0.1}, device="cpu")
-    x = torch.zeros(2, 3, 32, 32)
+    x = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(0))
     tm.module.train()
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="generator"):
         tm.apply(x)
+    outs = [tm.apply(x, generator=torch.Generator().manual_seed(s)) for s in (1, 1, 2)]
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
     tm.module.eval()
     assert tm.apply(x).shape == (2, 10)
+    assert not torch.equal(tm.apply(x), outs[0])
+
+    state_dict = {k: v.clone() for k, v in tm.module.state_dict().items()}
+    y = torch.tensor([1, 7])
+    losses = []
+    for seed in (5, 5, 6):
+        tm.module.load_state_dict(state_dict)
+        opt, sched = optim.build_optimizer({"optimizer": "sgd", "lr": 0.1}, tm.module)
+        step = make_train_step(grad_acc_steps=2)
+        metrics = step(init_train_state(tm, opt, sched), (x, y),
+                       generator=torch.Generator().manual_seed(seed))
+        losses.append(float(metrics["loss"]))
+    assert losses[0] == losses[1] != losses[2]
 
 
 def test_eval_step_after_train_step():

@@ -22,7 +22,8 @@ microbatch on CUDA; batch ``batch_size`` splits into equal microbatches of
 at most ``auto_microbatch`` rows (512 -> 2 x 256). Metrics stay on the card
 between logging periods. The run is on the card unless ``device=cpu``;
 without one it raises. The mesh knobs mean one card (``dp`` -1 or 1, ``tp``
-1, no ``fsdp``); other values, and ``remat``, raise.
+1, no ``fsdp``); other values raise. ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -131,13 +132,11 @@ def _rewind_scheduler(scheduler, step: int) -> None:
 
 def _require_one_card(config: TrainingConfig) -> None:
     """The configs' mesh knobs (``dp: -1, tp: 1``) mean one card here: ``dp``
-    -1 or 1, ``tp`` 1, no ``fsdp``. Other values, and ``remat``, raise."""
+    -1 or 1, ``tp`` 1, no ``fsdp``. Other values raise."""
     if config.dp not in (-1, 1) or config.tp != 1 or config.fsdp:
         raise NotImplementedError(
             f"dp={config.dp}, tp={config.tp}, fsdp={config.fsdp}: the port trains on one card "
             "(dp -1 or 1, tp 1, no fsdp); the mesh is not ported")
-    if config.remat:
-        raise NotImplementedError("remat=True is not ported")
 
 
 def train(config: TrainingConfig) -> None:

@@ -21,6 +21,13 @@ from .llama import (  # noqa: F401
     llama_transformer_config,
 )
 from .moe import MOE_SIZES, MoeConfig, build_moe, moe_transformer_config  # noqa: F401
+from .patchtst import (  # noqa: F401
+    PATCHTST_SIZES,
+    PatchTSTConfig,
+    build_patchtst,
+    patchtst_model_name,
+    patchtst_transformer_config,
+)
 from .registry import Model, build_model  # noqa: F401
 from .speculative import generate_speculative  # noqa: F401
 from .transformer import Transformer, TransformerConfig  # noqa: F401

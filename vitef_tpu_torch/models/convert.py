@@ -7,7 +7,9 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
   leaves) across, name for name. The JAX package stores linear weights
   (in, out); the port stores (out, in). That transpose is made here and
   nowhere else. The ``dict`` token embedding (V, E) is a table, not a
-  linear weight, and keeps its layout. Llama trees take the same rule: the
+  linear weight, and keeps its layout; the ``linear`` one (PatchTST's, with
+  a bias) is a linear weight. Batch norms' running statistics and the
+  forecasting head carry across under their names. Llama trees take the same rule: the
   packed qkv (E, E + 2·kv_dim) and swiglu fc1 (E, 2F) transpose whole, so
   their [q | k | v] and [gate | up] column blocks become row blocks, and
   the untied head (E, V) becomes (V, E). MoE trees take it too: the
@@ -22,7 +24,8 @@ names are the JAX package's tree paths, dotted (``blocks.0.attn.qkv_mat.weight``
 - :func:`from_vitef_state_dict` loads a torch-layout state dict with the
   reference vitef names (the ``checkpoints/{vit,gpt2}/<name>.npz`` caches;
   the inverse direction of ``torch_import.from_vitef_state_dict``), which
-  :func:`load_weight_cache` reads.
+  :func:`load_weight_cache` reads; batch norms come in the reference's
+  ``BatchNorm1d`` wrapper names.
 - :func:`cache_from_jax` carries a ``vitef_tpu`` KV cache across (the
   serving path's per-layer K/V buffers), so that a decode step can be held
   against the JAX package's from one cache.
@@ -76,23 +79,33 @@ def _flatten(tree, prefix: str = ""):
         yield prefix, tree
 
 
-# The embedding table of emb_type='dict', (V, E) in both packages.
-_TABLES = ("embedding.token_emb.weight",)
+# The token embedding: the emb_type='dict' table, (V, E) in both packages,
+# unless the tree also holds its bias: then it is the 'linear' embedding.
+_TABLE, _TABLE_BIAS = "embedding.token_emb.weight", "embedding.token_emb.bias"
+
+
+def _transposed(name: str, ndim: int, names) -> bool:
+    """Whether the leaf ``name`` is a linear weight, (in, out) in the JAX
+    layout and (out, in) in the port's: a 2-D ``weight`` other than the
+    ``dict`` token table."""
+    return (name.endswith("weight") and ndim == 2
+            and (name != _TABLE or _TABLE_BIAS in names))
 
 
 def from_jax_params(params) -> dict[str, torch.Tensor]:
     """``vitef_tpu`` parameter tree (nested dicts/lists of arrays) -> port state dict.
 
-    Every 2-D ``weight`` but the token table is a linear weight stored
-    (in, out) and is transposed to (out, in); every other leaf keeps its
-    shape (the MoE expert stacks and their biases among them). The port
-    ports only the ``dict`` token embedding, whose tree has no
-    ``embedding.token_emb.bias``.
+    Every 2-D ``weight`` but the ``dict`` token table is a linear weight
+    stored (in, out) and is transposed to (out, in), the ``linear`` token
+    embedding's among them; every other leaf keeps its shape (the MoE expert
+    stacks and their biases, and batch norms' running statistics, among
+    them).
     """
+    flat = dict(_flatten(params))
     state = {}
-    for name, value in _flatten(params):
+    for name, value in flat.items():
         array = np.asarray(value, dtype=np.float32)
-        if name.endswith("weight") and array.ndim == 2 and name not in _TABLES:
+        if _transposed(name, array.ndim, flat):
             array = array.T
         state[name] = torch.tensor(array)
     return state
@@ -100,13 +113,13 @@ def from_jax_params(params) -> dict[str, torch.Tensor]:
 
 def to_jax_params(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Port state dict -> ``{dotted name: host array}`` in the JAX layout, the
-    inverse of :func:`from_jax_params`: every 2-D ``weight`` but the token
-    table is transposed to (in, out), every other tensor keeps its shape and
-    dtype. The arrays are copies (off the card, synchronously)."""
+    inverse of :func:`from_jax_params`: every 2-D ``weight`` but the ``dict``
+    token table is transposed to (in, out), every other tensor keeps its
+    shape and dtype. The arrays are copies (off the card, synchronously)."""
     out = {}
     for name, value in state.items():
         value = value.detach()
-        if name.endswith("weight") and value.dim() == 2 and name not in _TABLES:
+        if _transposed(name, value.dim(), state):
             value = value.t().contiguous()
         out[name] = value.to("cpu", copy=True).numpy()
     return out
@@ -138,6 +151,8 @@ _RENAMES = {
     "embedding.patching.patching.0.bias": "embedding.patching.conv.bias",
     "output.output_layer.output_norm.weight": "output.output_layer.norm.weight",
     "output.output_layer.output_norm.bias": "output.output_layer.norm.bias",
+    "output.output_layer.output_norm.running_mean": "output.output_layer.norm.running_mean",
+    "output.output_layer.output_norm.running_var": "output.output_layer.norm.running_var",
     "output.output_layer.output.weight": "output.output_layer.head.weight",
     "output.output_layer.output.bias": "output.output_layer.head.bias",
 }
@@ -148,7 +163,10 @@ def from_vitef_state_dict(sd: dict[str, np.ndarray], n_layers: int, *,
     """Reference vitef-named, torch-layout state dict -> port state dict.
 
     Linear weights are (out, in) on both sides; the Conv2d patch weight
-    (E, C, P, P) flattens to (E, C·P·P) in (c, p1, p2) order. With
+    (E, C, P, P) flattens to (E, C·P·P) in (c, p1, p2) order. A batch norm
+    in the reference's wrapper, ``<prefix>.batchnorm.{weight, bias,
+    running_mean, running_var}``, loses the ``batchnorm`` level, and its
+    ``num_batches_tracked`` is dropped (``torch_import.py:65-82``). With
     ``weight_tying`` the seq2seq head reads the token embedding, so the
     dict's head copy (``output.output_layer.output.weight``) is dropped, as
     the JAX package drops it (``gpt2.py:100-102``).
@@ -157,6 +175,9 @@ def from_vitef_state_dict(sd: dict[str, np.ndarray], n_layers: int, *,
     for name, value in sd.items():
         if weight_tying and name == "output.output_layer.output.weight":
             continue
+        if name.endswith(".batchnorm.num_batches_tracked"):
+            continue
+        name = name.replace(".batchnorm.", ".")
         array = np.asarray(value, dtype=np.float32)
         if name == "embedding.patching.patching.0.weight":
             array = array.reshape(array.shape[0], -1)

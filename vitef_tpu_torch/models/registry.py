@@ -1,8 +1,8 @@
 """Model factory. Counterpart of ``vitef_tpu/models/registry.py`` (:31-66, :144-187).
 
 :func:`build_model` takes the JAX package's flat config dicts. Ported
-implementations: ``"vit"``, ``"gpt2"``, ``"llama"``, ``"moe"`` and
-``"transformer"``; the others raise.
+implementations: ``"vit"``, ``"gpt2"``, ``"llama"``, ``"moe"``, ``"patchtst"`` and
+``"transformer"``, every one of the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,8 +19,6 @@ from ..ops.common import use_true_fp32
 from .transformer import Transformer, TransformerConfig
 
 logger = logging.getLogger(__name__)
-
-_UNPORTED = ("patchtst",)
 
 
 def _build_config(cls, config: dict[str, Any]):
@@ -159,11 +157,14 @@ def build_model(config: dict[str, Any], *, device,
 
         cfg = _build_config(MoeConfig, config)
         module, tcfg, name = build_moe(cfg, device=device, generator=generator)
+    elif impl == "patchtst":
+        from .patchtst import PatchTSTConfig, build_patchtst
+
+        cfg = _build_config(PatchTSTConfig, config)
+        module, tcfg, name = build_patchtst(cfg, device=device, generator=generator)
     elif impl == "transformer":
         cfg = tcfg = _build_config(TransformerConfig, config)
         module, name = Transformer(cfg, device=device, generator=generator), "transformer"
-    elif impl in _UNPORTED:
-        raise NotImplementedError(f"implementation {implementation!r} is not ported yet")
     else:
         raise ValueError(f"Implementation {implementation} not found.")
 

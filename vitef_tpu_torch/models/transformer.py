@@ -14,15 +14,34 @@ numerics:
 - the residual stream is in the compute dtype (bfloat16 on the card);
 - hybrid image patching replaces the token embedding by the identity, the
   cls token is prepended, then ``pos_emb[:, :l]`` is added;
-- without patching, tokens are gathered from the ``dict`` embedding table
-  cast to the compute dtype (:442-447);
+- raw image patching and time-series patching (``models/patching.py``) feed
+  the token embedding; without patching, tokens are gathered from the
+  ``dict`` embedding table cast to the compute dtype, or the ``linear``
+  embedding (with a bias) maps each input row (:426-459);
 - 'gelu' is the exact erf in float32 and the tanh approximation in bfloat16;
 - classification reads the CLS token and returns float32 logits;
   sequence-to-sequence applies the final norm, then the tied head (the token
-  embedding, float32 logits, :747-760) or the untied one.
+  embedding, float32 logits, :747-760) or the untied one; forecasting
+  flattens (N, L·E) and maps it to the horizon in float32 (:741-746);
+- batch norm (PatchTST's) normalises over (N, L) with the batch's statistics
+  in train mode and its running statistics in eval mode;
+  ``forward(x, return_stats=True)`` also returns each site's batch
+  statistics by dotted path, for the train step's running-stat update
+  (:764-790);
+- dropout draws from a ``torch.Generator`` passed to ``forward``, at the
+  JAX package's four sites: the embedding's output, the attention's and the
+  FFN's outputs, and the head's input (after the final norm, or after the
+  forecasting flatten). Each block draws from a generator split off the
+  caller's (:func:`~vitef_tpu_torch.ops.common.split_generator`), in site
+  order, so a block recomputed under ``remat`` draws its masks again;
+- ``remat`` wraps each block in ``torch.utils.checkpoint`` (:794-807): its
+  activations are recomputed in the backward, its batch statistics stay an
+  explicit output.
 
 Ported: the ViT geometry (computer-vision hybrid patching, learned absolute
 positions, multi-head attention, mlp FFN, layer norm, classification head),
+the PatchTST geometry (time-series patching, the linear embedding, post-norm
+blocks with batch norm, forecasting head),
 the GPT-2 geometry (``dict`` token embedding, causal attention,
 sequence-to-sequence head, ``forward(x, return_hidden=True)`` for the fused
 head loss), the Llama geometry (grouped-query attention, rotary
@@ -33,12 +52,7 @@ positions, swiglu FFN, rms norm, untied head) and the MoE family's FFN
 mean of the router's aux losses, :782-840), forward, and backward through
 autograd; and the paper's read-outs, ``get_decomposition`` and ``get_probes``
 (:851-938). ``norm_impl`` reaches every LayerNorm, which takes kernel K6 for
-``"kernel"`` on CUDA. The other options of the config raise
-``NotImplementedError``.
-Dropout is not ported: a module in train mode with any dropout rate above 0
-raises ``NotImplementedError`` rather than train without it (ViT's, GPT-2's
-and Llama's rates are all 0, ``vitef_tpu/models/vit.py:96-111``,
-``gpt2.py:52-82``, ``llama.py:75-99``).
+``"kernel"`` on CUDA. Every option of the config is ported.
 """
 
 from __future__ import annotations
@@ -52,9 +66,12 @@ from torch import nn
 
 from ..ops.attention import (attention_route, flash_attention, fused_mha_packed,
                              multi_head_attention)
-from ..ops.common import mm_f32
-from .norms import build_norm
-from .patching import extract_patches_chw, image_patch_dims
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.common import draw_seed, dropout, mm_f32
+from .norms import BatchNorm, build_norm
+from .patching import (extract_patches_chw, image_patch_dims, patch_images_raw,
+                       patch_timeseries)
 from .rope import apply_rope, rope_angles
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -205,32 +222,30 @@ class TransformerConfig:
         return _DTYPES[self.compute_dtype]
 
 
-def _check_ported(cfg: TransformerConfig) -> None:
-    """Raise for the options whose modules are not ported yet."""
-    unported = {
-        "patching other than computer_vision hybrid":
-            bool(cfg.patch_type) and not cfg.hybrid_identity_emb,
-        f"emb_type={cfg.emb_type!r} token embedding":
-            not cfg.patch_type and cfg.emb_type.lower() != "dict",
-        f"output_type={cfg.output_type!r}":
-            cfg.output_type.lower() not in ("classification", "sequence_to_sequence"),
-        "remat": cfg.remat,
-    }
-    missing = [name for name, hit in unported.items() if hit]
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+_OUTPUT_TYPES = ("classification", "forecasting", "sequence_to_sequence")
+
+
+def _check_config(cfg: TransformerConfig) -> None:
+    """Raise ``ValueError`` for the names the JAX package's init refuses
+    (``init_embedding`` :258-280, ``init_output`` :310-340) and for a compute
+    dtype the port has no type for."""
+    if cfg.emb_type.lower() not in ("dict", "linear"):
+        raise ValueError(f"Unknown embedding layer {cfg.emb_type!r}")
+    if cfg.output_type.lower() not in _OUTPUT_TYPES:
+        raise ValueError(f"Unknown output {cfg.output_type!r}")
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
 
 
-_DROPOUTS = ("emb_dropout", "attn_dropout", "ffn_dropout", "output_dropout")
-
-
-def _check_no_dropout(cfg: TransformerConfig) -> None:
-    """Raise in train mode for any dropout rate > 0: dropout is not ported."""
-    rates = {name: getattr(cfg, name) for name in _DROPOUTS if getattr(cfg, name) > 0}
-    if rates:
-        raise NotImplementedError(f"dropout is not ported yet; train mode with {rates}")
+def _norm(norm: nn.Module, x: torch.Tensor, stats: dict | None, key: str) -> torch.Tensor:
+    """``norm(x)``; a batch norm in train mode also puts its batch statistics
+    into ``stats[key]`` when a collector is given (``_norm`` :656-668)."""
+    if stats is None or not isinstance(norm, BatchNorm):
+        return norm(x)
+    out, batch = norm(x, return_stats=True)
+    if batch is not None:
+        stats[key] = batch
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -303,11 +318,14 @@ def get_activation(name: str):
 
 
 class Embedding(nn.Module):
-    """Patch (or token table) -> cls prepend -> + pos_emb.
+    """Patch -> token embedding -> cls prepend -> + pos_emb -> dropout.
 
-    Hybrid image patching replaces the token embedding by the identity;
-    without patching, ``token_emb["weight"]`` (V, E) is the ``dict`` table,
-    drawn from N(0, 1) as ``nn.Embedding`` is."""
+    Hybrid image patching replaces the token embedding by the identity.
+    Otherwise the input (raw image patches, time-series patches, or the
+    input itself) goes through ``token_emb``: the ``dict`` table
+    ``token_emb["weight"]`` (V, E), drawn from N(0, 1) as ``nn.Embedding``
+    is, or the ``linear`` embedding, a :class:`Linear` from V to E with a
+    bias."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
         super().__init__()
@@ -318,27 +336,47 @@ class Embedding(nn.Module):
             fan_in = cfg.image_dim[0] * cfg.patch_size**2
             self.patching = nn.ModuleDict(
                 {"conv": Linear(fan_in, e, True, device=device, generator=generator)})
-        else:
+        elif cfg.emb_type.lower() == "dict":
             self.token_emb = nn.ParameterDict({"weight": nn.Parameter(
                 torch.randn((cfg.vocab_size, e), generator=generator).to(device))})
+        else:
+            self.token_emb = Linear(cfg.vocab_size, e, True, device=device,
+                                    generator=generator)
         self.cls_token = (nn.Parameter(torch.randn((1, 1, e), generator=generator).to(device))
                           if cfg.cls_token else None)
         self.pos_emb = (nn.Parameter(
             torch.randn((1, cfg.seq_len, e), generator=generator).to(device))
             if cfg.pos_emb else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cd = self.cfg.cdtype()
+    def table(self) -> torch.Tensor:
+        """The token embedding as a (V, E) table: the ``dict`` weight, or the
+        ``linear`` weight transposed (the tied head's operand)."""
+        if isinstance(self.token_emb, Linear):
+            return self.token_emb.weight.t()
+        return self.token_emb["weight"]
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None
+                ) -> torch.Tensor:
+        cfg = self.cfg
+        cd = cfg.cdtype()
+        patch = (cfg.patch_type or "").lower()
         if self.patching is not None:
-            out = self.patching["conv"](extract_patches_chw(x.to(cd), self.cfg.patch_size), cd)
+            out = self.patching["conv"](extract_patches_chw(x.to(cd), cfg.patch_size), cd)
         else:
-            out = F.embedding(x, self.token_emb["weight"].to(cd))
+            if patch == "computer_vision":
+                x = patch_images_raw(x.to(cd), cfg.patch_size)
+            elif patch == "time_series":
+                x = patch_timeseries(x.to(cd), cfg.patch_size, cfg.stride)
+            if isinstance(self.token_emb, Linear):
+                out = self.token_emb(x, cd)
+            else:
+                out = F.embedding(x, self.token_emb["weight"].to(cd))
         if self.cls_token is not None:
             cls = self.cls_token.to(cd).expand(out.shape[0], 1, -1)
             out = torch.cat([cls, out], dim=1)
         if self.pos_emb is not None:
             out = out + self.pos_emb[:, :out.shape[1]].to(cd)
-        return out
+        return dropout(out, cfg.emb_dropout, generator, not self.training)
 
 
 def split_qkv(cfg: TransformerConfig, qkv: torch.Tensor):
@@ -348,7 +386,8 @@ def split_qkv(cfg: TransformerConfig, qkv: torch.Tensor):
 
 
 class Attention(nn.Module):
-    """Fused-qkv attention + output projection: multi-head attention
+    """Fused-qkv attention + output projection + dropout (``apply_attention``
+    :565-590): multi-head attention
     (:func:`~vitef_tpu_torch.ops.attention.multi_head_attention`), or, with
     grouped-query heads or rotary positions, :meth:`_modern`. qkv packs
     [q (E) | k (kv_dim) | v (kv_dim)]."""
@@ -361,16 +400,22 @@ class Attention(nn.Module):
                               generator=generator)
         self.output = Linear(e, e, cfg.attn_bias, device=device, generator=generator)
 
-    def forward(self, x: torch.Tensor, verbose: bool = False):
+    def forward(self, x: torch.Tensor, verbose: bool = False,
+                generator: torch.Generator | None = None):
         cfg = self.cfg
         impl = cfg.attn_impl if cfg.flash else "plain"
         if cfg.uses_gqa or cfg.uses_rope:
-            return self._modern(x, impl, verbose)
-        return multi_head_attention(
-            x, self.qkv_mat.weight, self.qkv_mat.bias,
-            self.output.weight, self.output.bias,
-            n_heads=cfg.n_heads, causal=cfg.causal, impl=impl,
-            verbose=verbose, compute_dtype=cfg.cdtype())
+            out = self._modern(x, impl, verbose)
+        else:
+            out = multi_head_attention(
+                x, self.qkv_mat.weight, self.qkv_mat.bias,
+                self.output.weight, self.output.bias,
+                n_heads=cfg.n_heads, causal=cfg.causal, impl=impl,
+                verbose=verbose, compute_dtype=cfg.cdtype())
+        if verbose:
+            out, weights = out
+            return dropout(out, cfg.attn_dropout, generator, not self.training), weights
+        return dropout(out, cfg.attn_dropout, generator, not self.training)
 
     def _modern(self, x: torch.Tensor, impl: str, verbose: bool):
         """GQA / RoPE attention: ``_attention_modern`` (:468-562), its three
@@ -440,8 +485,8 @@ class Attention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """fc1 -> activation -> fc2; swiglu's fc1 packs [gate | up] (2F wide) and
-    the activation is ``silu(gate) * up`` (:643-649)."""
+    """fc1 -> activation -> fc2 -> dropout; swiglu's fc1 packs [gate | up]
+    (2F wide) and the activation is ``silu(gate) * up`` (:643-652)."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
         super().__init__()
@@ -453,7 +498,8 @@ class FeedForward(nn.Module):
         self.fc2 = Linear(cfg.ffn_dim, cfg.emb_dim, cfg.ffn_bias,
                           device=device, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None
+                ) -> torch.Tensor:
         cd = self.cfg.cdtype()
         out = self.fc1(x, cd)
         if self.swiglu:
@@ -461,13 +507,17 @@ class FeedForward(nn.Module):
             out = F.silu(gate) * up
         else:
             out = self.activation(out)
-        return self.fc2(out, cd)
+        return dropout(self.fc2(out, cd), self.cfg.ffn_dropout, generator, not self.training)
 
 
 class Block(nn.Module):
-    """Pre- or post-norm transformer block. With ``n_experts`` > 0 its FFN is
-    the MoE FFN, whose router aux losses ``forward`` appends to ``moe_aux``
-    (a list) when one is given."""
+    """Pre- or post-norm transformer block (``apply_block`` :671-718). With
+    ``n_experts`` > 0 its FFN is the MoE FFN, whose router aux losses
+    ``forward`` appends to ``moe_aux`` (a list) when one is given. With
+    ``collect_stats`` it returns ``(out, stats)``: the train-mode batch
+    statistics of its batch norms by name (``attn_norm``, ``ffn_norm``), an
+    explicit output so that a recompute under ``remat`` leaves them alone.
+    ``generator`` feeds the dropout of its attention, then of its FFN."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
         super().__init__()
@@ -485,29 +535,38 @@ class Block(nn.Module):
         else:
             self.ffn = FeedForward(cfg, device=device, generator=generator)
 
-    def _ffn(self, x: torch.Tensor, moe_aux: list | None) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor, moe_aux: list | None,
+             generator: torch.Generator | None = None) -> torch.Tensor:
         if not self.cfg.n_experts:
-            return self.ffn(x)
+            return self.ffn(x, generator)
         aux = {} if moe_aux is not None else None
         out = self.ffn(x, aux=aux)
         if moe_aux is not None:
             moe_aux.append(aux)
-        return out
+        return dropout(out, self.cfg.ffn_dropout, generator, not self.training)
 
-    def forward(self, x: torch.Tensor, verbose: bool = False, moe_aux: list | None = None):
+    def forward(self, x: torch.Tensor, verbose: bool = False, moe_aux: list | None = None,
+                collect_stats: bool = False, generator: torch.Generator | None = None):
+        stats = {} if collect_stats else None
+
+        def norm(name, y):
+            return _norm(getattr(self, name), y, stats, name)
+
         att = None
         if self.cfg.pre_norm:
-            out = self.attn(self.attn_norm(x), verbose=verbose)
+            out = self.attn(norm("attn_norm", x), verbose=verbose, generator=generator)
             if verbose:
                 out, att = out
             out = x + out
-            out = out + self._ffn(self.ffn_norm(out), moe_aux)
+            out = out + self._ffn(norm("ffn_norm", out), moe_aux, generator)
         else:
-            out = self.attn(x, verbose=verbose)
+            out = self.attn(x, verbose=verbose, generator=generator)
             if verbose:
                 out, att = out
-            out = self.attn_norm(x + out)
-            out = self.ffn_norm(out + self._ffn(out, moe_aux))
+            out = norm("attn_norm", x + out)
+            out = norm("ffn_norm", out + self._ffn(out, moe_aux, generator))
+        if collect_stats:
+            return (out, att, stats) if verbose else (out, stats)
         return (out, att) if verbose else out
 
     def decompose(self, x: torch.Tensor) -> dict:
@@ -549,8 +608,11 @@ class Block(nn.Module):
         return out, p
 
 
+_OUTPUT_NORM = "output.output_layer.norm"  # the head's batch-statistics key
+
+
 class ClassificationOutput(nn.Module):
-    """Final norm, CLS token, head; float32 logits."""
+    """Final norm, dropout, CLS token, head; float32 logits."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
         super().__init__()
@@ -562,14 +624,37 @@ class ClassificationOutput(nn.Module):
                            generator=generator),
         })
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.output_layer["norm"](x)[:, 0, :]
+    def forward(self, x: torch.Tensor, embedding: Embedding | None = None,
+                return_hidden: bool = False, stats: dict | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        out = _norm(self.output_layer["norm"], x, stats, _OUTPUT_NORM)
+        out = dropout(out, self.cfg.output_dropout, generator, not self.training)[:, 0, :]
+        return self.output_layer["head"](out, self.cfg.cdtype()).float()
+
+
+class ForecastingOutput(nn.Module):
+    """Flatten (N, L·E), dropout, then a linear head to the horizon with a
+    bias; float32 forecasts (``init_output`` :324-330, ``apply_output``
+    :741-746)."""
+
+    def __init__(self, cfg: TransformerConfig, *, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.output_layer = nn.ModuleDict({
+            "head": Linear(cfg.seq_len * cfg.emb_dim, cfg.forecasting_horizon, True,
+                           device=device, generator=generator)})
+
+    def forward(self, x: torch.Tensor, embedding: Embedding | None = None,
+                return_hidden: bool = False, stats: dict | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        out = dropout(x.reshape(x.shape[0], -1), self.cfg.output_dropout, generator,
+                      not self.training)
         return self.output_layer["head"](out, self.cfg.cdtype()).float()
 
 
 class SequenceOutput(nn.Module):
-    """Final norm, then the vocabulary head: the token embedding when tied
-    (float32 logits from compute-dtype operands), else an untied (V, E)
+    """Final norm, dropout, then the vocabulary head: the token embedding when
+    tied (float32 logits from compute-dtype operands), else an untied (V, E)
     ``head`` without bias whose compute-dtype logits are returned as float32."""
 
     def __init__(self, cfg: TransformerConfig, *, device, generator):
@@ -583,20 +668,27 @@ class SequenceOutput(nn.Module):
                                                device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, embedding: Embedding,
-                return_hidden: bool = False) -> torch.Tensor:
-        out = self.output_layer["norm"](x)
+                return_hidden: bool = False, stats: dict | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        out = _norm(self.output_layer["norm"], x, stats, _OUTPUT_NORM)
+        out = dropout(out, self.cfg.output_dropout, generator, not self.training)
         if return_hidden:
             return out
         cd = self.cfg.cdtype()
         if self.cfg.weight_tying:
             n, l, e = out.shape
-            w = embedding.token_emb["weight"].to(cd)
+            w = embedding.table().to(cd)
             return mm_f32(out.reshape(n * l, e).to(cd), w.t()).reshape(n, l, -1)
         return self.output_layer["head"](out, cd).float()
 
 
+_OUTPUTS = {"classification": ClassificationOutput, "forecasting": ForecastingOutput,
+            "sequence_to_sequence": SequenceOutput}
+
+
 class Transformer(nn.Module):
-    """Embedding -> blocks -> classification or sequence-to-sequence head.
+    """Embedding -> blocks -> classification, forecasting or
+    sequence-to-sequence head (``apply_transformer`` :749-848).
 
     ``forward(x, verbose=True)`` also returns the stacked
     (n_layers, N, h, L, L) attention weights, computed on the plain path.
@@ -605,47 +697,70 @@ class Transformer(nn.Module):
     (``ops.losses.make_fused_head_loss``). ``forward(x, return_moe_aux=True)``
     returns ``(out, {"lb": ..., "z": ...})``: the per-block mean of the MoE
     router's aux losses (0-d float32 zeros without experts).
+    ``forward(x, return_stats=True)`` returns ``(out, stats)``: in train mode
+    with batch norm, each site's batch mean and unbiased variance by dotted
+    path (``blocks.{i}.attn_norm``, ``blocks.{i}.ffn_norm``,
+    ``output.output_layer.norm``), else ``{}``; with ``return_moe_aux`` too,
+    ``(out, stats, aux)``. ``return_stats`` and ``return_moe_aux`` exclude
+    ``verbose``, as in the JAX package. ``generator`` feeds dropout in train
+    mode (any rate > 0 needs one); with ``cfg.remat`` each block runs under
+    ``torch.utils.checkpoint`` unless ``verbose``.
     """
 
     def __init__(self, cfg: TransformerConfig, *, device: torch.device,
                  generator: torch.Generator):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
         self.embedding = Embedding(cfg, device=device, generator=generator)
         self.blocks = nn.ModuleList(
             [Block(cfg, device=device, generator=generator) for _ in range(cfg.n_layers)])
-        seq2seq = cfg.output_type.lower() == "sequence_to_sequence"
-        self.output = (SequenceOutput if seq2seq else ClassificationOutput)(
-            cfg, device=device, generator=generator)
+        self.output = _OUTPUTS[cfg.output_type.lower()](cfg, device=device, generator=generator)
 
     def forward(self, x: torch.Tensor, verbose: bool = False, return_hidden: bool = False,
-                return_moe_aux: bool = False):
-        if self.training:
-            _check_no_dropout(self.cfg)
-        seq2seq = isinstance(self.output, SequenceOutput)
-        if return_hidden and not seq2seq:
+                return_moe_aux: bool = False, return_stats: bool = False,
+                generator: torch.Generator | None = None):
+        cfg = self.cfg
+        if return_hidden and not isinstance(self.output, SequenceOutput):
             raise ValueError("return_hidden requires a seq2seq output head")
-        if return_moe_aux and verbose:
-            raise ValueError("return_moe_aux and verbose are mutually exclusive")
-        block_aux = [] if return_moe_aux and self.cfg.n_experts else None
-        out = self.embedding(x)
+        if (return_moe_aux or return_stats) and verbose:
+            raise ValueError("return_stats/return_moe_aux and verbose are mutually exclusive")
+        collect = return_stats and self.training and cfg.norm.lower() == "batch"
+        stats = {} if collect else None
+        block_aux = [] if return_moe_aux and cfg.n_experts else None
+        out = self.embedding(x, generator)
         attentions = []
-        for block in self.blocks:
-            out = block(out, verbose=verbose, moe_aux=block_aux)
+        for i, block in enumerate(self.blocks):
+            # The block's dropout stream starts from a seed drawn here, so a
+            # recompute under remat draws the same masks again.
+            seed = None if generator is None else draw_seed(generator)
+
+            def run(y, block=block, seed=seed):
+                gen = (None if seed is None
+                       else torch.Generator(device=generator.device).manual_seed(seed))
+                return block(y, verbose=verbose, moe_aux=block_aux, collect_stats=collect,
+                             generator=gen)
+
+            out = checkpoint(run, out, use_reentrant=False) if cfg.remat and not verbose \
+                else run(out)
             if verbose:
                 out, att = out
                 attentions.append(att)
-        logits = (self.output(out, self.embedding, return_hidden) if seq2seq
-                  else self.output(out))
+            elif collect:
+                out, block_stats = out
+                stats.update({f"blocks.{i}.{key}": val for key, val in block_stats.items()})
+        logits = self.output(out, self.embedding, return_hidden, stats, generator)
         if verbose:
             return logits, torch.stack(attentions)
+        result = (logits,)
+        if return_stats:
+            result += ({} if stats is None else stats,)
         if return_moe_aux:
             # the per-block mean, the Switch/ST-MoE convention (:832-840)
-            return logits, {key: (torch.stack([a[key] for a in block_aux]).mean() if block_aux
-                                  else torch.zeros((), device=logits.device))
-                            for key in ("lb", "z")}
-        return logits
+            result += ({key: (torch.stack([a[key] for a in block_aux]).mean() if block_aux
+                              else torch.zeros((), device=logits.device))
+                        for key in ("lb", "z")},)
+        return result[0] if len(result) == 1 else result
 
     def get_decomposition(self, x: torch.Tensor) -> dict:
         """Per-block component outputs (``get_decomposition`` :914-926): keys

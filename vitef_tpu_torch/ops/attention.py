@@ -19,7 +19,7 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
   differentiates that. With ``key_mask`` (the ragged serving prefill,
   :459-479) it launches the kernel's key-masked mode, forward only;
 - :func:`packed_mha_supported` (:443-456) — the packed kernels' gate: a head
-  width K1, K2 and K3 are instantiated for (64, 80, 128) and the JAX
+  width K1, K2 and K3 are instantiated for (8, 64, 80, 128) and the JAX
   package's byte budget;
 - :func:`flash_attention` (:680-698) — the K4 wrapper on (N, h, L, d): on a
   CUDA tensor it launches ``csrc/flash_fwd.cu`` (bfloat16 or float32, causal
@@ -52,8 +52,8 @@ from ._build import kernel_function
 from .common import resolve_impl
 
 _NEG_INF = -1e30
-_PACKED_FWD_HEAD_DIMS = (64, 80, 128)  # the head widths csrc/packed_mha_fwd.cu instantiates
-_PACKED_BWD_HEAD_DIMS = (64, 80, 128)  # and csrc/packed_mha_bwd.cu, every mode of each
+_PACKED_FWD_HEAD_DIMS = (8, 64, 80, 128)  # the head widths csrc/packed_mha_fwd.cu instantiates
+_PACKED_BWD_HEAD_DIMS = (8, 64, 80, 128)  # and csrc/packed_mha_bwd.cu, every mode of each
 # The head widths csrc/flash_*.cu instantiate, by dtype: bfloat16 on the
 # bf16 tensor-core tiles, float32 in split TF32 (kAttnF32Dim).
 _FLASH_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (64,)}
@@ -160,8 +160,8 @@ _PACKED_BUDGET = 40 * 1024 * 1024
 
 def packed_mha_supported(l: int, e: int, n_heads: int) -> bool:
     """Whether bfloat16 attention takes the packed kernels for this geometry:
-    a head width K1, K2 and K3 are instantiated for, 64, 80 (ViT-H/14) or
-    128 (Llama-3.1-8B), each in every mode (they tile over keys and take
+    a head width K1, K2 and K3 are instantiated for, 8 (PatchTST), 64, 80
+    (ViT-H/14) or 128 (Llama-3.1-8B), each in every mode (they tile over keys and take
     every L, causal or not), and the JAX package's budget
     ``2·(4·E·L·2) + 3·L²·4 <= 40 MiB``, so that both packages take the same
     branch. Past the budget (Llama-1B, E=2048 at L=1024: 46.1 MB;
@@ -256,7 +256,7 @@ def fused_mha_packed(qkv, n_heads: int, causal: bool = False, bias=None, key_mas
 
     A CPU tensor goes through :func:`packed_mha_reference` (and autograd
     differentiates it). A CUDA tensor launches the forward kernel, or raises
-    if the kernel does not take it: bfloat16, head width 64, 80 or 128. When
+    if the kernel does not take it: bfloat16, head width 8, 64, 80 or 128. When
     qkv or bias requires a gradient the call is differentiable, and its
     backward launches K2 or, causal, K3 (:func:`packed_mha_bwd`), at the
     same widths.
@@ -314,7 +314,7 @@ def packed_mha_bwd(qkv, bias, g, out, lse, n_heads: int, causal: bool = False):
     the tensor cores, causal over the lower triangle only, then a
     fixed-order column sum for db, so two launches on the same inputs give
     bit-identical results), or raises if the kernel does not take it:
-    bfloat16 qkv, g and out, head width 64, 80 or 128; every L. The kernel rounds P and
+    bfloat16 qkv, g and out, head width 8, 64, 80 or 128; every L. The kernel rounds P and
     dS to bfloat16 before their products, as the TPU kernel rounds them; the
     plain version keeps them in float32.
     ``packed_mha_bwd.launches`` counts its launches.

@@ -1,8 +1,9 @@
 """Shared op policy: which implementation runs, and what float32 means.
 
 Counterpart of ``vitef_tpu/ops/common.py`` (``best_precision`` :9-18,
-``resolve_impl`` :21-59), and :func:`mm_f32` and :func:`bmm_f32` for the JAX
-package's ``preferred_element_type=float32`` products.
+``resolve_impl`` :21-59, ``dropout`` :62-71), and :func:`mm_f32` and
+:func:`bmm_f32` for the JAX package's ``preferred_element_type=float32``
+products.
 """
 
 from __future__ import annotations
@@ -100,3 +101,28 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         out_dtype=torch.float32)
         return out.reshape(*batch, *out.shape[-2:])
     return torch.matmul(a.float(), b.float())
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout (:62-71): with keep = 1 − rate, each value is kept with
+    probability keep, drawn as ``uniform < keep`` from ``generator`` on its
+    device, and the kept ones are divided by keep, in x's dtype. The identity
+    when ``deterministic`` or at rate 0; a rate > 0 in train mode without a
+    generator raises, as the JAX version does without an rng."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with rate>0 in train mode requires a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
+
+
+def draw_seed(generator: torch.Generator, salt: int = 0) -> int:
+    """One draw of ``generator`` mixed with ``salt``: the seed of a stream of
+    its own for one part of a computation (a block that may be recomputed,
+    one rank of a group), as the JAX package splits or folds in its keys."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device).item())
+    return seed ^ (salt * 0x9E3779B97F4A7C15) % 2**62

@@ -2,7 +2,7 @@
 // K2 and K3 (csrc/packed_mha_bwd.cu, packed qkv with its bias) and K5
 // (csrc/flash_bwd.cu, head-major, no bias; float32 in split TF32, below). It
 // is the backward of attn_fwd_mma.cuh and is built from its pieces: head
-// width D (64, 80 or 128 in bf16, 64 in float32), 64-row query tiles and 64-key
+// width D (8, 64, 80 or 128 in bf16, 64 in float32), 64-row query tiles and 64-key
 // tiles, 4 warps of 16 rows, rows padded by 8 elements in shared memory,
 // 16-byte cp.async copies double buffered, rows past L zero-filled, the bias
 // added in place as bf16(x + b), and the warp products on 16 x 64 and
@@ -156,7 +156,16 @@ __device__ __forceinline__ void attn_bwd_dq_tile(const AttnBwdHead& hd, int L, i
     const int c0 = (tid & 1) * (D / 2);
     const int qi = q0 + r;
     float delta = 0.f;
-    if (qi < L) {
+    if (qi < L && D == 8) {  // 4 columns a thread, 8 bytes
+      const bf16* grow = hd.g + static_cast<size_t>(qi) * hd.g_stride + c0;
+      const bf16* orow = hd.out + static_cast<size_t>(qi) * hd.g_stride + c0;
+#pragma unroll
+      for (int e = 0; e < D / 4; ++e) {
+        const float2 gv = load_pair(grow, e);
+        const float2 o = load_pair(orow, e);
+        delta = fmaf(gv.x, o.x, fmaf(gv.y, o.y, delta));
+      }
+    } else if (qi < L) {
       const bf16* grow = hd.g + static_cast<size_t>(qi) * hd.g_stride + c0;
       const bf16* orow = hd.out + static_cast<size_t>(qi) * hd.g_stride + c0;
 #pragma unroll
@@ -187,10 +196,10 @@ __device__ __forceinline__ void attn_bwd_dq_tile(const AttnBwdHead& hd, int L, i
   }
   __syncthreads();
 
-  uint32_t qf[D / 16][4], gf[D / 16][4];  // the warp's Q and G rows as A fragments
+  uint32_t qf[kAttnK16<D>][4], gf[kAttnK16<D>][4];  // the warp's Q and G rows as A fragments
   load_a_frags<D>(qf, sq, warp * 16);
   load_a_frags<D>(gf, sg, warp * 16);
-  float dq[D / 8][4];                  // dQ, 16 x D: n8 tiles of head columns
+  float dq[kAttnN8<D>][4];             // dQ, 16 x D: n8 tiles of head columns
   zero_acc(dq);
   const float2 rs[2] = {st[warp * 16 + g], st[warp * 16 + g + 8]};  // rows row0, row0 + 8
 
@@ -261,7 +270,7 @@ __device__ __forceinline__ void mma_rows_bt(float (&c)[8][4], const bf16* a, int
                                             const bf16* b) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < kAttnK16<D>; ++kk) {
     uint32_t af[4];
     ldmatrix_x4(af, a + (row0 + (lane & 15)) * kAttnStride<D> + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
@@ -318,8 +327,8 @@ __device__ __forceinline__ void attn_bwd_dkv_tile(const AttnBwdHead& hd, int L, 
 
   constexpr int kHeld = kDkvHeld<D>;
   // the warp's K and V rows as A fragments, those that kHeld holds
-  uint32_t kf[kHeld >= 1 ? D / 16 : 1][4], vf[kHeld >= 2 ? D / 16 : 1][4];
-  float dk[D / 8][4], dv[D / 8][4];    // dK and dV, 16 x D: n8 tiles of head columns
+  uint32_t kf[kHeld >= 1 ? kAttnK16<D> : 1][4], vf[kHeld >= 2 ? kAttnK16<D> : 1][4];
+  float dk[kAttnN8<D>][4], dv[kAttnN8<D>][4];  // dK and dV, 16 x D: n8 tiles of head columns
   zero_acc(dk);
   zero_acc(dv);
 

@@ -5,9 +5,18 @@
 // also the backward's (attn_bwd_mma.cuh).
 //
 // One block of 4 warps computes 64 query rows of one head at head width D,
-// a template parameter (64; 80 for ViT-H/14; 128 for Llama-3.1-8B: K1, K2
-// and K3 take all three, K4 and K5 64 and 128), in a FlashAttention-2
-// schedule on mma.sync.m16n8k16 (bf16 in, float32 accumulators):
+// a template parameter (64; 80 for ViT-H/14; 128 for Llama-3.1-8B; 8 for
+// PatchTST: K1, K2 and K3 take all four, K4 and K5 64 and 128), in a
+// FlashAttention-2 schedule on mma.sync.m16n8k16 (bf16 in, float32
+// accumulators). At D = 8 every staged row and register tile is 16 columns
+// wide (kAttnCols), the last 8 zero-filled by the copies (the pad piece
+// reads nothing and gets a zero bias): a zero column adds 0 to each score and
+// gives a zero output column, so the D = 16 products compute the D = 8
+// function, and the stores write only the D real columns. The pad costs a
+// second n8 product per P V step, which is nothing at this width: a d = 8
+// head does 4 L^2 d FLOPs on 16 bytes a row, so K1 at d = 8 is bound by its
+// bytes and its blocks' latency, never by the tensor cores. mma.sync.m16n8k8
+// would have needed a second set of fragment layouts for one width.
 //
 // - the block's Q tile goes to shared memory once, and each warp keeps its
 //   16 rows as A fragments in registers (ldmatrix, D/16 k16 steps) for the
@@ -67,11 +76,21 @@ constexpr int kAttnThreads = 32 * kAttnWarps;
 constexpr float kAttnMaskedScore = -1e30f;   // a key-masked key's scaled score
 
 template <int D>
-constexpr bool kAttnWidthOk = D == 64 || D == 80 || D == 128;  // the bf16 tiles' head widths
+constexpr bool kAttnWidthOk = D == 8 || D == 64 || D == 80 || D == 128;  // the bf16 tiles' widths
+// Columns of a staged row and of the register tiles: D, or at D = 8 one k16
+// step whose last 8 columns are zero in every staged tile (PatchTST's
+// heads): a zero column adds 0 to each score and makes a zero output column,
+// so the products of the wider widths serve unchanged.
 template <int D>
-constexpr int kAttnStride = D + 8;           // bf16 elements per padded shared row
+constexpr int kAttnCols = D < 16 ? 16 : D;
 template <int D>
-constexpr int kAttnPieces = D / 16;          // 16-byte pieces of a 64-row tile per thread
+constexpr int kAttnK16 = kAttnCols<D> / 16;  // k16 steps over a staged row
+template <int D>
+constexpr int kAttnN8 = kAttnCols<D> / 8;    // n8 tiles of a 16 x kAttnCols accumulator
+template <int D>
+constexpr int kAttnStride = kAttnCols<D> + 8;  // bf16 elements per padded shared row
+template <int D>
+constexpr int kAttnPieces = D < 16 ? 1 : D / 16;  // 16-byte pieces of a 64-row tile per thread
 template <int D>
 constexpr size_t kAttnSmemBytes =
     static_cast<size_t>(kAttnRows + 4 * kAttnKeys) * kAttnStride<D> * sizeof(bf16);
@@ -109,7 +128,10 @@ struct TilePiece {
 
 template <int D>
 __device__ __forceinline__ TilePiece tile_piece(int i, int first_row, int col) {
-  static_assert(kAttnWidthOk<D>, "the bf16 attention tiles take head widths 64, 80 and 128");
+  static_assert(kAttnWidthOk<D>, "the bf16 attention tiles take head widths 8, 64, 80 and 128");
+  if (D == 8) {  // row threadIdx.x / 2: its 8 columns, or (odd threads) the zero pad
+    return {static_cast<int>(threadIdx.x >> 1), 8 * static_cast<int>(threadIdx.x & 1)};
+  }
   if (D == 80 && i == 4) {
     return {static_cast<int>(threadIdx.x >> 1), 64 + 8 * static_cast<int>(threadIdx.x & 1)};
   }
@@ -117,14 +139,15 @@ __device__ __forceinline__ TilePiece tile_piece(int i, int first_row, int col) {
 }
 
 // This thread's pieces of a 64-row tile of D columns, rows r0 + row of
-// base + row * stride, into dst; rows past L are zero-filled.
+// base + row * stride, into dst; rows past L, and the pad columns past D,
+// are zero-filled.
 template <int D>
 __device__ __forceinline__ void stage_tile(const bf16* base, size_t stride, int r0, int L,
                                            bf16* dst, int first_row, int col) {
 #pragma unroll
   for (int i = 0; i < kAttnPieces<D>; ++i) {
     const TilePiece p = tile_piece<D>(i, first_row, col);
-    const bool inside = r0 + p.row < L;
+    const bool inside = r0 + p.row < L && (D >= 16 || p.col < D);
     const bf16* src = inside ? base + static_cast<size_t>(r0 + p.row) * stride + p.col : base;
     cp_async16(dst + p.row * kAttnStride<D> + p.col, src, inside);
   }
@@ -141,6 +164,11 @@ struct TileBias {
 template <int D>
 __device__ __forceinline__ TileBias<D> load_tile_bias(const bf16* bias, int col) {
   TileBias<D> t;
+  if constexpr (D == 8) {  // the pad piece's bias is zero, so its columns stay zero
+    const int c = tile_piece<D>(0, 0, col).col;
+    t.b[0] = c < D ? *reinterpret_cast<const uint4*>(bias + c) : make_uint4(0, 0, 0, 0);
+    return t;
+  }
   t.b[0] = *reinterpret_cast<const uint4*>(bias + col);
   if constexpr (D > 64) {
     t.b[1] = *reinterpret_cast<const uint4*>(bias + tile_piece<D>(4, 0, col).col);
@@ -177,11 +205,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Rows row0 .. row0 + 15 of a staged tile as the A fragments of the D/16
 // k16 steps over its D columns.
 template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const bf16* tile,
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[kAttnK16<D>][4], const bf16* tile,
                                              int row0) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < kAttnK16<D>; ++kk) {
     ldmatrix_x4(a[kk], tile + (row0 + (lane & 15)) * kAttnStride<D> + kk * 16 + (lane >> 4) * 8);
   }
 }
@@ -189,11 +217,11 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const bf1
 // c (16 x 64) += a (16 x D) tile^T: n8 tile t of c holds rows 8 t .. 8 t + 7
 // of the staged tile (ldmatrix: the tile's rows are the "col" operand).
 template <int D>
-__device__ __forceinline__ void mma_a_bt(float (&c)[8][4], const uint32_t (&a)[D / 16][4],
+__device__ __forceinline__ void mma_a_bt(float (&c)[8][4], const uint32_t (&a)[kAttnK16<D>][4],
                                          const bf16* tile) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < kAttnK16<D>; ++kk) {
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj) {
       uint32_t b[4];
@@ -208,13 +236,13 @@ __device__ __forceinline__ void mma_a_bt(float (&c)[8][4], const uint32_t (&a)[D
 // c (16 x D) += a (16 x 64) tile: a's columns are the staged tile's rows,
 // and n8 tile t of c holds the tile's columns 8 t .. 8 t + 7 (ldmatrix.trans).
 template <int D>
-__device__ __forceinline__ void mma_a_b(float (&c)[D / 8][4], const uint32_t (&a)[4][4],
+__device__ __forceinline__ void mma_a_b(float (&c)[kAttnN8<D>][4], const uint32_t (&a)[4][4],
                                         const bf16* tile) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
+    for (int dj = 0; dj < kAttnK16<D>; ++dj) {
       uint32_t b[4];
       ldmatrix_x4_trans(b, tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                       kAttnStride<D> + dj * 16 + (lane >> 4) * 8);
@@ -244,13 +272,13 @@ __device__ __forceinline__ void zero_acc(float (&c)[N][4]) {
 // into dst + r * stride: staged in the warp's own 16 rows `so` of a tile,
 // then written with 16-byte stores (D/8 a row, D/16 a lane).
 template <int D>
-__device__ __forceinline__ void store_warp_rows(const float (&c)[D / 8][4], bf16* so, bf16* dst,
-                                                size_t stride, int r0, int L) {
+__device__ __forceinline__ void store_warp_rows(const float (&c)[kAttnN8<D>][4], bf16* so,
+                                                bf16* dst, size_t stride, int r0, int L) {
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int tig = lane & 3;
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
+  for (int t = 0; t < kAttnN8<D>; ++t) {
     *reinterpret_cast<uint32_t*>(so + g * kAttnStride<D> + 8 * t + 2 * tig) =
         pack_bf16(c[t][0], c[t][1]);
     *reinterpret_cast<uint32_t*>(so + (g + 8) * kAttnStride<D> + 8 * t + 2 * tig) =
@@ -258,11 +286,11 @@ __device__ __forceinline__ void store_warp_rows(const float (&c)[D / 8][4], bf16
   }
   __syncwarp();
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
+  for (int i = 0; i < (D + 15) / 16; ++i) {  // 2 D pieces: at D = 8, lanes 0-15 store
     const int piece = lane + 32 * i;
     const int row = piece / (D / 8);
     const int col = (piece % (D / 8)) * 8;
-    if (r0 + row < L) {
+    if (piece < 2 * D && r0 + row < L) {
       *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r0 + row) * stride + col) =
           *reinterpret_cast<const uint4*>(so + row * kAttnStride<D> + col);
     }
@@ -327,8 +355,8 @@ __device__ __forceinline__ void attn_fwd_tile(const AttnHead& hd, int L, int q0,
   stage_tile<D>(hd.v, hd.stride, 0, L, sv, copy_row, copy_col);
   cp_async_commit();
 
-  uint32_t qf[D / 16][4];              // the warp's Q rows as A fragments, per k16 step
-  float o[D / 8][4];                   // O, 16 x D: n8 tiles of head columns
+  uint32_t qf[kAttnK16<D>][4];         // the warp's Q rows as A fragments, per k16 step
+  float o[kAttnN8<D>][4];              // O, 16 x D: n8 tiles of head columns
   zero_acc(o);
   float row_m[2] = {-INFINITY, -INFINITY};
   float row_l[2] = {0.f, 0.f};         // this thread's part of each row's sum
@@ -405,7 +433,7 @@ __device__ __forceinline__ void attn_fwd_tile(const AttnHead& hd, int L, int q0,
       row_l[rr] *= alpha[rr];
     }
 #pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
+    for (int t = 0; t < kAttnN8<D>; ++t) {
       o[t][0] *= alpha[0];
       o[t][1] *= alpha[0];
       o[t][2] *= alpha[1];
@@ -441,7 +469,7 @@ __device__ __forceinline__ void attn_fwd_tile(const AttnHead& hd, int L, int q0,
     inv[rr] = 1.f / row_l[rr];
   }
 #pragma unroll
-  for (int t = 0; t < D / 8; ++t) {
+  for (int t = 0; t < kAttnN8<D>; ++t) {
     o[t][0] *= inv[0];
     o[t][1] *= inv[0];
     o[t][2] *= inv[1];

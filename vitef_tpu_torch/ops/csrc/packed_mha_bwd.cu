@@ -53,7 +53,7 @@
 //     and 103 KB at d = 128 in (a) and (b), whatever L is.
 // wgmma, TMA and warp specialisation are later work.
 //
-// Head widths: both modes are instantiated at d = 64, d = 80 (ViT-H/14) and
+// Head widths: both modes are instantiated at d = 8 (PatchTST), d = 64, d = 80 (ViT-H/14) and
 // d = 128 (Llama-3.1-8B), the widths the wrapper's gate admits, as
 // csrc/packed_mha_fwd.cu is. At d = 128 pass (b) reads each warp's K and V
 // rows from shared memory at every use instead of holding them as register
@@ -68,7 +68,7 @@
 // stats is float32 scratch of N * n_heads * L * 2 and partial float32
 // scratch of db_segments * 3E. Returns a cudaError_t as int: the last
 // launch's cudaGetLastError(), or cudaErrorInvalidValue for a shape this
-// kernel does not take (head_dim other than 64, 80 and 128 among them).
+// kernel does not take (head_dim other than 8, 64, 80 and 128 among them).
 
 #include "packed_mha_common.cuh"
 #include "attn_bwd_mma.cuh"
@@ -222,11 +222,12 @@ extern "C" int packed_mha_bwd(const void* qkv, const void* bias, const void* g, 
                               const void* lse, void* dqkv, void* db, void* stats, void* partial,
                               int n, int L, int n_heads, int head_dim, int db_segments,
                               int causal, void* stream) {
-  if ((head_dim != 64 && head_dim != 80 && head_dim != 128) || n <= 0 || L <= 0 ||
-      n_heads <= 0 || db_segments <= 0) {
+  if ((head_dim != 8 && head_dim != 64 && head_dim != 80 && head_dim != 128) || n <= 0 ||
+      L <= 0 || n_heads <= 0 || db_segments <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto run = head_dim == 64   ? (causal ? launch<64, true> : launch<64, false>)
+  const auto run = head_dim == 8    ? (causal ? launch<8, true> : launch<8, false>)
+                   : head_dim == 64 ? (causal ? launch<64, true> : launch<64, false>)
                    : head_dim == 80 ? (causal ? launch<80, true> : launch<80, false>)
                                     : (causal ? launch<128, true> : launch<128, false>);
   return static_cast<int>(run(

@@ -42,7 +42,9 @@
 // d = 80 and 85 KB at d = 128, whatever L is. wgmma, TMA and warp
 // specialisation are the next step.
 //
-// Head widths: every mode is instantiated at d = 64, d = 80 (ViT-H/14) and
+// Head widths: every mode is instantiated at d = 8 (PatchTST: 16 heads over
+// E = 128; its Q and K are zero-padded to one k16 step in shared memory,
+// attn_fwd_mma.cuh kAttnCols), d = 64, d = 80 (ViT-H/14) and
 // d = 128 (Llama-3.1-8B, whose serving prefill and training at L <= 578 run
 // the causal modes), the widths the wrapper's gate admits
 // (vitef_tpu_torch/ops/attention.py packed_mha_supported), so no mode of an
@@ -67,7 +69,7 @@
 // C interface: packed_mha_fwd(qkv, bias, key_mask, out, lse, N, L, n_heads,
 // head_dim, causal, stream) returns a cudaError_t as int: the launch's
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape this kernel does
-// not take (head_dim other than 64, 80 and 128 among them). key_mask (uint8,
+// not take (head_dim other than 8, 64, 80 and 128 among them). key_mask (uint8,
 // (N, L)) may be null for the unmasked kernel; lse may be null.
 
 #include <cstdint>
@@ -123,11 +125,14 @@ cudaError_t launch(const bf16* qkv, const bf16* bias, const uint8_t* key_mask, b
 extern "C" int packed_mha_fwd(const void* qkv, const void* bias, const void* key_mask,
                               void* out, void* lse, int n, int L, int n_heads, int head_dim,
                               int causal, void* stream) {
-  if ((head_dim != 64 && head_dim != 80 && head_dim != 128) || n <= 0 || L <= 0 ||
-      n_heads <= 0) {
+  if ((head_dim != 8 && head_dim != 64 && head_dim != 80 && head_dim != 128) || n <= 0 ||
+      L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto run = head_dim == 64 ? launch<64> : head_dim == 80 ? launch<80> : launch<128>;
+  const auto run = head_dim == 8    ? launch<8>
+                   : head_dim == 64 ? launch<64>
+                   : head_dim == 80 ? launch<80>
+                                    : launch<128>;
   return static_cast<int>(run(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(bias),
       static_cast<const uint8_t*>(key_mask), static_cast<bf16*>(out), static_cast<float*>(lse),

@@ -49,8 +49,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..models.transformer import _check_no_dropout, split_qkv
-from ..ops.common import canonical_impl
+from ..models.transformer import split_qkv
+from ..ops.common import canonical_impl, draw_seed, dropout
 from ..ops.ring_hop import attend_block, hop_kernel_ok, hop_state, hop_vjp
 from ..optim import clip_by_global_norm_, global_grad_norm
 from .train_step import TrainState, cross_entropy_loss
@@ -324,8 +324,11 @@ def _check_sp_config(cfg) -> None:
         raise NotImplementedError("sequence parallelism with grouped-query heads is not ported")
 
 
+_DROPOUTS = ("emb_dropout", "attn_dropout", "ffn_dropout", "output_dropout")
+
+
 def apply_transformer_sp(module, tokens, *, group=None, zigzag: bool = False,
-                         chunk: int | None = 512):
+                         chunk: int | None = 512, generator: torch.Generator | None = None):
     """Pre-norm causal-LM forward of the port's ``Transformer`` on this
     rank's (N, Lloc) token shard (:410-494): float32 logits (N, Lloc, V).
 
@@ -334,15 +337,24 @@ def apply_transformer_sp(module, tokens, *, group=None, zigzag: bool = False,
     and position embeddings are read at the shard's global positions, so the
     zigzag layout is right too; the output norm and the tied or untied head
     are the module's. The ring's hop follows ``cfg.attn_impl`` (``"plain"``
-    forces the plain hop, as for the other attention paths). In train mode a
-    dropout rate > 0 raises: dropout is not ported.
+    forces the plain hop, as for the other attention paths).
+
+    Dropout (train mode, ``generator`` needed for a rate > 0) runs at the
+    model's four sites, all position-wise, on a stream of this rank's own:
+    a generator seeded from one draw of ``generator`` mixed with the rank, as
+    the JAX forward folds the shard index into its key (:443-447). Each
+    block then draws from a generator split off that stream, as the
+    ordinary forward's blocks do.
     """
     cfg = module.cfg
     _check_sp_config(cfg)
-    if module.training:
-        _check_no_dropout(cfg)
+    train = module.training
+    if train and generator is None and any(getattr(cfg, r) > 0 for r in _DROPOUTS):
+        raise ValueError("dropout with rate>0 in train mode requires a generator")
     group = dist.group.WORLD if group is None else group
     sp, rank = dist.get_world_size(group), dist.get_rank(group)
+    gen = None if generator is None else torch.Generator(device=generator.device).manual_seed(
+        draw_seed(generator, rank))
     n, lloc = tokens.shape
     cd = cfg.cdtype()
     embedding = module.embedding
@@ -350,16 +362,20 @@ def apply_transformer_sp(module, tokens, *, group=None, zigzag: bool = False,
     if embedding.pos_emb is not None:
         pos = device_positions(lloc, sp, zigzag, tokens.device)[rank]
         out = out + embedding.pos_emb[:, pos.long()].to(cd)
+    out = dropout(out, cfg.emb_dropout, gen, not train)
     e, h = cfg.emb_dim, cfg.n_heads
     impl = cfg.attn_impl if cfg.flash else "plain"
     for block in module.blocks:
+        block_gen = None if gen is None else torch.Generator(device=gen.device).manual_seed(
+            draw_seed(gen))
         q, k, v = split_qkv(cfg, block.attn.qkv_mat(block.attn_norm(out), cd))
         q, k, v = (t.reshape(n, lloc, h, e // h).transpose(1, 2) for t in (q, k, v))
         z = ring_attention(q, k, v, group=group, causal=True, zigzag=zigzag, chunk=chunk,
                            impl=impl)
-        out = out + block.attn.output(z.transpose(1, 2).reshape(n, lloc, e), cd)
-        out = out + block._ffn(block.ffn_norm(out), None)
-    return module.output(out, embedding)
+        z = block.attn.output(z.transpose(1, 2).reshape(n, lloc, e), cd)
+        out = out + dropout(z, cfg.attn_dropout, block_gen, not train)
+        out = out + block._ffn(block.ffn_norm(out), None, block_gen)
+    return module.output(out, embedding, generator=gen)
 
 
 def make_sp_train_step(*, group=None, zigzag: bool = False, chunk: int | None = 512,
@@ -378,12 +394,14 @@ def make_sp_train_step(*, group=None, zigzag: bool = False, chunk: int | None = 
     and the microbatches in one flat buffer. Then ``grad_norm``, the global
     clip at ``grad_clip``, the optimizer and the scheduler, as
     :func:`~vitef_tpu_torch.parallel.train_step.make_train_step`. Metrics:
-    ``loss``, ``grad_norm`` and, with ``schedule``, ``lr``.
+    ``loss``, ``grad_norm`` and, with ``schedule``, ``lr``. ``generator``
+    (the same seed on every rank) feeds dropout, each rank on its own
+    stream (:func:`apply_transformer_sp`).
     """
     if grad_acc_steps < 1:
         raise ValueError(f"grad_acc_steps must be >= 1, got {grad_acc_steps}")
 
-    def train_step(state: TrainState, batch) -> dict:
+    def train_step(state: TrainState, batch, generator: torch.Generator | None = None) -> dict:
         tokens, labels = batch
         grp = dist.group.WORLD if group is None else group
         sp, rank = dist.get_world_size(grp), dist.get_rank(grp)
@@ -405,7 +423,8 @@ def make_sp_train_step(*, group=None, zigzag: bool = False, chunk: int | None = 
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=tokens.device)
         for tok, lab in zip(tokens.chunk(grad_acc_steps), labels.chunk(grad_acc_steps)):
-            logits = apply_transformer_sp(module, tok, group=grp, zigzag=zigzag, chunk=chunk)
+            logits = apply_transformer_sp(module, tok, group=grp, zigzag=zigzag, chunk=chunk,
+                                          generator=generator)
             loss = loss_fn(logits, lab)
             loss.backward()
             loss_sum += loss.detach()

@@ -18,6 +18,7 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
+from ..models.norms import batch_norm_sites, ema_update_stats
 from ..optim import clip_by_global_norm_, global_grad_norm
 
 
@@ -66,11 +67,12 @@ def make_train_step(
     grad_clip: float | None = None,
     block_grad_norms: bool = False,
     update_stats: bool = False,
+    stats_momentum: float = 0.1,
     mesh: Any = None,
     moe_aux_coefs: tuple | None = None,
     hidden_loss: Callable | None = None,
 ):
-    """Build the train step ``(state, (x, y)) -> metrics``.
+    """Build the train step ``(state, (x, y), generator=None) -> metrics``.
 
     The batch's leading axis splits into ``grad_acc_steps`` equal
     microbatches; their float32 gradients are summed and then scaled by
@@ -97,15 +99,33 @@ def make_train_step(
     ``lb_coef · lb + z_coef · z`` joins each microbatch's loss (so ``loss``
     includes them, as in the JAX step, :119-127), and their raw values are
     reported as ``moe_lb`` and ``moe_z``, averaged over the microbatches.
+
+    ``update_stats`` (batch-norm models: PatchTST) updates the running
+    statistics as ``nn.BatchNorm1d`` does (:85-90, :128-183): each
+    microbatch's train-mode forward returns its batch statistics
+    (``module(x, return_stats=True)``), the EMA at ``stats_momentum`` chains
+    over the microbatches in order, in float32, and the result is copied
+    into the buffers after the optimizer step. The buffers are not
+    parameters, so neither autograd nor the optimizer sees them. It excludes
+    ``moe_aux_coefs`` and ``hidden_loss`` (``ValueError``, as in JAX).
+
+    ``generator`` (a ``torch.Generator`` on the batch's device) feeds
+    dropout; the microbatches draw from it in turn (the JAX step splits its
+    ``rng`` per microbatch). A model with a dropout rate > 0 needs one.
     """
-    unported = {"update_stats": update_stats, "mesh": mesh is not None}
-    missing = [name for name, hit in unported.items() if hit]
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+    if mesh is not None:
+        raise NotImplementedError("not ported yet: mesh")
+    if moe_aux_coefs is not None and update_stats:
+        raise ValueError("moe_aux_coefs and update_stats are mutually exclusive "
+                         "(no batch-norm MoE family)")
+    if hidden_loss is not None and update_stats:
+        raise ValueError("hidden_loss and update_stats are mutually exclusive "
+                         "(no batch-norm causal-LM family)")
     if grad_acc_steps < 1:
         raise ValueError(f"grad_acc_steps must be >= 1, got {grad_acc_steps}")
 
-    def train_step(state: TrainState, batch) -> dict[str, Any]:
+    def train_step(state: TrainState, batch, generator: torch.Generator | None = None
+                   ) -> dict[str, Any]:
         x, y = batch
         if x.shape[0] % grad_acc_steps:
             raise ValueError(f"batch of {x.shape[0]} does not split into "
@@ -121,12 +141,20 @@ def make_train_step(
                     "moe_z": torch.zeros((), device=x.device)}
                    if moe_aux_coefs is not None else {})
         fwd_kw = {"return_hidden": True} if hidden_loss is not None else {}
+        fwd_kw["generator"] = generator
+        sites = batch_norm_sites(module) if update_stats else {}
+        running = {path: {"running_mean": norm.running_mean.float(),
+                          "running_var": norm.running_var.float()}
+                   for path, norm in sites.items()}
         try:
             for p in frozen:
                 p.requires_grad_(True)
             for xi, yi in zip(x.chunk(grad_acc_steps), y.chunk(grad_acc_steps)):
                 if moe_aux_coefs is not None:
                     out, aux = module(xi, return_moe_aux=True, **fwd_kw)
+                elif update_stats:
+                    out, stats = module(xi, return_stats=True, **fwd_kw)
+                    running = ema_update_stats(running, stats, stats_momentum)
                 else:
                     out = module(xi, **fwd_kw)
                 loss = hidden_loss(module, out, yi) if hidden_loss is not None \
@@ -156,6 +184,10 @@ def make_train_step(
         if grad_clip:
             clip_by_global_norm_(grads, grad_clip, metrics["grad_norm"])
         state.optimizer.step()
+        with torch.no_grad():
+            for path, norm in sites.items():
+                norm.running_mean.copy_(running[path]["running_mean"])
+                norm.running_var.copy_(running[path]["running_var"])
         if schedule is not None:
             metrics["lr"] = base_lr * schedule(state.step)
         if state.scheduler is not None:
