@@ -244,11 +244,15 @@ Phases (each raises on failure, so the run exits non-zero):
     step 70 (the first logged step after the best one, the optimizer buffers
     loaded as saved); the eval command line as a subprocess (exit 0;
     ``test_acc`` that of all 10,000 test images, the last batch of 272,
-    recomputed in this process); ``linear_probing(probe_impl="torch")`` on a
-    second set of 5,000 + 1,000 images (a test accuracy for each of the 96
-    keys); then ``train_phase``'s protocol with the same freeze at 1 x 512
-    and 2 x 256 (2 warm-up and 5 timed steps each), with the peak memory of
-    each and what the command line adds per step;
+    recomputed in this process); then ``train_phase``'s protocol with the
+    same freeze at 1 x 512 and 2 x 256 (2 warm-up and 5 timed steps each),
+    with the peak memory of each and what the command line adds per step;
+    last, the linear-probing command line (``probe_impl=torch``) on a second
+    set of 5,000 + 1,000 images, started as a subprocess that runs beside 35
+    and is waited for after it (exit 0, a test accuracy for each of the 96
+    keys; its 96 L-BFGS fits are host-bound, 140-220 s), and its best key's
+    accuracy recomputed in this process by the same command line's code
+    (within one test image);
 35. the paper's figures (after 34, on its CIFAR-10 files, then removed):
     the loss-landscape ``save`` command (``apps/plots/loss_landscape.py``'s
     ``save_results``: ln1, fc1 and mha at block 0 of ViT-B/16 in float32
@@ -263,7 +267,8 @@ Phases (each raises on failure, so the run exits non-zero):
     large/16 and huge/14, a few blocks of each against scipy's float64 SVDs
     of the same weights within 1e-5; phase 34's run read back by
     ``get_single_exp`` under its sweep name; seconds per SGD step, per
-    surface, for the radius and for each model's bounds;
+    surface, for the radius and for each model's bounds, all taken while
+    34's linear-probing subprocess shares the card;
 36. head width 128 (Llama-3.1-8B: 32 heads over E = 4096): K1 in its four
     modes against its float32 plain version under the bf16 gates, lse
     within 1e-3, bit-identical over two launches: causal at an admission
@@ -323,7 +328,7 @@ Phases (each raises on failure, so the run exits non-zero):
     decoding copy, the float32 weights freed): the "1b" preset (Llama-3.2-1B's
     geometry) at full width and depth drafts, random weights from seed 1,
     drawn on the host in a thread beside 37's build; a 256-token prompt of
-    default_rng(0), 128 new, gamma 4. Plain batch-1 ``Model.generate`` gives
+    default_rng(0), 64 new, gamma 4. Plain batch-1 ``Model.generate`` gives
     the reference stream, its float32 top-2 logit margins and its rate.
     Greedy with the 1b draft and with the target as its own draft, sampled
     at T 0.8 with the self-draft: the greedy streams equal the reference up
@@ -393,6 +398,23 @@ Phases (each raises on failure, so the run exits non-zero):
     from a generator: each site's zeroed share within 5σ of 0.1, the same
     seed's masks and loss bit-equal, another seed's masks different, eval
     mode equal to rate 0. Each of 47-49 prints its seconds and peak memory.
+50. the mesh (``mesh_phase``): the ViT-B/16 train command line at 2 x 256
+    on ``synthetic-2560`` for 4 steps, on one card with no process group,
+    then in a process group of ``torch.cuda.device_count()`` NCCL ranks at
+    ``dp=-1`` (the data-parallel step) and ``fsdp=true`` (``shard_params``):
+    the dp route's logged losses and grad norms bit-equal to the one-card
+    run's, the fsdp route's within 1e-3 and its gradients within 5e-2
+    relative L2, K10, K1 and K2 at 1, 24 and 24 a step on every route, img/s
+    beside the one-card rate; GPT-2 base through ``DecodeServer(mesh=)``
+    against the plain server (the same greedy tokens, K1 once per layer an
+    admission); with two or more cards, dp = 2 and tp = 2 of both, one
+    process a card (``--mesh-train`` and ``--mesh-serve`` run a rank), and
+    the command line at dp = 2 with ``fsdp=true``: every rank's K10, K1 and
+    K2 at 1, 24 and 24 a step (K1 and K2 at H/tp heads under tp), tp = 2's
+    logged losses and grad norms within MESH_LOSS_RTOL and
+    MESH_TP_NORM_RTOL of the one-card run's and fsdp's of the dp = 2 run's,
+    and every rank's mesh server streams equal to the plain server's up to
+    a near tie.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -415,6 +437,7 @@ import os
 import pickle
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -466,6 +489,7 @@ from vitef_tpu_torch.ops import gmm_fused as GF
 from vitef_tpu_torch.ops import make_fused_head_loss, next_token_cross_entropy
 from vitef_tpu_torch.optim import build_optimizer, build_scheduler
 from vitef_tpu_torch.ops import ring_hop as RH
+from vitef_tpu_torch import parallel as PAR
 from vitef_tpu_torch.parallel import auto_grad_acc, init_train_state, make_train_step
 from vitef_tpu_torch.parallel import cross_entropy_loss
 from vitef_tpu_torch.parallel import moe as M
@@ -847,17 +871,20 @@ L8B_SERVE_ARGV = ["run", "--implementation", "llama", "--model_name", "8b", "--q
 # (Llama-3.2-1B's geometry: E = 2048, 32 heads of 64, 8 KV heads, 16 layers,
 # FFN 8192, V = 128,256) drafts at full width and depth, random weights from
 # seed 1, bf16, seq_len 1024. Batch 1: a prompt of 256 tokens from
-# default_rng(0), 128 new, gamma 4, greedy and sampled at T 0.8; the planted
-# faults' runs take 32 (the skipped draft write, with the self-draft) and
-# 16 new tokens (the commit pointer, with the 1b draft).
+# default_rng(0), 64 new (128 until the mesh phase was added: the 1b-draft
+# run alone took 24 s of the script's 1,200 s limit), gamma 4, greedy and
+# sampled at T 0.8; the planted faults' runs take 32 (the skipped draft
+# write, with the self-draft) and 16 new tokens (the commit pointer, with
+# the 1b draft).
 LLAMA_1B_DRAFT = {**LLAMA_1B, "seed": 1}
-SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA, SPEC_TEMPERATURE = 256, 128, 4, 0.8
+SPEC_PROMPT, SPEC_NEW, SPEC_GAMMA, SPEC_TEMPERATURE = 256, 64, 4, 0.8
 SPEC_FAULT_NEW = 16
 # The speculative server serves the first 16 of phase 37's 64 requests: at
 # random weights the 1b draft's proposals are rejected (acceptance ~0), so
 # a round commits one token a slot at 5 draft steps and a window of host
 # time (140-210 ms on the card), and all 64 took 47 s of the script's
-# 1,200 s limit (H100 80GB HBM3, 700 W).
+# 1,200 s limit (H100 80GB HBM3, 700 W). Fewer requests save nothing: 8
+# took 29.4 s against 16's 26.3 s, the rounds set by the longest stream.
 SPEC_SERVER_REQUESTS = 16
 # The near-tie rule for greedy streams of two bf16 routes (a verify window
 # and one-token steps, or two servers): they round at different places, so
@@ -5214,12 +5241,61 @@ def check_run_dir(run: Path, steps: int, init: dict) -> tuple[list, list, Path]:
     return train, evals, ckpts[0]
 
 
-def vit_apps_phase(device, card_line: str) -> Path:
+def probe_result(probe) -> None:
+    """Wait for the linear-probing command line that ``vit_apps_phase``
+    started: exit 0, and ``linear_probing.json`` holding 8 keys a block, each
+    accuracy in [0, 1]."""
+    proc, t0, probe_data, n_layers = probe
+    out = proc.communicate(timeout=900)[0]
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the linear-probing command line exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    saved = json.loads((LP.PROBE_DIR / APPS_LOG_DIR / "linear_probing.json").read_text())
+    best_key = max(saved, key=saved.get)
+    print(f"linear probing command line ({probe_data.name}: {APPS_PROBE_CIFAR[0]:,} train, "
+          f"{APPS_PROBE_CIFAR[1]:,} test images; probe_impl torch): exit 0 in {seconds:.2f} s "
+          f"beside the figures phase; {len(saved)} keys, accuracy "
+          f"{min(saved.values()):.4f}..{saved[best_key]:.4f} (best {best_key})")
+    if not (len(saved) == 8 * n_layers and all(0.0 <= a <= 1.0 for a in saved.values())):
+        raise AssertionError(f"linear_probing.json holds {saved}")
+    # the best key again in this process, through the command line's own
+    # code with the probes cut to that key (it rewrites linear_probing.json)
+    real = LP.run_linear_probing
+
+    def one_key(model, *args, **kwargs):
+        get_probes = model.get_probes
+        model.get_probes = lambda x: {best_key: get_probes(x)[best_key]}
+        return real(model, *args, **kwargs)
+
+    LP.run_linear_probing = one_key
+    try:
+        t0 = time.perf_counter()
+        again = LP.linear_probing(LP.LinearProbingConfig(
+            log_dir=APPS_LOG_DIR, data_dir=str(probe_data), probe_impl="torch"))
+        seconds = time.perf_counter() - t0
+    finally:
+        LP.run_linear_probing = real
+        for handler in logging.getLogger("vitef").handlers[:]:
+            logging.getLogger("vitef").removeHandler(handler)
+            handler.close()
+    print(f"linear probing of {best_key} in this process: {again[best_key]!r} against the "
+          f"command line's {saved[best_key]!r} ({seconds:.2f} s)")
+    if set(again) != {best_key} or abs(again[best_key] - saved[best_key]) > (
+            1.0 / APPS_PROBE_CIFAR[1] + 1e-9):
+        raise AssertionError("the linear-probing command line's accuracy is not recomputed "
+                             "in this process")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vit_apps_phase(device, card_line: str) -> tuple[Path, tuple]:
     """The paper's experiment through the port's command lines on the card:
     train (K10, K1, K2 each step, K1 in every evaluation batch, no plain
     version), the run dir's contract, a resume, the eval command line as a
-    subprocess and linear probing; then 10 steps at 1 x 512 and 2 x 256.
-    Returns the CIFAR-10 files' dir; the caller removes ``APPS_ROOT``."""
+    subprocess; then 10 steps at 1 x 512 and 2 x 256; then it starts linear
+    probing as a subprocess. Returns the CIFAR-10 files' dir and the probe
+    (for :func:`probe_result`); the caller removes ``APPS_ROOT``."""
     log_dir = APPS_LOG_DIR
     run = APPS_ROOT / "savings" / "runs" / log_dir
     try:
@@ -5351,23 +5427,6 @@ def vit_apps_phase(device, card_line: str) -> Path:
         gc.collect()
         torch.cuda.empty_cache()
 
-        t0 = time.perf_counter()
-        accs = LP.linear_probing(LP.LinearProbingConfig(
-            log_dir=log_dir, data_dir=str(probe_data), probe_impl="torch"))
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        saved = json.loads((LP.PROBE_DIR / log_dir / "linear_probing.json").read_text())
-        best_key = max(accs, key=accs.get)
-        print(f"linear probing ({probe_data.name}: {APPS_PROBE_CIFAR[0]:,} train, "
-              f"{APPS_PROBE_CIFAR[1]:,} test images; probe_impl torch) in {seconds:.2f} s: "
-              f"{len(saved)} keys, accuracy {min(accs.values()):.4f}..{accs[best_key]:.4f} "
-              f"(best {best_key})")
-        if not (saved == accs and len(saved) == 8 * n_layers
-                and all(0.0 <= a <= 1.0 for a in saved.values())):
-            raise AssertionError(f"linear_probing.json holds {saved}")
-        gc.collect()
-        torch.cuda.empty_cache()
-
         # 1 x 512 beside 2 x 256 with the run's freeze (train_phase's protocol).
         split = {}
         for microbatch in (APPS_BATCH, AUTO_MICROBATCH):
@@ -5391,7 +5450,15 @@ def vit_apps_phase(device, card_line: str) -> Path:
               f"{split[AUTO_MICROBATCH]['loader_img_s']:.2f}, "
               f"{split[AUTO_MICROBATCH]['device_img_s']:.2f}, peak "
               f"{split[AUTO_MICROBATCH]['peak_gib']:.3f} GiB")
-        return data
+        # Linear probing as a user runs it, in a process of its own beside the
+        # figures phase: its 96 L-BFGS fits are host-bound (140-220 s, a host
+        # sync in every iteration), and that phase's work is small.
+        probe = (subprocess.Popen(
+            [sys.executable, "-m", "vitef_tpu_torch.apps.vit.linear_probing",
+             f"log_dir={log_dir}", f"data_dir={probe_data}", "probe_impl=torch"],
+            cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter(), probe_data, n_layers)
+        return data, probe
     finally:
         # the command lines' Logger left its file and stream handlers on "vitef"
         for handler in logging.getLogger("vitef").handlers[:]:
@@ -6324,6 +6391,307 @@ def dropout_phase(device) -> None:
         raise AssertionError("dropout is not repeatable per seed, or eval mode drops")
 
 
+# ---------------------------------------------------------------------------
+# The mesh: the ('dp', 'tp') process group of the card(s) this machine has
+# ---------------------------------------------------------------------------
+
+# ViT-B/16 (cifar10.yaml: bf16, 2 x 256, every component trained) through the
+# train command line on the synthetic set sized for MESH_STEPS steps of 512
+# (2,560 images: 2,048 train, 512 validation, one evaluation at the end).
+MESH_STEPS = 4
+MESH_DATASET = "synthetic-2560"
+MESH_LOSS_RTOL = 1e-3          # the fsdp route's losses against the one-card run's
+MESH_GRAD_RTOL = 5e-2          # its gradients, relative L2
+# With two cards, the logged grad norms of tp = 2 against the one-card run's
+# and of dp = 2 with fsdp against dp = 2's, relative; their losses are held
+# to MESH_LOSS_RTOL (four cards, H100 80GB HBM3, 700 W: tp = 2's losses
+# within about 1e-4 of one card's).
+MESH_TP_NORM_RTOL = 1e-2
+MESH_RANK_LINE = "mesh rank: "  # a --mesh-train rank's launches and records
+MESH_SERVE_REQUESTS = 16       # GPT-2 base through DecodeServer(mesh=)
+MESH_SERVER = {"n_slots": 16, "max_len": 256, "bucket": 64}
+
+
+def mesh_argv(log_dir: str, *extra: str) -> list[str]:
+    return [f"config={REPO_ROOT / 'apps/vit/configs/cifar10.yaml'}", "pretrained=False",
+            f"dataset_name={MESH_DATASET}", f"n_steps={MESH_STEPS}", "warmup=1",
+            f"eval_period={MESH_STEPS}", "logging_period=1", f"log_dir={log_dir}", *extra]
+
+
+def mesh_train_run(label: str, *extra: str) -> tuple[list, dict, float]:
+    """One train command line run in this process: its logged train records
+    (none on a rank other than the master, which alone writes them), the
+    K10/K1/K2 launches of the whole run (none of a plain version) and the
+    img/s of its logged periods (median)."""
+    counters = (A.fused_mha_packed, A.packed_mha_bwd, T.augment_train_device)
+    try:
+        with no_plain_versions() as (plain_calls, aug_calls):
+            for counter in counters:
+                counter.launches = 0
+            TRAIN_APP.main(mesh_argv(f"mesh_{label}", *extra))
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counters}
+    finally:
+        for handler in logging.getLogger("vitef").handlers[:]:
+            logging.getLogger("vitef").removeHandler(handler)
+            handler.close()
+    if plain_calls or aug_calls:
+        raise AssertionError(f"the {label} route called a plain version: "
+                             f"{plain_calls + aug_calls}")
+    # the command line has left its process group: the launch names the rank
+    if int(os.environ.get("VITEF_PROCESS_ID", "0")) != 0:
+        return [], launches, float("nan")
+    records = jsonl(APPS_ROOT / "savings" / "runs" / f"mesh_{label}" / "metrics" / "raw_0.jsonl")
+    train = [r for r in records if "loss" in r]
+    rates = [b["elapsed_steps"] * APPS_BATCH / (b["ts"] - a["ts"])
+             for a, b in zip(train, train[1:])]
+    return train, launches, float(np.median(rates))
+
+
+def mesh_grads_check(device) -> float:
+    """One step's gradients of ViT-B/16 bf16 (one microbatch of
+    AUTO_MICROBATCH) under ``shard_params(fsdp=True)`` on this mesh against
+    the unsharded model's: relative L2 over every parameter."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(AUTO_MICROBATCH, 3, 224, 224, generator=gen).to(device, torch.bfloat16)
+    y = torch.randint(0, 10, (AUTO_MICROBATCH,), generator=gen).to(device)
+    grads = []
+    for fsdp in (False, True):
+        model = build_model(APPS_MODEL, device=device,
+                            generator=torch.Generator().manual_seed(42))
+        if fsdp:
+            PAR.shard_params(model, PAR.build_mesh(), fsdp=True)
+        optimizer, scheduler = build_optimizer({"optimizer": "sgd", "lr": 0.0}, model.module)
+        make_train_step()(init_train_state(model, optimizer, scheduler), (x, y))
+        grads.append(torch.cat([p.grad.float().reshape(-1)
+                                for p in model.module.parameters()]))
+        del model, optimizer, scheduler
+    err = float(torch.linalg.vector_norm(grads[1] - grads[0])
+                / torch.linalg.vector_norm(grads[0]))
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def mesh_server_check(device, mesh, exact: bool = True) -> None:
+    """GPT-2 base bf16 through ``DecodeServer(mesh=)`` and the plain server
+    over MESH_SERVE_REQUESTS requests: every request served to its budget,
+    K1 once per layer at every admission this rank owns, and the same
+    greedy tokens: all of them (``exact``), or, across cards, where the
+    partial products are summed in another order (tp) and the slots
+    batched otherwise (dp), each stream up to a near tie of the plain
+    server's (the near-tie rule, NEAR_TIE; the CPU tests hold the ranks to
+    the one-rank server in float32)."""
+    model = build_model(GPT2_BASE, device=device)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, model.config.vocab_size, size=(int(rng.integers(16, 121)),))
+             .tolist(), int(rng.integers(16, 97))) for _ in range(MESH_SERVE_REQUESTS)]
+    tokens = {}
+    for label, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+        srv = SRV.DecodeServer(model.module, model.config, **MESH_SERVER, **kw)
+        requests = [SRV.Request(prompt=p, max_new_tokens=n) for p, n in reqs]
+        # the plain streams' float32 top-2 margins, for the near-tie rule
+        recorded = stream_margins(srv) if label == "plain" else contextlib.nullcontext()
+        with recorded as by_request:
+            A.fused_mha_packed.launches = 0
+            t0 = time.perf_counter()
+            srv.serve(requests)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if label == "plain":
+            margins = [by_request[id(r)] for r in requests]
+        tokens[label] = [r.tokens for r in requests]
+        k1 = A.fused_mha_packed.launches
+        # a rank prefills the admissions into its own slots
+        own = (sum(r.slot // (srv.n_slots // mesh.dp) == mesh.dp_rank for r in requests)
+               if label == "mesh" else len(requests))
+        print(f"DecodeServer ({label}, GPT-2 base bf16, {MESH_SERVE_REQUESTS} requests, "
+              f"{MESH_SERVER['n_slots']} slots{', margins recorded' if by_request else ''}): "
+              f"{sum(map(len, tokens[label]))} tokens in {seconds:.2f} s, K1 {k1} over this "
+              f"rank's {own} admissions")
+        if label == "mesh" and k1 != model.config.n_layers * own:
+            raise AssertionError(f"the mesh server's admissions launched K1 {k1} times, want "
+                                 f"{model.config.n_layers} each")
+    if [len(t) for t in tokens["mesh"]] != [n for _, n in reqs]:
+        raise AssertionError("the mesh server did not serve every request to its budget")
+    verdicts = [near_tie(got, want, m)
+                for got, want, m in zip(tokens["mesh"], tokens["plain"], margins)]
+    same = sum(a == b for a, b in zip(tokens["mesh"], tokens["plain"]))
+    ties = [f"request {i}: {what}" for i, (ok, what) in enumerate(verdicts)
+            if ok and what != "equal"]
+    off = [f"request {i}: {what}" for i, (ok, what) in enumerate(verdicts) if not ok]
+    print(f"DecodeServer(mesh=dp {mesh.dp} x tp {mesh.tp}) rank {mesh.rank}: {same} of "
+          f"{len(reqs)} requests' greedy tokens equal the plain server's"
+          + (f"; after a near tie: {'; '.join(ties)}" if ties else "")
+          + (f"; off: {'; '.join(off)}" if off else ""))
+    if off or (exact and same != len(reqs)):
+        raise AssertionError("the mesh server's greedy tokens differ from the plain server's")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_ranks(world: int, dp: int, tp: int, want: dict, ref: list | None = None,
+               fsdp: bool = False) -> list:
+    """The train command line (``fsdp``: with fsdp=true) and, without fsdp,
+    the mesh server over ``world`` cards, one process a card as a user
+    launches them (VITEF_COORDINATOR_ADDRESS, VITEF_NUM_PROCESSES,
+    VITEF_PROCESS_ID, VITEF_LOCAL_RANK), each a run of this script
+    (``--mesh-train``, ``--mesh-serve``); every rank must exit 0 (a server
+    rank fails on its own check), and every train rank's K10/K1/K2 launches
+    must be ``want``. ``ref``: the logged train records of a run on the same
+    data (the one-card run under tp alone, the dp run under fsdp), to which
+    the losses and grad norms are held. Returns the master's records."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for what in ("train",) if fsdp else ("train", "serve"):
+        cmd = [sys.executable, str(Path(__file__).resolve()), f"--mesh-{what}", str(dp), str(tp),
+               *(["fsdp"] if fsdp else [])]
+        procs = [subprocess.Popen(cmd, cwd=REPO_ROOT, env={
+            **os.environ, "VITEF_COORDINATOR_ADDRESS": f"localhost:{port + (what == 'serve')}",
+            "VITEF_NUM_PROCESSES": str(world), "VITEF_PROCESS_ID": str(rank),
+            "VITEF_LOCAL_RANK": str(rank)}, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for rank in range(world)]
+        t0 = time.perf_counter()
+        outs = [proc.communicate(timeout=600)[0] for proc in procs]
+        for rank, (proc, out) in enumerate(zip(procs, outs)):
+            if proc.returncode != 0:
+                raise AssertionError(f"{what} at dp {dp} x tp {tp}, rank {rank} exited "
+                                     f"{proc.returncode}:\n{out[-4000:]}")
+        if what == "serve":
+            for out in outs:
+                print("\n".join(line for line in out.splitlines() if "DecodeServer" in line))
+            print(f"  (serve: {time.perf_counter() - t0:.2f} s with start-up)")
+            continue
+        ranks = [json.loads(next(line for line in out.splitlines()
+                                 if line.startswith(MESH_RANK_LINE))[len(MESH_RANK_LINE):])
+                 for out in outs]
+        train = ranks[0]["train"]
+        rates = [b["elapsed_steps"] * APPS_BATCH * dp / (b["ts"] - a["ts"])
+                 for a, b in zip(train, train[1:])]
+        print(f"train command line at dp {dp} x tp {tp}{' fsdp' if fsdp else ''} over {world} "
+              f"cards: loss "
+              f"{' '.join(repr(r['loss']) for r in train)}; grad_norm "
+              f"{' '.join(repr(r['grad_norm']) for r in train)}; launches by rank "
+              f"{[r['launches'] for r in ranks]} (want {want} each); "
+              f"{float(np.median(rates)):.2f} img/s over the mesh "
+              f"({time.perf_counter() - t0:.2f} s with start-up)")
+        if any(r["launches"] != want for r in ranks):
+            raise AssertionError(f"a rank's launches at dp {dp} x tp {tp} are not {want}")
+        if len(train) != MESH_STEPS or not all(math.isfinite(r["loss"]) for r in train):
+            raise AssertionError(f"dp {dp} x tp {tp} train records: {train}")
+        if ref is not None:
+            errs = {key: max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(train, ref))
+                    for key in ("loss", "grad_norm")}
+            print(f"dp {dp} x tp {tp}{' fsdp' if fsdp else ''} against "
+                  f"{'the dp run' if fsdp else 'one card'}: losses within {errs['loss']:.3e} "
+                  f"relative (limit {MESH_LOSS_RTOL}), grad norms within "
+                  f"{errs['grad_norm']:.3e} (limit {MESH_TP_NORM_RTOL})")
+            if errs["loss"] > MESH_LOSS_RTOL or errs["grad_norm"] > MESH_TP_NORM_RTOL:
+                raise AssertionError(f"the dp {dp} x tp {tp} route is off its reference")
+    return train
+
+
+def mesh_train_rank(dp: int, tp: int, fsdp: bool) -> None:
+    """A rank of ``mesh_ranks``' train run (``--mesh-train dp tp [fsdp]``):
+    the train command line's main in this process, on the environment's
+    process group, with this rank's launches counted; prints them, and the
+    master its logged train records, on one MESH_RANK_LINE."""
+    try:
+        train, launches, _ = mesh_train_run(f"{dp}x{tp}{'_fsdp' if fsdp else ''}", f"dp={dp}",
+                                            f"tp={tp}", f"fsdp={fsdp}")
+        print(MESH_RANK_LINE + json.dumps({"launches": launches, "train": train}))
+    finally:
+        shutil.rmtree(APPS_ROOT, ignore_errors=True)
+
+
+def mesh_serve_rank(dp: int, tp: int) -> None:
+    """A rank of ``mesh_ranks``' server run (``--mesh-serve dp tp``)."""
+    mesh = PAR.build_computing_manager(PAR.computing_config_from_env(dp, tp), device="cuda")
+    try:
+        mesh_server_check(torch.device("cuda", torch.cuda.current_device()), mesh, exact=False)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_phase(device, card_line: str) -> dict:
+    """Phase 50, the ('dp', 'tp') mesh over the process group of this
+    machine's cards (NCCL, torch.cuda.device_count() ranks; on one card a
+    one-rank group): the ViT-B/16 train command line at 2 x 256 for
+    MESH_STEPS steps on one card without a group, then on the mesh at
+    dp = -1 (the data-parallel step) and with fsdp = true (shard_params and
+    the sharded model's step): the dp route's logged losses and grad norms
+    bit-equal to the one-card run's, the fsdp route's within MESH_LOSS_RTOL
+    and its gradients within MESH_GRAD_RTOL, K10, K1 and K2 at 1, 24 and 24
+    a step on every route; then DecodeServer(mesh=) on GPT-2 base against the
+    plain server; with two or more cards, dp = 2 and tp = 2 of both
+    and dp = 2 with fsdp (``mesh_ranks``: every rank's launches, tp = 2
+    against the one-card run, fsdp against dp = 2, every server rank up to a
+    near tie). Returns the launches of the mesh
+    routes."""
+    world = torch.cuda.device_count()
+    torch.cuda.set_device(device)
+    shutil.rmtree(APPS_ROOT, ignore_errors=True)
+    try:
+        one, one_launches, one_rate = mesh_train_run("one_card")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                             world_size=1, rank=0)
+        try:
+            if world > 1:
+                print(f"mesh phase: {world} cards; the routes below run on a one-rank NCCL "
+                      "group of card 0, the dp = 2 and tp = 2 runs after them on the cards")
+            runs = {"dp": mesh_train_run("dp"), "fsdp": mesh_train_run("fsdp", "fsdp=true")}
+            grads_err = mesh_grads_check(device)
+            mesh_server_check(device, PAR.build_mesh())
+        finally:
+            torch.distributed.destroy_process_group()
+        n_layers = build_model(APPS_MODEL, device="meta").config.n_layers
+        grad_acc = APPS_BATCH // AUTO_MICROBATCH
+        eval_k1 = n_layers * -(-(2560 - 2048) // APPS_BATCH)
+        want = {"fused_mha_packed": n_layers * grad_acc * MESH_STEPS + eval_k1,
+                "packed_mha_bwd": n_layers * grad_acc * MESH_STEPS,
+                "augment_train_device": MESH_STEPS}
+        for label, (train, launches, rate) in {"one card": (one, one_launches, one_rate),
+                                               **runs}.items():
+            print(f"train command line, {label} ({card_line}): loss "
+                  f"{' '.join(repr(r['loss']) for r in train)}; grad_norm "
+                  f"{' '.join(repr(r['grad_norm']) for r in train)}; launches {launches} (want "
+                  f"{want}: K10 1, K1 {n_layers * grad_acc} and K2 {n_layers * grad_acc} a "
+                  f"step, K1 {eval_k1} in the evaluation); {rate:.2f} img/s (median of the "
+                  f"logged periods; one card {one_rate:.2f})")
+            if launches != want:
+                raise AssertionError(f"the {label} route's launches are {launches}")
+        dp, _, _ = runs["dp"]
+        if [(r["loss"], r["grad_norm"]) for r in dp] != [(r["loss"], r["grad_norm"])
+                                                         for r in one]:
+            raise AssertionError("the dp route's losses and grad norms are not the one-card "
+                                 "run's bit for bit")
+        fsdp, _, _ = runs["fsdp"]
+        loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(fsdp, one))
+        print(f"mesh routes: dp bit-equal to one card; fsdp losses within {loss_err:.3e} "
+              f"relative (limit {MESH_LOSS_RTOL}), gradients within {grads_err:.3e} relative "
+              f"L2 (limit {MESH_GRAD_RTOL}); a one-rank group splits no parameter, so these "
+              "limits hold by construction here (FSDP at dp 2 is held to the JAX package in "
+              "the CPU tests, and, with two cards, to the dp = 2 run below)")
+        if not (len(fsdp) == len(one) == MESH_STEPS and loss_err <= MESH_LOSS_RTOL
+                and grads_err <= MESH_GRAD_RTOL):
+            raise AssertionError("the fsdp route is off the one-card run")
+        if world >= 2:
+            dp2 = mesh_ranks(2, 2, 1, want)
+            mesh_ranks(2, 2, 1, want, ref=dp2, fsdp=True)
+            mesh_ranks(2, 1, 2, want, ref=one)
+        else:
+            print("mesh phase: one card, so dp = 2 and tp = 2 (two ranks) are not run here")
+        return {label: launches for label, (_, launches, _) in runs.items()}
+    finally:
+        shutil.rmtree(APPS_ROOT, ignore_errors=True)
+
+
 def stopwatch():
     """A function that prints the seconds since the script's start and since
     its last call, beside a label: where the script's time limit goes."""
@@ -6414,13 +6782,20 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     stamp("analysis and probing")
+    probe = None
     try:
-        data = vit_apps_phase(device, card_line)
+        data, probe = vit_apps_phase(device, card_line)
         gc.collect()
         torch.cuda.empty_cache()
         stamp("the ViT apps")
+        print("phase 35's seconds below are taken while phase 34's linear-probing "
+              "subprocess shares the card")
         plots_phase(card_line, data)
+        probe_result(probe)
     finally:
+        if probe is not None and probe[0].poll() is None:
+            probe[0].kill()
+            probe[0].wait()
         shutil.rmtree(APPS_ROOT, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6495,6 +6870,11 @@ def main() -> None:
     with phase_clock("49 (dropout)", device):
         dropout_phase(device)
     stamp("PatchTST, remat and dropout")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("50 (mesh)", device):
+        mesh_phase(device, card_line)
+    stamp("the mesh")
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -6564,4 +6944,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-train"]:
+        mesh_train_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4:5] == ["fsdp"])
+    elif sys.argv[1:2] == ["--mesh-serve"]:
+        mesh_serve_rank(int(sys.argv[2]), int(sys.argv[3]))
+    else:
+        main()

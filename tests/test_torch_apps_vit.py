@@ -208,7 +208,23 @@ def test_eval_on_each_others_run_dirs(runs, monkeypatch):
         assert got == pytest.approx(want, abs=1e-6)
 
 
-def test_linear_probing_on_each_others_run_dirs(runs, monkeypatch):
+@pytest.fixture
+def one_thread():
+    """torch, and the BLAS under sklearn's probes, on one thread each: 64
+    ``LogisticRegression`` fits of small problems, whose thread pools beside
+    the other test workers of a shared CPU cost far more than their
+    arithmetic (this test took 389 s under five workers and the mesh tests'
+    ranks, 18 s alone)."""
+    from threadpoolctl import threadpool_limits
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(threads)
+
+
+def test_linear_probing_on_each_others_run_dirs(runs, monkeypatch, one_thread):
     """Each package probes each run dir: the same keys and accuracies, and
     the embeddings the probes are fitted on (L2-normalised) within 1e-5."""
     config = dict(log_dir="parity", batch_size=16, val_batch_size=16, test_batch_size=16,
@@ -305,16 +321,21 @@ def test_preemption_saves_the_latest_step_and_resumes(runs, monkeypatch):
 @pytest.mark.parametrize("knobs", [{"dp": 2}, {"dp": 8}, {"tp": 2}, {"fsdp": True},
                                    {"remat": True}], ids=str)
 def test_train_refuses_more_than_one_card(runs, knobs):
-    """The mesh knobs past one card raise before a run dir is made. ``remat``
-    is ported: from the same step-0 checkpoint its run logs what the JAX
-    package's run without it logs (recomputation changes no value)."""
-    if "remat" in knobs:
-        log_dir = runs["root"] / "port" / "runs" / "remat"
+    """One process is a mesh of one rank: ``dp`` 2 or 8, or ``tp`` 2, need
+    more ranks and raise the JAX package's AssertionError (dp · tp must be
+    the world size) before a run dir is made (the mesh's ranks are
+    tests/test_torch_mesh.py's). ``fsdp`` (on one rank nothing is split, and
+    the step takes the sharded model's path) and ``remat`` run: from the same
+    step-0 checkpoint each logs what the JAX package's run without them logs
+    (neither changes a value)."""
+    if "remat" in knobs or "fsdp" in knobs:
+        (name,) = knobs
+        log_dir = runs["root"] / "port" / "runs" / name
         shutil.copytree(runs["root"] / "step0", log_dir / "checkpoints" / f"{0:010d}")
         train_app.train(train_app.TrainingConfig(**{**TRAIN, **knobs, "device": "cpu",
-                                                    "log_dir": "remat",
+                                                    "log_dir": name,
                                                     "data_dir": str(runs["root"] / "cifar10")}))
-        assert json.loads((log_dir / "config.json").read_text())["remat"] is True
+        assert json.loads((log_dir / "config.json").read_text())[name] is True
         want = [r for r in _records(runs["jax_run"]) if "loss" in r]
         got = [r for r in _records(log_dir) if "loss" in r]
         assert [r["step"] for r in got] == [r["step"] for r in want] == [1, 2, 3, 4]
@@ -322,7 +343,7 @@ def test_train_refuses_more_than_one_card(runs, knobs):
             for key in ("loss", "grad_norm"):
                 assert g[key] == pytest.approx(w[key], rel=REL), (g["step"], key)
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(AssertionError, match="must equal the number of devices"):
         train_app.train(train_app.TrainingConfig(**{**TRAIN, **knobs, "device": "cpu",
                                                     "log_dir": "refused"}))
     assert not (runs["root"] / "port" / "runs" / "refused").exists()

@@ -22,6 +22,7 @@ import apps.vit.eval as jax_eval_app
 import apps.vit.linear_probing as jax_probe_app
 import apps.vit.train as jax_train_app
 import vitef_tpu.monitor as jax_monitor
+import vitef_tpu.monitor.checkpoint as jax_checkpoint
 import vitef_tpu.monitor.orchestrator as jax_orch
 from vitef_tpu.models import build_model as jax_build_model
 from vitef_tpu.utils import cli as jax_cli
@@ -247,6 +248,38 @@ def test_checkpointer_lifecycle_matches_jax(tmp_path):
     np.testing.assert_array_equal(got_loaded["model"]["w"], want_loaded["model"]["w"])
 
 
+def test_checkpointer_writes_one_process_pieces_whole(tmp_path):
+    """In a run of one process, the pieces the train command line hands the
+    checkpointer are written as ``model.npz`` and ``optim.npz``, equal to
+    the whole-state helpers' arrays, and load back as they were saved."""
+    torch.manual_seed(0)
+    module = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.LayerNorm(4))
+    optimizer = torch.optim.AdamW(module.parameters(), lr=1e-2)
+    module(torch.randn(2, 3)).square().sum().backward()
+    optimizer.step()
+    ck = monitor.Checkpointer(
+        monitor.CheckpointerConfig(path=str(tmp_path)),
+        lambda: {"model": CK.model_pieces(module),
+                 "optim": CK.optimizer_pieces(optimizer, module), "training": {"step": 1}})
+    ck.step = 1
+    ck.update()
+    ck._wait()
+    step = tmp_path / "0000000001"
+    assert sorted(p.name for p in step.iterdir()) == ["model.npz", "optim.npz", "training.json"]
+    for name, want in (("model", CK.model_state(module)),
+                       ("optim", CK.optimizer_state(optimizer, module))):
+        with np.load(step / f"{name}.npz") as z:
+            assert sorted(z.files) == sorted(want)
+            for key in want:
+                np.testing.assert_array_equal(z[key], want[key])
+    loaded = {}
+    monitor.Checkpointer(monitor.CheckpointerConfig(path=str(tmp_path)), None,
+                         lambda m, o, t: loaded.update(model=m, optim=o, training=t)).load(step)
+    assert loaded["training"] == {"step": 1}
+    for key, value in CK.model_state(module).items():
+        np.testing.assert_array_equal(loaded["model"][key], value)
+
+
 def test_checkpointer_eval_flag_and_incomplete_dirs(tmp_path):
     ck = monitor.Checkpointer(monitor.CheckpointerConfig(period=1, n_kept=1,
                                                          path=str(tmp_path / "c")),
@@ -271,8 +304,14 @@ def test_checkpointer_eval_flag_and_incomplete_dirs(tmp_path):
     assert Path(monitor.Checkpointer.get_last_checkpoint_path(root)).name == "0000000004"
     ck._cleaning()
     assert not junk_old.exists() and junk_new.exists() and (root / "0000000001").exists()
-    with pytest.raises(NotImplementedError):
+    # the sharded layout is read (tests/test_torch_mesh.py), and a dir
+    # without its index raises as the JAX reader does
+    with pytest.raises(FileNotFoundError):
         CK._load_flat(junk_new, "model")
+    with pytest.raises(FileNotFoundError):
+        jax_checkpoint._load_flat(junk_new, "model")
+    with pytest.raises(FileNotFoundError, match="missing model.shard1.npz"):
+        CK._load_flat(partial, "model")
 
 
 def test_to_jax_params_inverts_from_jax_params():

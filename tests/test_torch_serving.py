@@ -24,6 +24,7 @@ from vitef_tpu_torch.apps.gpt2 import sample as sample_app
 from vitef_tpu_torch.apps.gpt2 import serve as serve_app
 from vitef_tpu_torch.models import build_model, cache_from_jax, from_jax_params
 from vitef_tpu_torch.models import serving as S
+from vitef_tpu_torch.parallel import build_mesh
 from vitef_tpu_torch.utils.cli import make_cli
 
 DECODER = {"implementation": "transformer", "vocab_size": 48, "emb_type": "dict",
@@ -146,9 +147,11 @@ def test_window_matches_jax_from_shared_cache(decoder):
 
 
 def test_unported_options_and_oversized_requests_raise(decoder):
-    """The multi-device server (mesh=) is the one option still unported; the
-    prefix cache and speculative windows run (tests/test_torch_serving_spec.py
-    holds them against the JAX server); oversized requests raise."""
+    """Every option is ported: the prefix cache and speculative windows run
+    (tests/test_torch_serving_spec.py holds them against the JAX server), and
+    so does the mesh server on a mesh of one rank (tests/test_torch_mesh.py
+    holds its ranks), whose asserts are the JAX server's (n_slots % dp, the
+    heads % tp); oversized requests raise."""
     _, tm = decoder
     srv = S.DecodeServer(tm.module, tm.config, n_slots=2, bucket=8)
     handle = srv.register_prefix([1, 2, 3])
@@ -157,8 +160,13 @@ def test_unported_options_and_oversized_requests_raise(decoder):
     spec = S.DecodeServer(tm.module, tm.config, n_slots=2, bucket=8, draft_params=tm)
     (req,) = spec.serve([S.Request(prompt=[4, 5], max_new_tokens=3)])
     assert req.done and req.tokens == alone(tm, [4, 5], 3) and spec.spec_rounds > 0
-    with pytest.raises(NotImplementedError):
-        S.DecodeServer(tm.module, tm.config, n_slots=2, mesh=object())
+    mesh = build_mesh()
+    on_mesh = S.DecodeServer(tm.module, tm.config, n_slots=2, bucket=8, mesh=mesh)
+    (req,) = on_mesh.serve([S.Request(prompt=[4, 5], max_new_tokens=3)])
+    assert req.done and req.tokens == alone(tm, [4, 5], 3)
+    for shape, n_slots in (({"dp": 2, "tp": 1}, 3), ({"dp": 1, "tp": 3}, 2)):
+        with pytest.raises(AssertionError):
+            S.DecodeServer(tm.module, tm.config, n_slots=n_slots, mesh=type(mesh)(**shape))
     for prompt, max_new in (([1] * 40, 9), ([], 3), ([1, 2], 0)):  # max_len is 48
         with pytest.raises(ValueError, match="does not fit"):
             srv.admit(S.Request(prompt=prompt, max_new_tokens=max_new), 0)

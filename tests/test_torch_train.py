@@ -24,6 +24,7 @@ from vitef_tpu.data.images import loader as jax_loader
 from vitef_tpu.data.images import transforms as jax_transforms
 from vitef_tpu.models import build_model as jax_build_model
 from vitef_tpu.ops import attention as jax_attention
+from vitef_tpu.parallel import build_mesh as jax_build_mesh
 from vitef_tpu.parallel import init_train_state as jax_init_train_state
 from vitef_tpu.parallel import make_train_step as jax_make_train_step
 from vitef_tpu.utils.tree import keystr_dotted
@@ -454,17 +455,28 @@ def test_train_step_bf16_matches_jax():
                                    err_msg=n)
 
 
-@pytest.mark.parametrize("kwargs", [{"update_stats": True}, {"mesh": object()},
+class _TpMesh:
+    """A mesh's shape with tp = 2 (no ranks needed for the refusal)."""
+
+    shape = {"dp": 1, "tp": 2}
+
+
+@pytest.mark.parametrize("kwargs", [{"update_stats": True}, {"mesh": _TpMesh()},
                                     {"moe_aux_coefs": (0.1, 0.1)}],
                          ids=["update_stats", "mesh", "moe_aux_coefs"])
 def test_unported_train_step_options_raise(kwargs):
-    """The mesh is not ported and raises. ``update_stats`` (ported with
-    PatchTST, tests/test_torch_patchtst.py) and ``moe_aux_coefs`` (with the
-    MoE family, tests/test_torch_moe.py) build, and the pairs the JAX step
-    refuses (:102-107) raise its ValueError."""
+    """The data-parallel mesh step (ported, tests/test_torch_mesh.py) refuses
+    a mesh with tp > 1 with an AssertionError, as the JAX step asserts
+    (:222-226). ``update_stats`` (ported with PatchTST,
+    tests/test_torch_patchtst.py) and ``moe_aux_coefs`` (with the MoE family,
+    tests/test_torch_moe.py) build, and the pairs the JAX step refuses
+    (:102-107) raise its ValueError."""
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(AssertionError, match="data-parallel only"):
             make_train_step(**kwargs)
+        with pytest.raises(AssertionError):
+            jax_make_train_step(None, None, mesh=jax_build_mesh(dp=1, tp=2,
+                                                               devices=jax.devices()[:2]))
         return
     make_train_step(**kwargs)
     with pytest.raises(ValueError, match="mutually exclusive"):

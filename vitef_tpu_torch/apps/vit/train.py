@@ -21,9 +21,30 @@ train augment K10, then K1 forward and K2 backward in every block of every
 microbatch on CUDA; batch ``batch_size`` splits into equal microbatches of
 at most ``auto_microbatch`` rows (512 -> 2 x 256). Metrics stay on the card
 between logging periods. The run is on the card unless ``device=cpu``;
-without one it raises. The mesh knobs mean one card (``dp`` -1 or 1, ``tp``
-1, no ``fsdp``); other values raise. ``remat`` recomputes each block in the
-backward (``torch.utils.checkpoint``).
+without one it raises. ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``).
+
+The mesh (:164-300): one process per card. A launch of several processes
+gives each ``VITEF_COORDINATOR_ADDRESS``, ``VITEF_NUM_PROCESSES``,
+``VITEF_PROCESS_ID`` and ``VITEF_LOCAL_RANK``
+(:func:`~vitef_tpu_torch.parallel.mesh.computing_config_from_env`), or
+calls :func:`train` inside a process group it made; the ranks form the
+``('dp', 'tp')`` mesh of ``dp``/``tp`` (``dp=-1``: world // tp; dp · tp must
+be the world size). Each rank's train loader takes the disjoint stride of
+its dp index (``batch_size`` rows a step per rank, as each JAX process
+loads its own), the microbatch split is taken on those rows, and:
+
+- tp = 1 without ``fsdp``: parameters replicated, the data-parallel step
+  (``make_train_step(mesh=)``) averaging the gradients over 'dp';
+- tp > 1 or ``fsdp``: :func:`~vitef_tpu_torch.parallel.shard_params`, and
+  the step on the sharded module.
+
+Every rank evaluates the whole validation set and saves the checkpoint (the
+sharded layout when there are several processes); the master alone writes
+``config.json`` and the metric records. Attention keeps its kernel route
+under every mesh: per rank it is ordinary attention on the local rows and,
+under tp, on the local heads (the JAX package falls back to XLA attention
+under tp or fsdp, since a ``pallas_call`` has no SPMD rule).
 """
 
 from __future__ import annotations
@@ -34,15 +55,17 @@ from contextlib import ExitStack
 from dataclasses import asdict, dataclass
 
 import torch
+import torch.distributed as dist
 
 from ...data.images import build_train_val_loader, make_iterable
 from ...eval import run_evaluation
 from ...models import build_model
 from ...monitor import Checkpointer, Logger, PreemptionGuard, Utility, build_orchestrator
-from ...monitor.checkpoint import (load_model_state, load_optimizer_state, model_state,
-                                   optimizer_state)
+from ...monitor.checkpoint import (load_model_state, load_optimizer_state, model_pieces,
+                                   optimizer_pieces)
 from ...optim import build_optimizer, build_scheduler, freeze_components
-from ...parallel import auto_grad_acc, init_train_state, make_train_step
+from ...parallel import (auto_grad_acc, build_computing_manager, computing_config_from_env,
+                         init_train_state, make_train_step, shard_params)
 from ...utils.cli import load_config_from_cli
 from .utils import resolve_device
 
@@ -91,7 +114,7 @@ class TrainingConfig:
     warmup: int = 2000
     min_factor: float = 0
 
-    # Execution: the mesh knobs must mean one card
+    # Execution
     dp: int = -1
     tp: int = 1
     fsdp: bool = False
@@ -130,20 +153,18 @@ def _rewind_scheduler(scheduler, step: int) -> None:
     scheduler._last_lr = [group["lr"] for group in scheduler.optimizer.param_groups]
 
 
-def _require_one_card(config: TrainingConfig) -> None:
-    """The configs' mesh knobs (``dp: -1, tp: 1``) mean one card here: ``dp``
-    -1 or 1, ``tp`` 1, no ``fsdp``. Other values raise."""
-    if config.dp not in (-1, 1) or config.tp != 1 or config.fsdp:
-        raise NotImplementedError(
-            f"dp={config.dp}, tp={config.tp}, fsdp={config.fsdp}: the port trains on one card "
-            "(dp -1 or 1, tp 1, no fsdp); the mesh is not ported")
-
-
 def train(config: TrainingConfig) -> None:
     """Run training, checkpointing the best evaluated model."""
-    _require_one_card(config)
     device = resolve_device(config.device)
+    joined = not dist.is_initialized()
+    mesh = build_computing_manager(computing_config_from_env(config.dp, config.tp, config.fsdp),
+                                   device=device.type)
+    joined = joined and dist.is_initialized()  # the group this run set up, and leaves
+    # the data-parallel step wherever there are ranks and nothing is sharded
+    dp_step = mesh.tp == 1 and not config.fsdp and dist.is_initialized()
     with ExitStack() as context_stack:
+        if joined:
+            context_stack.callback(dist.destroy_process_group)
         orchestrator = build_orchestrator({
             "log_dir": config.log_dir,
             "overwrite": config.overwrite,
@@ -169,6 +190,9 @@ def train(config: TrainingConfig) -> None:
             "num_workers": config.num_workers,
             "compute_dtype": config.compute_dtype,
             "seed": config.seed,
+            # data parallelism: each rank loads a disjoint shard of each epoch
+            "shard_index": mesh.dp_rank,
+            "shard_count": mesh.dp,
         }
         if config.data_dir:
             loader_config["save_dir"] = config.data_dir
@@ -189,6 +213,9 @@ def train(config: TrainingConfig) -> None:
             return_config=True)
         module = model.module
         trainable = freeze_components(module, config.components)
+        if mesh.tp > 1 or config.fsdp:
+            shard_params(model, mesh, fsdp=config.fsdp)
+        layout = getattr(module, "mesh_layout", None)
         logger.info("Done building model.")
 
         logger.info("Building optimizer.")
@@ -199,20 +226,21 @@ def train(config: TrainingConfig) -> None:
              "weight_decay": config.weight_decay}, module, schedule=schedule)
         grad_acc_steps = config.grad_acc_steps
         if grad_acc_steps == 1 and config.auto_microbatch > 0:
+            # each rank's loader gives it batch_size rows, on its one card
             grad_acc_steps = auto_grad_acc(config.batch_size, config.auto_microbatch)
             if grad_acc_steps > 1:
-                logger.info(f"Batch {config.batch_size} > auto_microbatch "
+                logger.info(f"Per-device batch {config.batch_size} > auto_microbatch "
                             f"{config.auto_microbatch}: using exact gradient accumulation "
                             f"x{grad_acc_steps}.")
         step_fn = make_train_step(grad_acc_steps=grad_acc_steps, schedule=schedule,
                                   base_lr=config.lr, grad_clip=config.grad_clip,
-                                  block_grad_norms=config.log_block_grad_norms)
+                                  block_grad_norms=config.log_block_grad_norms,
+                                  mesh=mesh if dp_step else None)
         state = init_train_state(model, optimizer, scheduler)
         logger.info("Done building optimizer.")
 
-        def get_state():
-            return {"model": model_state(module),
-                    "optim": optimizer_state(optimizer, module),
+        def get_state():  # this rank's pieces; the checkpointer picks the layout
+            return {"model": model_pieces(module), "optim": optimizer_pieces(optimizer, module),
                     "training": {"step": state.step, "acc_step": state.acc_step}}
 
         def set_state(model_flat, optim_flat, training):
@@ -227,7 +255,10 @@ def train(config: TrainingConfig) -> None:
                                   set_state=set_state, model_config=model_config)
         context_stack.enter_context(checkpoint)  # auto-resume
 
-        metric_logger.report_model_size(module, trainable)
+        metric_logger.report_model_size(
+            module if layout is None else
+            {name: torch.empty(shape, device="meta")
+             for name, shape in layout.full_shapes.items()}, trainable)
         current_time = time.time()
         current_step = state.step
         checkpoint.sync_step(current_step)
@@ -248,7 +279,7 @@ def train(config: TrainingConfig) -> None:
                 batch = (torch.cat(xs), torch.cat(ys))
             else:
                 batch = next(iterator)
-            last_metrics = step_fn(state, batch)
+            last_metrics = step_fn(state, batch)  # the loader gives this rank its rows
             step = state.step
 
             utility()

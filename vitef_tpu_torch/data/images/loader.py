@@ -115,12 +115,20 @@ class Loader:
     ``indices`` restricts the loader to a subset of the dataset (a train/val
     split). ``shuffle`` (default: in train mode) draws a new order of it
     every epoch; ``num_workers`` threads decode file-backed images.
+
+    ``shard_index``/``shard_count`` (data parallelism over several
+    processes, :150-205): every process draws the same epoch order (same
+    seed), trims it to a multiple of ``shard_count`` so that every process
+    runs the same number of batches, and takes the disjoint stride
+    ``order[shard_index::shard_count]``; each batch is ``batch_size`` rows
+    of that stride.
     """
 
     def __init__(self, dataset, *, device, batch_size: int = 128, size: int = 224,
                  mode: str = "test", shuffle: bool | None = None, drop_last: bool = True,
                  seed: int = 0, num_workers: int = 8, prefetch: int = 2,
-                 compute_dtype: str = "float32", indices: np.ndarray | None = None):
+                 compute_dtype: str = "float32", indices: np.ndarray | None = None,
+                 shard_index: int = 0, shard_count: int = 1):
         self.mode = mode.lower()
         if self.mode not in ("train", "val", "test"):
             raise ValueError(f"Mode {mode} not found. Options are 'train', 'val' and 'test'.")
@@ -135,19 +143,32 @@ class Loader:
         self.prefetch = max(1, prefetch)
         self.compute_dtype = getattr(torch, compute_dtype)
         self.indices = np.arange(len(dataset)) if indices is None else np.asarray(indices)
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard_index {shard_index} is not in [0, {shard_count})")
+        self.shard_index, self.shard_count = shard_index, shard_count
         self.n_classes = dataset.n_classes
         if len(self) == 0:
             raise ValueError(
-                f"Loader yields 0 batches/epoch: {len(self.indices)} sample(s) with "
-                f"batch_size={batch_size}, drop_last={drop_last}.")
+                f"Loader yields 0 batches/epoch: {len(self.indices)} sample(s) (shard "
+                f"{shard_index}/{shard_count}) with batch_size={batch_size}, "
+                f"drop_last={drop_last}.")
 
     def __len__(self):
-        n = len(self.indices)
+        n = len(self.indices) // self.shard_count
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def _batches(self) -> list[np.ndarray]:
-        """Index arrays of the epoch's batches; a shuffling loader draws a permutation."""
+    def _epoch_order(self) -> np.ndarray:
+        """This shard's sample order for one epoch (a shuffling loader draws
+        a permutation of the whole epoch first)."""
         order = self.rng.permutation(self.indices) if self.shuffle else self.indices
+        if self.shard_count > 1:
+            order = order[:len(order) - len(order) % self.shard_count]
+            order = order[self.shard_index::self.shard_count]
+        return order
+
+    def _batches(self) -> list[np.ndarray]:
+        """Index arrays of the epoch's batches."""
+        order = self._epoch_order()
         n, bs = len(order), self.batch_size
         batches = [order[end - bs:end] for end in range(bs, n + 1, bs)]
         if not self.drop_last and n % bs:
@@ -212,7 +233,8 @@ class Loader:
                 yield self._to_device(kind, host)
 
 
-_LOADER_KEYS = ("num_workers", "seed", "prefetch", "compute_dtype")
+_LOADER_KEYS = ("num_workers", "seed", "prefetch", "compute_dtype", "shard_index",
+                "shard_count")
 
 
 def _pop_loader_kwargs(config: dict) -> dict:
@@ -248,6 +270,7 @@ def build_train_val_loader(config: dict[str, Any], *, device, train_size: float 
     val_batch_size = config.pop("val_batch_size", 128)
     size = config.pop("size", 224)
     extra = _pop_loader_kwargs(config)
+    val_extra = {k: v for k, v in extra.items() if k not in ("shard_index", "shard_count")}
     if config["dataset_name"] in PREDEFINED_VAL_DATASETS:
         logger.info("Validation set is pre-defined and used directly without splitting the "
                     "training set.")
@@ -267,7 +290,8 @@ def build_train_val_loader(config: dict[str, Any], *, device, train_size: float 
                           mode="train", shuffle=True, drop_last=True, indices=train_idx,
                           **extra)
     val_loader = Loader(val_set, device=device, batch_size=val_batch_size, size=size,
-                        mode="val", shuffle=False, drop_last=False, indices=val_idx, **extra)
+                        mode="val", shuffle=False, drop_last=False, indices=val_idx,
+                        **val_extra)
     if return_n_classes:
         return train_loader, val_loader, n_classes
     return train_loader, val_loader

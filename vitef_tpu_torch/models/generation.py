@@ -178,8 +178,9 @@ def _attention_prefill(attn, cfg: TransformerConfig, x, key_mask=None, positions
     kernel's masked mode; otherwise the grouped einsum with float32 scores.
     """
     cd = cfg.cdtype()
-    n, l, e = x.shape
+    n, l = x.shape[:2]
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    e = h * d  # the attention width: this rank's heads under tensor parallelism
     q, k, v = split_qkv(cfg, attn.qkv_mat(x, cd))
     if cfg.uses_rope:
         pos_ids = torch.arange(l, device=x.device) if positions is None else positions

@@ -38,17 +38,30 @@ standalone ``generate()`` on its prompt (on [prefix ++ prompt] with a
 prefix), whatever its co-tenants, speculative or not. The server decodes
 with ``generation.decode_module``'s copy of the weight matrices in the
 compute dtype, made once, and serves a module from ``Model.quantize_int8``
-(int8 weights) through the same functions. Not ported yet: the
-multi-device server (``mesh``), which raises ``NotImplementedError``.
+(int8 weights) through the same functions.
+
+- the mesh (``mesh=``, :548-575): one process per card, every rank running
+  the same host loop on the same requests. The parameters are split by the
+  training TP rules (``parallel.mesh.shard_params``: each rank's heads of
+  the packed qkv and the attention output, its fc1/fc2 columns, one
+  all-reduce after each row-parallel product), and the cache pool has
+  n_slots/dp slots (the dp rank's own, a contiguous block) of n_kv_heads/tp
+  heads on each rank. An admission prefills on the slot's dp rank, which
+  broadcasts the first token over 'dp'; each window runs on every rank's
+  own slots and the window's tokens are gathered over 'dp', so that every
+  rank's host state, and its admission decisions, stay in step. Greedy
+  outputs are the one-rank server's.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from ..ops.common import bmm_f32
 from .generation import (_NEG_INF, _block_decode, _block_prefill, _check_decoder, _embed_token,
@@ -119,8 +132,9 @@ def _attend_prefix(attn, cfg: TransformerConfig, x, ctx_k, ctx_v):
     causality keeps real queries off them, and their K/V lands past the
     slot's position."""
     cd = cfg.cdtype()
-    _, pb, e = x.shape
+    pb = x.shape[1]
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    e = h * d  # the attention width: this rank's heads under tensor parallelism
     g, plen = h // kv, ctx_k.shape[1]
     q, k, v = split_qkv(cfg, attn.qkv_mat(x, cd))
     own = torch.arange(pb, device=x.device)
@@ -260,8 +274,26 @@ class DecodeServer:
                  generator: torch.Generator | None = None, mesh=None, draft_params=None,
                  draft_cfg: TransformerConfig | None = None, gamma: int = 4):
         _check_decoder(cfg)
+        self.mesh = mesh
+        self.n_local, self.slot0 = n_slots, 0  # this rank's slots: [slot0, slot0 + n_local)
         if mesh is not None:
-            raise NotImplementedError("multi-device serving (mesh=) is not ported yet")
+            if n_slots % mesh.dp:
+                raise AssertionError("n_slots must divide over the dp axis")
+            if cfg.n_heads % mesh.tp or cfg.n_kv_heads % mesh.tp:
+                raise AssertionError("the heads and the KV heads must divide over the tp axis")
+            if draft_params is not None:
+                raise AssertionError("speculative serving is the single-device path")
+            self.n_local = n_slots // mesh.dp
+            self.slot0 = mesh.dp_rank * self.n_local
+            if mesh.tp > 1:
+                from ..parallel.mesh import shard_params
+                from .tensor_parallel import local_config
+
+                if any(p.dtype == torch.int8 for p in module.parameters()):
+                    raise NotImplementedError("int8 weights under tensor parallelism are not "
+                                              "ported (their scales are not split)")
+                module = shard_params(copy.deepcopy(module), mesh)
+                cfg = local_config(cfg, mesh.tp)
         self.module, self.cfg = decode_module(module, cfg), cfg
         self.device = next(module.parameters()).device
         self.n_slots = n_slots
@@ -272,7 +304,7 @@ class DecodeServer:
         self.eos_token_id = eos_token_id
         self.bucket = bucket
         self.window = max(1, harvest_every)
-        self.cache = init_kv_cache(cfg, n_slots, self.max_len, device=self.device)
+        self.cache = init_kv_cache(cfg, self.n_local, self.max_len, device=self.device)
         self._prefixes: dict[int, dict] = {}
         self.prefill_tokens_saved = 0  # prefix tokens copied, not recomputed
         self.draft = None
@@ -305,8 +337,8 @@ class DecodeServer:
         """Clear all slots and the step counters (registered prefixes stay).
         The caches need no zeroing: admission overwrites ``[0, len)`` and each
         slot's position masks everything beyond."""
-        def zeros():
-            return torch.zeros(self.n_slots, dtype=torch.long, device=self.device)
+        def zeros():  # this rank's slots
+            return torch.zeros(self.n_local, dtype=torch.long, device=self.device)
 
         self.pos, self.token, self.limit = zeros(), zeros(), zeros()
         self.active = [False] * self.n_slots
@@ -367,19 +399,28 @@ class DecodeServer:
                              f"{req.max_new_tokens} new tokens (and {headroom} of speculative "
                              f"headroom) does not fit max_len {self.max_len}")
         padded, length = self._bucketed(req.prompt, room=self.max_len - plen)
-        if plen:
-            logits = _admit_prefix(self.module, self.cfg, self.cache, self.pos, slot,
-                                   self._prefixes[req.prefix]["kv"], padded, length)
-            self.prefill_tokens_saved += plen
-        else:
-            logits = _admit(self.module, self.cfg, self.cache, self.pos, slot, padded, length)
-            if self.draft is not None:
-                _admit(self.draft, self.draft_cfg, self.draft_cache, self.pos, slot, padded,
-                       length)
-        first = self._sample(logits)
-        self.token[slot] = first
-        # the remaining max_new - 1 ticks end when the position reaches this
-        self.limit[slot] = plen + length + req.max_new_tokens - 1
+        local = slot - self.slot0
+        mine = 0 <= local < self.n_local
+        first = torch.zeros((), dtype=torch.long, device=self.device)
+        if mine:
+            if plen:
+                logits = _admit_prefix(self.module, self.cfg, self.cache, self.pos, local,
+                                       self._prefixes[req.prefix]["kv"], padded, length)
+            else:
+                logits = _admit(self.module, self.cfg, self.cache, self.pos, local, padded,
+                                length)
+                if self.draft is not None:
+                    _admit(self.draft, self.draft_cfg, self.draft_cache, self.pos, local,
+                           padded, length)
+            first = self._sample(logits)
+            self.token[local] = first
+            # the remaining max_new - 1 ticks end when the position reaches this
+            self.limit[local] = plen + length + req.max_new_tokens - 1
+        if self.mesh is not None and self.mesh.dp_group is not None:
+            first = first.clone()  # the slot's dp rank sends its first token
+            owner = (slot // self.n_local) * self.mesh.tp + self.mesh.tp_rank
+            dist.broadcast(first, src=owner, group=self.mesh.dp_group)
+        self.prefill_tokens_saved += plen
         self.active[slot] = True
         self._owner[slot] = req
         req.slot = slot
@@ -401,7 +442,8 @@ class DecodeServer:
         """One window of decode ticks (or speculative rounds) for all slots,
         harvested in one copy to the host; each owner's stream is cut at its
         budget or EOS."""
-        active = torch.tensor(self.active, device=self.device)
+        active = torch.tensor(self.active[self.slot0:self.slot0 + self.n_local],
+                              device=self.device)
         if self.draft is not None:
             self._spec_step(active)
             return
@@ -410,6 +452,10 @@ class DecodeServer:
             self.generator, window=self.window, temperature=self.temperature,
             top_k=self.top_k, top_p=self.top_p, eos_id=self.eos_token_id)
         self.steps += self.window
+        if self.mesh is not None and self.mesh.dp_group is not None:
+            parts = [torch.empty_like(toks) for _ in range(self.mesh.dp)]
+            dist.all_gather(parts, toks.contiguous(), group=self.mesh.dp_group)
+            toks = torch.cat(parts, dim=1)  # every rank's slots, in slot order
         toks = toks.cpu().tolist()  # (window, S)
         for t in range(self.window):
             for slot, owner in enumerate(self._owner):

@@ -52,7 +52,11 @@ positions, swiglu FFN, rms norm, untied head) and the MoE family's FFN
 mean of the router's aux losses, :782-840), forward, and backward through
 autograd; and the paper's read-outs, ``get_decomposition`` and ``get_probes``
 (:851-938). ``norm_impl`` reaches every LayerNorm, which takes kernel K6 for
-``"kernel"`` on CUDA. Every option of the config is ported.
+``"kernel"`` on CUDA. Every option of the config is ported. Under tensor
+parallelism (``parallel.mesh.shard_params``) each block's attention and FFN
+hold one rank's heads and columns and compute with the local config; the
+column- and row-parallel ``Linear``s run the two collectives of
+:mod:`~vitef_tpu_torch.models.tensor_parallel`.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ from .norms import BatchNorm, build_norm
 from .patching import (extract_patches_chw, image_patch_dims, patch_images_raw,
                        patch_timeseries)
 from .rope import apply_rope, rope_angles
+from .tensor_parallel import tp_enter, tp_reduce
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -269,7 +274,13 @@ class Linear(nn.Module):
     of :func:`~vitef_tpu_torch.models.quantize.quantize_module`) is the JAX
     package's int8 linear: the int8 values cast to the compute dtype (exact),
     the product accumulated and returned in float32, times the scale, then
-    cast to the compute dtype."""
+    cast to the compute dtype.
+
+    Under tensor parallelism (``parallel.mesh.shard_params``) ``tp`` is
+    ``("column", mesh)``, whose rank holds some output rows, or ``("row",
+    mesh)``, whose rank holds a slice of the input axis: its partial products
+    are summed over the mesh's tp group (:func:`~.tensor_parallel.tp_reduce`)
+    before the bias is added."""
 
     def __init__(self, fan_in: int, fan_out: int, bias: bool, *,
                  device: torch.device, generator: torch.Generator):
@@ -278,14 +289,20 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(_uniform((fan_out, fan_in), bound, generator).to(device))
         self.bias = (nn.Parameter(_uniform((fan_out,), bound, generator).to(device))
                      if bias else None)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+        mode, group = (self.tp[0], self.tp[1].tp_group) if self.tp else (None, None)
+        if mode == "column":
+            x = tp_enter(x, group)
         if self.weight.dtype == torch.int8:
             flat = x.to(compute_dtype).reshape(-1, x.shape[-1])
             out = mm_f32(flat, self.weight.to(compute_dtype).t()) * self.scale
             out = out.to(compute_dtype).reshape(*x.shape[:-1], -1)
         else:
             out = F.linear(x.to(compute_dtype), self.weight.to(compute_dtype))
+        if mode == "row":
+            out = tp_reduce(out, group)
         if self.bias is not None:
             out = out + self.bias.to(compute_dtype)
         return out
@@ -381,7 +398,7 @@ class Embedding(nn.Module):
 
 def split_qkv(cfg: TransformerConfig, qkv: torch.Tensor):
     """Split the packed projection (..., E + 2*kv_dim) into (q, k, v) (:462-465)."""
-    e, kvd = cfg.emb_dim, cfg.kv_dim
+    e, kvd = cfg.n_heads * cfg.head_dim, cfg.kv_dim
     return qkv[..., :e], qkv[..., e:e + kvd], qkv[..., e + kvd:]
 
 
@@ -407,11 +424,20 @@ class Attention(nn.Module):
         if cfg.uses_gqa or cfg.uses_rope:
             out = self._modern(x, impl, verbose)
         else:
+            # under tensor parallelism: this rank's heads, then the sum of
+            # the output's partial products, then its bias
+            group = self.output.tp[1].tp_group if self.output.tp else None
             out = multi_head_attention(
-                x, self.qkv_mat.weight, self.qkv_mat.bias,
-                self.output.weight, self.output.bias,
+                tp_enter(x, group), self.qkv_mat.weight, self.qkv_mat.bias,
+                self.output.weight, None if group else self.output.bias,
                 n_heads=cfg.n_heads, causal=cfg.causal, impl=impl,
                 verbose=verbose, compute_dtype=cfg.cdtype())
+            if group is not None:
+                out, weights = out if verbose else (out, None)
+                out = tp_reduce(out, group)
+                if self.output.bias is not None:
+                    out = out + self.output.bias.to(out.dtype)
+                out = (out, weights) if verbose else out
         if verbose:
             out, weights = out
             return dropout(out, cfg.attn_dropout, generator, not self.training), weights
@@ -435,8 +461,9 @@ class Attention(nn.Module):
         """
         cfg = self.cfg
         cd = cfg.cdtype()
-        n, l, e = x.shape
+        n, l = x.shape[:2]
         h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        e = h * d  # the attention width: this rank's heads under tensor parallelism
         q, k, v = split_qkv(cfg, self.qkv_mat(x, cd))
         cos = sin = None
         if cfg.uses_rope:

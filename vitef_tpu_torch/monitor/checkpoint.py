@@ -27,8 +27,19 @@ on-disk layout. Counterpart of ``vitef_tpu/monitor/checkpoint.py``
   ``sync_step`` makes the exit-time save a no-op once the wanted checkpoint
   (the best evaluated one) is on disk.
 
-The sharded layout of several processes (``model.shard<rank>.npz`` and
-``index.json``) is not ported: saving it or loading from it raises.
+- The sharded layout (:108-191, :217-225, :301-390), chosen whenever there
+  is more than one process: each rank writes ``model.shard<rank>.npz`` and
+  ``optim.shard<rank>.npz`` with its own pieces, each keyed
+  ``<name>@<start,...>`` by its offsets in the whole tensor (a replicated
+  tensor is written once, by the first rank that holds it); the master
+  writes ``training.json``, ``params.json``, the eval flag and, last, as
+  the marker that the dir is whole, ``index.json`` with ``n_processes``
+  and each entry's shape and dtype. The model's pieces are in the JAX
+  package's layout, so each package reads the other's sharded
+  checkpoints; the optimizer's are the port's buffers. A reader rebuilds
+  the whole arrays from the pieces (:func:`_assemble_from_shards`), and a
+  module placed on a mesh (``parallel.mesh.shard_params``) then loads its
+  own slices of them.
 """
 
 from __future__ import annotations
@@ -47,11 +58,10 @@ from typing import Any
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch import nn
 
-from ..models.convert import from_jax_params, to_jax_params
-from ..parallel.mesh import get_rank, is_master_process
+from ..models.convert import _transposed, from_jax_params, to_jax_params
+from ..parallel.mesh import get_rank, get_world_size, is_master_process
 from ..utils.tree import json_serializable
 
 logger = logging.getLogger("vitef")
@@ -84,22 +94,73 @@ def _host(value) -> np.ndarray:
     return np.asarray(value)
 
 
+@dataclass
+class Pieces:
+    """One process's part of a state entry: ``pieces`` keyed
+    ``<name>@<start,...>`` (host arrays) and ``meta`` with every entry's
+    whole ``shape`` and ``dtype``, as a sharded checkpoint holds them."""
+
+    pieces: dict[str, np.ndarray]
+    meta: dict[str, dict]
+
+
+def _np_dtype(t: torch.Tensor) -> str:
+    return str(torch.empty(0, dtype=t.dtype).numpy().dtype)
+
+
+def _piece_key(name: str, starts) -> str:
+    return f"{name}@{','.join(str(int(s)) for s in starts)}"
+
+
 def model_state(module: nn.Module) -> dict[str, np.ndarray]:
     """The module's state as ``model.npz`` holds it: host copies under the
     JAX package's dotted keys, linear weights (in, out)."""
     return to_jax_params(module.state_dict())
 
 
+def model_pieces(module: nn.Module) -> Pieces:
+    """This rank's pieces of the module's state in the JAX package's layout
+    (linear weights (in, out), the starts swapped with them), as
+    ``model.shard<rank>.npz`` holds them. A module not placed on a mesh is
+    one piece per tensor, written by the master."""
+    layout = getattr(module, "mesh_layout", None)
+    state = module.state_dict()
+    pieces, meta = {}, {}
+    for name, value in state.items():
+        value = value.detach()
+        flip = _transposed(name, value.dim(), state)
+        shape = list(layout.full_shapes.get(name, value.shape)) if layout else list(value.shape)
+        meta[name] = {"shape": shape[::-1] if flip else shape, "dtype": _np_dtype(value)}
+        if layout is not None and name in layout.full_shapes:
+            parts = layout.pieces(name, value)
+        else:
+            parts = [((0,) * value.dim(), value)] if is_master_process() else []
+        for starts, piece in parts:
+            if flip:
+                starts, piece = starts[::-1], piece.t()
+            pieces[_piece_key(name, starts)] = _host(piece.contiguous())
+    return Pieces(pieces, meta)
+
+
+def _local(module: nn.Module, name: str, full: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``full`` of parameter ``name``."""
+    layout = getattr(module, "mesh_layout", None)
+    if layout is None or name not in layout.full_shapes:
+        return full
+    return layout.local(name, full.reshape(layout.full_shapes[name]))
+
+
 def load_model_state(module: nn.Module, flat: dict[str, np.ndarray]) -> None:
-    """Load ``model.npz``'s entries into ``module`` in place. Every entry of
-    the module must be there (KeyError names the first missing one); extra
-    entries are ignored, as the JAX package ignores them."""
+    """Load ``model.npz``'s entries (whole tensors) into ``module`` in place;
+    a module placed on a mesh takes its own slices. Every entry of the module
+    must be there (KeyError names the first missing one); extra entries are
+    ignored, as the JAX package ignores them."""
     state = from_jax_params(flat)
     own = module.state_dict()
     for key in own:
         if key not in state:
             raise KeyError(f"checkpoint missing entry {key!r}")
-    module.load_state_dict({key: state[key].reshape(value.shape)
+    module.load_state_dict({key: _local(module, key, state[key]).reshape(value.shape)
                             for key, value in own.items()})
 
 
@@ -115,6 +176,37 @@ def optimizer_state(optimizer: torch.optim.Optimizer, module: nn.Module) -> dict
                 if value is not None:
                     flat[f"{names[p]}.{key}"] = _host(value)
     return flat
+
+
+def optimizer_pieces(optimizer: torch.optim.Optimizer, module: nn.Module) -> Pieces:
+    """This rank's pieces of :func:`optimizer_state` (the port's layout): a
+    buffer of a parameter's shape lies where the parameter's slice lies,
+    0-d buffers and the class entry are written by the master."""
+    layout = getattr(module, "mesh_layout", None)
+    names = {p: name for name, p in module.named_parameters()}
+    pieces, meta = {}, {}
+    layout_entry = np.array(type(optimizer).__name__)
+    meta[OPTIM_LAYOUT_KEY] = {"shape": [], "dtype": str(layout_entry.dtype)}
+    if is_master_process():
+        pieces[_piece_key(OPTIM_LAYOUT_KEY, ())] = layout_entry
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[p]
+            for key, value in optimizer.state.get(p, {}).items():
+                if value is None:
+                    continue
+                entry = f"{name}.{key}"
+                value = value.detach()
+                whole = (layout.full_shapes[name] if layout is not None and value.dim()
+                         else tuple(value.shape))
+                meta[entry] = {"shape": list(whole), "dtype": _np_dtype(value)}
+                if layout is not None and value.dim():
+                    parts = layout.pieces(name, value)
+                else:
+                    parts = [((0,) * value.dim(), value)] if is_master_process() else []
+                for starts, piece in parts:
+                    pieces[_piece_key(entry, starts)] = _host(piece.contiguous())
+    return Pieces(pieces, meta)
 
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, module: nn.Module,
@@ -144,10 +236,11 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, module: nn.Module,
         if p is None or p not in updated:
             raise ValueError(f"optim.npz holds state of {name!r}, which this optimizer "
                              "does not update")
-        # a 0-d step counter stays on the host, as torch keeps it
+        # a 0-d step counter stays on the host, as torch keeps it; a module
+        # placed on a mesh takes its slices of the whole buffers
         optimizer.state[p] = {
             buffer: torch.as_tensor(value) if buffer == "step"
-            else torch.as_tensor(value).to(p.device)
+            else _local(module, name, torch.as_tensor(value)).to(p.device)
             for buffer, value in buffers.items()}
 
 
@@ -168,15 +261,58 @@ def _write_state(path: Path, state: dict[str, Any]) -> None:
         raise
 
 
+def _assemble(meta: dict[str, dict], shard_files) -> dict[str, np.ndarray]:
+    """The whole arrays of ``meta`` from the pieces in ``shard_files`` (dicts
+    or open npz files); raises when an entry is not covered."""
+    out = {key: np.empty(m["shape"], dtype=np.dtype(m["dtype"])) for key, m in meta.items()}
+    filled = dict.fromkeys(meta, 0)
+    for z in shard_files:
+        for piece_key in (z.files if hasattr(z, "files") else z):
+            key, _, starts_s = piece_key.rpartition("@")
+            piece = np.asarray(z[piece_key])
+            starts = [int(s) for s in starts_s.split(",")] if starts_s else []
+            out[key][tuple(slice(st, st + sz) for st, sz in zip(starts, piece.shape))] = piece
+            filled[key] += piece.size
+    for key, m in meta.items():
+        if filled[key] < int(np.prod(m["shape"], dtype=np.int64)):
+            raise ValueError(f"checkpoint entry {key!r} has missing shards")
+    return out
+
+
+def _whole(entry) -> dict[str, np.ndarray]:
+    """A state entry as whole host arrays: :class:`Pieces` put together, or
+    each tensor or array of a flat dict copied to the host."""
+    if isinstance(entry, Pieces):
+        return _assemble(entry.meta, [entry.pieces])
+    return {k: _host(v) for k, v in entry.items()}
+
+
+def _assemble_from_shards(path: Path, prefix: str) -> dict[str, np.ndarray]:
+    """The whole arrays of ``<prefix>.shard<rank>.npz`` by ``index.json``."""
+    with open(path / "index.json") as f:
+        index = json.load(f)
+    paths = [path / f"{prefix}.shard{rank}.npz" for rank in range(int(index["n_processes"]))]
+    for shard_file in paths:
+        if not shard_file.exists():
+            raise FileNotFoundError(f"incomplete checkpoint: missing {shard_file.name}")
+    files = []
+    try:
+        for shard_file in paths:
+            files.append(np.load(shard_file))
+        return _assemble(index[prefix], files)
+    finally:
+        for z in files:
+            z.close()
+
+
 def _load_flat(path: Path, prefix: str) -> dict[str, np.ndarray] | None:
-    """A state entry's ``<prefix>.npz`` as a dict, None when absent."""
+    """A state entry as whole arrays, from ``<prefix>.npz`` or its shards;
+    None when absent."""
     if (path / f"{prefix}.npz").exists():
         with np.load(path / f"{prefix}.npz") as z:
             return {k: z[k] for k in z.files}
     if (path / f"{prefix}.shard0.npz").exists():
-        raise NotImplementedError(
-            f"{path} holds a sharded checkpoint of several processes, which the port "
-            "does not load")
+        return _assemble_from_shards(path, prefix)
     return None
 
 
@@ -194,9 +330,14 @@ class Checkpointer:
     """The JAX package's checkpoint lifecycle over host-staged state.
 
     ``get_state() -> {"model": flat, "optim": flat | None, "training": dict}``
-    gives the state to save (tensors or arrays; tensors are copied to the
-    host); ``set_state(model_flat, optim_flat, training)`` applies a loaded
-    checkpoint.
+    gives the state to save: this rank's :class:`Pieces`
+    (:func:`model_pieces`, :func:`optimizer_pieces`), or, in a run of one
+    process, whole tensors or arrays. The layout follows the number of
+    processes: one writes ``model.npz`` and ``optim.npz`` (pieces are put
+    together first), more save collectively in the sharded layout, which
+    needs pieces.
+    ``set_state(model_flat, optim_flat, training)`` applies a loaded
+    checkpoint, as whole arrays.
     """
 
     folder_name = "{:010d}"
@@ -278,18 +419,17 @@ class Checkpointer:
         """Join the previous save, copy the state to the host on this thread,
         and write it on the worker thread."""
         self._wait()
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError("the sharded checkpoint of several processes is not "
-                                      "ported")
+        if get_world_size() > 1:
+            self._save_sharded(path, eval_flag)
+            return
         if not is_master_process():
             return
         logger.info(f"Saving checkpoint at step {self.step} to {str(path)}.")
         t0 = time.perf_counter()
         state = self.get_state()
         staged = {
-            "model": {k: _host(v) for k, v in state["model"].items()},
-            "optim": ({k: _host(v) for k, v in state["optim"].items()}
-                      if state.get("optim") is not None else None),
+            "model": _whole(state["model"]),
+            "optim": _whole(state["optim"]) if state.get("optim") is not None else None,
             "training": dict(state.get("training", {})),
         }
         timing = {"step": self.step, "stage_s": time.perf_counter() - t0}
@@ -304,6 +444,51 @@ class Checkpointer:
             if model_config is not None:
                 with open(Path(path) / "params.json", "w") as f:
                     json.dump(json_serializable(model_config), f)
+            timing["write_s"] = time.perf_counter() - t1
+
+        self.process = self._executor.submit(write)
+
+    def _save_sharded(self, path, eval_flag: str = "") -> None:
+        """Every rank stages its pieces on this thread and writes its shard
+        files on the worker; the master adds the json files and, last,
+        ``index.json``."""
+        logger.info(f"Saving sharded checkpoint at step {self.step} to {str(path)} "
+                    f"(rank {self.device_rank}).")
+        t0 = time.perf_counter()
+        state = self.get_state()
+        model, optim = state["model"], state.get("optim")
+        training = dict(state.get("training", {}))
+        timing = {"step": self.step, "stage_s": time.perf_counter() - t0}
+        self.timings.append(timing)
+        model_config = self.model_config
+        rank, master, n_proc = self.device_rank, is_master_process(), get_world_size()
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+
+        def write():
+            t1 = time.perf_counter()
+
+            def write_json(name: str, obj) -> None:
+                tmp = path / f".tmp.{name}"
+                with open(tmp, "w") as f:
+                    json.dump(obj, f)
+                tmp.replace(path / name)
+
+            for prefix, entry in (("model", model), ("optim", optim)):
+                if entry is not None:
+                    tmp = path / f".tmp.{prefix}.shard{rank}.npz"
+                    np.savez(tmp, **entry.pieces)
+                    tmp.replace(path / f"{prefix}.shard{rank}.npz")
+            if master:
+                write_json("training.json", training)
+                if model_config is not None:
+                    write_json("params.json", json_serializable(model_config))
+                if eval_flag:
+                    (path / f"eval_{eval_flag}").touch()
+                index: dict[str, Any] = {"n_processes": n_proc, "model": model.meta}
+                if optim is not None:
+                    index["optim"] = optim.meta
+                write_json("index.json", index)
             timing["write_s"] = time.perf_counter() - t1
 
         self.process = self._executor.submit(write)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -50,7 +51,9 @@ class Logger:
         rank = get_rank()
         self.path = Path(config.metric_path)
         self.path.mkdir(parents=True, exist_ok=True)
-        if eval:
+        if not is_master_process():  # the master alone records: every rank's values agree
+            self.metric = os.devnull
+        elif eval:
             self.metric = str(self.path / "eval.jsonl")
             with open(self.metric, "w"):
                 pass

@@ -6,7 +6,8 @@ one flat dict. Counterpart of ``vitef_tpu/monitor/orchestrator.py``
 The run layout is a public contract, the JAX package's:
 ``<SAVING_DIR>/runs/<log_dir>/{config.json, checkpoints/, logs/, metrics/}``.
 On ``overwrite`` an existing run dir is deleted, after a confirmation only
-when stdin is a terminal.
+when stdin is a terminal. In a run of several processes the master alone
+deletes the dir and writes ``config.json``; the others wait for it.
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
 
+import torch.distributed as dist
+
 from ..config import SAVING_DIR
+from ..parallel.mesh import get_world_size, is_master_process
 from ..utils.tree import json_serializable
 from ..utils.typed import build_with_type_check
 from .checkpoint import Checkpointer, CheckpointerConfig
@@ -51,7 +55,7 @@ class OrchestratorConfig:
         if not self.log_dir:
             raise ValueError("log_dir should be specified.")
         self.log_dir = Path(os.path.expandvars(str(RUN_DIR / self.log_dir)))
-        if self.log_dir.exists() and self.overwrite:
+        if self.log_dir.exists() and self.overwrite and is_master_process():
             if sys.stdin.isatty():
                 confirm = input(f"Do you want to permanently delete the directory "
                                 f"'{self.log_dir}' (Yes/No)? ")
@@ -68,8 +72,11 @@ def build_orchestrator(config: dict[str, Any]) -> dict[str, Any]:
     logger and utility configs."""
     config_obj = build_with_type_check(OrchestratorConfig, config)
 
-    with open(config_obj.log_dir / "config.json", "w") as f:
-        json.dump(json_serializable(config_obj.config_file or {}), f, indent=4)
+    if is_master_process():
+        with open(config_obj.log_dir / "config.json", "w") as f:
+            json.dump(json_serializable(config_obj.config_file or {}), f, indent=4)
+    if get_world_size() > 1:  # the other ranks write into the dir the master made
+        dist.barrier()
 
     checkpointer_config = build_with_type_check(CheckpointerConfig, {
         "period": config_obj.checkpoint_period,

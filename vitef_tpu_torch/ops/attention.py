@@ -549,7 +549,8 @@ def multi_head_attention(x, qkv_w, qkv_b, out_w, out_b, *, n_heads: int,
     bfloat16 past the gate), else the plain version. ``verbose=True`` takes
     the plain path and also returns the (N, h, L, L) attention weights.
     """
-    n, l, e = x.shape
+    n, l = x.shape[:2]
+    e = qkv_w.shape[0] // 3  # the attention width (a rank's heads under tensor parallelism)
     cd = x.dtype if compute_dtype is None else compute_dtype
     qkv = F.linear(x.to(cd), qkv_w.to(cd))
 

@@ -1,3 +1,16 @@
+from .mesh import (  # noqa: F401
+    ComputingConfig,
+    Mesh,
+    MeshLayout,
+    Placement,
+    build_computing_manager,
+    build_mesh,
+    computing_config_from_env,
+    gathered,
+    param_shardings,
+    shard_batch,
+    shard_params,
+)
 from .moe import (  # noqa: F401
     MoEFeedForward,
     apply_moe_ffn,

@@ -1,23 +1,80 @@
-"""Rank and host helpers. Counterpart of the rank helpers of
-``vitef_tpu/parallel/mesh.py`` (``get_rank``, ``is_master_process``,
-``get_hostname``, :52-75).
+"""Device mesh, sharding rules and multi-process setup. Counterpart of
+``vitef_tpu/parallel/mesh.py`` (rank helpers :47-75, ``ComputingConfig``
+:81-95, ``build_mesh`` :98-108, ``build_computing_manager`` :111-138, the
+sharding rules :143-204, ``shard_batch`` :212-231).
 
-The rank is the ``torch.distributed`` rank once a process group is set up,
-else 0: one process on one card is rank 0 and the master. The device mesh
-(data, tensor and fully sharded parallelism) is not ported.
+One process per card, as NCCL wants it: the ``torch.distributed`` default
+group holds every rank, and :class:`Mesh` lays its ranks out as a
+``('dp', 'tp')`` grid, rank r at (r // tp, r % tp), the JAX package's
+``devices.reshape(dp, tp)``. Each rank belongs to one dp group (the ranks
+that share its tp index) and one tp group.
+
+- Data parallelism: every parameter is replicated; each rank computes on its
+  own rows and the train step averages the gradients over 'dp'.
+- Tensor parallelism (tp > 1, ``_TP_RULES``): each rank holds H/tp heads of
+  the packed qkv and the attention output and F/tp columns of fc1 and fc2
+  (:mod:`~vitef_tpu_torch.models.tensor_parallel`). The JAX package splits
+  the packed qkv (E, 3E) along its columns contiguously; the port splits it
+  by heads, so that a rank's slice is ``[q | k | v]`` of its own heads and
+  the attention kernels run on it as they are (swiglu's packed
+  ``[gate | up]`` fc1 likewise).
+- FSDP: each parameter is further split over 'dp' along its largest
+  divisible free axis (of the JAX layout, as ``_largest_divisible_axis``
+  picks it). The rank keeps its shard, and its optimizer state is the
+  shard's; the train step gathers the full parameters over 'dp' for the
+  forward and the backward (for the whole step, so its peak memory for
+  parameters and gradients is the unsharded model's) and reduce-scatters
+  their gradients, so that each rank receives its shard's average.
+
+:func:`shard_params` applies the placement to a model in place and records
+it as the module's ``mesh_layout`` (:class:`MeshLayout`), which the train
+step, the checkpoint and the server read. The rank helpers read
+``VITEF_NUM_PROCESSES`` and ``VITEF_LOCAL_RANK``; a launch of several
+processes gives each of them ``VITEF_COORDINATOR_ADDRESS``,
+``VITEF_NUM_PROCESSES``, ``VITEF_PROCESS_ID`` and ``VITEF_LOCAL_RANK``
+(:func:`computing_config_from_env`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import logging
+import os
 import socket
+from dataclasses import dataclass, field
+from typing import Any
 
+import torch
 import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
+
+
+# ------------------------------------------------------------------------------
+# Rank helpers
+# ------------------------------------------------------------------------------
+
+
+def is_distributed_job() -> bool:
+    """Whether this process is one of a multi-process launch
+    (``VITEF_NUM_PROCESSES`` > 1)."""
+    return int(os.environ.get("VITEF_NUM_PROCESSES", "1")) > 1
 
 
 def get_rank() -> int:
     """This process's rank in the default process group, 0 without one."""
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def get_local_rank() -> int:
+    """This process's card on its host (``VITEF_LOCAL_RANK``, default 0)."""
+    return int(os.environ.get("VITEF_LOCAL_RANK", "0"))
+
+
+def get_world_size() -> int:
+    """The number of processes in the default group, 1 without one."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def is_master_process() -> bool:
@@ -27,3 +84,401 @@ def is_master_process() -> bool:
 @functools.cache
 def get_hostname() -> str:
     return socket.gethostname()
+
+
+# ------------------------------------------------------------------------------
+# The mesh
+# ------------------------------------------------------------------------------
+
+
+@dataclass
+class ComputingConfig:
+    """``dp=-1`` means world_size // tp; ``fsdp`` shards the parameters over
+    'dp'. ``coordinator_address`` (host:port of rank 0), ``num_processes``
+    and ``process_id`` set up the process group of a multi-process run."""
+
+    dp: int = -1
+    tp: int = 1
+    fsdp: bool = False
+    coordinator_address: str | None = None
+    num_processes: int = 1
+    process_id: int = 0
+
+
+@dataclass(eq=False)
+class Mesh:
+    """A ``('dp', 'tp')`` grid over the ranks of the default process group.
+    ``dp_group``/``tp_group`` are this rank's groups along each axis; both
+    are None without a process group (one process), and then no collective
+    runs."""
+
+    dp: int
+    tp: int
+    rank: int = 0
+    dp_group: Any = None
+    tp_group: Any = None
+    world_group: Any = None
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"dp": self.dp, "tp": self.tp}
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.tp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
+    def __deepcopy__(self, memo):  # process groups are shared, never copied
+        return self
+
+
+def build_mesh(dp: int = -1, tp: int = 1) -> Mesh:
+    """The ('dp', 'tp') mesh over the default group's ranks (one rank and no
+    group when there is none). ``dp=-1`` means world // tp; ``dp * tp`` must
+    equal the world size (AssertionError, as the JAX package asserts)."""
+    world = get_world_size()
+    if dp == -1:
+        dp = world // tp
+    if dp * tp != world:
+        raise AssertionError(f"dp * tp = {dp}*{tp} must equal the number of devices ({world})")
+    if not (dist.is_available() and dist.is_initialized()):
+        return Mesh(dp=dp, tp=tp)
+    rank = dist.get_rank()
+    dp_group = tp_group = None
+    # every rank makes every group, in the same order
+    for t in range(tp):
+        group = dist.new_group([d * tp + t for d in range(dp)])
+        if rank % tp == t:
+            dp_group = group
+    for d in range(dp):
+        group = dist.new_group([d * tp + t for t in range(tp)])
+        if rank // tp == d:
+            tp_group = group
+    return Mesh(dp=dp, tp=tp, rank=rank, dp_group=dp_group, tp_group=tp_group,
+                world_group=dist.group.WORLD)
+
+
+def computing_config_from_env(dp: int = -1, tp: int = 1, fsdp: bool = False) -> ComputingConfig:
+    """A :class:`ComputingConfig` with the mesh knobs given and the process
+    fields from the environment of a multi-process launch:
+    ``VITEF_COORDINATOR_ADDRESS`` (host:port of rank 0),
+    ``VITEF_NUM_PROCESSES`` and ``VITEF_PROCESS_ID`` (and
+    ``VITEF_LOCAL_RANK``, the card, read by :func:`build_computing_manager`).
+    Outside such a launch (:func:`is_distributed_job`) they keep their
+    one-process defaults."""
+    if not is_distributed_job():
+        return ComputingConfig(dp=dp, tp=tp, fsdp=fsdp)
+    return ComputingConfig(dp=dp, tp=tp, fsdp=fsdp,
+                           coordinator_address=os.environ.get("VITEF_COORDINATOR_ADDRESS"),
+                           num_processes=int(os.environ.get("VITEF_NUM_PROCESSES", "1")),
+                           process_id=int(os.environ.get("VITEF_PROCESS_ID", "0")))
+
+
+def build_computing_manager(config: dict | ComputingConfig | None = None, *,
+                            device: str = "cuda") -> Mesh:
+    """Set up the process group of a multi-process run, then build the mesh.
+
+    With ``coordinator_address`` and ``num_processes`` > 1 every process
+    joins the default group at ``tcp://<coordinator_address>`` as rank
+    ``process_id``: over NCCL on its card ``cuda:VITEF_LOCAL_RANK`` (set as
+    the current device), or over gloo when the caller asks for
+    ``device="cpu"``."""
+    from ..utils.typed import build_with_type_check
+
+    if config is None:
+        config = ComputingConfig()
+    elif isinstance(config, dict):
+        config = build_with_type_check(ComputingConfig, config)
+    if config.coordinator_address and config.num_processes > 1 and not dist.is_initialized():
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(get_local_rank())
+            backend = "nccl"
+        else:
+            backend = "gloo"
+        dist.init_process_group(backend, init_method=f"tcp://{config.coordinator_address}",
+                                world_size=config.num_processes, rank=config.process_id)
+        logger.info("Joined the %s group: rank %d/%d on %s", backend, config.process_id,
+                    config.num_processes, get_hostname())
+    mesh = build_mesh(config.dp, config.tp)
+    logger.info("Device mesh: dp=%d tp=%d (%d ranks)", mesh.dp, mesh.tp, mesh.size)
+    return mesh
+
+
+# ------------------------------------------------------------------------------
+# Sharding rules
+# ------------------------------------------------------------------------------
+
+
+def _largest_divisible_axis(shape: tuple, n: int) -> int | None:
+    """The largest axis divisible by n (the first of equal ones), for FSDP."""
+    best = None
+    for i, s in enumerate(shape):
+        if s % n == 0 and s >= n and (best is None or s > shape[best]):
+            best = i
+    return best
+
+
+# Parameter-name suffix -> the axis split over 'tp', in the JAX layout
+# (linear weights (in, out)): qkv and fc1 column-parallel, the attention
+# output and fc2 row-parallel.
+_TP_RULES = [
+    ("attn.qkv_mat.weight", 1),
+    ("attn.qkv_mat.bias", 0),
+    ("attn.output.weight", 0),
+    ("ffn.fc1.weight", 1),
+    ("ffn.fc1.bias", 0),
+    ("ffn.fc2.weight", 0),
+]
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a parameter is split, in the port's layout: ``tp`` the axis
+    split over 'tp', ``dp`` the axis split over 'dp' (FSDP), None when
+    replicated along that mesh axis."""
+
+    tp: int | None = None
+    dp: int | None = None
+
+
+def _transposed(name: str, shape: tuple, names) -> bool:
+    from ..models.convert import _transposed as linear_weight
+
+    return linear_weight(name, len(shape), names)
+
+
+def param_shardings(shapes: dict[str, tuple], mesh: Mesh | dict,
+                    fsdp: bool = False) -> dict[str, Placement]:
+    """``{name: Placement}`` for every parameter of ``shapes`` (name -> shape
+    in the port's layout) on ``mesh`` (or a ``{'dp': .., 'tp': ..}``
+    shape): the JAX package's rule (:166-199) taken on the JAX layout of
+    each tensor, then mapped to the port's axes. With tp > 1 the
+    ``_TP_RULES`` axis is split where it divides; 3-D MoE expert stacks
+    would split their expert axis, which the port does not compute (see
+    :func:`shard_params`). With ``fsdp`` and dp > 1 the largest divisible
+    free axis is split over 'dp'."""
+    shape = mesh.shape if isinstance(mesh, Mesh) else mesh
+    dp, tp = shape["dp"], shape["tp"]
+    out = {}
+    for name, port_shape in shapes.items():
+        port_shape = tuple(port_shape)
+        flip = _transposed(name, port_shape, shapes)
+        jshape = port_shape[::-1] if flip else port_shape
+        spec: list = [None] * len(jshape)
+        if tp > 1:
+            if len(jshape) == 3 and ".ffn.fc" in name:
+                if jshape[0] % tp == 0:
+                    spec[0] = "tp"
+            else:
+                for pat, axis in _TP_RULES:
+                    if name.endswith(pat) and jshape[axis] % tp == 0:
+                        spec[axis] = "tp"
+                        break
+        if fsdp and dp > 1:
+            free = tuple(s if spec[i] is None else 0 for i, s in enumerate(jshape))
+            ax = _largest_divisible_axis(free, dp)
+            if ax is not None:
+                spec[ax] = "dp"
+
+        def port_axis(kind):
+            if kind not in spec:
+                return None
+            i = spec.index(kind)
+            return len(spec) - 1 - i if flip else i
+
+        out[name] = Placement(tp=port_axis("tp"), dp=port_axis("dp"))
+    return out
+
+
+@dataclass
+class MeshLayout:
+    """How a module's parameters lie on a mesh (``module.mesh_layout``).
+
+    ``placements`` by parameter name; ``segments[name]`` lists, for a
+    tensor split over 'tp', the runs ``(global start, local start, length)``
+    along its tp axis that make up this rank's slice (three for the packed
+    qkv, two for swiglu's fc1, one otherwise); ``full_shapes`` the shapes
+    of the whole tensors in the port's layout."""
+
+    mesh: Mesh
+    placements: dict[str, Placement] = field(default_factory=dict)
+    segments: dict[str, list[tuple[int, int, int]]] = field(default_factory=dict)
+    full_shapes: dict[str, tuple] = field(default_factory=dict)
+
+    def placement(self, name: str) -> Placement:
+        return self.placements.get(name, Placement())
+
+    def fsdp_names(self) -> list[str]:
+        return [n for n, p in self.placements.items() if p.dp is not None]
+
+    # -- one tensor: whole <-> this rank's slice ---------------------------
+
+    def _tp_slice(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        axis = self.placement(name).tp
+        if axis is None:
+            return full
+        return torch.cat([full.narrow(axis, start, length)
+                          for start, _, length in self.segments[name]], dim=axis)
+
+    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole tensor ``full`` (the port's layout)."""
+        out = self._tp_slice(name, full)
+        axis = self.placement(name).dp
+        if axis is not None:
+            out = out.chunk(self.mesh.dp, dim=axis)[self.mesh.dp_rank]
+        return out.contiguous()
+
+    def pieces(self, name: str, local: torch.Tensor) -> list[tuple[tuple, torch.Tensor]]:
+        """``[(global starts, piece)]`` of this rank's slice ``local``, each a
+        box of the whole tensor (the port's layout); empty where another rank
+        writes the same values (a replica's first copy writes, as the JAX
+        checkpoint's ``replica_id == 0``)."""
+        place, mesh = self.placement(name), self.mesh
+        if (place.tp is None and mesh.tp_rank) or (place.dp is None and mesh.dp_rank):
+            return []
+        base = [0] * local.dim()
+        if place.dp is not None:
+            base[place.dp] = mesh.dp_rank * local.shape[place.dp]
+        if place.tp is None:
+            return [(tuple(base), local)]
+        out = []
+        for start, lstart, length in self.segments[name]:
+            starts = list(base)
+            starts[place.tp] = start
+            out.append((tuple(starts), local.narrow(place.tp, lstart, length)))
+        return out
+
+    def gather(self, name: str, shard: torch.Tensor) -> torch.Tensor:
+        """The tp slice of ``name`` from its FSDP shards over 'dp'."""
+        axis = self.placement(name).dp
+        if axis is None or self.mesh.dp_group is None:
+            return shard
+        parts = [torch.empty_like(shard) for _ in range(self.mesh.dp)]
+        dist.all_gather(parts, shard.contiguous(), group=self.mesh.dp_group)
+        return torch.cat(parts, dim=axis)
+
+    # -- the gradient's norm over the whole model -------------------------
+
+    def global_norms(self, groups: list[list[tuple[str, torch.Tensor]]]) -> list[torch.Tensor]:
+        """The L2 norm of each group of ``(name, tensor)`` pairs over the whole
+        model: each rank's slices counted once, the replicas of a replicated
+        tensor once. Per group, the squared norms of this rank's tensors are
+        summed in four bins (split over tp or not, over dp or not), one
+        all-reduce over every rank adds them up, and each bin is divided by
+        its number of copies."""
+        mesh = self.mesh
+        device = next((t.device for g in groups for _, t in g), torch.device("cpu"))
+        sums = torch.zeros(len(groups), 4, device=device)
+        for i, group in enumerate(groups):
+            for name, t in group:
+                if t is None:
+                    continue
+                place = self.placement(name)
+                b = 2 * (place.tp is not None) + (place.dp is not None)
+                sums[i, b] += torch.linalg.vector_norm(t.float()).square()
+        if mesh.world_group is not None:
+            dist.all_reduce(sums, group=mesh.world_group)
+        copies = torch.tensor([mesh.tp * mesh.dp, mesh.tp, mesh.dp, 1], dtype=torch.float32,
+                              device=device)
+        return list((sums / copies).sum(dim=1).sqrt())
+
+
+def shard_params(model, mesh: Mesh, fsdp: bool = False):
+    """Place ``model`` (a ``Model`` or its module) on ``mesh`` in place, per
+    :func:`param_shardings`, and return it; ``module.mesh_layout`` records
+    the placement.
+
+    tp > 1: every block's qkv, attention output, fc1 and fc2 keep this rank's
+    heads and columns (their ``Linear.tp`` set), and its attention and FFN
+    compute with :func:`~vitef_tpu_torch.models.tensor_parallel.local_config`.
+    It needs n_heads, n_kv_heads and ffn_dim divisible by tp (ValueError);
+    an MoE model raises NotImplementedError (the expert-parallel MoE is
+    ported with pipeline parallelism). ``fsdp``: each parameter keeps its
+    shard over 'dp' (the step gathers them; :func:`gathered` does for
+    anything else that runs the module)."""
+    from ..models.tensor_parallel import local_config
+
+    module = getattr(model, "module", model)
+    if getattr(module, "mesh_layout", None) is not None:
+        raise ValueError("the module is already sharded")
+    cfg = module.cfg
+    names = {name: tuple(p.shape) for name, p in module.named_parameters()}
+    layout = MeshLayout(mesh=mesh, placements=param_shardings(names, mesh, fsdp),
+                        full_shapes=names)
+    if mesh.tp > 1:
+        if cfg.n_experts:
+            raise NotImplementedError("an MoE model under tensor parallelism is not ported "
+                                      "(the expert-parallel MoE comes with the pipeline slice)")
+        local = local_config(cfg, mesh.tp)
+        t, d = mesh.tp_rank, cfg.head_dim
+        eq, kvd, f = local.n_heads * d, local.n_kv_heads * d, local.ffn_dim
+        swiglu = cfg.ffn_type.lower() == "swiglu"
+        runs = {
+            "attn.qkv_mat": [(t * eq, 0, eq), (cfg.emb_dim + t * kvd, eq, kvd),
+                             (cfg.emb_dim + cfg.kv_dim + t * kvd, eq + kvd, kvd)],
+            "attn.output": [(t * eq, 0, eq)],
+            "ffn.fc1": ([(t * f, 0, f), (cfg.ffn_dim + t * f, f, f)] if swiglu
+                        else [(t * f, 0, f)]),
+            "ffn.fc2": [(t * f, 0, f)],
+        }
+        modes = {"attn.qkv_mat": "column", "attn.output": "row", "ffn.fc1": "column",
+                 "ffn.fc2": "row"}
+        for i, block in enumerate(module.blocks):
+            block.attn.cfg = block.ffn.cfg = local
+            for path, mode in modes.items():
+                block.get_submodule(path).tp = (mode, mesh)
+                for kind in ("weight", "bias"):
+                    name = f"blocks.{i}.{path}.{kind}"
+                    if name in names and layout.placements[name].tp is not None:
+                        layout.segments[name] = runs[path]
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            local_p = layout.local(name, p.data)
+            if local_p.shape != p.shape:
+                p.data = local_p.clone()
+    module.mesh_layout = layout
+    return model
+
+
+@contextlib.contextmanager
+def gathered(model):
+    """Run ``model`` with its FSDP-sharded parameters gathered whole for the
+    duration (eval, read-outs); their shards are put back after. A module
+    without FSDP shards is left as it is."""
+    module = getattr(model, "module", model)
+    layout = getattr(module, "mesh_layout", None)
+    names = layout.fsdp_names() if layout is not None else []
+    params = dict(module.named_parameters())
+    shards = {name: params[name].data for name in names}
+    try:
+        for name in names:
+            params[name].data = layout.gather(name, shards[name])
+        yield model
+    finally:
+        for name in names:
+            params[name].data = shards[name]
+
+
+def shard_batch(batch, mesh: Mesh):
+    """This rank's rows of the global ``batch`` (a tuple or list of tensors
+    with a leading batch axis): the ``dp_rank``-th of ``dp`` equal row
+    blocks, so that the ranks of a tp group hold the same rows. A loader
+    given this rank's process shard (``shard_index``, ``shard_count``)
+    already yields its rows, which go to the step as they are."""
+    if mesh.dp == 1:
+        return batch
+
+    def rows(x):
+        if x.shape[0] % mesh.dp:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split over dp={mesh.dp}")
+        n = x.shape[0] // mesh.dp
+        return x[mesh.dp_rank * n:(mesh.dp_rank + 1) * n]
+
+    return type(batch)(rows(x) for x in batch)

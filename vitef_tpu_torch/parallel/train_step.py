@@ -1,6 +1,6 @@
 """Train step, loss and eval step. Counterpart of ``vitef_tpu/parallel/train_step.py``
 (``TrainState`` :27-36, ``cross_entropy_loss`` :39-43, ``init_train_state``
-:46-52, ``make_train_step`` :55-205, ``make_eval_step`` :261-275) and of
+:46-52, ``make_train_step`` :55-258, ``make_eval_step`` :261-275) and of
 ``_auto_grad_acc`` in ``apps/vit/train.py`` (:129-141).
 
 The JAX step is one jitted function that scans over microbatches. Here the
@@ -16,10 +16,13 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.norms import batch_norm_sites, ema_update_stats
+from ..ops.common import draw_seed
 from ..optim import clip_by_global_norm_, global_grad_norm
+from .mesh import MeshLayout
 
 
 @dataclass
@@ -112,9 +115,30 @@ def make_train_step(
     ``generator`` (a ``torch.Generator`` on the batch's device) feeds
     dropout; the microbatches draw from it in turn (the JAX step splits its
     ``rng`` per microbatch). A model with a dropout rate > 0 needs one.
+
+    ``mesh`` (a dp-only :class:`~vitef_tpu_torch.parallel.mesh.Mesh`, the
+    JAX ``shard_map`` step :207-258): each rank passes its own rows (for
+    example ``shard_batch``'s) and runs the microbatch loop on them, so the
+    attention kernels run per rank at the local batch; then the float32
+    gradients, the loss, the MoE aux metrics and the running statistics are
+    averaged over 'dp' in one flat all-reduce, and dropout draws a stream of
+    each rank's own (one draw of ``generator`` mixed with the dp rank). A
+    mesh with tp > 1 raises AssertionError, as the JAX step asserts.
+
+    A module placed by ``shard_params`` (``module.mesh_layout``) takes the
+    same step with ``mesh=None``, as the JAX package's jitted step does on
+    sharded parameters: the FSDP shards are gathered over 'dp' for the
+    forward and the backward (whole, for the step: its peak memory is the
+    unsharded model's), the gradients are averaged over 'dp' (those of the
+    FSDP shards reduce-scattered, so each rank receives its shards' slice),
+    the tp collectives run inside the blocks,
+    ``grad_norm`` and the clip are taken over the whole gradient (each slice
+    once, each replicated tensor once) and the optimizer updates each
+    rank's shards and their state.
     """
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: mesh")
+    if mesh is not None and mesh.shape["tp"] != 1:
+        raise AssertionError("the mesh train step is data-parallel only; shard the model "
+                             "with shard_params for tp/fsdp and pass mesh=None")
     if moe_aux_coefs is not None and update_stats:
         raise ValueError("moe_aux_coefs and update_stats are mutually exclusive "
                          "(no batch-norm MoE family)")
@@ -132,9 +156,22 @@ def make_train_step(
                              f"{grad_acc_steps} equal microbatches")
         module = state.model.module
         module.train()
+        layout = getattr(module, "mesh_layout", None)
+        if layout is None and mesh is not None:
+            layout = MeshLayout(mesh=mesh)
+        named = dict(module.named_parameters())
+        names = {p: name for name, p in named.items()}
         params = [p for p in module.parameters() if p.requires_grad]
         frozen = ([p for p in module.blocks.parameters() if not p.requires_grad]
                   if block_grad_norms else [])
+        shards = {}
+        if layout is not None:
+            if layout.mesh.dp > 1 and generator is not None:
+                generator = torch.Generator(device=generator.device).manual_seed(
+                    draw_seed(generator, layout.mesh.dp_rank))
+            for name in layout.fsdp_names():
+                shards[name] = named[name].data
+                named[name].data = layout.gather(name, shards[name])
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=x.device)
         aux_sum = ({"moe_lb": torch.zeros((), device=x.device),
@@ -168,17 +205,34 @@ def make_train_step(
         finally:
             for p in frozen:
                 p.requires_grad_(False)
+            for name, shard in shards.items():
+                named[name].data = shard
         grads = [p.grad for p in params if p.grad is not None]
         if grad_acc_steps > 1:
             torch._foreach_mul_(grads + [p.grad for p in frozen if p.grad is not None],
                                 1.0 / grad_acc_steps)
+        loss = loss_sum / grad_acc_steps
+        aux = {key: value / grad_acc_steps for key, value in aux_sum.items()}
+        if layout is not None:
+            averaged = _average_over_dp(
+                layout, names, [p for p in params + frozen if p.grad is not None],
+                [loss, *aux.values()] + [t for r in running.values() for t in r.values()])
+            loss, aux = averaged[0], dict(zip(aux, averaged[1:]))
+            grads = [p.grad for p in params if p.grad is not None]  # FSDP: the shards
 
-        metrics = {"loss": loss_sum / grad_acc_steps, "grad_norm": global_grad_norm(grads)}
-        metrics.update({key: value / grad_acc_steps for key, value in aux_sum.items()})
-        if block_grad_norms:
-            for i, block in enumerate(module.blocks):
-                metrics[f"grad_norm_block_{i}"] = global_grad_norm(
-                    p.grad for p in block.parameters())
+        metrics = {"loss": loss}
+        metrics.update(aux)
+        block_sets = ([[(names[p], p.grad) for p in block.parameters()]
+                       for block in module.blocks] if block_grad_norms else [])
+        if layout is not None and any(pl.tp is not None or pl.dp is not None
+                                      for pl in layout.placements.values()):
+            norms = layout.global_norms([[(names[p], p.grad) for p in params]] + block_sets)
+        else:
+            norms = [global_grad_norm(grads)] + [global_grad_norm(g for _, g in b)
+                                                 for b in block_sets]
+        metrics["grad_norm"] = norms[0]
+        for i, norm in enumerate(norms[1:]):
+            metrics[f"grad_norm_block_{i}"] = norm
         for p in frozen:
             p.grad = None
         if grad_clip:
@@ -197,6 +251,56 @@ def make_train_step(
         return metrics
 
     return train_step
+
+
+def _average_over_dp(layout, names: dict, params: list, scalars: list) -> list:
+    """Average the gradients of ``params`` and the tensors ``scalars`` over
+    the mesh's 'dp' axis (the JAX step's ``pmean``s :234-241): the scalars
+    and the gradients of the parameters not split over 'dp' in one flat
+    float32 all-reduce, the FSDP-sharded ones in one flat reduce-scatter, so
+    that each rank receives only its shards' sums. Each running statistic
+    in ``scalars`` is written back in place; the averaged ones are
+    returned. A FSDP-sharded parameter's ``grad`` becomes this rank's shard
+    of the averaged gradient."""
+    mesh = layout.mesh
+    sharded = [p for p in params if layout.placement(names[p]).dp is not None]
+    whole = [p for p in params if layout.placement(names[p]).dp is None]
+    flat = torch.cat([t.reshape(-1).float() for t in scalars]
+                     + [p.grad.reshape(-1).float() for p in whole])
+    if mesh.dp_group is not None:
+        dist.all_reduce(flat, group=mesh.dp_group)
+    if mesh.dp > 1:
+        flat /= mesh.dp
+    parts = flat.split([t.numel() for t in scalars] + [p.grad.numel() for p in whole])
+    out = []
+    for t, part in zip(scalars, parts):
+        if t.dim():
+            t.copy_(part.view_as(t))
+        out.append(part.view_as(t))
+    for p, part in zip(whole, parts[len(scalars):]):
+        # back into the gradient's own storage: a view into ``flat`` is not
+        # 16-byte aligned, which changes the norm's reduction order
+        p.grad.copy_(part.view_as(p.grad))
+    if sharded:
+        # rank r's block of the input holds the r-th chunk of every gradient,
+        # the FSDP axis moved to the front so that each chunk is contiguous
+        axes = [layout.placement(names[p]).dp for p in sharded]
+        fronts = [p.grad.float().movedim(axis, 0) for p, axis in zip(sharded, axes)]
+        send = torch.cat([torch.cat([g.chunk(mesh.dp)[r].reshape(-1) for g in fronts])
+                          for r in range(mesh.dp)])
+        mine = send.new_empty(send.numel() // mesh.dp)
+        if mesh.dp_group is not None:
+            dist.reduce_scatter_tensor(mine, send, group=mesh.dp_group)
+        else:
+            mine.copy_(send.chunk(mesh.dp)[mesh.dp_rank])
+        del send
+        mine /= mesh.dp
+        chunks = [g.chunk(mesh.dp)[mesh.dp_rank] for g in fronts]
+        for p, axis, chunk, part in zip(sharded, axes, chunks,
+                                        mine.split([c.numel() for c in chunks])):
+            p.grad = part.view(chunk.shape).movedim(0, axis).to(
+                p.grad.dtype, copy=True).contiguous()
+    return out
 
 
 def make_eval_step(apply_fn: Callable, loss_fn: Callable = cross_entropy_loss):
