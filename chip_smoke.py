@@ -414,7 +414,28 @@ Phases (each raises on failure, so the run exits non-zero):
     logged losses and grad norms within MESH_LOSS_RTOL and
     MESH_TP_NORM_RTOL of the one-card run's and fsdp's of the dp = 2 run's,
     and every rank's mesh server streams equal to the plain server's up to
-    a near tie.
+    a near tie;
+51. pipeline and expert parallelism (``parallel_phase``), in a one-rank
+    NCCL group: ViT-B/16 bf16 through ``make_pipeline_train_step`` at pp = 1
+    with bench.py's finetune on a device-resident batch of 512 as 2 x 256,
+    under GPipe and 1F1B (2 warm-up and 5 timed steps each): K1 and K2 at
+    24 a step on both (1F1B's last stage skips the forward phase's dead
+    output), losses and grad norms within 1e-3 of ``make_train_step(
+    grad_acc_steps=2)``'s on the same weights and batch, one step's
+    gradients within 5e-2 relative L2, bit-equality printed, img/s beside
+    the one-card step's; each schedule's peak memory at 64 rows a
+    microbatch and n_micro 2 and 8 (1F1B's may grow 5% at most); MoE 8x124m
+    bf16 through ``make_moe_ep_train_step`` at ep = 1 (capacity factor 2,
+    dropless there) with the MoE phase's protocol: K8 gmm 12 and tgmm 24,
+    each K7 pass 12, K1 and K3 12 a step, no plain version, losses within
+    1e-3 of the sparse ``make_train_step``'s, one step's gradients within
+    5e-2 relative L2 (overall and per block, with the share of tokens
+    routed to other experts), tokens/s beside the sparse step's. With two
+    cards or more, a process a card (``--parallel-rank``): pp = 2 under both
+    schedules, ep = 2, the MoE's dense oracle at tp = 2 and GPT-2 base at
+    sp = 2 (zigzag, K9 5 a layer), and with four pp = 4 under both
+    schedules, (dp, pp) = (2, 2) and (dp, ep) = (2, 2): every rank's launches, losses within 1e-3 and grad
+    norms within 1e-2 of the one-card runs'.
 
 Each kernel's time comes with its bound: the larger of its operations over
 the card's peak rate for their type and its bytes (each input read once, each
@@ -6692,6 +6713,486 @@ def mesh_phase(device, card_line: str) -> dict:
         shutil.rmtree(APPS_ROOT, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Pipeline and expert parallelism: phase 51
+# ---------------------------------------------------------------------------
+
+# ViT-B/16 bf16 through the pipelined step with bench.py's finetune (SGD 0.9,
+# lr 0.01, cosine, clip 1.0) on a device-resident batch of 512 as 2 x 256.
+PP_BATCH, PP_MICRO = 512, 2
+PP_WARMUP, PP_TIMED = 2, 5
+# Peak memory of one step of each schedule at 64 rows a microbatch, n_micro 2
+# and 8: 1F1B's may grow by this share at most (its batch grows by 56 MiB).
+PP_MEMORY_ROWS, PP_MEMORY_MICRO, PP_MEMORY_GROWTH = 64, (2, 8), 0.05
+# MoE 8x124m bf16 through make_moe_ep_train_step with the MoE phase's
+# protocol (8 x 1024, AdamW, clip 1.0); at ep = 1 a capacity factor of 2 is
+# dropless (its buckets hold twice the claims, the second half inert).
+EP_WARMUP, EP_TIMED, EP_CAPACITY_FACTOR = 2, 5, 2.0
+# With two cards or more: the steps of each run of one process a card, and of
+# the one-card run it is held to.
+PARALLEL_STEPS = 3
+PARALLEL_RANK_LINE = "parallel rank: "
+# K9 launches a layer of GPT-2 at sp = 2, zigzag: each rank's two chunks
+# meet its own (3 pairs, one in the future skipped) and the other rank's
+# (2 pairs: the other two lie in the future), one K9 a pair at 256 rows.
+SP2_K9_PER_LAYER = 5
+
+
+def counted_steps(one_step, warmup: int, timed: int, counters, plain=no_plain_versions):
+    """``warmup`` then ``timed`` calls of ``one_step``: every step's metrics
+    as floats, the counters' launches over the timed steps, their seconds
+    and the plain versions called then."""
+    history = [one_step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    with plain() as calls:
+        for counter in counters:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        history += [one_step() for _ in range(timed)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+    metrics = [{key: float(value) for key, value in m.items()} for m in history]
+    return metrics, launches, seconds, Counter(name for group in calls for name in group)
+
+
+def train_setup(template, place, make_step, optimizer, lr_key: str = "lr"):
+    """A copy of ``template`` placed by ``place`` (or not), its optimizer
+    (``optimizer``'s config with the cosine schedule; None keeps the
+    parameters and their gradients) and ``make_step(schedule, lr)``'s
+    step: ``(model, state, step)``."""
+    model = copy.deepcopy(template)
+    if place is not None:
+        place(model)
+    schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
+    if optimizer is None:
+        state, lr = init_train_state(model, KeepParameters(model.module)), 0.0
+    else:
+        state = init_train_state(model, *build_optimizer(optimizer, model.module,
+                                                         schedule=schedule))
+        lr = optimizer[lr_key]
+    return model, state, make_step(schedule, lr)
+
+
+def vit_pp_batch(device, rows: int = PP_BATCH):
+    """A seeded device-resident ViT-B/16 batch, the same on every card."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(rows, 3, 224, 224, generator=gen, device=device).to(torch.bfloat16)
+    y = torch.randint(0, N_CLASSES, (rows,), generator=gen, device=device)
+    return x, y
+
+
+def pp_setup(template, mesh, schedule: str | None, optimizer=OPTIMIZER, grad_clip=GRAD_CLIP,
+             n_micro: int = PP_MICRO):
+    """ViT through the pipelined step (``schedule``) on ``mesh``, or, with
+    ``schedule`` None, through ``make_train_step(grad_acc_steps=n_micro)``,
+    the one-card reference."""
+    if schedule is None:
+        return train_setup(template, None, lambda s, lr: make_train_step(
+            grad_acc_steps=n_micro, schedule=s, base_lr=lr, grad_clip=grad_clip), optimizer)
+    return train_setup(
+        template, lambda m: PAR.place_stages(m, mesh),
+        lambda s, lr: PAR.make_pipeline_train_step(
+            template.config, mesh, n_micro=n_micro, grad_clip=grad_clip, schedule=s,
+            base_lr=lr, pp_schedule=schedule), optimizer)
+
+
+def pp_want(cfg, mesh, schedule: str, n_micro: int, steps: int) -> dict:
+    """K1 and K2 launches of ``steps`` steps on this rank's stage: one K2 a
+    block a microbatch; one K1 too, and a second on a 1F1B stage that is not
+    the last (its forward phase, then the recompute in the backward tick)."""
+    blocks = cfg.n_layers // mesh.pp * n_micro * steps
+    twice = schedule == "1f1b" and mesh.pp_rank != mesh.pp - 1
+    return {"fused_mha_packed": blocks * (2 if twice else 1), "packed_mha_bwd": blocks}
+
+
+PP_COUNTERS = (A.fused_mha_packed, A.packed_mha_bwd)
+
+
+def pipeline_phase(device, mesh) -> dict:
+    """ViT-B/16 through ``make_pipeline_train_step`` at pp = 1 under GPipe
+    and 1F1B against ``make_train_step(grad_acc_steps=2)`` on the same
+    weights and batch: losses, grad norms, one step's gradients, img/s, K1
+    and K2 every block; then each schedule's peak memory at n_micro 2 and 8.
+    Returns the two schedules' per-step metrics."""
+    template = build_model(VIT_B16, device=device)
+    cfg = template.config
+    batch = vit_pp_batch(device)
+    runs = {}
+    for schedule in (None, "gpipe", "1f1b"):
+        label = schedule or "make_train_step"
+        model, state, step = pp_setup(template, mesh, schedule)
+        metrics, launches, seconds, plain = counted_steps(
+            lambda: step(state, batch), PP_WARMUP, PP_TIMED, PP_COUNTERS)
+        want = pp_want(cfg, mesh, schedule or "gpipe", PP_MICRO, PP_TIMED)
+        extra = (f", {step.n_ticks} ticks, at most {step.saved_inputs} stage inputs saved"
+                 if schedule else "")
+        runs[label] = (metrics, PP_BATCH * PP_TIMED / seconds)
+        print(f"ViT-B/16 bf16 {label} at {PP_MICRO} x {PP_BATCH // PP_MICRO}{extra}: loss "
+              + " ".join(repr(m["loss"]) for m in metrics) + "; grad_norm "
+              + " ".join(repr(m["grad_norm"]) for m in metrics)
+              + f"; launches over {PP_TIMED} steps {launches} (want {want}); plain calls "
+              f"{dict(plain)}; {runs[label][1]:.2f} img/s")
+        if launches != want or plain:
+            raise AssertionError(f"the {label} step did not go through K1 and K2 every block")
+        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in metrics):
+            raise AssertionError(f"{label}: {metrics}")
+        del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref, ref_rate = runs["make_train_step"]
+    for schedule in ("gpipe", "1f1b"):
+        metrics, rate = runs[schedule]
+        errs = {key: max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(metrics, ref))
+                for key in ("loss", "grad_norm")}
+        same = [(a["loss"], a["grad_norm"]) for a in metrics] == [(b["loss"], b["grad_norm"])
+                                                                 for b in ref]
+        print(f"pipeline {schedule} against make_train_step(grad_acc_steps={PP_MICRO}) over "
+              f"{len(ref)} steps: losses within {errs['loss']:.3e} relative, grad norms within "
+              f"{errs['grad_norm']:.3e} (limit {MESH_LOSS_RTOL} each); bit-equal: {same}; "
+              f"{rate:.2f} img/s against the one-card step's {ref_rate:.2f}")
+        if max(errs.values()) > MESH_LOSS_RTOL:
+            raise AssertionError(f"the {schedule} step is off make_train_step's")
+
+    # One step's gradients (no clip, no update) of each route.
+    grads = {}
+    for schedule in (None, "gpipe", "1f1b"):
+        model, state, step = pp_setup(template, mesh, schedule, optimizer=None, grad_clip=None)
+        step(state, batch)
+        grads[schedule] = {name: p.grad.float().clone()
+                           for name, p in model.module.named_parameters()}
+        del model, state, step
+    for schedule in ("gpipe", "1f1b"):
+        overall, per_block = grads_rel_l2(grads[schedule], grads[None], cfg.n_layers)
+        same = all(torch.equal(grads[schedule][k], grads[None][k]) for k in grads[None])
+        print(f"pipeline {schedule} gradients of one step against make_train_step's: relative "
+              f"L2 {overall:.3e} (limit {MESH_GRAD_RTOL}); per block "
+              + " ".join(f"{r:.2e}" for r in per_block) + f"; bit-equal: {same}")
+        if not overall <= MESH_GRAD_RTOL:
+            raise AssertionError(f"the {schedule} gradients are off make_train_step's")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Peak memory of one step (after one that makes the optimizer's state)
+    # at 64 rows a microbatch, n_micro 2 and 8.
+    peaks = {}
+    for schedule in ("gpipe", "1f1b"):
+        for n_micro in PP_MEMORY_MICRO:
+            rows = PP_MEMORY_ROWS * n_micro
+            model, state, step = pp_setup(template, mesh, schedule, n_micro=n_micro)
+            part = (batch[0][:rows], batch[1][:rows])
+            step(state, part)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            step(state, part)
+            torch.cuda.synchronize()
+            peaks[schedule, n_micro] = torch.cuda.max_memory_allocated(device) / 2**30
+            del model, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    low, high = PP_MEMORY_MICRO
+    growth = {s: peaks[s, high] / peaks[s, low] - 1 for s in ("gpipe", "1f1b")}
+    print(f"pipeline peak memory of one step at {PP_MEMORY_ROWS} rows a microbatch "
+          "(torch.cuda.max_memory_allocated): "
+          + "; ".join(f"{s} n_micro {n} {peaks[s, n]:.3f} GiB" for s, n in peaks)
+          + f"; from n_micro {low} to {high} 1F1B's grows {100 * growth['1f1b']:.2f}% (limit "
+          f"{100 * PP_MEMORY_GROWTH:.0f}%), GPipe's {100 * growth['gpipe']:.2f}%")
+    if growth["1f1b"] > PP_MEMORY_GROWTH:
+        raise AssertionError("1F1B's peak memory grows with n_micro")
+    del template
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {schedule: runs[schedule][0] for schedule in ("gpipe", "1f1b")}
+
+
+def moe_tokens(cfg, device):
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(MOE_BATCH, cfg.seq_len))).to(device)
+
+
+def ep_setup(template, mesh, route: str = "ep", optimizer=GPT2_OPTIMIZER,
+             grad_clip=GRAD_CLIP):
+    """MoE through ``make_moe_ep_train_step`` on the ('dp', 'ep') ``mesh``
+    (``route`` "ep", the experts placed by ``shard_experts``), or through
+    ``make_train_step`` with the fused head loss (the MoE phase's step):
+    "sparse" (what "auto" takes at this batch), "dense" (the oracle) or
+    "tp" (the oracle with the experts split by ``shard_params`` on the
+    ('dp', 'tp') ``mesh``)."""
+    loss = make_fused_head_loss(template.config)
+    if route == "ep":
+        return train_setup(
+            template, lambda m: PAR.shard_experts(m, mesh),
+            lambda s, lr: PAR.make_moe_ep_train_step(
+                mesh, grad_clip=grad_clip, hidden_loss=loss, capacity_factor=EP_CAPACITY_FACTOR,
+                schedule=s, base_lr=lr), optimizer)
+
+    def place(model):
+        model.config.moe_impl = {"sparse": "sparse", "dense": "dense", "tp": "dense"}[route]
+        if route == "tp":
+            PAR.shard_params(model, mesh)
+
+    return train_setup(template, place, lambda s, lr: make_train_step(
+        grad_clip=grad_clip, hidden_loss=loss, schedule=s, base_lr=lr), optimizer)
+
+
+MOE_COUNTERS = FLASH_COUNTERS + GROUPED_WRAPPERS
+
+
+def moe_want(cfg, steps: int) -> dict:
+    per_layer = cfg.n_layers * steps
+    return {"fused_mha_packed": per_layer, "packed_mha_bwd": per_layer, "flash_attention": 0,
+            "flash_bwd": 0, "gmm": per_layer, "tgmm": 2 * per_layer, "gmm_swiglu": per_layer,
+            "gmm_dy_swiglu": per_layer, "gmm_dual": per_layer, "tgmm_swiglu": per_layer}
+
+
+def ep_phase(device, mesh) -> list:
+    """MoE 8x124m through ``make_moe_ep_train_step`` at ep = 1 against
+    ``make_train_step``'s sparse step on the same weights and batch: the
+    launches, losses, one step's loss and gradients (overall and per block,
+    with the share of tokens routed to other experts), tokens/s. Returns
+    the EP run's per-step metrics."""
+    t0 = time.perf_counter()
+    template = build_model(MOE_8X124M, device=device)
+    cfg = template.config
+    print(f"MoE 8x124m built in {time.perf_counter() - t0:.2f} s")
+    tokens = moe_tokens(cfg, device)
+    n_tokens = MOE_BATCH * cfg.seq_len
+    runs = {}
+    for ep in (False, True):
+        label = "make_moe_ep_train_step (ep = 1)" if ep else "make_train_step (sparse)"
+        model, state, step = ep_setup(template, mesh, "ep" if ep else "sparse")
+        metrics, launches, seconds, plain = counted_steps(
+            lambda: step(state, (tokens, tokens)), EP_WARMUP, EP_TIMED, MOE_COUNTERS,
+            no_moe_plain_versions)
+        want = moe_want(cfg, EP_TIMED)
+        runs[ep] = (metrics, n_tokens * EP_TIMED / seconds)
+        print(f"MoE 8x124m bf16 {label}: loss " + " ".join(repr(m["loss"]) for m in metrics)
+              + "; grad_norm " + " ".join(repr(m["grad_norm"]) for m in metrics)
+              + f"; launches over {EP_TIMED} steps {launches} (want {want}); plain calls "
+              f"{dict(plain)}; {runs[ep][1]:.2f} tokens/s")
+        if launches != want or plain:
+            raise AssertionError(f"the {label} step did not go through K8, K7, K1 and K3 "
+                                 "every layer")
+        del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    (ep_metrics, ep_rate), (ref, ref_rate) = runs[True], runs[False]
+    err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(ep_metrics, ref))
+    print(f"EP step against the sparse step over {len(ref)} steps: losses within {err:.3e} "
+          f"relative (limit {MESH_LOSS_RTOL}); {ep_rate:.2f} tokens/s against the sparse "
+          f"step's {ref_rate:.2f} (capacity factor {EP_CAPACITY_FACTOR}: expert 0's group "
+          f"also takes the {n_tokens * cfg.moe_top_k} unfilled bucket rows)")
+    if err > MESH_LOSS_RTOL:
+        raise AssertionError("the EP step's losses are off the sparse step's")
+
+    # One step's loss and gradients of each route on the same weights, and
+    # each block's share of tokens routed to other experts.
+    grads, picks, losses = {}, {}, {}
+    for ep in (False, True):
+        model, state, step = ep_setup(template, mesh, "ep" if ep else "sparse", optimizer=None,
+                                      grad_clip=None)
+        inputs = []
+        hooks = [block.ffn.register_forward_pre_hook(
+            lambda mod, args: inputs.append(args[0].detach())) for block in model.module.blocks]
+        losses[ep] = step(state, (tokens, tokens))["loss"].item()
+        for hook in hooks:
+            hook.remove()
+        grads[ep] = {name: p.grad.float().clone() for name, p in model.module.named_parameters()}
+        picks[ep] = [M._route(block.ffn.params(), cfg, x.reshape(-1, x.shape[-1]),
+                              cfg.moe_top_k, need_probs=False)[2].sort(dim=-1).values
+                     for block, x in zip(model.module.blocks, inputs)]
+        del model, state, step, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    overall, per_block = grads_rel_l2(grads[True], grads[False], cfg.n_layers)
+    flips = [(a != b).any(dim=-1).float().mean().item() for a, b in zip(picks[True], picks[False])]
+    loss_err = abs(losses[True] - losses[False]) / abs(losses[False])
+    print(f"EP step's loss and gradients of one step against the sparse step's: loss "
+          f"{losses[True]!r} vs {losses[False]!r} ({loss_err:.3e} relative), gradients "
+          f"relative L2 {overall:.3e} (limit {GRAD_REL_L2}); per block "
+          + " ".join(f"{r:.2e}" for r in per_block) + "; tokens routed to other experts per "
+          "block " + " ".join(f"{100 * x:.1f}%" for x in flips))
+    if loss_err > MESH_LOSS_RTOL or not overall <= GRAD_REL_L2:
+        raise AssertionError("the EP step's gradients are off the sparse step's")
+    del grads, picks, template
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ep_metrics
+
+
+@contextlib.contextmanager
+def no_plain_hops():
+    """Record the plain versions of K1-K5 and K10 and the plain hop forward."""
+    with no_plain_versions() as calls, counting(RH, "hop_state_reference") as hops:
+        yield (*calls, hops)
+
+
+def run_of(kind: str, device, mesh, steps: int, warmup: int = 0):
+    """``steps`` counted steps of ``kind`` on ``mesh`` from the seeded weights
+    and batch ("pp:<schedule>": ViT-B/16 pipelined; "ep": MoE 8x124m
+    expert-parallel; "tp": its dense oracle with the experts over 'tp';
+    "dense": the same on one card; "sp": GPT-2 base at sp = the default
+    group's size, zigzag): ``counted_steps``' results and the launches this
+    rank should have made."""
+    if kind.startswith("pp:"):
+        template = build_model(VIT_B16, device=device)
+        schedule = kind[3:]
+        model, state, step = pp_setup(template, mesh, schedule)
+        batch = PAR.shard_batch(vit_pp_batch(device), mesh)
+        counters, plain = PP_COUNTERS, no_plain_versions
+        want = pp_want(template.config, mesh, schedule, PP_MICRO, steps)
+    elif kind in ("ep", "tp", "dense"):
+        template = build_model(MOE_8X124M, device=device)
+        tokens = moe_tokens(template.config, device)
+        counters, plain = MOE_COUNTERS, no_moe_plain_versions
+        model, state, step = ep_setup(template, mesh, kind)
+        batch = PAR.shard_batch((tokens, tokens), mesh) if kind != "dense" else (tokens, tokens)
+        want = moe_want(template.config, steps)
+        if kind != "ep":  # the oracle: no grouped product; K1 and K3 at H / tp heads
+            want = {name: count if name in ("fused_mha_packed", "packed_mha_bwd") else 0
+                    for name, count in want.items()}
+        if kind == "dense":
+            plain = no_plain_versions  # the oracle is this route's FFN
+    else:
+        template = build_model(GPT2_BASE, device=device)
+        tokens = moe_tokens(template.config, device)[:SP_BATCH]
+        model, state, step = train_setup(template, None, lambda s, lr: SEQ.make_sp_train_step(
+            zigzag=True, grad_clip=GRAD_CLIP, schedule=s, base_lr=lr), GPT2_OPTIMIZER)
+        batch = (tokens, torch.roll(tokens, -1, dims=1))
+        counters, plain = LM_COUNTERS, no_plain_hops
+        sp = torch.distributed.get_world_size()
+        per_layer = {1: SP_K9_PER_LAYER[True], 2: SP2_K9_PER_LAYER}[sp]
+        want = {"fused_mha_packed": 0, "packed_mha_bwd": 0, "flash_attention": 0,
+                "flash_bwd": 0, "hop_state": per_layer * template.config.n_layers * steps}
+    del template
+    result = counted_steps(lambda: step(state, batch), warmup, steps, counters, plain)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, want
+
+
+PARALLEL_MESHES = {"pp": PAR.build_pipeline_mesh, "ep": PAR.build_ep_mesh,
+                   "tp": lambda n, dp: PAR.build_mesh(dp, n), "sp": lambda n, dp: None}
+
+
+def parallel_rank(kind: str, dp: int, n: int) -> None:
+    """A rank of ``parallel_ranks`` (``--parallel-rank <kind> <dp> <n>``):
+    joins the launch's NCCL group on its card (VITEF_COORDINATOR_ADDRESS,
+    VITEF_NUM_PROCESSES, VITEF_PROCESS_ID, VITEF_LOCAL_RANK), runs
+    PARALLEL_STEPS steps of ``kind`` and prints its launches, the launches
+    it should have made, its plain calls and its metrics on one
+    PARALLEL_RANK_LINE."""
+    local = int(os.environ.get("VITEF_LOCAL_RANK", "0"))
+    torch.cuda.set_device(local)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://{os.environ['VITEF_COORDINATOR_ADDRESS']}",
+        world_size=int(os.environ["VITEF_NUM_PROCESSES"]),
+        rank=int(os.environ["VITEF_PROCESS_ID"]))
+    try:
+        mesh = PARALLEL_MESHES[kind.split(":")[0]](n, dp)
+        (metrics, launches, seconds, plain), want = run_of(kind, torch.device("cuda", local),
+                                                           mesh, PARALLEL_STEPS)
+        print(PARALLEL_RANK_LINE + json.dumps({
+            "launches": launches, "want": want, "plain": dict(plain), "seconds": seconds,
+            "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics]}))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def parallel_ranks(kind: str, dp: int, n: int, ref: list) -> None:
+    """``kind`` over dp · n cards, one process a card as a user launches
+    them, each a run of this script (``--parallel-rank``): every rank must
+    exit 0 with the launches it should have made and no plain call, and its
+    losses within MESH_LOSS_RTOL and grad norms within MESH_TP_NORM_RTOL of
+    ``ref``, the one-card run's first PARALLEL_STEPS steps."""
+    world = dp * n
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--parallel-rank", kind, str(dp),
+           str(n)]
+    procs = [subprocess.Popen(cmd, cwd=REPO_ROOT, env={
+        **os.environ, "VITEF_COORDINATOR_ADDRESS": f"localhost:{port}",
+        "VITEF_NUM_PROCESSES": str(world), "VITEF_PROCESS_ID": str(rank),
+        "VITEF_LOCAL_RANK": str(rank)}, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(world)]
+    t0 = time.perf_counter()
+    try:
+        outs = [proc.communicate(timeout=600)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    label = f"{kind} at dp {dp} x {n}"
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}, rank {rank} exited {proc.returncode}:\n{out[-4000:]}")
+    ranks = [json.loads(next(line for line in out.splitlines()
+                             if line.startswith(PARALLEL_RANK_LINE))[len(PARALLEL_RANK_LINE):])
+             for out in outs]
+    errs = {key: max(abs(a - b[key]) / abs(b[key]) for r in ranks for a, b in zip(r[key], ref))
+            for key in ("loss", "grad_norm")}
+    print(f"{label} over {world} cards: loss {' '.join(repr(x) for x in ranks[0]['loss'])}; "
+          f"grad_norm {' '.join(repr(x) for x in ranks[0]['grad_norm'])}; launches by rank "
+          f"{[r['launches'] for r in ranks]} (want {[r['want'] for r in ranks]}); plain calls "
+          f"{[r['plain'] for r in ranks]}; against one card: losses within {errs['loss']:.3e} "
+          f"(limit {MESH_LOSS_RTOL}), grad norms within {errs['grad_norm']:.3e} (limit "
+          f"{MESH_TP_NORM_RTOL}); {max(r['seconds'] for r in ranks):.2f} s for "
+          f"{PARALLEL_STEPS} steps ({time.perf_counter() - t0:.2f} s with start-up)")
+    if any(r["launches"] != r["want"] or r["plain"] for r in ranks):
+        raise AssertionError(f"a rank of {label} missed a kernel or ran a plain version")
+    if errs["loss"] > MESH_LOSS_RTOL or errs["grad_norm"] > MESH_TP_NORM_RTOL:
+        raise AssertionError(f"{label} is off the one-card run")
+
+
+def parallel_phase(device, card_line: str) -> None:
+    """Phase 51, pipeline and expert parallelism in a one-rank NCCL group
+    (as phase 50): ViT-B/16 pipelined at pp = 1 under GPipe and 1F1B
+    (``pipeline_phase``), MoE 8x124m expert-parallel at ep = 1
+    (``ep_phase``); with two cards or more, pp = 2 under both schedules,
+    ep = 2, the MoE at tp = 2 and GPT-2 base at sp = 2, and with four,
+    pp = 4 under both schedules (stages 2 and 3 post nothing in the first
+    tick), (dp, pp) = (2, 2) and (dp, ep) = (2, 2), each held to the one-card
+    run (``parallel_ranks``)."""
+    world = torch.cuda.device_count()
+    torch.cuda.set_device(device)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                         world_size=1, rank=0)
+    try:
+        print(f"phase 51 ({card_line.splitlines()[0]}): one-rank NCCL group of card 0"
+              + (f"; the runs over {world} cards follow" if world > 1 else ""))
+        pp = pipeline_phase(device, PAR.build_pipeline_mesh(1))
+        ep = ep_phase(device, PAR.build_ep_mesh(1))
+        refs = {}
+        if world >= 2:  # the one-card runs the ranks are held to
+            for kind in ("dense", "sp"):
+                (metrics, _, _, _), _ = run_of(kind, device, PAR.build_mesh(), PARALLEL_STEPS)
+                refs[kind] = metrics
+    finally:
+        torch.distributed.destroy_process_group()
+    if world < 2:
+        print("phase 51: one card, so pp = 2, ep = 2, the MoE at tp = 2 and sp = 2 (a process "
+              "a card) are not run here")
+        return
+    first = PARALLEL_STEPS
+    parallel_ranks("pp:gpipe", 1, 2, pp["gpipe"][:first])
+    parallel_ranks("pp:1f1b", 1, 2, pp["1f1b"][:first])
+    parallel_ranks("ep", 1, 2, ep[:first])
+    parallel_ranks("tp", 1, 2, refs["dense"])
+    parallel_ranks("sp", 1, 2, refs["sp"])
+    if world >= 4:
+        parallel_ranks("pp:gpipe", 1, 4, pp["gpipe"][:first])
+        parallel_ranks("pp:1f1b", 1, 4, pp["1f1b"][:first])
+        parallel_ranks("pp:1f1b", 2, 2, pp["1f1b"][:first])
+        parallel_ranks("ep", 2, 2, ep[:first])
+
+
 def stopwatch():
     """A function that prints the seconds since the script's start and since
     its last call, beside a label: where the script's time limit goes."""
@@ -6875,6 +7376,11 @@ def main() -> None:
     with phase_clock("50 (mesh)", device):
         mesh_phase(device, card_line)
     stamp("the mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("51 (pipeline and expert parallelism)", device):
+        parallel_phase(device, card_line)
+    stamp("pipeline and expert parallelism")
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -6948,5 +7454,7 @@ if __name__ == "__main__":
         mesh_train_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4:5] == ["fsdp"])
     elif sys.argv[1:2] == ["--mesh-serve"]:
         mesh_serve_rank(int(sys.argv[2]), int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     else:
         main()

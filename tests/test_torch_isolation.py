@@ -29,7 +29,7 @@ absent = ("jax", "vitef_tpu", "yaml", "PIL", "pandas", "matplotlib", "seaborn", 
           "imageio")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in absent)
 print(len(names), "modules;", "leaked:", leaked)
-sys.exit(1 if leaked or len(names) < 67 else 0)
+sys.exit(1 if leaked or len(names) < 71 else 0)
 """
 
 

@@ -432,20 +432,28 @@ def test_rank_helpers_and_config_from_the_launch_environment(monkeypatch, n_proc
 
 LLAMA_GQA = {"implementation": "llama", "model_name": "tiny", "pretrained": False,
              "seq_len": 32}
+# a small MoE decoder with biased experts, so that fc1's (E, f1) bias takes
+# the expert-axis rule too
+MOE = {"implementation": "transformer", "vocab_size": 32, "emb_type": "dict", "emb_dim": 16,
+       "n_heads": 2, "n_layers": 2, "seq_len": 8, "ffn_dim": 16, "ffn_bias": True,
+       "causal": True, "output_type": "sequence_to_sequence", "cls_token": False,
+       "n_experts": 8, "moe_top_k": 2}
 
 
 @functools.cache
 def _jax_model(name: str):
-    return jax_build_model({"vit": VIT, "llama-gqa": LLAMA_GQA}[name], key=jax.random.key(0))
+    return jax_build_model({"vit": VIT, "llama-gqa": LLAMA_GQA, "moe": MOE}[name],
+                           key=jax.random.key(0))
 
 
 @pytest.mark.parametrize("dp,tp,fsdp", [(8, 1, False), (4, 2, False), (4, 2, True),
                                         (2, 1, True)])
-@pytest.mark.parametrize("model", ["vit", "llama-gqa"])
+@pytest.mark.parametrize("model", ["vit", "llama-gqa", "moe"])
 def test_param_shardings_are_jax_specs(model, dp, tp, fsdp):
     """Every parameter's placement, mapped to the JAX layout, is the spec of
     the JAX package's ``param_shardings`` on a mesh of the same shape (the
-    JAX models built once)."""
+    JAX models built once); an MoE model's expert stacks (and fc1's bias)
+    split their expert axis over 'tp'."""
     jm = _jax_model(model)
     want = {keystr_dotted(p): tuple(s.spec) for p, s in jax.tree_util.tree_leaves_with_path(
         jax_mesh.param_shardings(jm.params, _jax_mesh(dp, tp), fsdp))}
@@ -471,13 +479,6 @@ def test_mesh_train_step_refuses_a_tp_mesh():
         make_train_step(mesh=tp_mesh)
     with pytest.raises(AssertionError):
         jax_make_train_step(lambda *a, **k: None, None, mesh=_jax_mesh(1, 2))
-
-
-def test_moe_under_tensor_parallelism_raises():
-    moe = build_model({"implementation": "moe", "model_name": "tiny", "pretrained": False,
-                       "seq_len": 16}, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        shard_params(moe, type(build_mesh())(dp=1, tp=2))
 
 
 @pytest.mark.parametrize("count", [2, 3])

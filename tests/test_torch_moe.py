@@ -408,7 +408,7 @@ def test_router_aux_matches_jax():
         np.testing.assert_allclose(float(aux["z"]), float(ref["z"]), rtol=1e-5)
 
 
-@pytest.mark.parametrize("impl", ["auto", "dense", "sparse"])
+@pytest.mark.parametrize("impl", ["auto", "dense", "sparse", "ep_sparse"])
 def test_resolve_moe_impl_matches_jax(impl, monkeypatch):
     """The same branch as the JAX package on a single TPU (its backend
     patched to read "tpu"), the port given a CUDA device."""

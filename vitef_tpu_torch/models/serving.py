@@ -292,6 +292,9 @@ class DecodeServer:
                 if any(p.dtype == torch.int8 for p in module.parameters()):
                     raise NotImplementedError("int8 weights under tensor parallelism are not "
                                               "ported (their scales are not split)")
+                if cfg.n_experts:
+                    raise NotImplementedError("the mesh server does not split an MoE model's "
+                                              "experts over tp (training does: shard_params)")
                 module = shard_params(copy.deepcopy(module), mesh)
                 cfg = local_config(cfg, mesh.tp)
         self.module, self.cfg = decode_module(module, cfg), cfg

@@ -70,12 +70,17 @@ def local_config(cfg, tp: int):
     (the attention width, n_heads · head_dim) and ``ffn_dim`` divided by
     ``tp``, so that ``head_dim`` and ``kv_dim`` are the local ones and every
     other field is the model's. Raises ``ValueError`` unless the heads, the
-    KV heads and the FFN width divide."""
-    for name in ("n_heads", "n_kv_heads", "ffn_dim"):
+    KV heads and the FFN width divide. An MoE model's FFN splits its experts,
+    not its width (:func:`~vitef_tpu_torch.parallel.moe.apply_moe_ffn_tp`):
+    its ``ffn_dim`` is kept and need not divide."""
+    names = ("n_heads", "n_kv_heads") + (() if cfg.n_experts else ("ffn_dim",))
+    for name in names:
         if getattr(cfg, name) % tp:
             raise ValueError(f"tensor parallelism needs {name} % tp == 0, got "
                              f"{getattr(cfg, name)} at tp={tp}")
     local = copy.copy(cfg)
     local.n_heads, local.n_kv_heads = cfg.n_heads // tp, cfg.n_kv_heads // tp
-    local.emb_dim, local.ffn_dim = cfg.emb_dim // tp, cfg.ffn_dim // tp
+    local.emb_dim = cfg.emb_dim // tp
+    if not cfg.n_experts:
+        local.ffn_dim = cfg.ffn_dim // tp
     return local

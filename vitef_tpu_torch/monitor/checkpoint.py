@@ -58,6 +58,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..models.convert import _transposed, from_jax_params, to_jax_params
@@ -180,8 +181,9 @@ def optimizer_state(optimizer: torch.optim.Optimizer, module: nn.Module) -> dict
 
 def optimizer_pieces(optimizer: torch.optim.Optimizer, module: nn.Module) -> Pieces:
     """This rank's pieces of :func:`optimizer_state` (the port's layout): a
-    buffer of a parameter's shape lies where the parameter's slice lies,
-    0-d buffers and the class entry are written by the master."""
+    buffer of a parameter's shape lies where the parameter's slice lies, a
+    0-d buffer is written by the rank that writes its parameter's first
+    element (the master, off a mesh), the class entry by the master."""
     layout = getattr(module, "mesh_layout", None)
     names = {p: name for name, p in module.named_parameters()}
     pieces, meta = {}, {}
@@ -202,6 +204,9 @@ def optimizer_pieces(optimizer: torch.optim.Optimizer, module: nn.Module) -> Pie
                 meta[entry] = {"shape": list(whole), "dtype": _np_dtype(value)}
                 if layout is not None and value.dim():
                     parts = layout.pieces(name, value)
+                elif layout is not None:
+                    first = any(not any(starts) for starts, _ in layout.pieces(name, p.data))
+                    parts = [((), value)] if first else []
                 else:
                     parts = [((0,) * value.dim(), value)] if is_master_process() else []
                 for starts, piece in parts:
@@ -457,6 +462,13 @@ class Checkpointer:
         t0 = time.perf_counter()
         state = self.get_state()
         model, optim = state["model"], state.get("optim")
+        # the index names every rank's entries (a pipeline stage holds only
+        # its own blocks)
+        every = [None] * get_world_size()
+        dist.all_gather_object(every, (model.meta, None if optim is None else optim.meta))
+        model = Pieces(model.pieces, {k: v for m, _ in every for k, v in m.items()})
+        if optim is not None:
+            optim = Pieces(optim.pieces, {k: v for _, m in every for k, v in m.items()})
         training = dict(state.get("training", {}))
         timing = {"step": self.step, "stage_s": time.perf_counter() - t0}
         self.timings.append(timing)

@@ -7,7 +7,10 @@ One process per card, as NCCL wants it: the ``torch.distributed`` default
 group holds every rank, and :class:`Mesh` lays its ranks out as a
 ``('dp', 'tp')`` grid, rank r at (r // tp, r % tp), the JAX package's
 ``devices.reshape(dp, tp)``. Each rank belongs to one dp group (the ranks
-that share its tp index) and one tp group.
+that share its tp index) and one tp group. The same grid with 'pp'
+(:func:`build_pipeline_mesh`, ``parallel/pipeline.py``) or 'ep'
+(:func:`build_ep_mesh`, the expert-parallel MoE of ``parallel/moe.py``) as
+its fast axis places pipeline stages and expert owners.
 
 - Data parallelism: every parameter is replicated; each rank computes on its
   own rows and the train step averages the gradients over 'dp'.
@@ -105,38 +108,86 @@ class ComputingConfig:
     process_id: int = 0
 
 
-@dataclass(eq=False)
 class Mesh:
-    """A ``('dp', 'tp')`` grid over the ranks of the default process group.
-    ``dp_group``/``tp_group`` are this rank's groups along each axis; both
-    are None without a process group (one process), and then no collective
-    runs."""
+    """A grid over the ranks of the default process group: ``('dp', 'tp')``
+    (:func:`build_mesh`), ``('dp', 'pp')`` (:func:`build_pipeline_mesh`) or
+    ``('dp', 'ep')`` (:func:`build_ep_mesh`), made as ``Mesh(dp, tp=n)``,
+    ``Mesh(dp, pp=n)`` or ``Mesh(dp, ep=n)`` (``tp=1`` when none is given).
+    The second axis, ``inner`` (``n_inner`` ranks), varies fastest: rank r
+    sits at (r // n_inner, r % n_inner). ``dp_group`` and ``inner_group``
+    are this rank's groups along each axis; both are None without a process
+    group (one process), and then no collective runs. ``tp``, ``pp`` and
+    ``ep`` (and their groups and ranks) read the inner axis where it is
+    theirs, and are 1 (None, 0) on a mesh without that axis."""
 
-    dp: int
-    tp: int
-    rank: int = 0
-    dp_group: Any = None
-    tp_group: Any = None
-    world_group: Any = None
+    def __init__(self, dp: int, rank: int = 0, dp_group: Any = None, inner_group: Any = None,
+                 world_group: Any = None, **inner_size: int):
+        if len(inner_size) > 1 or not set(inner_size) <= {"tp", "pp", "ep"}:
+            raise ValueError(f"a mesh has one inner axis, tp, pp or ep; got {inner_size}")
+        ((self.inner, self.n_inner),) = (inner_size or {"tp": 1}).items()
+        self.dp, self.rank = dp, rank
+        self.dp_group, self.inner_group, self.world_group = dp_group, inner_group, world_group
+
+    def __repr__(self) -> str:
+        return f"Mesh(dp={self.dp}, {self.inner}={self.n_inner}, rank={self.rank})"
+
+    @property
+    def axis_names(self) -> tuple[str, str]:
+        return ("dp", self.inner)
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"dp": self.dp, "tp": self.tp}
+        return {"dp": self.dp, self.inner: self.n_inner}
 
     @property
     def size(self) -> int:
-        return self.dp * self.tp
+        return self.dp * self.n_inner
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // self.tp
+        return self.rank // self.n_inner
 
-    @property
-    def tp_rank(self) -> int:
-        return self.rank % self.tp
+    def _size(self, axis: str) -> int:
+        return self.n_inner if self.inner == axis else 1
+
+    def _group(self, axis: str):
+        return self.inner_group if self.inner == axis else None
+
+    def _rank(self, axis: str) -> int:
+        return self.rank % self.n_inner if self.inner == axis else 0
+
+    tp = property(lambda self: self._size("tp"))
+    pp = property(lambda self: self._size("pp"))
+    ep = property(lambda self: self._size("ep"))
+    tp_group = property(lambda self: self._group("tp"))
+    pp_group = property(lambda self: self._group("pp"))
+    ep_group = property(lambda self: self._group("ep"))
+    tp_rank = property(lambda self: self._rank("tp"))
+    pp_rank = property(lambda self: self._rank("pp"))
+    ep_rank = property(lambda self: self._rank("ep"))
 
     def __deepcopy__(self, memo):  # process groups are shared, never copied
         return self
+
+
+def _grid(dp: int, inner: str, n: int) -> Mesh:
+    """The ``('dp', inner)`` mesh of ``dp * n`` ranks over the default
+    group, rank d * n + i at (d, i); without a group, one rank and no
+    groups. Every rank makes every group, in the same order."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return Mesh(dp, **{inner: n})
+    rank = dist.get_rank()
+    dp_group = inner_group = None
+    for i in range(n):
+        group = dist.new_group([d * n + i for d in range(dp)])
+        if rank % n == i:
+            dp_group = group
+    for d in range(dp):
+        group = dist.new_group([d * n + i for i in range(n)])
+        if rank // n == d:
+            inner_group = group
+    return Mesh(dp, rank=rank, dp_group=dp_group, inner_group=inner_group,
+                world_group=dist.group.WORLD, **{inner: n})
 
 
 def build_mesh(dp: int = -1, tp: int = 1) -> Mesh:
@@ -148,21 +199,30 @@ def build_mesh(dp: int = -1, tp: int = 1) -> Mesh:
         dp = world // tp
     if dp * tp != world:
         raise AssertionError(f"dp * tp = {dp}*{tp} must equal the number of devices ({world})")
-    if not (dist.is_available() and dist.is_initialized()):
-        return Mesh(dp=dp, tp=tp)
-    rank = dist.get_rank()
-    dp_group = tp_group = None
-    # every rank makes every group, in the same order
-    for t in range(tp):
-        group = dist.new_group([d * tp + t for d in range(dp)])
-        if rank % tp == t:
-            dp_group = group
-    for d in range(dp):
-        group = dist.new_group([d * tp + t for t in range(tp)])
-        if rank // tp == d:
-            tp_group = group
-    return Mesh(dp=dp, tp=tp, rank=rank, dp_group=dp_group, tp_group=tp_group,
-                world_group=dist.group.WORLD)
+    return _grid(dp, "tp", tp)
+
+
+def build_pipeline_mesh(pp: int, dp: int = 1) -> Mesh:
+    """The ('dp', 'pp') mesh of ``vitef_tpu/parallel/pipeline.py``
+    (:102-112): pipeline stages vary fastest, rank d * pp + s is stage s of
+    data-parallel row d. ``dp * pp`` must equal the world size
+    (AssertionError)."""
+    world = get_world_size()
+    if dp * pp != world:
+        raise AssertionError(f"dp * pp = {dp}*{pp} must equal the number of devices ({world})")
+    return _grid(dp, "pp", pp)
+
+
+def build_ep_mesh(ep: int, dp: int = 1) -> Mesh:
+    """The ('dp', 'ep') mesh of the expert-parallel MoE
+    (``vitef_tpu/parallel/moe.py`` :1026-1060; dp = 1 is its ``('ep',)``
+    mesh): expert owners vary fastest, rank d * ep + j owns the j-th block
+    of experts in data-parallel row d. ``dp * ep`` must equal the world
+    size (AssertionError)."""
+    world = get_world_size()
+    if dp * ep != world:
+        raise AssertionError(f"dp * ep = {dp}*{ep} must equal the number of devices ({world})")
+    return _grid(dp, "ep", ep)
 
 
 def computing_config_from_env(dp: int = -1, tp: int = 1, fsdp: bool = False) -> ComputingConfig:
@@ -241,11 +301,15 @@ _TP_RULES = [
 @dataclass(frozen=True)
 class Placement:
     """Where a parameter is split, in the port's layout: ``tp`` the axis
-    split over 'tp', ``dp`` the axis split over 'dp' (FSDP), None when
-    replicated along that mesh axis."""
+    split over 'tp', ``dp`` the axis split over 'dp' (FSDP), ``ep`` the axis
+    split over 'ep' (an expert stack's expert axis), None when replicated
+    along that mesh axis; ``pp`` a block parameter that lives on this
+    rank's pipeline stage alone."""
 
     tp: int | None = None
     dp: int | None = None
+    ep: int | None = None
+    pp: bool = False
 
 
 def _transposed(name: str, shape: tuple, names) -> bool:
@@ -260,12 +324,11 @@ def param_shardings(shapes: dict[str, tuple], mesh: Mesh | dict,
     in the port's layout) on ``mesh`` (or a ``{'dp': .., 'tp': ..}``
     shape): the JAX package's rule (:166-199) taken on the JAX layout of
     each tensor, then mapped to the port's axes. With tp > 1 the
-    ``_TP_RULES`` axis is split where it divides; 3-D MoE expert stacks
-    would split their expert axis, which the port does not compute (see
-    :func:`shard_params`). With ``fsdp`` and dp > 1 the largest divisible
-    free axis is split over 'dp'."""
+    ``_TP_RULES`` axis is split where it divides, and 3-D MoE expert stacks
+    split their expert axis (:180-187). With ``fsdp`` and dp > 1 the largest
+    divisible free axis is split over 'dp'."""
     shape = mesh.shape if isinstance(mesh, Mesh) else mesh
-    dp, tp = shape["dp"], shape["tp"]
+    dp, tp = shape["dp"], shape.get("tp", 1)
     out = {}
     for name, port_shape in shapes.items():
         port_shape = tuple(port_shape)
@@ -330,9 +393,11 @@ class MeshLayout:
     def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the whole tensor ``full`` (the port's layout)."""
         out = self._tp_slice(name, full)
-        axis = self.placement(name).dp
-        if axis is not None:
-            out = out.chunk(self.mesh.dp, dim=axis)[self.mesh.dp_rank]
+        place = self.placement(name)
+        if place.ep is not None:
+            out = out.chunk(self.mesh.ep, dim=place.ep)[self.mesh.ep_rank]
+        if place.dp is not None:
+            out = out.chunk(self.mesh.dp, dim=place.dp)[self.mesh.dp_rank]
         return out.contiguous()
 
     def pieces(self, name: str, local: torch.Tensor) -> list[tuple[tuple, torch.Tensor]]:
@@ -341,11 +406,14 @@ class MeshLayout:
         writes the same values (a replica's first copy writes, as the JAX
         checkpoint's ``replica_id == 0``)."""
         place, mesh = self.placement(name), self.mesh
-        if (place.tp is None and mesh.tp_rank) or (place.dp is None and mesh.dp_rank):
+        if ((place.tp is None and mesh.tp_rank) or (place.dp is None and mesh.dp_rank)
+                or (place.ep is None and mesh.ep_rank) or (not place.pp and mesh.pp_rank)):
             return []
         base = [0] * local.dim()
         if place.dp is not None:
             base[place.dp] = mesh.dp_rank * local.shape[place.dp]
+        if place.ep is not None:
+            base[place.ep] = mesh.ep_rank * local.shape[place.ep]
         if place.tp is None:
             return [(tuple(base), local)]
         out = []
@@ -395,14 +463,18 @@ def shard_params(model, mesh: Mesh, fsdp: bool = False):
     :func:`param_shardings`, and return it; ``module.mesh_layout`` records
     the placement.
 
-    tp > 1: every block's qkv, attention output, fc1 and fc2 keep this rank's
-    heads and columns (their ``Linear.tp`` set), and its attention and FFN
-    compute with :func:`~vitef_tpu_torch.models.tensor_parallel.local_config`.
-    It needs n_heads, n_kv_heads and ffn_dim divisible by tp (ValueError);
-    an MoE model raises NotImplementedError (the expert-parallel MoE is
-    ported with pipeline parallelism). ``fsdp``: each parameter keeps its
-    shard over 'dp' (the step gathers them; :func:`gathered` does for
-    anything else that runs the module)."""
+    tp > 1: every block's qkv and attention output keep this rank's heads
+    (their ``Linear.tp`` set), and its attention computes with
+    :func:`~vitef_tpu_torch.models.tensor_parallel.local_config`; it needs
+    n_heads and n_kv_heads divisible by tp (ValueError). A dense FFN's fc1
+    and fc2 keep this rank's columns (ffn_dim divisible by tp). An MoE FFN
+    keeps the rank's block of experts where tp divides n_experts (the JAX
+    rule, :180-187) and computes the gate-masked oracle over them, one
+    all-reduce over 'tp' at the combine
+    (:func:`~vitef_tpu_torch.parallel.moe.apply_moe_ffn_tp`); otherwise its
+    experts stay whole. ``fsdp``: each parameter keeps its shard over 'dp'
+    (the step gathers them; :func:`gathered` does for anything else that
+    runs the module)."""
     from ..models.tensor_parallel import local_config
 
     module = getattr(model, "module", model)
@@ -413,13 +485,11 @@ def shard_params(model, mesh: Mesh, fsdp: bool = False):
     layout = MeshLayout(mesh=mesh, placements=param_shardings(names, mesh, fsdp),
                         full_shapes=names)
     if mesh.tp > 1:
-        if cfg.n_experts:
-            raise NotImplementedError("an MoE model under tensor parallelism is not ported "
-                                      "(the expert-parallel MoE comes with the pipeline slice)")
         local = local_config(cfg, mesh.tp)
         t, d = mesh.tp_rank, cfg.head_dim
         eq, kvd, f = local.n_heads * d, local.n_kv_heads * d, local.ffn_dim
         swiglu = cfg.ffn_type.lower() == "swiglu"
+        e_loc = cfg.n_experts // mesh.tp
         runs = {
             "attn.qkv_mat": [(t * eq, 0, eq), (cfg.emb_dim + t * kvd, eq, kvd),
                              (cfg.emb_dim + cfg.kv_dim + t * kvd, eq + kvd, kvd)],
@@ -430,10 +500,19 @@ def shard_params(model, mesh: Mesh, fsdp: bool = False):
         }
         modes = {"attn.qkv_mat": "column", "attn.output": "row", "ffn.fc1": "column",
                  "ffn.fc2": "row"}
+        if cfg.n_experts:  # the expert axis, where it divides
+            runs["ffn.fc1"] = runs["ffn.fc2"] = [(t * e_loc, 0, e_loc)]
+            modes = {"attn.qkv_mat": "column", "attn.output": "row"}
         for i, block in enumerate(module.blocks):
-            block.attn.cfg = block.ffn.cfg = local
+            block.attn.cfg = local
+            if cfg.n_experts:
+                if cfg.n_experts % mesh.tp == 0:
+                    block.ffn.tp = mesh
+            else:
+                block.ffn.cfg = local
             for path, mode in modes.items():
                 block.get_submodule(path).tp = (mode, mesh)
+            for path in runs:
                 for kind in ("weight", "bias"):
                     name = f"blocks.{i}.{path}.{kind}"
                     if name in names and layout.placements[name].tp is not None:
@@ -469,16 +548,20 @@ def gathered(model):
 def shard_batch(batch, mesh: Mesh):
     """This rank's rows of the global ``batch`` (a tuple or list of tensors
     with a leading batch axis): the ``dp_rank``-th of ``dp`` equal row
-    blocks, so that the ranks of a tp group hold the same rows. A loader
-    given this rank's process shard (``shard_index``, ``shard_count``)
-    already yields its rows, which go to the step as they are."""
-    if mesh.dp == 1:
+    blocks, so that the ranks of a tp group (or the stages of a pipeline)
+    hold the same rows; on a ``('dp', 'ep')`` mesh, whose step splits the
+    batch over every rank (``vitef_tpu/parallel/moe.py`` :1131), the
+    ``rank``-th of ``dp · ep`` blocks. A loader given this rank's process
+    shard (``shard_index``, ``shard_count``) already yields its rows, which
+    go to the step as they are."""
+    parts, index = (mesh.size, mesh.rank) if mesh.inner == "ep" else (mesh.dp, mesh.dp_rank)
+    if parts == 1:
         return batch
 
     def rows(x):
-        if x.shape[0] % mesh.dp:
-            raise ValueError(f"a batch of {x.shape[0]} rows does not split over dp={mesh.dp}")
-        n = x.shape[0] // mesh.dp
-        return x[mesh.dp_rank * n:(mesh.dp_rank + 1) * n]
+        if x.shape[0] % parts:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split over {parts} ranks")
+        n = x.shape[0] // parts
+        return x[index * n:(index + 1) * n]
 
     return type(batch)(rows(x) for x in batch)

@@ -52,8 +52,9 @@ import torch.nn.functional as F
 from ..models.transformer import split_qkv
 from ..ops.common import canonical_impl, draw_seed, dropout
 from ..ops.ring_hop import attend_block, hop_kernel_ok, hop_state, hop_vjp
-from ..optim import clip_by_global_norm_, global_grad_norm
-from .train_step import TrainState, cross_entropy_loss
+from ..optim import global_grad_norm
+from .train_step import (TrainState, cross_entropy_loss, finish_step, reduce_flat_,
+                         trainable_grads)
 
 
 def zigzag_permutation(length: int, sp: int) -> np.ndarray:
@@ -419,7 +420,6 @@ def make_sp_train_step(*, group=None, zigzag: bool = False, chunk: int | None = 
         labels = labels[:, rank * lloc:(rank + 1) * lloc]
         module = state.model.module
         module.train()
-        params = [p for p in module.parameters() if p.requires_grad]
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=tokens.device)
         for tok, lab in zip(tokens.chunk(grad_acc_steps), labels.chunk(grad_acc_steps)):
@@ -428,25 +428,10 @@ def make_sp_train_step(*, group=None, zigzag: bool = False, chunk: int | None = 
             loss = loss_fn(logits, lab)
             loss.backward()
             loss_sum += loss.detach()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        flat = torch.cat([loss_sum.reshape(1)] + [g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=grp)
-        flat /= sp * grad_acc_steps
-        for g, reduced in zip(grads, flat[1:].split([g.numel() for g in grads])):
-            g.copy_(reduced.view_as(g))
-        metrics = {"loss": flat[0], "grad_norm": global_grad_norm(grads)}
-        if grad_clip:
-            clip_by_global_norm_(grads, grad_clip, metrics["grad_norm"])
-        state.optimizer.step()
-        if schedule is not None:
-            metrics["lr"] = base_lr * schedule(state.step)
-        if state.scheduler is not None:
-            state.scheduler.step()
-        state.step += 1
-        state.acc_step = 0
-        return metrics
+        grads = [p.grad for p in trainable_grads(module)]
+        reduce_flat_([loss_sum] + grads, grp, sp * grad_acc_steps)
+        metrics = {"loss": loss_sum, "grad_norm": global_grad_norm(grads)}
+        return finish_step(state, grads, metrics, grad_clip=grad_clip, schedule=schedule,
+                           base_lr=base_lr)
 
     return train_step

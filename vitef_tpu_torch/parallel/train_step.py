@@ -108,7 +108,7 @@ def make_train_step(
     microbatch's train-mode forward returns its batch statistics
     (``module(x, return_stats=True)``), the EMA at ``stats_momentum`` chains
     over the microbatches in order, in float32, and the result is copied
-    into the buffers after the optimizer step. The buffers are not
+    into the buffers at the end of the step. The buffers are not
     parameters, so neither autograd nor the optimizer sees them. It excludes
     ``moe_aux_coefs`` and ``hidden_loss`` (``ValueError``, as in JAX).
 
@@ -136,7 +136,7 @@ def make_train_step(
     once, each replicated tensor once) and the optimizer updates each
     rank's shards and their state.
     """
-    if mesh is not None and mesh.shape["tp"] != 1:
+    if mesh is not None and mesh.shape.get("tp", 1) != 1:
         raise AssertionError("the mesh train step is data-parallel only; shard the model "
                              "with shard_params for tp/fsdp and pass mesh=None")
     if moe_aux_coefs is not None and update_stats:
@@ -214,10 +214,9 @@ def make_train_step(
         loss = loss_sum / grad_acc_steps
         aux = {key: value / grad_acc_steps for key, value in aux_sum.items()}
         if layout is not None:
-            averaged = _average_over_dp(
+            _average_over_dp(
                 layout, names, [p for p in params + frozen if p.grad is not None],
                 [loss, *aux.values()] + [t for r in running.values() for t in r.values()])
-            loss, aux = averaged[0], dict(zip(aux, averaged[1:]))
             grads = [p.grad for p in params if p.grad is not None]  # FSDP: the shards
 
         metrics = {"loss": loss}
@@ -235,52 +234,75 @@ def make_train_step(
             metrics[f"grad_norm_block_{i}"] = norm
         for p in frozen:
             p.grad = None
-        if grad_clip:
-            clip_by_global_norm_(grads, grad_clip, metrics["grad_norm"])
-        state.optimizer.step()
         with torch.no_grad():
             for path, norm in sites.items():
                 norm.running_mean.copy_(running[path]["running_mean"])
                 norm.running_var.copy_(running[path]["running_var"])
-        if schedule is not None:
-            metrics["lr"] = base_lr * schedule(state.step)
-        if state.scheduler is not None:
-            state.scheduler.step()
-        state.step += 1
-        state.acc_step = 0
-        return metrics
+        return finish_step(state, grads, metrics, grad_clip=grad_clip, schedule=schedule,
+                           base_lr=base_lr)
 
     return train_step
 
 
-def _average_over_dp(layout, names: dict, params: list, scalars: list) -> list:
+def finish_step(state: TrainState, grads: list, metrics: dict, *, grad_clip: float | None,
+                schedule: Callable[[int], float] | None, base_lr: float) -> dict:
+    """The end every train step shares: the global-norm clip of ``grads`` at
+    ``grad_clip`` on ``metrics["grad_norm"]`` (taken before it), the
+    optimizer step, ``metrics["lr"]`` of the step just taken when
+    ``schedule`` is given, the scheduler step and the step counters.
+    Returns ``metrics``."""
+    if grad_clip:
+        clip_by_global_norm_(grads, grad_clip, metrics["grad_norm"])
+    state.optimizer.step()
+    if schedule is not None:
+        metrics["lr"] = base_lr * schedule(state.step)
+    if state.scheduler is not None:
+        state.scheduler.step()
+    state.step += 1
+    state.acc_step = 0
+    return metrics
+
+
+def trainable_grads(module) -> list[torch.Tensor]:
+    """The trainable parameters of ``module``, each given a zero gradient
+    where the backward left none (a frozen path, another stage's work), so
+    that a collective over the gradients has the same layout on every
+    rank."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return params
+
+
+def reduce_flat_(tensors: list[torch.Tensor], group, divisor: int = 1) -> None:
+    """Sum ``tensors`` over ``group`` in one flat float32 all-reduce (none
+    without a group), divide by ``divisor``, and write each result back
+    into the tensor's own storage: a view into the flat buffer is not
+    16-byte aligned, which changes a later norm's reduction order."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    if group is not None:
+        dist.all_reduce(flat, group=group)
+    if divisor != 1:
+        flat /= divisor
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+def _average_over_dp(layout, names: dict, params: list, scalars: list) -> None:
     """Average the gradients of ``params`` and the tensors ``scalars`` over
-    the mesh's 'dp' axis (the JAX step's ``pmean``s :234-241): the scalars
-    and the gradients of the parameters not split over 'dp' in one flat
-    float32 all-reduce, the FSDP-sharded ones in one flat reduce-scatter, so
-    that each rank receives only its shards' sums. Each running statistic
-    in ``scalars`` is written back in place; the averaged ones are
-    returned. A FSDP-sharded parameter's ``grad`` becomes this rank's shard
-    of the averaged gradient."""
+    the mesh's 'dp' axis (the JAX step's ``pmean``s :234-241), in place: the
+    scalars and the gradients of the parameters not split over 'dp' in one
+    flat float32 all-reduce, the FSDP-sharded ones in one flat
+    reduce-scatter, so that each rank receives only its shards' sums. A
+    FSDP-sharded parameter's ``grad`` becomes this rank's shard of the
+    averaged gradient."""
     mesh = layout.mesh
     sharded = [p for p in params if layout.placement(names[p]).dp is not None]
     whole = [p for p in params if layout.placement(names[p]).dp is None]
-    flat = torch.cat([t.reshape(-1).float() for t in scalars]
-                     + [p.grad.reshape(-1).float() for p in whole])
-    if mesh.dp_group is not None:
-        dist.all_reduce(flat, group=mesh.dp_group)
-    if mesh.dp > 1:
-        flat /= mesh.dp
-    parts = flat.split([t.numel() for t in scalars] + [p.grad.numel() for p in whole])
-    out = []
-    for t, part in zip(scalars, parts):
-        if t.dim():
-            t.copy_(part.view_as(t))
-        out.append(part.view_as(t))
-    for p, part in zip(whole, parts[len(scalars):]):
-        # back into the gradient's own storage: a view into ``flat`` is not
-        # 16-byte aligned, which changes the norm's reduction order
-        p.grad.copy_(part.view_as(p.grad))
+    reduce_flat_(scalars + [p.grad for p in whole], mesh.dp_group, mesh.dp)
     if sharded:
         # rank r's block of the input holds the r-th chunk of every gradient,
         # the FSDP axis moved to the front so that each chunk is contiguous
@@ -300,7 +322,6 @@ def _average_over_dp(layout, names: dict, params: list, scalars: list) -> list:
                                         mine.split([c.numel() for c in chunks])):
             p.grad = part.view(chunk.shape).movedim(0, axis).to(
                 p.grad.dtype, copy=True).contiguous()
-    return out
 
 
 def make_eval_step(apply_fn: Callable, loss_fn: Callable = cross_entropy_loss):
