@@ -3057,6 +3057,28 @@ def llama_train_phase(device):
     return model, launches, one_step
 
 
+def bench_llama_step(model, device, shape: tuple[int, int], mesh=None):
+    """``bench_llama``'s step on a Llama ``model`` (AdamW 3e-4, cosine
+    schedule with warmup 100 over 1,000 steps, clip 1.0, the fused untied
+    head + CE) over a (N, L) ``shape`` of tokens from default_rng(0) (on a
+    ``mesh``, this rank's rows of them): ``(state, one_step)``."""
+    cfg = model.config
+    schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
+    optimizer, scheduler = build_optimizer(GPT2_OPTIMIZER, model.module, schedule=schedule)
+    step_fn = make_train_step(schedule=schedule, base_lr=GPT2_LR, grad_clip=GRAD_CLIP,
+                              hidden_loss=make_fused_head_loss(cfg))
+    state = init_train_state(model, optimizer, scheduler)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=shape)).to(device)
+    if mesh is not None:
+        (tokens,) = PAR.shard_batch((tokens,), mesh)
+
+    def one_step():
+        return step_fn(state, (tokens, tokens))
+
+    return state, one_step
+
+
 def llama_steps(model, device, shape: tuple[int, int], warmup: int, label: str,
                 route: str):
     """``bench_llama``'s step on a Llama ``model`` (AdamW 3e-4, cosine
@@ -3069,17 +3091,7 @@ def llama_steps(model, device, shape: tuple[int, int], warmup: int, label: str,
     memory. Returns the launch counts and a device-only step."""
     cfg = model.config
     n, l = shape
-    schedule = build_scheduler(SCHEDULER, n_steps=TRAIN_STEPS)
-    optimizer, scheduler = build_optimizer(GPT2_OPTIMIZER, model.module, schedule=schedule)
-    step_fn = make_train_step(schedule=schedule, base_lr=GPT2_LR, grad_clip=GRAD_CLIP,
-                              hidden_loss=make_fused_head_loss(cfg))
-    state = init_train_state(model, optimizer, scheduler)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(n, l))).to(device)
-
-    def one_step():
-        return step_fn(state, (tokens, tokens))
-
+    state, one_step = bench_llama_step(model, device, shape)
     history = [(state.step, one_step()) for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -3167,6 +3179,23 @@ def llama_cross_check(model, device) -> None:
         raise AssertionError("the fused loss disagrees with the unfused one at V = 128256")
 
 
+def l8b_config(n_layers: int):
+    """The "8b" preset at ``n_layers`` layers, as phase 40 builds it."""
+    return dataclasses.replace(
+        llama_transformer_config(LlamaConfig(model_name="8b", seq_len=L8B_FLASH[1],
+                                             compute_dtype="bfloat16")),
+        n_layers=n_layers)
+
+
+def seeded_llama(n_layers: int, device) -> Model:
+    """Phase 40's model: the "8b" preset at ``n_layers`` layers drawn on the
+    host from seed 0."""
+    cfg = l8b_config(n_layers)
+    return Model(module=Transformer(cfg, device=device,
+                                    generator=torch.Generator().manual_seed(0)),
+                 config=cfg, name="llama")
+
+
 def l8b_train_phase(device) -> dict:
     """Llama-3.1-8B training at the preset's width (E = 4096, 32 heads of
     128, 8 KV heads, FFN 14,336, V = 128,256) and L8B_TRAIN_LAYERS layers
@@ -3177,13 +3206,9 @@ def l8b_train_phase(device) -> dict:
     L8B_WARMUP warm-up and TIMED_STEPS timed steps each (``llama_steps``), a
     profile of one step split by kind, and one sequence's gradients against
     the plain path (``llama_grads_check``). Returns each route's launches."""
-    cfg = dataclasses.replace(
-        llama_transformer_config(LlamaConfig(model_name="8b", seq_len=L8B_FLASH[1],
-                                             compute_dtype="bfloat16")),
-        n_layers=L8B_TRAIN_LAYERS)
     t0 = time.perf_counter()
-    module = Transformer(cfg, device=device, generator=torch.Generator().manual_seed(0))
-    model = Model(module=module.eval(), config=cfg, name="llama")
+    model = seeded_llama(L8B_TRAIN_LAYERS, device)
+    cfg, module = model.config, model.module.eval()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in module.parameters())
     print(f"Llama-3.1-8B at {cfg.n_layers} layers: {n_params:,} parameters, E={cfg.emb_dim}, "
@@ -6495,43 +6520,52 @@ def mesh_grads_check(device) -> float:
     return err
 
 
-def mesh_server_check(device, mesh, exact: bool = True) -> None:
-    """GPT-2 base bf16 through ``DecodeServer(mesh=)`` and the plain server
-    over MESH_SERVE_REQUESTS requests: every request served to its budget,
-    K1 once per layer at every admission this rank owns, and the same
-    greedy tokens: all of them (``exact``), or, across cards, where the
-    partial products are summed in another order (tp) and the slots
-    batched otherwise (dp), each stream up to a near tie of the plain
-    server's (the near-tie rule, NEAR_TIE; the CPU tests hold the ranks to
-    the one-rank server in float32)."""
-    model = build_model(GPT2_BASE, device=device)
+MESH_SERVE_MODELS = {"GPT-2 base bf16": (GPT2_BASE, False),
+                     "GPT-2 base int8": (GPT2_BASE, True),
+                     "MoE 8x124m bf16": (MOE_8X124M, False)}
+
+
+def mesh_server_check(device, mesh, exact: bool = True,
+                      label: str = "GPT-2 base bf16") -> None:
+    """A model of MESH_SERVE_MODELS (GPT-2 base bf16 by default; its int8
+    weights; MoE 8x124m, whose experts split over 'tp') through
+    ``DecodeServer(mesh=)`` and the plain server over MESH_SERVE_REQUESTS
+    requests: every request served to its budget, K1 once per layer at
+    every admission this rank owns, and the same greedy tokens: all of them
+    (``exact``), or, across cards, where the partial products are summed in
+    another order (tp) and the slots batched otherwise (dp), each stream up
+    to a near tie of the plain server's (the near-tie rule, NEAR_TIE; the
+    CPU tests hold the ranks to the one-rank server in float32)."""
+    config, int8 = MESH_SERVE_MODELS[label]
+    model = build_model(config, device=device)
+    module = model.quantize_int8() if int8 else model.module
     rng = np.random.default_rng(1)
     reqs = [(rng.integers(0, model.config.vocab_size, size=(int(rng.integers(16, 121)),))
              .tolist(), int(rng.integers(16, 97))) for _ in range(MESH_SERVE_REQUESTS)]
     tokens = {}
-    for label, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
-        srv = SRV.DecodeServer(model.module, model.config, **MESH_SERVER, **kw)
+    for which, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+        srv = SRV.DecodeServer(module, model.config, **MESH_SERVER, **kw)
         requests = [SRV.Request(prompt=p, max_new_tokens=n) for p, n in reqs]
         # the plain streams' float32 top-2 margins, for the near-tie rule
-        recorded = stream_margins(srv) if label == "plain" else contextlib.nullcontext()
+        recorded = stream_margins(srv) if which == "plain" else contextlib.nullcontext()
         with recorded as by_request:
             A.fused_mha_packed.launches = 0
             t0 = time.perf_counter()
             srv.serve(requests)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-        if label == "plain":
+        if which == "plain":
             margins = [by_request[id(r)] for r in requests]
-        tokens[label] = [r.tokens for r in requests]
+        tokens[which] = [r.tokens for r in requests]
         k1 = A.fused_mha_packed.launches
         # a rank prefills the admissions into its own slots
         own = (sum(r.slot // (srv.n_slots // mesh.dp) == mesh.dp_rank for r in requests)
-               if label == "mesh" else len(requests))
-        print(f"DecodeServer ({label}, GPT-2 base bf16, {MESH_SERVE_REQUESTS} requests, "
+               if which == "mesh" else len(requests))
+        print(f"DecodeServer ({which}, {label}, {MESH_SERVE_REQUESTS} requests, "
               f"{MESH_SERVER['n_slots']} slots{', margins recorded' if by_request else ''}): "
-              f"{sum(map(len, tokens[label]))} tokens in {seconds:.2f} s, K1 {k1} over this "
-              f"rank's {own} admissions")
-        if label == "mesh" and k1 != model.config.n_layers * own:
+              f"{sum(map(len, tokens[which]))} tokens in {seconds:.2f} s, K1 {k1} over "
+              f"this rank's {own} admissions")
+        if which == "mesh" and k1 != model.config.n_layers * own:
             raise AssertionError(f"the mesh server's admissions launched K1 {k1} times, want "
                                  f"{model.config.n_layers} each")
     if [len(t) for t in tokens["mesh"]] != [n for _, n in reqs]:
@@ -6542,13 +6576,14 @@ def mesh_server_check(device, mesh, exact: bool = True) -> None:
     ties = [f"request {i}: {what}" for i, (ok, what) in enumerate(verdicts)
             if ok and what != "equal"]
     off = [f"request {i}: {what}" for i, (ok, what) in enumerate(verdicts) if not ok]
-    print(f"DecodeServer(mesh=dp {mesh.dp} x tp {mesh.tp}) rank {mesh.rank}: {same} of "
-          f"{len(reqs)} requests' greedy tokens equal the plain server's"
+    print(f"DecodeServer(mesh=dp {mesh.dp} x tp {mesh.tp}, {label}) rank {mesh.rank}: "
+          f"{same} of {len(reqs)} requests' greedy tokens equal the plain server's"
           + (f"; after a near tie: {'; '.join(ties)}" if ties else "")
           + (f"; off: {'; '.join(off)}" if off else ""))
     if off or (exact and same != len(reqs)):
-        raise AssertionError("the mesh server's greedy tokens differ from the plain server's")
-    del model
+        raise AssertionError(f"the mesh server's greedy tokens ({label}) differ from the "
+                             "plain server's")
+    del model, module
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6629,10 +6664,13 @@ def mesh_train_rank(dp: int, tp: int, fsdp: bool) -> None:
 
 
 def mesh_serve_rank(dp: int, tp: int) -> None:
-    """A rank of ``mesh_ranks``' server run (``--mesh-serve dp tp``)."""
+    """A rank of ``mesh_ranks``' server run (``--mesh-serve dp tp``): GPT-2
+    base bf16, and at tp > 1 also its int8 weights and MoE 8x124m."""
     mesh = PAR.build_computing_manager(PAR.computing_config_from_env(dp, tp), device="cuda")
     try:
-        mesh_server_check(torch.device("cuda", torch.cuda.current_device()), mesh, exact=False)
+        for label in MESH_SERVE_MODELS if tp > 1 else list(MESH_SERVE_MODELS)[:1]:
+            mesh_server_check(torch.device("cuda", torch.cuda.current_device()), mesh,
+                              exact=False, label=label)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -7193,6 +7231,190 @@ def parallel_phase(device, card_line: str) -> None:
         parallel_ranks("ep", 2, 2, ep[:first])
 
 
+# ---------------------------------------------------------------------------
+# FSDP by unit: phase 52
+# ---------------------------------------------------------------------------
+
+# Llama-3.1-8B ("8b", all 32 layers, bf16 compute, float32 weights) through
+# bench_llama's step under shard_params(fsdp=True) at dp = FSDP_WORLD, 4 x 512
+# a rank, FSDP_WARMUP + FSDP_TIMED steps; its 8-layer cut (phase 40's seed-0
+# weights) at 2 x 512 a rank for FSDP_CHECK_STEPS steps, held to one card at
+# 8 x 512 within MESH_LOSS_RTOL (losses) and MESH_TP_NORM_RTOL (grad norms).
+FSDP_WORLD, FSDP_ROWS, FSDP_WARMUP, FSDP_TIMED, FSDP_CHECK_STEPS = 4, 4, 2, 5, 3
+FSDP_RANK_LINE = "fsdp rank: "
+
+
+def sharded_llama(cfg, mesh, device, seed: int) -> Model:
+    """A Llama of ``cfg`` under ``shard_params(fsdp=True)`` on ``mesh``, built
+    on the meta device and then drawn on the card one whole tensor at a time
+    (each from its own generator seeded from ``seed``: the rms norms ones,
+    the token table N(0, 1), each linear U(±1/√fan_in), the port's init),
+    of which the rank keeps its shard: no rank holds the whole model."""
+    with torch.device("meta"):
+        module = Transformer(cfg, device=torch.device("meta"),
+                             generator=torch.Generator())
+    PAR.shard_params(module, mesh, fsdp=True)
+    layout = module.mesh_layout
+    module.to_empty(device=device)  # the shards, uninitialised
+    gen = torch.Generator(device=device)
+    with torch.no_grad():
+        for i, (name, p) in enumerate(module.named_parameters()):
+            whole = torch.empty(layout.full_shapes[name], device=device)
+            gen.manual_seed(seed * 100_003 + i)
+            if name.endswith("norm.weight"):
+                whole.fill_(1.0)
+            elif name == "embedding.token_emb.weight":
+                whole.normal_(generator=gen)
+            else:
+                bound = 1.0 / math.sqrt(whole.shape[-1])
+                whole.uniform_(-bound, bound, generator=gen)
+            p.copy_(layout.local(name, whole))
+            del whole
+    return Model(module=module, config=cfg, name="llama")
+
+
+def fsdp_rank(world: int) -> None:
+    """A rank of ``fsdp_phase`` (``--fsdp-rank <world>``): joins the launch's
+    NCCL group on its card, then (1) "check": the 8-layer cut from phase
+    40's seed-0 weights at dp = world, FSDP_CHECK_STEPS steps on its rows of
+    8 x 512; (2) "full": the 32-layer 8B drawn on the card
+    (``sharded_llama``) at FSDP_ROWS x 512 a rank, FSDP_WARMUP + FSDP_TIMED
+    steps. Prints each run's metrics, its timed steps' launches, plain
+    calls and seconds, its peak memory and its gathered high-water mark on
+    one FSDP_RANK_LINE."""
+    local = int(os.environ.get("VITEF_LOCAL_RANK", "0"))
+    device = torch.device("cuda", local)
+    torch.cuda.set_device(device)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://{os.environ['VITEF_COORDINATOR_ADDRESS']}",
+        world_size=world, rank=int(os.environ["VITEF_PROCESS_ID"]))
+    out = {}
+    try:
+        mesh = PAR.build_mesh(world, 1)
+        for label, shape, warmup, timed in (
+                ("check", L8B_PACKED, 0, FSDP_CHECK_STEPS),
+                ("full", (FSDP_ROWS * world, L8B_PACKED[1]), FSDP_WARMUP, FSDP_TIMED)):
+            if label == "check":
+                model = PAR.shard_params(seeded_llama(L8B_TRAIN_LAYERS, device), mesh,
+                                         fsdp=True)
+            else:
+                model = sharded_llama(l8b_config(32), mesh, device, seed=0)
+            layout = model.module.mesh_layout
+            _, one_step = bench_llama_step(model, device, shape, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            layout.peak_held = 0
+            metrics, launches, seconds, plain = counted_steps(one_step, warmup, timed,
+                                                              FLASH_COUNTERS)
+            shard = sum(p.numel() for p in model.module.parameters())
+            out[label] = {
+                "loss": [m["loss"] for m in metrics],
+                "grad_norm": [m["grad_norm"] for m in metrics], "launches": launches,
+                "plain": dict(plain), "seconds": seconds,
+                "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+                "held_gib": layout.peak_held * 4 / 2**30, "shard_gib": shard * 4 / 2**30}
+            del model, layout, one_step, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(FSDP_RANK_LINE + json.dumps(out))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def fsdp_phase(device, card_line: str) -> None:
+    """Phase 52, FSDP by unit across FSDP_WORLD cards (fewer: not run): the
+    8-layer 8B on card 0 alone (phase 40's seed-0 weights, 8 x 512,
+    FSDP_CHECK_STEPS steps), then ``fsdp_rank`` on every card as a user
+    launches it; every rank's 8-layer losses and grad norms held to card
+    0's, its 32-layer launches K1 causal = K3 = 32 a step (K4 = K5 = 0) and
+    no plain call, its 32-layer losses falling; tokens/s over the cards and
+    the share of their bf16 roofline, each run's peak memory a rank."""
+    world = torch.cuda.device_count()
+    if world < FSDP_WORLD:
+        print(f"phase 52: {world} card(s), so the 8B under FSDP at dp = {FSDP_WORLD} "
+              "is not run here")
+        return
+    torch.cuda.set_device(device)
+    _, one_step = bench_llama_step(seeded_llama(L8B_TRAIN_LAYERS, device), device,
+                                   L8B_PACKED)
+    torch.cuda.reset_peak_memory_stats(device)
+    ref, _, _, _ = counted_steps(one_step, 0, FSDP_CHECK_STEPS, FLASH_COUNTERS)
+    one_peak = torch.cuda.max_memory_allocated(device) / 2**30
+    del one_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--fsdp-rank", str(FSDP_WORLD)]
+    procs = [subprocess.Popen(cmd, cwd=REPO_ROOT, env={
+        **os.environ, "VITEF_COORDINATOR_ADDRESS": f"localhost:{port}",
+        "VITEF_NUM_PROCESSES": str(FSDP_WORLD), "VITEF_PROCESS_ID": str(rank),
+        "VITEF_LOCAL_RANK": str(rank)}, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(FSDP_WORLD)]
+    t0 = time.perf_counter()
+    try:
+        outs = [proc.communicate(timeout=900)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"fsdp rank {rank} exited {proc.returncode}:\n"
+                                 f"{out[-4000:]}")
+    ranks = [json.loads(next(line for line in out.splitlines()
+                             if line.startswith(FSDP_RANK_LINE))[len(FSDP_RANK_LINE):])
+             for out in outs]
+
+    def peaks(run: str) -> str:
+        r = ranks[0][run]
+        return (f"peak {[round(rank[run]['peak_gib'], 3) for rank in ranks]} GiB a rank, "
+                f"shards {r['shard_gib']:.3f} GiB, gathered at most "
+                f"{r['held_gib']:.3f} GiB")
+
+    errs = {key: max(abs(a - b[key]) / abs(b[key]) for r in ranks
+                     for a, b in zip(r["check"][key], ref))
+            for key in ("loss", "grad_norm")}
+    check = ranks[0]["check"]
+    print(f"phase 52 ({card_line.splitlines()[0]}): the 8B at {L8B_TRAIN_LAYERS} layers, "
+          f"dp {FSDP_WORLD} x 2 x 512 against one card at 8 x 512: loss "
+          f"{' '.join(repr(x) for x in check['loss'])} (one card "
+          f"{' '.join(repr(m['loss']) for m in ref)}); grad_norm "
+          f"{' '.join(repr(x) for x in check['grad_norm'])} (one card "
+          f"{' '.join(repr(m['grad_norm']) for m in ref)}); losses within "
+          f"{errs['loss']:.3e} (limit {MESH_LOSS_RTOL}), grad norms within "
+          f"{errs['grad_norm']:.3e} (limit {MESH_TP_NORM_RTOL}); {peaks('check')} "
+          f"(one card {one_peak:.3f})")
+    cfg = l8b_config(32)
+    full = [r["full"] for r in ranks]
+    want = {"fused_mha_packed": cfg.n_layers * FSDP_TIMED,
+            "packed_mha_bwd": cfg.n_layers * FSDP_TIMED, "flash_attention": 0,
+            "flash_bwd": 0}
+    seconds = max(r["seconds"] for r in full)
+    rate = FSDP_ROWS * FSDP_WORLD * L8B_PACKED[1] * FSDP_TIMED / seconds
+    roofline = FSDP_WORLD * PEAK_BF16_FLOPS / llama_flops_per_token(cfg, L8B_PACKED[1])
+    losses = full[0]["loss"]
+    print(f"phase 52: Llama-3.1-8B at {cfg.n_layers} layers under FSDP over {FSDP_WORLD} "
+          f"cards, {FSDP_ROWS} x {L8B_PACKED[1]} a rank, {FSDP_WARMUP} warm-up + "
+          f"{FSDP_TIMED} timed steps: loss {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"grad_norm {' '.join(f'{x:.4f}' for x in full[0]['grad_norm'])}; {rate:.2f} "
+          f"tokens/s ({seconds / FSDP_TIMED * 1e3:.3f} ms a step), "
+          f"{rate / roofline:.4f} of "
+          f"the {roofline:.0f} tokens/s bf16 roofline of {FSDP_WORLD} cards; "
+          f"{peaks('full')}; launches by rank {[r['launches'] for r in full]} (want "
+          f"{want}); plain calls {[r['plain'] for r in full]} "
+          f"({time.perf_counter() - t0:.2f} s with start-up)")
+    if errs["loss"] > MESH_LOSS_RTOL or errs["grad_norm"] > MESH_TP_NORM_RTOL:
+        raise AssertionError("the 8-layer 8B under FSDP is off the one-card run")
+    if any(r["launches"] != want or r["plain"] for r in full):
+        raise AssertionError("a rank of the 32-layer 8B missed K1/K3 or ran a plain "
+                             "version")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the 32-layer 8B loss did not fall: {losses}")
+
+
 def stopwatch():
     """A function that prints the seconds since the script's start and since
     its last call, beside a label: where the script's time limit goes."""
@@ -7381,6 +7603,9 @@ def main() -> None:
     with phase_clock("51 (pipeline and expert parallelism)", device):
         parallel_phase(device, card_line)
     stamp("pipeline and expert parallelism")
+    with phase_clock("52 (FSDP by unit)", device):
+        fsdp_phase(device, card_line)
+    stamp("FSDP by unit")
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -7456,5 +7681,7 @@ if __name__ == "__main__":
         mesh_serve_rank(int(sys.argv[2]), int(sys.argv[3]))
     elif sys.argv[1:2] == ["--parallel-rank"]:
         parallel_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    elif sys.argv[1:2] == ["--fsdp-rank"]:
+        fsdp_rank(int(sys.argv[2]))
     else:
         main()

@@ -496,8 +496,10 @@ def test_one_process_refusals():
     """One process: ``ep_sparse`` outside an expert placement raises; the
     sparse dispatch refuses biased expert stacks as the JAX package does; a
     placement needs n_experts divisible by ep, and points every block's FFN
-    at the mesh; the EP step needs an 'ep' axis; the mesh server refuses an MoE model at
-    tp > 1."""
+    at the mesh; the EP step needs an 'ep' axis; the mesh server builds an MoE model at
+    tp > 1, each rank holding its block of experts, and serves (one process:
+    rank 0's half of every sum, so only the streams' lengths are held here;
+    tests/test_torch_serving_mesh.py holds the tokens on gloo ranks)."""
     m = build_model(dict(MOE, moe_impl="ep_sparse"), device="cpu")
     tokens = torch.zeros((1, MOE["seq_len"]), dtype=torch.long)
     with pytest.raises(RuntimeError, match="shard_experts"):
@@ -524,8 +526,14 @@ def test_one_process_refusals():
     assert all(block.ffn.ep is two for block in placed.module.blocks)
     with pytest.raises(AssertionError, match="'ep'"):
         make_moe_ep_train_step(build_mesh())
-    from vitef_tpu_torch.models.serving import DecodeServer
+    from vitef_tpu_torch.models.serving import DecodeServer, Request
 
     moe = build_model(MOE, device="cpu")
-    with pytest.raises(NotImplementedError, match="experts"):
-        DecodeServer(moe.module, moe.config, n_slots=2, mesh=type(build_mesh())(dp=1, tp=2))
+    srv = DecodeServer(moe.module, moe.config, n_slots=2,
+                       mesh=type(build_mesh())(dp=1, tp=2))
+    assert all(block.ffn.tp is not None and block.ffn.fc1["weight"].shape[0]
+               == MOE["n_experts"] // 2 for block in srv.module.blocks)
+    assert moe.module.blocks[0].ffn.fc1["weight"].shape[0] == MOE["n_experts"]  # a copy
+    out = srv.serve([Request(prompt=[1, 2, 3], max_new_tokens=3),
+                     Request(prompt=[4], max_new_tokens=2)])
+    assert [len(r.tokens) for r in out] == [3, 2]

@@ -44,7 +44,11 @@ compute dtype, made once, and serves a module from ``Model.quantize_int8``
   the same host loop on the same requests. The parameters are split by the
   training TP rules (``parallel.mesh.shard_params``: each rank's heads of
   the packed qkv and the attention output, its fc1/fc2 columns, one
-  all-reduce after each row-parallel product), and the cache pool has
+  all-reduce after each row-parallel product; an MoE model's block of
+  experts where tp divides n_experts, one all-reduce at the combine; int8
+  weights as their float weights, each column-split or expert-split weight
+  with its columns' scales, the row-parallel ones and the token table with
+  theirs whole), and the cache pool has
   n_slots/dp slots (the dp rank's own, a contiguous block) of n_kv_heads/tp
   heads on each rank. An admission prefills on the slot's dp rank, which
   broadcasts the first token over 'dp'; each window runs on every rank's
@@ -289,12 +293,6 @@ class DecodeServer:
                 from ..parallel.mesh import shard_params
                 from .tensor_parallel import local_config
 
-                if any(p.dtype == torch.int8 for p in module.parameters()):
-                    raise NotImplementedError("int8 weights under tensor parallelism are not "
-                                              "ported (their scales are not split)")
-                if cfg.n_experts:
-                    raise NotImplementedError("the mesh server does not split an MoE model's "
-                                              "experts over tp (training does: shard_params)")
                 module = shard_params(copy.deepcopy(module), mesh)
                 cfg = local_config(cfg, mesh.tp)
         self.module, self.cfg = decode_module(module, cfg), cfg

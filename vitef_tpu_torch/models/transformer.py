@@ -72,7 +72,7 @@ from ..ops.attention import (attention_route, flash_attention, fused_mha_packed,
                              multi_head_attention)
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.common import draw_seed, dropout, mm_f32
+from ..ops.common import checkpointed, draw_seed, dropout, mm_f32
 from .norms import BatchNorm, build_norm
 from .patching import (extract_patches_chw, image_patch_dims, patch_images_raw,
                        patch_timeseries)
@@ -280,7 +280,8 @@ class Linear(nn.Module):
     ``("column", mesh)``, whose rank holds some output rows, or ``("row",
     mesh)``, whose rank holds a slice of the input axis: its partial products
     are summed over the mesh's tp group (:func:`~.tensor_parallel.tp_reduce`)
-    before the bias is added."""
+    before the bias is added (an int8 weight's, in float32 before its scale;
+    a column-parallel int8 weight holds its columns' scales)."""
 
     def __init__(self, fan_in: int, fan_out: int, bias: bool, *,
                  device: torch.device, generator: torch.Generator):
@@ -297,12 +298,14 @@ class Linear(nn.Module):
             x = tp_enter(x, group)
         if self.weight.dtype == torch.int8:
             flat = x.to(compute_dtype).reshape(-1, x.shape[-1])
-            out = mm_f32(flat, self.weight.to(compute_dtype).t()) * self.scale
-            out = out.to(compute_dtype).reshape(*x.shape[:-1], -1)
+            out = mm_f32(flat, self.weight.to(compute_dtype).t())
+            if mode == "row":  # the float32 partial sums, before the (whole) scale
+                out = tp_reduce(out, group)
+            out = (out * self.scale).to(compute_dtype).reshape(*x.shape[:-1], -1)
         else:
             out = F.linear(x.to(compute_dtype), self.weight.to(compute_dtype))
-        if mode == "row":
-            out = tp_reduce(out, group)
+            if mode == "row":
+                out = tp_reduce(out, group)
         if self.bias is not None:
             out = out + self.bias.to(compute_dtype)
         return out
@@ -696,9 +699,11 @@ class SequenceOutput(nn.Module):
 
     def forward(self, x: torch.Tensor, embedding: Embedding,
                 return_hidden: bool = False, stats: dict | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, head_loss=None) -> torch.Tensor:
         out = _norm(self.output_layer["norm"], x, stats, _OUTPUT_NORM)
         out = dropout(out, self.cfg.output_dropout, generator, not self.training)
+        if head_loss is not None:
+            return head_loss(out)
         if return_hidden:
             return out
         cd = self.cfg.cdtype()
@@ -721,7 +726,11 @@ class Transformer(nn.Module):
     (n_layers, N, h, L, L) attention weights, computed on the plain path.
     ``forward(x, return_hidden=True)`` (seq2seq only) returns the post-norm
     hidden (N, L, E) in place of the logits, for a loss that fuses the head
-    (``ops.losses.make_fused_head_loss``). ``forward(x, return_moe_aux=True)``
+    (``ops.losses.make_fused_head_loss``); ``forward(x, head_loss=fn)``
+    returns ``fn(hidden)``, evaluated inside the output's forward, so that a
+    loss that reads the head (or the tied token table) reads it as the
+    forward does (whole, under FSDP's per-unit gather).
+    ``forward(x, return_moe_aux=True)``
     returns ``(out, {"lb": ..., "z": ...})``: the per-block mean of the MoE
     router's aux losses (0-d float32 zeros without experts).
     ``forward(x, return_stats=True)`` returns ``(out, stats)``: in train mode
@@ -746,10 +755,11 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, verbose: bool = False, return_hidden: bool = False,
                 return_moe_aux: bool = False, return_stats: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, head_loss=None):
         cfg = self.cfg
-        if return_hidden and not isinstance(self.output, SequenceOutput):
-            raise ValueError("return_hidden requires a seq2seq output head")
+        if (return_hidden or head_loss is not None) and not isinstance(self.output,
+                                                                        SequenceOutput):
+            raise ValueError("return_hidden and head_loss require a seq2seq output head")
         if (return_moe_aux or return_stats) and verbose:
             raise ValueError("return_stats/return_moe_aux and verbose are mutually exclusive")
         collect = return_stats and self.training and cfg.norm.lower() == "batch"
@@ -768,15 +778,17 @@ class Transformer(nn.Module):
                 return block(y, verbose=verbose, moe_aux=block_aux, collect_stats=collect,
                              generator=gen)
 
-            out = checkpoint(run, out, use_reentrant=False) if cfg.remat and not verbose \
-                else run(out)
+            out = (checkpoint(run, out, use_reentrant=False,
+                              context_fn=lambda: (checkpointed(), checkpointed()))
+                   if cfg.remat and not verbose else run(out))
             if verbose:
                 out, att = out
                 attentions.append(att)
             elif collect:
                 out, block_stats = out
                 stats.update({f"blocks.{i}.{key}": val for key, val in block_stats.items()})
-        logits = self.output(out, self.embedding, return_hidden, stats, generator)
+        head = {} if head_loss is None else {"head_loss": head_loss}
+        logits = self.output(out, self.embedding, return_hidden, stats, generator, **head)
         if verbose:
             return logits, torch.stack(attentions)
         result = (logits,)

@@ -8,7 +8,30 @@ products.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+# Forwards running under torch.utils.checkpoint (a first pass or a recompute).
+_CHECKPOINTED = [0]
+
+
+@contextlib.contextmanager
+def checkpointed():
+    """Mark a forward that runs under ``torch.utils.checkpoint`` (pass it as
+    the checkpoint's ``context_fn`` for both passes): the checkpoint handles
+    what it saves, so FSDP's per-unit gather adds no saved-tensor hooks of
+    its own there (``parallel.fsdp``)."""
+    _CHECKPOINTED[0] += 1
+    try:
+        yield
+    finally:
+        _CHECKPOINTED[0] -= 1
+
+
+def is_checkpointed() -> bool:
+    return _CHECKPOINTED[0] > 0
+
 
 # The JAX package's names for the two implementations, accepted so that one
 # config dict builds both packages.

@@ -368,12 +368,20 @@ class MeshLayout:
     tensor split over 'tp', the runs ``(global start, local start, length)``
     along its tp axis that make up this rank's slice (three for the packed
     qkv, two for swiglu's fc1, one otherwise); ``full_shapes`` the shapes
-    of the whole tensors in the port's layout."""
+    of the whole tensors in the port's layout. Under FSDP, ``units`` are the
+    hooked units of :mod:`~vitef_tpu_torch.parallel.fsdp`, ``whole`` is set
+    while :func:`gathered` holds every parameter whole, and ``held`` and
+    ``peak_held`` count the elements held gathered (whole weights and whole
+    gradients) now and at most."""
 
     mesh: Mesh
     placements: dict[str, Placement] = field(default_factory=dict)
     segments: dict[str, list[tuple[int, int, int]]] = field(default_factory=dict)
     full_shapes: dict[str, tuple] = field(default_factory=dict)
+    units: list = field(default_factory=list)
+    whole: bool = False
+    held: int = 0
+    peak_held: int = 0
 
     def placement(self, name: str) -> Placement:
         return self.placements.get(name, Placement())
@@ -472,9 +480,15 @@ def shard_params(model, mesh: Mesh, fsdp: bool = False):
     rule, :180-187) and computes the gate-masked oracle over them, one
     all-reduce over 'tp' at the combine
     (:func:`~vitef_tpu_torch.parallel.moe.apply_moe_ffn_tp`); otherwise its
-    experts stay whole. ``fsdp``: each parameter keeps its shard over 'dp'
-    (the step gathers them; :func:`gathered` does for anything else that
-    runs the module)."""
+    experts stay whole. ``fsdp``: each parameter keeps its shard over 'dp',
+    and every forward gathers them unit by unit (the embedding, each block,
+    the output; :func:`~vitef_tpu_torch.parallel.fsdp.install_units`), its
+    backward too, reduce-scattering each unit's gradients as they complete;
+    :func:`gathered` holds them all whole for code that reads the parameters
+    outside a forward. An int8 weight (``Model.quantize_int8``) is split as
+    its float weight is, and its per-column ``scale`` goes with the columns
+    that a column split (qkv, fc1) or an expert split (MoE stacks) keeps;
+    the row-parallel output and fc2 keep theirs whole."""
     from ..models.tensor_parallel import local_config
 
     module = getattr(model, "module", model)
@@ -513,7 +527,12 @@ def shard_params(model, mesh: Mesh, fsdp: bool = False):
             for path, mode in modes.items():
                 block.get_submodule(path).tp = (mode, mesh)
             for path in runs:
-                for kind in ("weight", "bias"):
+                # an int8 weight's per-column scale goes with the columns (or
+                # the experts) its weight keeps, not with a row split
+                scale, weight = f"blocks.{i}.{path}.scale", f"blocks.{i}.{path}.weight"
+                if scale in names and layout.placements[weight].tp == 0:
+                    layout.placements[scale] = Placement(tp=0)
+                for kind in ("weight", "bias", "scale"):
                     name = f"blocks.{i}.{path}.{kind}"
                     if name in names and layout.placements[name].tp is not None:
                         layout.segments[name] = runs[path]
@@ -523,13 +542,19 @@ def shard_params(model, mesh: Mesh, fsdp: bool = False):
             if local_p.shape != p.shape:
                 p.data = local_p.clone()
     module.mesh_layout = layout
+    if layout.fsdp_names():
+        from .fsdp import install_units
+
+        layout.units = install_units(module, layout)
     return model
 
 
 @contextlib.contextmanager
 def gathered(model):
-    """Run ``model`` with its FSDP-sharded parameters gathered whole for the
-    duration (eval, read-outs); their shards are put back after. A module
+    """Hold ``model``'s FSDP-sharded parameters whole for the duration, for
+    code that reads them outside a forward (the read-outs); their shards
+    are put back after, and the per-unit gathers stand aside meanwhile. A
+    forward alone needs none of it: it gathers unit by unit. A module
     without FSDP shards is left as it is."""
     module = getattr(model, "module", model)
     layout = getattr(module, "mesh_layout", None)
@@ -539,8 +564,12 @@ def gathered(model):
     try:
         for name in names:
             params[name].data = layout.gather(name, shards[name])
+        if layout is not None:
+            layout.whole = True
         yield model
     finally:
+        if layout is not None:
+            layout.whole = False
         for name in names:
             params[name].data = shards[name]
 

@@ -93,9 +93,10 @@ def make_train_step(
     the trainable ones. The module is put in train mode.
 
     ``hidden_loss`` (``ops.losses.make_fused_head_loss``, seq2seq models):
-    the forward stops at the post-norm hidden (``module(x,
-    return_hidden=True)``) and the loss is ``hidden_loss(module, hidden, y)``,
-    which fuses the vocabulary head into the cross entropy (:105-133).
+    the loss is ``hidden_loss(module, hidden, y)`` of the post-norm hidden,
+    which fuses the vocabulary head into the cross entropy (:105-133); it
+    runs inside the output's forward (``module(x, head_loss=...)``), where
+    the head's parameters are in place.
 
     ``moe_aux_coefs=(lb_coef, z_coef)`` (MoE families): the forward also
     returns the router's aux losses (``module(x, return_moe_aux=True)``),
@@ -127,11 +128,14 @@ def make_train_step(
 
     A module placed by ``shard_params`` (``module.mesh_layout``) takes the
     same step with ``mesh=None``, as the JAX package's jitted step does on
-    sharded parameters: the FSDP shards are gathered over 'dp' for the
-    forward and the backward (whole, for the step: its peak memory is the
-    unsharded model's), the gradients are averaged over 'dp' (those of the
-    FSDP shards reduce-scattered, so each rank receives its shards' slice),
-    the tp collectives run inside the blocks,
+    sharded parameters: the FSDP shards are gathered over 'dp' unit by unit
+    (the embedding, each block, the output) for each unit's forward and
+    again for its backward, and each unit's gradients are reduce-scattered
+    over 'dp' in float32 as soon as they are complete, each rank adding its
+    shard of the mean into the shard's ``.grad`` over the microbatches
+    (:mod:`~vitef_tpu_torch.parallel.fsdp`: one unit's whole weights and
+    gradients at a time); the other gradients are averaged over 'dp' after
+    the last microbatch, the tp collectives run inside the blocks,
     ``grad_norm`` and the clip are taken over the whole gradient (each slice
     once, each replicated tensor once) and the optimizer updates each
     rank's shards and their state.
@@ -164,21 +168,15 @@ def make_train_step(
         params = [p for p in module.parameters() if p.requires_grad]
         frozen = ([p for p in module.blocks.parameters() if not p.requires_grad]
                   if block_grad_norms else [])
-        shards = {}
-        if layout is not None:
-            if layout.mesh.dp > 1 and generator is not None:
-                generator = torch.Generator(device=generator.device).manual_seed(
-                    draw_seed(generator, layout.mesh.dp_rank))
-            for name in layout.fsdp_names():
-                shards[name] = named[name].data
-                named[name].data = layout.gather(name, shards[name])
+        if layout is not None and layout.mesh.dp > 1 and generator is not None:
+            generator = torch.Generator(device=generator.device).manual_seed(
+                draw_seed(generator, layout.mesh.dp_rank))
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=x.device)
         aux_sum = ({"moe_lb": torch.zeros((), device=x.device),
                     "moe_z": torch.zeros((), device=x.device)}
                    if moe_aux_coefs is not None else {})
-        fwd_kw = {"return_hidden": True} if hidden_loss is not None else {}
-        fwd_kw["generator"] = generator
+        fwd_kw = {"generator": generator}
         sites = batch_norm_sites(module) if update_stats else {}
         running = {path: {"running_mean": norm.running_mean.float(),
                           "running_var": norm.running_var.float()}
@@ -187,6 +185,8 @@ def make_train_step(
             for p in frozen:
                 p.requires_grad_(True)
             for xi, yi in zip(x.chunk(grad_acc_steps), y.chunk(grad_acc_steps)):
+                if hidden_loss is not None:
+                    fwd_kw["head_loss"] = lambda h, yi=yi: hidden_loss(module, h, yi)
                 if moe_aux_coefs is not None:
                     out, aux = module(xi, return_moe_aux=True, **fwd_kw)
                 elif update_stats:
@@ -194,8 +194,7 @@ def make_train_step(
                     running = ema_update_stats(running, stats, stats_momentum)
                 else:
                     out = module(xi, **fwd_kw)
-                loss = hidden_loss(module, out, yi) if hidden_loss is not None \
-                    else loss_fn(out, yi)
+                loss = out if hidden_loss is not None else loss_fn(out, yi)
                 if moe_aux_coefs is not None:
                     loss = loss + moe_aux_coefs[0] * aux["lb"] + moe_aux_coefs[1] * aux["z"]
                     aux_sum["moe_lb"] += aux["lb"].detach()
@@ -205,8 +204,6 @@ def make_train_step(
         finally:
             for p in frozen:
                 p.requires_grad_(False)
-            for name, shard in shards.items():
-                named[name].data = shard
         grads = [p.grad for p in params if p.grad is not None]
         if grad_acc_steps > 1:
             torch._foreach_mul_(grads + [p.grad for p in frozen if p.grad is not None],
@@ -217,7 +214,6 @@ def make_train_step(
             _average_over_dp(
                 layout, names, [p for p in params + frozen if p.grad is not None],
                 [loss, *aux.values()] + [t for r in running.values() for t in r.values()])
-            grads = [p.grad for p in params if p.grad is not None]  # FSDP: the shards
 
         metrics = {"loss": loss}
         metrics.update(aux)
@@ -295,33 +291,12 @@ def _average_over_dp(layout, names: dict, params: list, scalars: list) -> None:
     """Average the gradients of ``params`` and the tensors ``scalars`` over
     the mesh's 'dp' axis (the JAX step's ``pmean``s :234-241), in place: the
     scalars and the gradients of the parameters not split over 'dp' in one
-    flat float32 all-reduce, the FSDP-sharded ones in one flat
-    reduce-scatter, so that each rank receives only its shards' sums. A
-    FSDP-sharded parameter's ``grad`` becomes this rank's shard of the
-    averaged gradient."""
+    flat float32 all-reduce. A FSDP-sharded parameter's ``grad`` is already
+    this rank's shard of the averaged gradient (its unit's reduce-scatter,
+    :mod:`~vitef_tpu_torch.parallel.fsdp`)."""
     mesh = layout.mesh
-    sharded = [p for p in params if layout.placement(names[p]).dp is not None]
     whole = [p for p in params if layout.placement(names[p]).dp is None]
     reduce_flat_(scalars + [p.grad for p in whole], mesh.dp_group, mesh.dp)
-    if sharded:
-        # rank r's block of the input holds the r-th chunk of every gradient,
-        # the FSDP axis moved to the front so that each chunk is contiguous
-        axes = [layout.placement(names[p]).dp for p in sharded]
-        fronts = [p.grad.float().movedim(axis, 0) for p, axis in zip(sharded, axes)]
-        send = torch.cat([torch.cat([g.chunk(mesh.dp)[r].reshape(-1) for g in fronts])
-                          for r in range(mesh.dp)])
-        mine = send.new_empty(send.numel() // mesh.dp)
-        if mesh.dp_group is not None:
-            dist.reduce_scatter_tensor(mine, send, group=mesh.dp_group)
-        else:
-            mine.copy_(send.chunk(mesh.dp)[mesh.dp_rank])
-        del send
-        mine /= mesh.dp
-        chunks = [g.chunk(mesh.dp)[mesh.dp_rank] for g in fronts]
-        for p, axis, chunk, part in zip(sharded, axes, chunks,
-                                        mine.split([c.numel() for c in chunks])):
-            p.grad = part.view(chunk.shape).movedim(0, axis).to(
-                p.grad.dtype, copy=True).contiguous()
 
 
 def make_eval_step(apply_fn: Callable, loss_fn: Callable = cross_entropy_loss):
