@@ -510,6 +510,8 @@ from vitef_tpu_torch.ops import gmm_fused as GF
 from vitef_tpu_torch.ops import make_fused_head_loss, next_token_cross_entropy
 from vitef_tpu_torch.optim import build_optimizer, build_scheduler
 from vitef_tpu_torch.ops import ring_hop as RH
+from vitef_tpu_torch.tools import distill_spec_pair as DSP
+from vitef_tpu_torch.tools import profile_speculative as PSP
 from vitef_tpu_torch import parallel as PAR
 from vitef_tpu_torch.parallel import auto_grad_acc, init_train_state, make_train_step
 from vitef_tpu_torch.parallel import cross_entropy_loss
@@ -554,7 +556,8 @@ LSE_MAX_ABS = 1e-3
 # modes at head width 8 (PatchTST) and at 80 (ViT-H/14), K1's four modes, K2/K3's two passes and
 # K4's and K5's bf16 kernels in both modes at 128 (Llama-3.1-8B), the
 # float32 kernels whose products are
-# TF32 HMMA instructions (K4's and K5's, each in both instantiations), the TMA +
+# TF32 HMMA instructions (K4's and K5's at head widths 8, 64 and 128, each
+# in both modes), the TMA +
 # wgmma kernels, whose products are HGMMA: csrc/gmm.cu's in kPlain (K8
 # gmm), kSwigluIn (K7 gmm_swiglu), kSwigluBwdOut (K7 gmm_dy_swiglu) and
 # kDual (K7 gmm_dual) and csrc/tgmm.cu's in kPlain (K8 tgmm) and kSwigluIn
@@ -573,9 +576,15 @@ SASS_KERNELS = [("packed_mha_fwd", "packed_mha_fwd_kernel<8,", "HMMA", "HMMA", 4
                 ("flash_fwd", "flash_fwd_bf16_kernel<128,", "HMMA", "HMMA", 2),
                 ("flash_bwd", "flash_bwd_dq_kernel<128,", "HMMA", "HMMA", 2),
                 ("flash_bwd", "flash_bwd_dkv_kernel<128,", "HMMA", "HMMA", 2),
-                ("flash_fwd", "flash_fwd_tf32_kernel", "HMMA", "TF32", 2),
-                ("flash_bwd", "flash_bwd_dq_tf32_kernel", "HMMA", "TF32", 2),
-                ("flash_bwd", "flash_bwd_dkv_tf32_kernel", "HMMA", "TF32", 2),
+                ("flash_fwd", "flash_fwd_tf32_kernel<8,", "HMMA", "TF32", 2),
+                ("flash_bwd", "flash_bwd_dq_tf32_kernel<8,", "HMMA", "TF32", 2),
+                ("flash_bwd", "flash_bwd_dkv_tf32_kernel<8,", "HMMA", "TF32", 2),
+                ("flash_fwd", "flash_fwd_tf32_kernel<64,", "HMMA", "TF32", 2),
+                ("flash_bwd", "flash_bwd_dq_tf32_kernel<64,", "HMMA", "TF32", 2),
+                ("flash_bwd", "flash_bwd_dkv_tf32_kernel<64,", "HMMA", "TF32", 2),
+                ("flash_fwd", "flash_fwd_tf32_kernel<128,", "HMMA", "TF32", 2),
+                ("flash_bwd", "flash_bwd_dq_tf32_kernel<128,", "HMMA", "TF32", 2),
+                ("flash_bwd", "flash_bwd_dkv_tf32_kernel<128,", "HMMA", "TF32", 2),
                 ("gmm", "gmm_wgmma_kernel<0,", "HGMMA", "HGMMA", 2),
                 ("gmm", "gmm_wgmma_kernel<1,", "HGMMA", "HGMMA", 2),
                 ("gmm", "gmm_wgmma_kernel<2,", "HGMMA", "HGMMA", 2),
@@ -614,6 +623,13 @@ K10_F32_MAX, K10_F32_MEAN = 1e-5, 1e-6
 # Sources and sizes at which train_augment_plan (the kernel's) and
 # augment_band_rows (the wrapper's) must make the same plan.
 K10_PLAN_SOURCES = (1, 2, 17, 31, 32, 127, 128, 160, 224, 225, 512, 1024, 4096, 20000)
+# A non-square source with a side over size (N, (H, W), size): the JAX
+# package's XLA path, the antialiased resize (no K10 launch), on the card
+# against the same function on the CPU in float32: the same float32 weights,
+# products summed in another order (~1e-6 seen on the CPU against the JAX
+# package), so 100x that; the two-tap map must differ by more than 1.0 there,
+# so the batch truly downscales.
+K10_NON_SQUARE, K10_NON_SQUARE_MAX = (64, (300, 200), 224), 1e-4
 
 # Train slice: bench.py's protocol (bench.py:54-111).
 TRAIN_DATA = {"dataset_name": "synthetic-4096", "batch_size": 512, "val_batch_size": 256,
@@ -704,6 +720,17 @@ FLASH_FP32 = [(8, 12, 1024, True)] + [(2, 12, l, causal)
 # float32 throughout, against the float32 plain version: only the order of
 # summation differs (~1e-6 seen), so the limits are 100x that.
 FLASH_FP32_MAX_ABS, FLASH_FP32_MEAN_ABS = 1e-4, 1e-5
+# float32 at head width 8: PatchTST-base's attention at its float32 default
+# under attn_impl="pallas" (N = 10,272 series, 16 heads, L = 64, non-causal;
+# timed), then edge lengths, causal and not. At head width 128: no preset
+# takes it (float32 GQA/RoPE attention is the plain grouped einsum in both
+# packages), so it is timed alone at the 8B flash route's 4 x 32 heads x
+# 1024, causal, then at edge lengths.
+FLASH_FP32_D8 = [(PATCHTST_SHAPE[0], PATCHTST_HEADS[0], PATCHTST_SHAPE[1], False)] + [
+    (2, 16, l, causal) for l in (1, 7, 63, 65, 200, 1000) for causal in (True, False)]
+FLASH_FP32_D128 = [(4, 32, 1024, True)] + [(2, 8, l, causal)
+                                           for l in (1, 17, 63, 65, 200, 1000)
+                                           for causal in (True, False)]
 
 # GPT-2 float32: its default compute dtype (vitef_tpu/models/gpt2.py:38).
 GPT2_FP32 = {**GPT2_BASE, "compute_dtype": "float32"}
@@ -907,6 +934,10 @@ SPEC_FAULT_NEW = 16
 # 1,200 s limit (H100 80GB HBM3, 700 W). Fewer requests save nothing: 8
 # took 29.4 s against 16's 26.3 s, the rounds set by the longest stream.
 SPEC_SERVER_REQUESTS = 16
+# Each of them cut to its first SPEC_SERVER_NEW new tokens (up to 128 took
+# 26.3 s; phase 53's trained pair carries the server's acceptance and rate,
+# this phase keeps the 8B's checks at a quarter of the rounds).
+SPEC_SERVER_NEW = 32
 # The near-tie rule for greedy streams of two bf16 routes (a verify window
 # and one-token steps, or two servers): they round at different places, so
 # an argmax may flip where the reference's float32 top-2 logit margin is
@@ -928,6 +959,16 @@ PREFIX_SERVE_ARGV = ["run", "--prefix", "464,3280,318,262,3139,286,1204,318", "-
 # MoE decode (phase 45): "8x124m" in bf16, random weights from seed 0;
 # prompts of 128 tokens (default_rng(0)), 32 new, batch 1 and 32; the server
 # with 4 slots of 256 over 16 requests (prompts 32-128, 16-48 new).
+# Phase 53, the trained speculative pair: vitef_tpu_torch.tools.distill_spec_pair
+# at its defaults (a GPT-2-small target, 300 steps of 16 x 256 Markov tokens;
+# a 2-layer draft distilled for 600), then the profile's rows at --trained
+# (64-token prompt over the chain's 2,048 ids, 128 new) and the speculative
+# server against the plain one on SPEC_PAIR_REQUESTS requests whose prompts
+# are the chain's (markov_batches seed 3; prompts 32-128 tokens, 32-128 new,
+# default_rng(3)). Per step: K1 causal and K3 once a target layer; K1 once a
+# target and a draft layer and K3 once a draft layer a distillation step.
+SPEC_PAIR_REQUESTS = 16
+SPEC_PAIR_SERVER = {"n_slots": 16, "max_len": 512, "bucket": 64}
 MOE_SERVE_PROMPT, MOE_SERVE_NEW, MOE_SERVE_BATCHES = 128, 32, (1, 32)
 MOE_SERVER = {"n_slots": 4, "max_len": 256, "bucket": 64}
 MOE_SERVER_REQUESTS = 16
@@ -1457,7 +1498,7 @@ def flash_bwd_phase(device, dtype, cases, seed: int, iters: int, d: int = 64) ->
     float32 plain version (``flash_bwd_reference``) on the same inputs at
     every (N, h, L, causal) of ``cases`` at head width ``d``, bit-identical
     over two launches; what its wrapper does not take raises (float16, d =
-    32 and, at d = 128, float32); then timed at the first case (the main
+    32 and float32 at d = 80); then timed at the first case (the main
     path's shape, whose error is the one returned) with the plain version
     and SDPA's backward."""
     gen = torch.Generator().manual_seed(seed)
@@ -1492,17 +1533,15 @@ def flash_bwd_phase(device, dtype, cases, seed: int, iters: int, d: int = 64) ->
     (n, h, l, causal), (q, k, v, g, backward, out) = cases[0], timed
     # What the kernels do not take raises on CUDA; nothing falls back.
     lse = torch.zeros((n, h, l), dtype=torch.float32, device=device)
-    narrow = [t[..., :32] for t in (q, k, v, g, out)]
+    narrow = [t.new_zeros((n, h, l, 32)) for t in (q, k, v, g, out)]
+    d80 = [t.new_zeros((n, h, l, 80), dtype=torch.float32) for t in (q, k, v, g, out)]
     refused = [(TypeError, lambda: A.flash_bwd(*(t.half() for t in (q, k, v, g, out)), lse)),
                (NotImplementedError, lambda: A.flash_bwd(*narrow, lse)),
                (TypeError, lambda: A.flash_attention(q.half(), k.half(), v.half(),
                                                      impl="kernel")),
-               (NotImplementedError, lambda: A.flash_attention(*narrow[:3], impl="kernel"))]
-    if d not in A._FLASH_HEAD_DIMS[torch.float32]:  # float32 is instantiated at 64 only
-        wide32 = [t.float() for t in (q, k, v, g, out)]
-        refused += [(NotImplementedError, lambda: A.flash_bwd(*wide32, lse)),
-                    (NotImplementedError, lambda: A.flash_attention(*wide32[:3],
-                                                                    impl="kernel"))]
+               (NotImplementedError, lambda: A.flash_attention(*narrow[:3], impl="kernel")),
+               (NotImplementedError, lambda: A.flash_bwd(*d80, lse)),
+               (NotImplementedError, lambda: A.flash_attention(*d80[:3], impl="kernel"))]
     launches = (A.flash_attention.launches, A.flash_bwd.launches)
     for error, call in refused:
         try:
@@ -1512,8 +1551,8 @@ def flash_bwd_phase(device, dtype, cases, seed: int, iters: int, d: int = 64) ->
         raise AssertionError(f"{label}'s wrappers did not raise {error.__name__}")
     if (A.flash_attention.launches, A.flash_bwd.launches) != launches:
         raise AssertionError(f"{label}'s wrappers launched on an input they do not take")
-    print(f"{label}: K4's and K5's wrappers raise for float16 input and head width 32"
-          + ("" if d in A._FLASH_HEAD_DIMS[torch.float32] else f", and float32 at d = {d}"))
+    print(f"{label}: K4's and K5's wrappers raise for float16 input, head width 32 and "
+          "float32 at head width 80")
 
     ms, plain_ms, times = in_turns(
         lambda: backward(g),
@@ -1990,9 +2029,7 @@ def k10_refusals(device) -> None:
         return torch.zeros((2, h, w, 3), dtype=dtype, device=device)
     boxes = torch.tensor([[0, 0, 1, 1]] * 2, dtype=torch.int32, device=device)
     flips = torch.zeros(2, dtype=torch.bool, device=device)
-    cases = {"a non-square 100x150 source at size 64": (NotImplementedError, raw(100, 150), 64,
-                                                        torch.bfloat16),
-             "size 2641, past the limit of 2640": (NotImplementedError, raw(32, 32), 2641,
+    cases = {"size 2641, past the limit of 2640": (NotImplementedError, raw(32, 32), 2641,
                                                    torch.bfloat16),
              "int8 input": (ValueError, raw(32, 32, torch.int8), 224, torch.bfloat16),
              "a float16 output": (TypeError, raw(32, 32), 224, torch.float16)}
@@ -2010,11 +2047,38 @@ def k10_refusals(device) -> None:
         raise AssertionError(f"train_augment's C entry point took size 2641 (cudaError {err})")
 
 
+def k10_non_square(device) -> None:
+    """K10_NON_SQUARE's batch on the card: the antialiased resize, with no
+    K10 launch, against the CPU route on the same inputs, and the two-tap
+    map's distance from it."""
+    n, (h, w), size = K10_NON_SQUARE
+    rng = np.random.default_rng(19)
+    raw = rng.integers(0, 256, size=(n, h, w, 3), dtype=np.uint8)
+    boxes, flips = T.sample_crop_batch(rng, n, h, w)
+    boxes[0] = (0, 0, h, w)  # the whole image: its rows downscale
+    host = [torch.from_numpy(a) for a in (raw, boxes, flips)]
+    launches = T.augment_train_device.launches
+    out = T.augment_train_device(*(t.to(device) for t in host), size=size)
+    torch.cuda.synchronize()
+    launched = T.augment_train_device.launches - launches
+    ref = T.augment_train_device(*host, size=size)
+    err = (out.cpu() - ref).abs().max().item()
+    two_tap = (T.augment_train_reference(*host, size) - ref).abs().max().item()
+    print(f"K10's route at N={n} {h}x{w}->{size} (non-square, a side over size): the "
+          f"antialiased resize on the card against the CPU route max|d|={err:.3e} (limit "
+          f"{K10_NON_SQUARE_MAX}); the two-tap map off it by {two_tap:.3f}; K10 launches "
+          f"{launched}")
+    if not (tuple(out.shape) == (n, 3, size, size) and err <= K10_NON_SQUARE_MAX
+            and two_tap > 1.0 and launched == 0):
+        raise AssertionError("the non-square antialiased resize is off on the card")
+
+
 def k10_phase(device) -> dict:
     """K10's plan held to the wrapper's; K10 against its float32 plain
     version in bf16 and float32 at the main shape (batch 512, 32x32 -> 224)
     and at K10_CASES, bit-identical over two launches, the wrapper's
-    refusals, boxes past their image; timed in turns with the plain version
+    refusals, boxes past their image, the non-square route that downscales
+    (``k10_non_square``); timed in turns with the plain version
     beside its bound at K10_TIMED. Returns the main shape's row."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("K10's plain version must multiply in float32, not TF32")
@@ -2032,6 +2096,7 @@ def k10_phase(device) -> dict:
         raise AssertionError("K10 is not bit-identical over two launches")
     k10_refusals(device)
     k10_outside_boxes(device)
+    k10_non_square(device)
     timed = []
     for count, src, size in K10_TIMED:
         inputs = (raw, boxes, flips) if (count, src) == (n, 32) else \
@@ -4100,7 +4165,7 @@ def d128_train_kernel_phases(device) -> dict:
     route's 8 x 512 and at L8B_BWD_LENGTHS (N = 2), with K1 causal timed at
     8 x 512 (k1_d128_phase checks it there); K4 and K5 at the flash
     route's 4 x 1024 (causal) and at edge lengths, causal and not (N = 2),
-    and their wrappers' refusal of float32 at d = 128. Returns the rows by
+    and their wrappers' refusal of float32 at d = 80. Returns the rows by
     name."""
     edges = [(2, l) for l in L8B_BWD_LENGTHS]
     return {
@@ -4733,6 +4798,16 @@ def spec_run(target: Model, draft: Model, prompt, new: int, temperature: float =
                           if draft is target else None)}
 
 
+def self_draft_exact(run) -> bool:
+    """Every rejection of a self-draft (``spec_run``) is a rounding one (a
+    near tie, or a sampled ratio within exp(-NEAR_TIE/T) of 1), and its cache
+    holds what the target's holds."""
+    floor = math.exp(-NEAR_TIE / SPEC_TEMPERATURE)
+    return run["cache_rel"] <= SERVE_REL_L2 and all(
+        margin < NEAR_TIE if ratio is None else ratio >= floor
+        for _, margin, ratio in run["rejected"])
+
+
 def spec_phase(target: Model, draft: Model, device, card_line: str) -> None:
     """Phase 41: speculative decoding at batch 1 on the 8B (bf16 decoding
     copy), drafted by the 1b preset and by itself. Plain batch-1
@@ -4783,14 +4858,6 @@ def spec_phase(target: Model, draft: Model, device, card_line: str) -> None:
         if run["plain"]:
             raise AssertionError(f"{label}: plain versions ran on CUDA: {Counter(run['plain'])}")
 
-    def self_draft_exact(run) -> bool:
-        """Every rejection of a self-draft is a rounding one, and its cache
-        holds what the target's holds."""
-        floor = math.exp(-NEAR_TIE / SPEC_TEMPERATURE)
-        return run["cache_rel"] <= SERVE_REL_L2 and all(
-            margin < NEAR_TIE if ratio is None else ratio >= floor
-            for _, margin, ratio in run["rejected"])
-
     per_call = {128: cfg.n_layers, 64: draft.config.n_layers}
     runs = {"greedy, 1b draft": spec_run(target, draft, prompt, SPEC_NEW),
             "greedy, self-draft": spec_run(target, target, prompt, SPEC_NEW),
@@ -4834,8 +4901,8 @@ def spec_phase(target: Model, draft: Model, device, card_line: str) -> None:
 def spec_server_phase(target: Model, draft: Model, plain_reqs, plain_margins,
                       plain_rates: dict, device, card_line: str) -> None:
     """Phase 42: ``DecodeServer`` on the 8B with the 1b draft (L8B_SERVER,
-    gamma 4) serves the first SPEC_SERVER_REQUESTS of phase 37's requests
-    greedily after a warm-up: every
+    gamma 4) serves the first SPEC_SERVER_REQUESTS of phase 37's requests,
+    each cut to SPEC_SERVER_NEW new tokens, greedily after a warm-up: every
     request its max_new_tokens; K1 once per layer and model per admission
     (32 at d = 128 and 16 at d = 64), no plain version; each stream against
     the plain server's under the near-tie rule (its margins recorded in
@@ -4848,7 +4915,8 @@ def spec_server_phase(target: Model, draft: Model, plain_reqs, plain_margins,
                for r in l8b_requests(cfg.vocab_size)[:2]])
     srv.reset()
     torch.cuda.synchronize()
-    reqs = l8b_requests(cfg.vocab_size)[:SPEC_SERVER_REQUESTS]
+    reqs = [SRV.Request(prompt=r.prompt, max_new_tokens=min(r.max_new_tokens, SPEC_SERVER_NEW))
+            for r in l8b_requests(cfg.vocab_size)[:SPEC_SERVER_REQUESTS]]
     useful = sum(r.max_new_tokens for r in reqs)
     with k1_widths() as widths, no_plain_versions() as (plain_calls, _):
         A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
@@ -4857,11 +4925,12 @@ def spec_server_phase(target: Model, draft: Model, plain_reqs, plain_margins,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = (A.fused_mha_packed.launches, A.fused_mha_packed.masked_launches)
-    verdicts = [near_tie(r.tokens, p.tokens, plain_margins[id(p)])
+    verdicts = [near_tie(r.tokens, p.tokens[:len(r.tokens)], plain_margins[id(p)])
                 for r, p in zip(reqs, plain_reqs)]
     equal = sum(what == "equal" for _, what in verdicts)
     print(f"Llama-3.1-8B speculative DecodeServer ({card_line}), 1b draft, gamma {SPEC_GAMMA}, "
-          f"{L8B_SERVER}, {len(reqs)} requests ({useful} tokens): {seconds:.3f} s, "
+          f"{L8B_SERVER}, {len(reqs)} requests of at most {SPEC_SERVER_NEW} new "
+          f"({useful} tokens): {seconds:.3f} s, "
           f"{len(reqs) / seconds:.3f} requests/s, {useful / seconds:.2f} tokens/s (the plain "
           f"server, phase 37: {plain_rates['requests_s']:.3f} and {plain_rates['tokens_s']:.2f}); "
           f"{srv.spec_rounds} rounds, {srv.spec_committed} tokens committed by them "
@@ -6246,8 +6315,9 @@ def patchtst_phase(device) -> dict:
     steps, K1 and K2 at d = 8 n_layers launches each a step, K4 and K5 none,
     no plain version, a loss that falls; series/s, peak memory and a profile
     of one step; the cross-check against the plain route. Then the preset at
-    its default float32: the plain attention (no K1), a loss that falls.
-    Returns the main path's launch counts."""
+    its default float32: the plain attention (no K1), a loss that falls; and
+    under attn_impl="pallas", K4 and K5 at d = 8 (``patchtst_fp32_pallas``).
+    Returns the main paths' launch counts."""
     model = build_model(PATCHTST, device=device)
     cfg = model.config
     n, _ = PATCHTST_SHAPE
@@ -6310,7 +6380,58 @@ def patchtst_phase(device) -> dict:
             or not losses[-1] < losses[0]):
         raise AssertionError("PatchTST float32 did not take the plain attention, or its "
                              "loss did not fall")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(patchtst_fp32_pallas(device, x, y))
     return launches
+
+
+def patchtst_fp32_pallas(device, x, y) -> dict:
+    """PatchTST-base at its float32 default under ``attn_impl="pallas"``, as
+    the JAX package runs it into its flash kernel at d = 8: one warm-up and
+    PATCHTST_FP32_STEPS timed steps, K4 = K5 = n_layers a step, K1-K3 none,
+    no plain version, a loss that falls, series/s; then one batch's
+    gradients against the plain route's (relative L2 within
+    FP32_GRAD_REL_L2, overall and per block). Returns the K4 and K5 launches
+    of the timed steps."""
+    model = build_model({**PATCHTST, "compute_dtype": "float32", "attn_impl": "pallas"},
+                        device=device)
+    cfg, n = model.config, x.shape[0]
+    optimizer, scheduler = build_optimizer(PATCHTST_OPTIMIZER, model.module)
+    state = init_train_state(model, optimizer, scheduler)
+    step_fn = make_train_step(loss_fn=mse, update_stats=True)
+    losses = [step_fn(state, (x, y))["loss"]]
+    torch.cuda.synchronize()
+    with no_plain_versions() as (plain_calls, _):
+        for counter in FLASH_COUNTERS:
+            counter.launches = 0
+        t0 = time.perf_counter()
+        losses += [step_fn(state, (x, y))["loss"] for _ in range(PATCHTST_FP32_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in FLASH_COUNTERS}
+    losses = [loss.item() for loss in losses]
+    want = cfg.n_layers * PATCHTST_FP32_STEPS
+    print(f"PatchTST-base float32, attn_impl=\"pallas\": {n * PATCHTST_FP32_STEPS / seconds:.2f} "
+          f"series/s ({seconds / PATCHTST_FP32_STEPS * 1e3:.3f} ms per step of {n}); loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; launches over {PATCHTST_FP32_STEPS} steps "
+          f"{launches} (K4 and K5 want {want}); plain calls {dict(Counter(plain_calls))}")
+    if (launches["flash_attention"] != want or launches["flash_bwd"] != want
+            or launches["fused_mha_packed"] or launches["packed_mha_bwd"] or plain_calls):
+        raise AssertionError("the float32 PatchTST step did not take K4 and K5 in every block")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the float32 PatchTST loss did not fall: {losses}")
+    del state, optimizer, scheduler, step_fn
+    overall, blocks = kernel_and_plain_grads(model, lambda plain: mse(model.module(x), y))
+    print(f"PatchTST-base float32 gradients, K4 + K5 against the plain route: relative L2 "
+          f"{overall:.3e}, per block " + " ".join(f"{r:.2e}" for r in blocks)
+          + f" (limit {FP32_GRAD_REL_L2})")
+    if not (math.isfinite(overall) and overall <= FP32_GRAD_REL_L2
+            and all(r <= FP32_GRAD_REL_L2 for r in blocks)):
+        raise AssertionError("float32 PatchTST's K4/K5 gradients leave the plain route's")
+    return {"fp32:flash_attention": launches["flash_attention"],
+            "fp32:flash_bwd": launches["flash_bwd"]}
 
 
 def remat_phase(device) -> None:
@@ -7415,6 +7536,164 @@ def fsdp_phase(device, card_line: str) -> None:
         raise AssertionError(f"the 32-layer 8B loss did not fall: {losses}")
 
 
+def spec_pair_requests() -> list:
+    """SPEC_PAIR_REQUESTS greedy requests whose prompts are the Markov
+    chain's (``markov_batches`` seed 3): 32-128 tokens each and 32-128 new,
+    from default_rng(3)."""
+    rng = np.random.default_rng(3)
+    x, _ = next(DSP.markov_batches(1, seed=3))
+    reqs = []
+    for row in x[:SPEC_PAIR_REQUESTS].tolist():
+        plen, mnew = int(rng.integers(32, 129)), int(rng.integers(32, 129))
+        reqs.append(SRV.Request(prompt=row[:plen], max_new_tokens=mnew))
+    return reqs
+
+
+def pair_training(label: str, run, steps: int, want: dict) -> list[float]:
+    """``run()`` (a tool's training loop, returning its per-step losses)
+    with the attention counters reset and the plain versions recorded:
+    prints its seconds and launches a step, and fails on other launches
+    than ``want`` a step, a plain call or a loss that does not fall."""
+    with no_plain_versions() as (plain_calls, aug_calls):
+        for counter in FLASH_COUNTERS:
+            counter.launches = 0
+        A.fused_mha_packed.masked_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in FLASH_COUNTERS}
+        launches["masked"] = A.fused_mha_packed.masked_launches
+    per_step = {name: count / steps for name, count in launches.items()}
+    print(f"phase 53 {label}: {steps} steps in {seconds:.2f} s ({seconds / steps * 1e3:.3f} ms a "
+          f"step, Markov draws on the host included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"launches a step {per_step} (want {want}); plain calls "
+          f"{dict(Counter(plain_calls + aug_calls))}")
+    if per_step != {**dict.fromkeys(launches, 0.0), **want} or plain_calls or aug_calls:
+        raise AssertionError(f"phase 53 {label} launched {per_step}, want {want}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 53 {label}: the loss did not fall: {losses[::50]}")
+    return losses
+
+
+def spec_pair_phase(device, card_line: str) -> None:
+    """Phase 53, the trained speculative pair: ``distill_spec_pair`` at its
+    full defaults on the card (its loss and KL printed every 50 and 100
+    steps; K1 causal = K3 = 12 a target step, K1 14 and K3 2 a distillation
+    step, no plain version; both losses falling), the pair saved and read
+    back through the JAX layout; ``profile_speculative``'s rows at
+    ``--trained``: the distilled draft's sampled alpha (T 0.8) strictly
+    inside (0, 1) at every gamma and its greedy alpha above 0 (on order-1
+    Markov data greedy acceptance is 1 by construction: the target's argmax
+    is a function of the current token alone, which the draft learns; the
+    JAX tool's own record reads 1.00 there and 0.50-0.71 sampled), both
+    greedy speculative streams equal to plain ``generate``
+    under the near-tie rule, the self-draft's rejections all rounding ones
+    (``self_draft_exact``); then the speculative ``DecodeServer`` against
+    the plain one on the same SPEC_PAIR_REQUESTS Markov requests: each
+    stream under the near-tie rule, K1 once a target and a draft layer an
+    admission, both rates."""
+    target, draft = DSP.gpt2ish(12, 0, device), DSP.gpt2ish(2, 7, device)
+    n_t, n_d = target.config.n_layers, draft.config.n_layers
+    pair_training("target training", lambda: DSP.train_target(target), DSP.TARGET_STEPS,
+                  {"fused_mha_packed": n_t, "packed_mha_bwd": n_t})
+    pair_training("draft distillation", lambda: DSP.distill_draft(draft, target),
+                  DSP.DRAFT_STEPS, {"fused_mha_packed": n_t + n_d, "packed_mha_bwd": n_d})
+    with tempfile.TemporaryDirectory() as pair_dir:
+        DSP.save_pair(target, draft, Path(pair_dir))
+        loaded = PSP.load_trained_pair(DSP.gpt2ish(12, 0, device), DSP.gpt2ish(2, 7, device),
+                                       pair_dir)
+    if not all(torch.equal(a, b) for model, back in zip((target, draft), loaded)
+               for a, b in zip(model.module.state_dict().values(),
+                               back.module.state_dict().values())):
+        raise AssertionError("the saved pair did not read back bit for bit")
+    del target, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    target, draft = loaded
+
+    prompt = PSP.prompt_of(True, device)
+    print(f"phase 53 profile_speculative --trained ({card_line}):")
+    rows = {row["name"]: row for row in PSP.profile_rows(target, draft, prompt, PSP.NEW)}
+    with logits_margins() as margins:
+        want = target.generate(prompt, PSP.NEW, temperature=0.0)
+    want, margins = want[0].tolist(), torch.cat(margins).tolist()
+    self_run = spec_run(target, target, prompt, PSP.NEW)
+    alpha = rows["draft-2L g=4"]["alpha"]
+    sampled = {name: row["alpha"] for name, row in rows.items() if "T=0.8 g=" in name}
+    verdicts = {name: near_tie(rows[name]["tokens"], want, margins)
+                for name in ("draft-2L g=4", "self-draft g=4")}
+    print("phase 53: alpha by row " + ", ".join(
+        f"{name} {row['alpha']!r}" for name, row in rows.items() if "alpha" in row)
+        + f"; plain greedy {rows['plain greedy']['tok_s']:.2f} tokens/s, the distilled draft's "
+        f"greedy {rows['draft-2L g=4']['tok_s']:.2f}; greedy streams against plain generate "
+        f"(near-tie rule, {NEAR_TIE:g}): {verdicts}; the self-draft (spec_run) accepted "
+        f"{self_run['stats']['accepted']}/{self_run['stats']['drafted']}, first rejections "
+        f"{self_run['rejected'][:8]}, caches {self_run['cache_rel']:.3e} apart")
+    if not (0.0 < alpha <= 1.0 and len(sampled) == 4
+            and all(0.0 < a < 1.0 for a in sampled.values())):
+        raise AssertionError(f"the distilled draft's acceptance is degenerate: greedy {alpha}, "
+                             f"sampled {sampled} (want greedy above 0 and every sampled alpha "
+                             "inside (0, 1))")
+    if not all(ok for ok, _ in verdicts.values()):
+        raise AssertionError(f"a greedy speculative stream leaves plain generate outside a "
+                             f"near tie: {verdicts}")
+    if not self_draft_exact(self_run):
+        raise AssertionError("the trained self-draft rejected a proposal outside a near tie "
+                             "or its cache left the target's")
+
+    cfg = target.config
+    plain_srv = SRV.DecodeServer(target.module, cfg, **SPEC_PAIR_SERVER)
+    spec_srv = SRV.DecodeServer(target.module, cfg, **SPEC_PAIR_SERVER, draft_params=draft,
+                                gamma=SPEC_GAMMA)
+    rates = {}
+    for label, srv in (("plain", plain_srv), ("speculative", spec_srv)):
+        srv.serve([SRV.Request(prompt=r.prompt, max_new_tokens=4)
+                   for r in spec_pair_requests()[:2]])
+        srv.reset()
+        reqs = spec_pair_requests()
+        with k1_widths() as widths, no_plain_versions() as (plain_calls, _):
+            A.fused_mha_packed.launches = A.fused_mha_packed.masked_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.serve(reqs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = (A.fused_mha_packed.launches, A.fused_mha_packed.masked_launches)
+        useful = sum(r.max_new_tokens for r in reqs)
+        rates[label] = (reqs, useful / seconds, seconds, dict(widths), launches)
+        layers = n_t + (n_d if srv is spec_srv else 0)
+        if (dict(widths) != {64: layers * len(reqs)} or launches != (layers * len(reqs), 0)
+                or plain_calls):
+            raise AssertionError(f"the {label} server launched K1 {dict(widths)} {launches}; "
+                                 f"plain calls {Counter(plain_calls)}")
+        if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
+            raise AssertionError(f"a request did not get its max_new_tokens from the {label} "
+                                 "server")
+    plain_srv.reset()
+    margin_reqs = spec_pair_requests()
+    with stream_margins(plain_srv) as stream:
+        plain_srv.serve(margin_reqs)
+    served = [near_tie(r.tokens, p.tokens, stream[id(p)])
+              for r, p in zip(rates["speculative"][0], margin_reqs)]
+    equal = sum(what == "equal" for _, what in served)
+    print(f"phase 53 DecodeServer ({card_line}), {SPEC_PAIR_SERVER}, {SPEC_PAIR_REQUESTS} "
+          f"Markov requests ({sum(r.max_new_tokens for r in margin_reqs)} tokens): plain "
+          f"{rates['plain'][1]:.2f} tokens/s ({rates['plain'][2]:.3f} s), speculative "
+          f"(the distilled draft, gamma {SPEC_GAMMA}) {rates['speculative'][1]:.2f} tokens/s "
+          f"({rates['speculative'][2]:.3f} s, {spec_srv.spec_rounds} rounds, "
+          f"{spec_srv.spec_committed / max(spec_srv.spec_rounds, 1):.3f} tokens committed a "
+          f"round over {SPEC_PAIR_SERVER['n_slots']} slots); K1 by head width "
+          f"{rates['plain'][3]} and {rates['speculative'][3]}; speculative streams equal to "
+          f"the plain server's: {equal} of {len(served)}; "
+          + "; ".join(f"request {i}: {what}" for i, (_, what) in enumerate(served)
+                      if what != "equal")[:2000])
+    if not all(ok for ok, _ in served):
+        raise AssertionError("a speculative server stream leaves the plain server's outside "
+                             "a near tie")
+
+
 def stopwatch():
     """A function that prints the seconds since the script's start and since
     its last call, beside a label: where the script's time limit goes."""
@@ -7454,7 +7733,17 @@ def main() -> None:
               "flash_fwd:float32": flash_fwd_phase(device, torch.float32, FLASH_FP32,
                                                    seed=14, iters=10),
               "flash_bwd:float32": flash_bwd_phase(device, torch.float32, FLASH_FP32,
-                                                   seed=15, iters=10)}
+                                                   seed=15, iters=10),
+              "flash_fwd:float32:d8": flash_fwd_phase(device, torch.float32, FLASH_FP32_D8,
+                                                      seed=16, iters=10, d=8),
+              "flash_bwd:float32:d8": flash_bwd_phase(device, torch.float32, FLASH_FP32_D8,
+                                                      seed=17, iters=10, d=8),
+              "flash_fwd:float32:d128": flash_fwd_phase(device, torch.float32,
+                                                        FLASH_FP32_D128, seed=18, iters=10,
+                                                        d=128),
+              "flash_bwd:float32:d128": flash_bwd_phase(device, torch.float32,
+                                                        FLASH_FP32_D128, seed=19, iters=10,
+                                                        d=128)}
     for i, name in enumerate(GROUPED):
         timing[name] = grouped_phase(device, name, seed=20 + i, iters=10)
     swiglu_y_phase(device, seed=29)
@@ -7606,6 +7895,11 @@ def main() -> None:
     with phase_clock("52 (FSDP by unit)", device):
         fsdp_phase(device, card_line)
     stamp("FSDP by unit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase_clock("53 (the trained speculative pair)", device):
+        spec_pair_phase(device, card_line)
+    stamp("the trained speculative pair")
 
     # (name, source file, main path's launch count, TPU kernel it replaces)
     entries = [
@@ -7663,6 +7957,13 @@ def main() -> None:
          "vitef_tpu/ops/attention.py:270"),
         # no preset takes the causal modes at d = 8: no launch on a path
         ("packed_mha_bwd:causal:d8", "packed_mha_bwd", 0, "vitef_tpu/ops/attention.py:181"),
+        ("flash_fwd:float32:d8", "flash_fwd", patchtst_launches["fp32:flash_attention"],
+         "vitef_tpu/ops/attention.py:490"),
+        ("flash_bwd:float32:d8", "flash_bwd", patchtst_launches["fp32:flash_bwd"],
+         "vitef_tpu/ops/attention.py:588"),
+        # no preset takes float32 attention at d = 128 (the plain grouped einsum)
+        ("flash_fwd:float32:d128", "flash_fwd", 0, "vitef_tpu/ops/attention.py:490"),
+        ("flash_bwd:float32:d128", "flash_bwd", 0, "vitef_tpu/ops/attention.py:588"),
     ]
     print(card_line)
     print(json.dumps({"kernels": [{

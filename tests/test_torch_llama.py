@@ -313,17 +313,19 @@ def test_packed_gate_matches_jax(l, e, h, packed):
     ("packed", torch.bfloat16, 128, True), ("packed", torch.bfloat16, 96, False),
     ("flash", torch.bfloat16, 64, True), ("flash", torch.bfloat16, 128, True),
     ("flash", torch.bfloat16, 96, False), ("flash", torch.float32, 64, True),
-    ("flash", torch.float32, 128, False)],
+    ("flash", torch.float32, 128, True), ("flash", torch.float32, 8, True),
+    ("flash", torch.float32, 80, False)],
     ids=["packed_d8", "packed_d64", "packed_d80", "packed_d128", "packed_d96", "flash_bf16_d64",
-         "flash_bf16_d128", "flash_bf16_d96", "flash_f32_d64", "flash_f32_d128"])
+         "flash_bf16_d128", "flash_bf16_d96", "flash_f32_d64", "flash_f32_d128", "flash_f32_d8",
+         "flash_f32_d80"])
 def test_kernel_wrappers_head_width_gates(kernel, dtype, d, taken):
     """The head widths each wrapper takes before its device check: K1, K2
     and K3 at 8 (PatchTST), 64, 80 and 128; K4 and K5 at 64 and 128 in
-    bfloat16 and 64 in float32. A width the kernels are not instantiated for
-    raises NotImplementedError; one they take goes on to refuse the CPU
-    tensor."""
+    bfloat16 and 8, 64 and 128 in float32. A width the kernels are not
+    instantiated for raises NotImplementedError; one they take goes on to
+    refuse the CPU tensor."""
     assert A._PACKED_BWD_HEAD_DIMS == A._PACKED_FWD_HEAD_DIMS == (8, 64, 80, 128)
-    assert A._FLASH_HEAD_DIMS == {torch.bfloat16: (64, 128), torch.float32: (64,)}
+    assert A._FLASH_HEAD_DIMS == {torch.bfloat16: (64, 128), torch.float32: (8, 64, 128)}
     if kernel == "packed":
         qkv = torch.zeros(1, 5, 3 * 2 * d, dtype=dtype)
         checks = [lambda: A._check_cuda(name, qkv, 2, dims) for name, dims in (

@@ -12,6 +12,9 @@ JAX package:
   statistics and in train mode with ``return_stats``;
 - 3 AdamW steps of ``make_train_step(update_stats=True, grad_acc_steps=2)``
   with an MSE loss: the losses, the parameters and the running statistics;
+- the float32 forward and gradients under ``attn_impl="pallas"``, where
+  the JAX package takes its flash kernel at d = 8 (interpret mode) and the
+  port K4 and K5 (their plain versions on the CPU);
 - K1's and K2's plain versions at head width 8 against the JAX
   ``fused_mha_packed`` (Pallas interpret mode) and ``jax.vjp`` of it at
   2e-5 / 1e-4, and the bf16 route: both packages take the packed kernels at
@@ -340,6 +343,48 @@ def test_bf16_route_is_packed_at_d8(monkeypatch):
     assert jax_common.resolve_impl("auto", seq_len=64, dtype=jnp.float32) == "xla"
     assert A.attention_route("auto", "cuda", seq_len=64, emb_dim=128, n_heads=16,
                              dtype=torch.float32) == "plain"
+
+
+def test_float32_pallas_route_matches_jax(one_thread, monkeypatch):
+    """PatchTST at its float32 default under ``attn_impl="pallas"``: the JAX
+    package sends float32 at d = 8 to its flash kernel (``_flash_kernel``,
+    ``_flash_bwd_kernel``; interpret mode here), the port to K4 and K5 on the
+    card (``attention_route`` "flash", PatchTST base's geometry) and to their
+    plain versions on the CPU. Train-mode forecasts and every gradient of an
+    MSE loss at 1e-4 / 1e-4."""
+    config = {**TINY, "attn_impl": "pallas"}
+    jm, params, tm = _pair(config, seed=13)
+    assert A.attention_route("pallas", "cuda", seq_len=64, emb_dim=128, n_heads=16,
+                             dtype=torch.float32) == "flash"
+    calls = []
+    real = jax_attention._flash_forward
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(jax_attention, "_flash_forward", counted)
+    x, y = _series(8, seed=14)
+
+    def loss(p):
+        out = jm.apply(p, jnp.asarray(x), deterministic=False)
+        return jnp.mean(jnp.square(out - jnp.asarray(y))), out
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, want_out), grads = jax.value_and_grad(loss, has_aux=True)(params)
+    assert calls and all(shape[-1] == 8 for shape in calls)  # the flash kernel at d = 8
+    want = from_jax_params(jax.tree.map(np.asarray, grads))
+    launches = (A.flash_attention.launches, A.flash_bwd.launches)
+    tm.module.train()
+    out, _, got = _loss_and_grads(tm.module, _t(x), _t(y))
+    assert (A.flash_attention.launches, A.flash_bwd.launches) == launches
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=ATOL, rtol=RTOL)
+    e = TINY["emb_dim"]
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), atol=ATOL, rtol=RTOL,
+                                   err_msg=name)
+        if _zero_gradient_slices(name, e) is None:
+            assert np.abs(g.numpy()).max() > 0, name
 
 
 # ---------------------------------------------------------------------------

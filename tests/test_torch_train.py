@@ -223,19 +223,27 @@ def test_bilinear_weights_round_as_jax(src, size):
         np.testing.assert_array_equal(ours[i], _jax_bilinear_weights(s, n, size, src, flipped))
 
 
-def test_augment_train_refuses_non_square_downscale():
-    """A non-square source with a side over ``size``: the JAX package resizes
-    it with XLA's antialiased scale_and_translate, whose kernel widens on a
-    downscaling crop, so the two-tap map differs from it by whole units;
-    the port refuses it rather than compute another result."""
-    batch, boxes, flips = _crop_inputs(12, 120, 160)
+@pytest.mark.parametrize("h,w,size", [(120, 160, 64), (160, 120, 64), (300, 200, 224)],
+                         ids=["120x160-to-64", "160x120-to-64", "300x200-to-224"])
+def test_augment_train_refuses_non_square_downscale(h, w, size):
+    """A non-square source with a side over ``size`` (named from when the
+    port refused it): the JAX package resizes it with XLA's antialiased
+    scale_and_translate, whose kernel widens on a downscaling crop, so the
+    two-tap map differs from it by whole units there; the port's
+    ``augment_train_device`` takes the same antialiased map and equals the
+    JAX XLA path within 1e-4 in normalised units, in float32 (the two
+    compute the same float32 weights, then sum in another order)."""
+    batch, boxes, flips = _crop_inputs(12, h, w)
     targs = (_t(batch), _t(boxes), _t(flips))
-    with pytest.raises(NotImplementedError, match="antialiased scale_and_translate"):
-        transforms.augment_train_device(*targs, size=64)
     xla = np.asarray(jax_transforms.augment_train_device(
-        jnp.asarray(batch), jnp.asarray(boxes), jnp.asarray(flips), size=64,
+        jnp.asarray(batch), jnp.asarray(boxes), jnp.asarray(flips), size=size,
         compute_dtype=jnp.float32))
-    two_tap = transforms.augment_train_reference(*targs, 64).numpy()
+    launches = transforms.augment_train_device.launches
+    ours = transforms.augment_train_device(*targs, size=size)
+    assert transforms.augment_train_device.launches == launches
+    assert ours.shape == (4, 3, size, size) and ours.dtype == torch.float32
+    np.testing.assert_allclose(ours.numpy(), xla, atol=1e-4, rtol=0)
+    two_tap = transforms.augment_train_reference(*targs, size).numpy()
     assert np.abs(xla - two_tap).max() > 1.0
 
 

@@ -6,7 +6,9 @@ Counterpart of ``vitef_tpu/data/images/transforms.py``: IMAGENET_MEAN/STD
 :42-81; PIL is imported inside them), ``sample_resized_crop_params`` and
 ``sample_crop_batch`` (:89-130),
 the train augment ``augment_train_device`` (:237-255) with its kernel K10
-(``_augment_kernel`` :187-201, weights ``_bilinear_weights`` :173-184), and
+(``_augment_kernel`` :187-201, weights ``_bilinear_weights`` :173-184) and
+its XLA path for non-square sources (``augment_train_antialiased``,
+``_crop_resize_one`` :138-156), and
 ``normalize_device`` / ``normalize_host`` (:258-271).
 
 Eval path: Resize + CenterCrop run on the host (``vitef_tpu_torch.native``,
@@ -226,17 +228,69 @@ def augment_band_rows(h: int, w: int, size: int) -> int:
     return -(-size // bands)
 
 
-def _refuse_downscaled_non_square(h: int, w: int, size: int) -> None:
-    """The JAX package runs the two-tap map only on square sources; it resizes
-    any other through XLA's antialiased ``scale_and_translate``
-    (``_crop_resize_one`` :138-156), whose kernel widens on a crop that
-    downscales. Where a side is over ``size`` a crop can downscale, and that
-    resize is not ported."""
-    if h != w and max(h, w) > size:
-        raise NotImplementedError(
-            f"augment_train_device: a non-square {h}x{w} source with a side over size={size} "
-            "can downscale, and there the JAX package takes XLA's antialiased "
-            "scale_and_translate, which the port has not ported")
+def _antialiased_weights(start, length, size: int, src: int):
+    """(N, size, src) weights of ``jax.image.scale_and_translate(method="linear",
+    antialias=True)`` along one axis (``compute_weight_mat``) for the crop
+    [start, start + length) of each image, as ``_crop_resize_one`` (:138-156)
+    sets it up: scale s = size / length, translation -start s, half-pixel
+    centres, so output o samples source coordinate (o + 0.5) / s + start - 0.5;
+    the triangle kernel widened by 1 / s where s < 1 (a downscale), the
+    weights of each output normalised to sum to 1 (0 where they sum to
+    almost nothing), and an output whose sample lies outside the source
+    zeroed. Every step is float32, rounded where XLA rounds it: XLA
+    simplifies 1 / (size / length) to length times the float32 reciprocal of
+    size, and contracts (o + 0.5) / s - translation / s into one fused
+    multiply-add, whose product is exact in float64, so the difference
+    rounded once to float32 is its value."""
+    length = length.float()
+    scale = torch.full_like(length, float(size)) / length  # torch's size / t multiplies by 1/t
+    inv_scale = length * float(np.float32(1) / np.float32(size))
+    translation = -start.float() * scale
+    o = torch.arange(size, dtype=torch.float32, device=start.device)[None, :]
+    sample = ((o + 0.5).double() * inv_scale.double()[:, None]
+              - (translation * inv_scale).double()[:, None]).float() - 0.5  # (N, size)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)[:, None, None]
+    x = torch.arange(src, dtype=torch.float32, device=start.device)[None, None, :]
+    weights = torch.clamp(1.0 - torch.abs(sample[:, :, None] - x) / kernel_scale, min=0.0)
+    total = weights.sum(dim=2, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= src - 0.5)
+    return torch.where(inside[:, :, None], weights, 0.0)
+
+
+def augment_train_antialiased(batch_u8: torch.Tensor, boxes: torch.Tensor,
+                              flips: torch.Tensor, size: int,
+                              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The JAX package's XLA train augment (``augment_train_device`` :247-255,
+    ``_crop_resize_one`` :138-156): each image's crop resized to ``size`` by
+    the separable antialiased linear map of :func:`_antialiased_weights`
+    along y and x, flipped, /255, ImageNet normalised and in CHW, on the
+    batch's device. The weight matrices are built there from the boxes for
+    the whole batch (no host synchronisation) and applied with
+    ``torch.matmul``; the JAX package leaves this resize to XLA, not to a
+    kernel. ``augment_train_device`` takes it for a non-square source with
+    a side over ``size``, where a crop can downscale and the two-tap map of
+    K10 would differ."""
+    _, h, w, _ = batch_u8.shape
+    boxes = boxes.long()
+    ah = _antialiased_weights(boxes[:, 0], boxes[:, 2], size, h)      # (N, size, H)
+    aw = _antialiased_weights(boxes[:, 1], boxes[:, 3], size, w)      # (N, size, W)
+    aw = torch.where(flips.bool()[:, None, None], aw.flip(1), aw)     # out[:, :, ::-1]
+    img = batch_u8.float().permute(0, 3, 1, 2)                        # (N, 3, H, W)
+    out = torch.matmul(torch.matmul(ah[:, None], img), aw[:, None].transpose(-1, -2))
+    mean = torch.from_numpy(IMAGENET_MEAN).to(out.device)[None, :, None, None]
+    std = torch.from_numpy(IMAGENET_STD).to(out.device)[None, :, None, None]
+    return ((out / 255.0 - mean) / std).to(compute_dtype)
+
+
+def _downscales_non_square(h: int, w: int, size: int) -> bool:
+    """Whether the JAX package's rule, with K10 in its Pallas kernel's place,
+    sends an h x w source at ``size`` past the two-tap map: a non-square
+    source (the Pallas kernel takes square ones only) with a side over
+    ``size``, so that a crop can downscale. A non-square source within
+    ``size`` only upscales, where the antialiased map is the two-tap one."""
+    return h != w and max(h, w) > size
 
 
 def augment_train_device(batch_u8: torch.Tensor, boxes: torch.Tensor, flips: torch.Tensor,
@@ -246,19 +300,21 @@ def augment_train_device(batch_u8: torch.Tensor, boxes: torch.Tensor, flips: tor
     normalized: crop-resize (bilinear), horizontal flip, /255, ImageNet
     normalize, HWC -> CHW.
 
-    A CPU tensor goes through :func:`augment_train_reference`. A CUDA tensor
-    launches K10 (``csrc/train_augment.cu``), or raises if the kernel does not
-    take it: uint8 images of 3 channels, ``size`` up to 2640
+    A non-square source with a side over ``size`` goes, on either device,
+    through :func:`augment_train_antialiased`, as the JAX package resizes it.
+    Otherwise a CPU tensor goes through :func:`augment_train_reference`, and
+    a CUDA tensor launches K10 (``csrc/train_augment.cu``), or raises if the
+    kernel does not take it: uint8 images of 3 channels, ``size`` up to 2640
     (:func:`augment_band_rows`), boxes and flips on the same device, a float32
-    or bfloat16 output. On both, a non-square source with a side over
-    ``size`` raises NotImplementedError (the JAX package resizes it otherwise).
+    or bfloat16 output.
     Each box lies within its image, as :func:`sample_crop_batch` draws them;
     they are not read on the host, and past that K10 stays inside its own
     memory but its values are undefined. ``augment_train_device.launches``
     counts its launches.
     """
-    if batch_u8.dim() == 4:
-        _refuse_downscaled_non_square(batch_u8.shape[1], batch_u8.shape[2], size)
+    if batch_u8.dim() == 4 and _downscales_non_square(batch_u8.shape[1], batch_u8.shape[2],
+                                                      size):
+        return augment_train_antialiased(batch_u8, boxes, flips, size, compute_dtype)
     if batch_u8.device.type == "cpu":
         return augment_train_reference(batch_u8, boxes, flips, size, compute_dtype)
     if batch_u8.device.type != "cuda":

@@ -27,7 +27,7 @@ Counterpart of ``vitef_tpu/ops/attention.py``:
   blocks and masks with ``kv_len``), and when a gradient is wanted it runs
   under :class:`_Flash`, whose backward is :func:`flash_bwd`
   (``csrc/flash_bwd.cu``, K5), as ``_flash``'s custom VJP (:578-677) does
-  (head width 64 or 128 in bfloat16, 64 in float32); on
+  (head width 64 or 128 in bfloat16, 8, 64 or 128 in float32); on
   a CPU tensor it runs :func:`attention_reference`. The JAX backward takes
   its kernel only while two (h, L, L) float32 tensors fit a 10 MiB budget,
   and above it differentiates an XLA recompute of ``attention_reference``
@@ -55,8 +55,8 @@ _NEG_INF = -1e30
 _PACKED_FWD_HEAD_DIMS = (8, 64, 80, 128)  # the head widths csrc/packed_mha_fwd.cu instantiates
 _PACKED_BWD_HEAD_DIMS = (8, 64, 80, 128)  # and csrc/packed_mha_bwd.cu, every mode of each
 # The head widths csrc/flash_*.cu instantiate, by dtype: bfloat16 on the
-# bf16 tensor-core tiles, float32 in split TF32 (kAttnF32Dim).
-_FLASH_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (64,)}
+# bf16 tensor-core tiles, float32 in split TF32 (kAttnF32WidthOk).
+_FLASH_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (8, 64, 128)}
 
 
 def attention_reference(q, k, v, *, causal: bool = False, kv_len: int | None = None,
@@ -383,7 +383,8 @@ _FLASH_DTYPES = (torch.bfloat16, torch.float32)
 def _flash_operands(name: str, *tensors):
     """Check that the flash kernel ``name`` takes ``tensors``: one shape
     (N, h, L, d) and one dtype, bfloat16 at d = 64 or 128 or float32 at
-    d = 64, then CUDA; return them contiguous and 16-byte aligned."""
+    d = 8, 64 or 128, then CUDA; return them contiguous and 16-byte
+    aligned."""
     first = tensors[0]
     if first.dim() != 4:
         raise ValueError(f"{name}: tensors must be (N, h, L, d), got {tuple(first.shape)}")
@@ -453,7 +454,7 @@ def flash_attention(q, k, v, *, causal: bool = False, impl: str = "auto"):
     kernel route on a CPU tensor runs :func:`attention_reference` too (and
     autograd differentiates it). A CUDA tensor launches K4, or raises if the
     kernel does not take it: q, k and v of one shape and dtype, bfloat16 at
-    head width 64 or 128, or float32 at 64. Both types multiply on the
+    head width 64 or 128, or float32 at 8, 64 or 128. Both types multiply on the
     tensor cores, float32 in split TF32 (three TF32 products per float32
     product), which keeps float32's accuracy. When a gradient is wanted the call runs under
     :class:`_Flash`, whose backward launches K5 (:func:`flash_bwd`).
@@ -482,7 +483,7 @@ def flash_bwd(q, k, v, g, out, lse, causal: bool = False):
     triangle only, no atomics: two launches on the same inputs give
     bit-identical results), or raises if the kernel does not take it: every
     operand of one shape and dtype, bfloat16 at head width 64 or 128, or
-    float32 at 64; every L. Both types run on the tensor cores: bfloat16
+    float32 at 8, 64 or 128; every L. Both types run on the tensor cores: bfloat16
     rounds P and dS to bfloat16 before their products, as the TPU kernel
     rounds them; float32
     runs every product in split TF32 (three TF32 products per float32

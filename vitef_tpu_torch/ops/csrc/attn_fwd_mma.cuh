@@ -55,9 +55,9 @@
 // Shared memory: Q and two K/V stages, 45 KB at D = 64, 55 KB at D = 80 and
 // 85 KB at D = 128 (above 48 KB only through allow_smem's opt-in).
 //
-// The float32 paths of K4 and K5 share its tiles and its thread mapping in
-// split TF32 (m16n8k8) at head width 64 only: stage_tile_f32 stages rows of
-// 68 floats.
+// The float32 paths of K4 and K5 share its 64-row tiles and its thread
+// mapping in split TF32 (m16n8k8) at head widths 8, 64 and 128:
+// stage_tile_f32 stages rows of D + 4 floats.
 
 #pragma once
 
@@ -299,25 +299,123 @@ __device__ __forceinline__ void store_warp_rows(const float (&c)[kAttnN8<D>][4],
 
 // --- float32 in split TF32 (K4's and K5's float32 paths) --------------------
 
-// Rows padded to 68 floats (272 bytes): ldmatrix on 32-bit rows and the
-// column reads of a B operand (8 rows 2 apart, 8 columns) are free of bank
-// conflicts.
-constexpr int kAttnF32Dim = 64;                           // their one head width
-constexpr int kAttnF32Stride = kAttnF32Dim + 4;           // floats per padded shared row
-constexpr int kAttnF32Tile = kAttnKeys * kAttnF32Stride;  // floats per staged 64-row tile
+// Their head widths D: 8 (PatchTST), 64 and 128. Rows are padded to D + 4
+// floats (48, 272 or 528 bytes: four banks past a multiple of 32 at 64 and
+// 128, twelve at 8), so ldmatrix on 32-bit rows and the column reads of a B
+// operand (8 rows 2 apart, 8 columns) are free of bank conflicts. At D = 8
+// a row is one k8 step of the score product and one n8 tile of P V, so no
+// width is padded (the bf16 tiles pad D = 8 to a k16 step, kAttnCols).
+template <int D>
+constexpr bool kAttnF32WidthOk = D == 8 || D == 64 || D == 128;
+template <int D>
+constexpr int kAttnF32Stride = D + 4;                       // floats per padded shared row
+template <int D>
+constexpr int kAttnF32Tile = kAttnKeys * kAttnF32Stride<D>;  // floats per staged 64-row tile
 static_assert(kAttnRows == kAttnKeys, "float32 query and key tiles share one shape");
 
-// This thread's eight 16-byte pieces of a 64-row float32 tile of a
-// head-major head (rows of kAttnF32Dim contiguous floats): rows first_row + 8 i,
-// floats col .. col + 3; rows past L are zero-filled.
-__device__ __forceinline__ void stage_tile_f32(const float* base, int r0, int L, float* dst,
-                                               int first_row, int col) {
+// This thread's 16-byte pieces of a 64-row float32 tile of a head-major
+// head (rows of D contiguous floats) starting at row r0, into dst: D/8 a
+// thread, at rows threadIdx.x / (D/4) + (kAttnThreads / (D/4)) i, floats
+// 4 (threadIdx.x % (D/4)) .. + 3 (at D = 64: rows tid/16 + 8 i); rows past
+// L are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_tile_f32(const float* base, int r0, int L, float* dst) {
+  constexpr int kRowPieces = D / 4;
+  constexpr int kRowStep = kAttnThreads / kRowPieces;
+  constexpr int kPieces = kAttnKeys / kRowStep;
+  static_assert(kRowStep * kRowPieces == kAttnThreads && kPieces * kRowStep == kAttnKeys,
+                "whole pieces a thread");
+  const int first_row = static_cast<int>(threadIdx.x) / kRowPieces;
+  const int col = (static_cast<int>(threadIdx.x) % kRowPieces) * 4;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = first_row + 8 * i;
+  for (int i = 0; i < kPieces; ++i) {
+    const int row = first_row + kRowStep * i;
     const bool inside = r0 + row < L;
-    const float* src = inside ? base + static_cast<size_t>(r0 + row) * kAttnF32Dim + col : base;
-    cp_async16(dst + row * kAttnF32Stride + col, src, inside);
+    const float* src = inside ? base + static_cast<size_t>(r0 + row) * D + col : base;
+    cp_async16(dst + row * kAttnF32Stride<D> + col, src, inside);
+  }
+}
+
+// The split TF32 A fragments (hi, lo) of k8 step kk of rows row0 .. row0 + 15
+// of a staged float32 tile: matrices (rows 0-7 | 8-15) x (columns 0-3 | 4-7)
+// of the step.
+template <int D>
+__device__ __forceinline__ void load_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                            const float* tile, int row0, int kk) {
+  const int lane = threadIdx.x % 32;
+  uint32_t x[4];
+  ldmatrix_x4(x, tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kAttnF32Stride<D> +
+                     kk * 8 + (lane >> 4) * 4);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(x[e]), hi[e], lo[e]);
+}
+
+// c (16 x 64) += A times rows 0 .. 63 of the staged float32 tile b,
+// transposed, at k8 step kk, A given as split fragments: n8 tile t of c
+// holds rows 8 t .. 8 t + 7 of b. One ldmatrix gives the B fragments of n8
+// tiles 2 nj and 2 nj + 1: matrices (rows 0-7 | 8-15 of the pair) x
+// (columns 0-3 | 4-7 of the step).
+template <int D>
+__device__ __forceinline__ void mma_tf32_step_bt(float (&c)[8][4], const uint32_t (&a_hi)[4],
+                                                 const uint32_t (&a_lo)[4], const float* b,
+                                                 int kk) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    uint32_t y[4], b_hi[4], b_lo[4];
+    ldmatrix_x4(y, b + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kAttnF32Stride<D> +
+                       kk * 8 + ((lane >> 3) & 1) * 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(y[e]), b_hi[e], b_lo[e]);
+    mma_3xtf32(c[2 * nj], a_hi, a_lo, b_hi, b_lo);
+    mma_3xtf32(c[2 * nj + 1], a_hi, a_lo, b_hi + 2, b_lo + 2);
+  }
+}
+
+// c (16 x 64) += rows row0 .. row0 + 15 of the staged float32 tile a times
+// tile b^T, in split TF32: n8 tile t of c holds rows 8 t .. 8 t + 7 of b.
+// Both operands are read from shared memory with ldmatrix and split at each
+// use, so no operand lives in registers across a key loop.
+template <int D>
+__device__ __forceinline__ void mma_tf32_a_bt(float (&c)[8][4], const float* a, int row0,
+                                              const float* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t a_hi[4], a_lo[4];
+    load_a_tf32<D>(a_hi, a_lo, a, row0, kk);
+    mma_tf32_step_bt<D>(c, a_hi, a_lo, b, kk);
+  }
+}
+
+// c (16 x kCols) += p (16 x 64) times columns col0 .. col0 + kCols - 1 of the
+// staged float32 tile, in split TF32 (m16n8k8), p a warp's accumulators as
+// they lie: p's columns are the tile's rows, and n8 tile t of c holds the
+// tile's columns col0 + 8 t .. + 7. The TF32 A layout is not the C layout,
+// so k8 step kk takes p's n8 tile kk as it lies (A index tig is tile row
+// 8 kk + 2 tig, tig + 4 is row 8 kk + 2 tig + 1) and reads the tile's B
+// fragment at those rows, column col0 + 8 dj + g: the sum runs over the
+// step's rows in another order, and every operand is split into hi and lo.
+template <int D, int kCols>
+__device__ __forceinline__ void mma_tf32_c_b(float (&c)[kCols / 8][4], const float (&p)[8][4],
+                                             const float* tile, int col0) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t a_hi[4], a_lo[4];
+    split_tf32(p[kk][0], a_hi[0], a_lo[0]);
+    split_tf32(p[kk][2], a_hi[1], a_lo[1]);
+    split_tf32(p[kk][1], a_hi[2], a_lo[2]);
+    split_tf32(p[kk][3], a_hi[3], a_lo[3]);
+    const float* row = tile + (8 * kk + 2 * tig) * kAttnF32Stride<D> + col0 + g;
+#pragma unroll
+    for (int dj = 0; dj < kCols / 8; ++dj) {
+      uint32_t b_hi[2], b_lo[2];
+      split_tf32(row[8 * dj], b_hi[0], b_lo[0]);
+      split_tf32(row[kAttnF32Stride<D> + 8 * dj], b_hi[1], b_lo[1]);
+      mma_3xtf32(c[dj], a_hi, a_lo, b_hi, b_lo);
+    }
   }
 }
 

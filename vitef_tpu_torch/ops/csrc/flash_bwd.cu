@@ -8,7 +8,7 @@
 // kernel serves every L, so the backward of csrc/flash_fwd.cu (K4) never
 // takes a plain version. For sequence n and head h, with Q, K, V, the
 // cotangent G and the forward's output O (N, n_heads, L, d), bfloat16 at
-// d = 64 or 128 or float32 at d = 64, and P = softmax(Q K^T / sqrt(d))
+// d = 64 or 128 or float32 at d = 8, 64 or 128, and P = softmax(Q K^T / sqrt(d))
 // (causal: key j is visible to query i iff j <= i):
 //     dV = P^T G,  dP = G V^T,  dS = P * (dP - delta) / sqrt(d),
 //     dQ = dS K,   dK = dS^T Q,  delta = rowsum(P * dP) = rowsum(G * O),
@@ -58,8 +58,13 @@
 //   (rows of K, G or Q) is read at the rows the A index stands for. The A
 //   operands that bf16 keeps as register fragments (Q and G, or K and V)
 //   stay in shared memory and are split at each use: split, they would take
-//   128 registers beside the 96-128 of the accumulators. Rows of 68 floats;
-//   six tiles and the statistics are 103 KB a block, two blocks an SM.
+//   128 registers beside the 96-128 of the accumulators. Rows of d + 4
+//   floats; six tiles and the statistics are 19 KB a block at d = 8 and
+//   103 KB at d = 64, two blocks an SM. At d = 128 they are 199 KB, one
+//   block an SM, and the dK/dV pass takes 64 head columns of dK and dV a
+//   block, each of the two blocks of a key tile computing S^T and dP^T
+//   whole (kAttnDkvF32Cols): both halves in one block would hold 192
+//   floats of dK, dV, S^T and dP^T beside a tile's products.
 //
 // C interface:
 //   flash_bwd(q, k, v, g, out, lse, dq, dk, dv, stats,
@@ -68,7 +73,7 @@
 // fp32 is set, else bfloat16; lse (N, n_heads, L) is float32; stats is
 // float32 scratch of N * n_heads * L * 2. Returns a cudaError_t as int: the
 // last launch's cudaGetLastError(), or cudaErrorInvalidValue for a shape this
-// kernel does not take (float32 at d = 128 among them).
+// kernel does not take (float32 at d = 80 among them).
 
 #include "packed_mha_common.cuh"
 #include "attn_bwd_mma.cuh"
@@ -92,13 +97,14 @@ __device__ __forceinline__ AttnBwdHead flash_head(const bf16* q, const bf16* k, 
                      dv == nullptr ? nullptr : dv + off, D};
 }
 
-// The same head in float32: rows of kAttnF32Dim (64) contiguous floats.
+// The same head in float32: rows of D contiguous floats.
+template <int D>
 __device__ __forceinline__ AttnBwdHeadF32 flash_head_f32(const float* q, const float* k,
                                                          const float* v, const float* g,
                                                          const float* out, const float* lse,
                                                          float2* stats, float* dq, float* dk,
                                                          float* dv, size_t head, int L) {
-  const size_t off = head * L * kAttnF32Dim;
+  const size_t off = head * L * D;
   const size_t row_off = head * L;
   return AttnBwdHeadF32{q + off, k + off, v + off, g + off,
                         out == nullptr ? nullptr : out + off,
@@ -140,8 +146,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   attn_bwd_dkv_tile<D, false, kCausal>(head, L, tile * kAttnKeys, scale, ds_scale, smem);
 }
 
-// float32, pass 1, in split TF32; tiles in the order of flash_bwd_dq_kernel.
-template <bool kCausal>
+// float32 at head width D, pass 1, in split TF32; tiles in the order of
+// flash_bwd_dq_kernel.
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kAttnThreads)
 flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ g,
@@ -151,34 +158,39 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);
-  const AttnBwdHeadF32 head = flash_head_f32(q, k, v, g, out, lse, stats, dq, nullptr,
-                                             nullptr, blockIdx.x / n_tiles, L);
-  attn_bwd_dq_tile_f32<kCausal>(head, L, tile * kAttnRows, scale, ds_scale, smem);
+  const AttnBwdHeadF32 head = flash_head_f32<D>(q, k, v, g, out, lse, stats, dq, nullptr,
+                                                nullptr, blockIdx.x / n_tiles, L);
+  attn_bwd_dq_tile_f32<D, kCausal>(head, L, tile * kAttnRows, scale, ds_scale, smem);
 }
 
-// float32, pass 2, in split TF32; tiles in the order of flash_bwd_dkv_kernel.
-template <bool kCausal>
+// float32 at head width D, pass 2, in split TF32: one block per (head, key
+// tile, kAttnDkvF32Cols<D> head columns), the key tiles in the order of
+// flash_bwd_dkv_kernel.
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kAttnThreads)
 flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ g,
                           float2* __restrict__ stats, float* __restrict__ dk,
                           float* __restrict__ dv, int L, float scale, float ds_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kParts = D / kAttnDkvF32Cols<D>;
   const int n_tiles = (L + kAttnKeys - 1) / kAttnKeys;
-  const int tile = static_cast<int>(blockIdx.x % n_tiles);
-  const AttnBwdHeadF32 head = flash_head_f32(q, k, v, g, nullptr, nullptr, stats, nullptr,
-                                             dk, dv, blockIdx.x / n_tiles, L);
-  attn_bwd_dkv_tile_f32<kCausal>(head, L, tile * kAttnKeys, scale, ds_scale, smem);
+  const int part = static_cast<int>(blockIdx.x % kParts);
+  const int tile = static_cast<int>(blockIdx.x / kParts % n_tiles);
+  const AttnBwdHeadF32 head = flash_head_f32<D>(q, k, v, g, nullptr, nullptr, stats, nullptr,
+                                                dk, dv, blockIdx.x / kParts / n_tiles, L);
+  attn_bwd_dkv_tile_f32<D, kCausal>(head, L, tile * kAttnKeys, part * kAttnDkvF32Cols<D>,
+                                    scale, ds_scale, smem);
 }
 
 // The two passes in order on `stream`, each with `smem` bytes of dynamic
-// shared memory, on operands of type T at head width d; returns the first
-// launch error.
+// shared memory, on operands of type T at head width d, the dK/dV pass in
+// `dkv_parts` blocks per key tile; returns the first launch error.
 template <typename T, typename DqKernel, typename DkvKernel>
 cudaError_t launch(DqKernel dq_kernel, DkvKernel dkv_kernel, size_t smem, int d, const void* q,
                    const void* k, const void* v, const void* g, const void* out,
                    const float* lse, void* dq, void* dk, void* dv, float2* stats,
-                   long long heads, int L, cudaStream_t stream) {
+                   long long heads, int L, cudaStream_t stream, int dkv_parts = 1) {
   const float scale = kLog2e / sqrtf(static_cast<float>(d));
   const float ds_scale = 1.f / sqrtf(static_cast<float>(d));
   const T* qp = static_cast<const T*>(q);
@@ -197,9 +209,21 @@ cudaError_t launch(DqKernel dq_kernel, DkvKernel dkv_kernel, size_t smem, int d,
 
   err = allow_smem(dkv_kernel, smem);
   if (err != cudaSuccess) return err;
-  dkv_kernel<<<blocks, kAttnThreads, smem, stream>>>(qp, kp, vp, gp, stats, static_cast<T*>(dk),
-                                                     static_cast<T*>(dv), L, scale, ds_scale);
+  dkv_kernel<<<blocks * dkv_parts, kAttnThreads, smem, stream>>>(
+      qp, kp, vp, gp, stats, static_cast<T*>(dk), static_cast<T*>(dv), L, scale, ds_scale);
   return cudaGetLastError();
+}
+
+// The float32 passes at head width D in the mode on `stream`.
+template <int D>
+cudaError_t launch_tf32(bool causal, const void* q, const void* k, const void* v, const void* g,
+                        const void* out, const float* lse, void* dq, void* dk, void* dv,
+                        float2* stats, long long heads, int L, cudaStream_t stream) {
+  return launch<float>(
+      causal ? flash_bwd_dq_tf32_kernel<D, true> : flash_bwd_dq_tf32_kernel<D, false>,
+      causal ? flash_bwd_dkv_tf32_kernel<D, true> : flash_bwd_dkv_tf32_kernel<D, false>,
+      kAttnBwdF32SmemBytes<D>, D, q, k, v, g, out, lse, dq, dk, dv, stats, heads, L, stream,
+      D / kAttnDkvF32Cols<D>);
 }
 
 }  // namespace
@@ -208,7 +232,8 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
                          const void* out, const void* lse, void* dq, void* dk, void* dv,
                          void* stats, int n, int n_heads, int L, int head_dim, int fp32,
                          int causal, void* stream) {
-  const bool width_ok = fp32 ? head_dim == kAttnF32Dim : head_dim == 64 || head_dim == 128;
+  const bool width_ok = fp32 ? head_dim == 8 || head_dim == 64 || head_dim == 128
+                             : head_dim == 64 || head_dim == 128;
   if (!width_ok || n <= 0 || L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -217,11 +242,10 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
   float2* stats_p = static_cast<float2*>(stats);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fp32) {
-    return static_cast<int>(launch<float>(
-        causal ? flash_bwd_dq_tf32_kernel<true> : flash_bwd_dq_tf32_kernel<false>,
-        causal ? flash_bwd_dkv_tf32_kernel<true> : flash_bwd_dkv_tf32_kernel<false>,
-        kAttnBwdF32SmemBytes, kAttnF32Dim, q, k, v, g, out, lse_p, dq, dk, dv, stats_p,
-        heads, L, s));
+    const auto run = head_dim == 8 ? launch_tf32<8>
+                     : head_dim == 64 ? launch_tf32<64> : launch_tf32<128>;
+    return static_cast<int>(run(causal != 0, q, k, v, g, out, lse_p, dq, dk, dv, stats_p,
+                                heads, L, s));
   }
   if (head_dim == 64) {
     return static_cast<int>(launch<bf16>(

@@ -5,7 +5,8 @@
 // computes
 //     out[n, h] = softmax(Q K^T / sqrt(d) [+ causal mask]) V
 // on q, k, v (N, n_heads, L, d), contiguous: bfloat16 at d = 64 or 128
-// (Llama-1B's and Llama-3.1-8B's head widths), float32 at d = 64. The
+// (Llama-1B's and Llama-3.1-8B's head widths), float32 at d = 8, 64 or
+// 128 (PatchTST's float32 default at 8). The
 // TPU kernel pads L to a multiple of its 128-row blocks and masks keys past
 // kv_len; this one takes any L and masks by index (the last tiles are
 // partial). Scores, the running max and sum and the P.V accumulator are
@@ -44,16 +45,20 @@
 //   m16n8k8 product is hi.hi + hi.lo + lo.hi in float32 (mma_3xtf32): the
 //   dropped lo.lo is about 2^-22 of the product, inside float32's summation
 //   noise. Three TF32 products per float32 product, so its bound is 3 x the
-//   products over the 495 TFLOP/s of dense TF32. Rows are padded to 68
-//   floats (272 bytes), so ldmatrix on Q and K rows and the column reads of
-//   V are free of bank conflicts. The TF32 A layout is not the C layout of
+//   products over the 495 TFLOP/s of dense TF32. Rows are padded to d + 4
+//   floats (68 at d = 64), so ldmatrix on Q and K rows and the column reads
+//   of V are free of bank conflicts. At d = 8 a row is one k8 step and P V
+//   one n8 tile, with no padding to a k16 step as bf16 needs. The TF32 A layout is not the C layout of
 //   the score product, so P goes into P.V as it lies in the accumulators
 //   and the sum runs over the tile's keys in another order: the k index tig
 //   of the A fragment is key 2 tig and tig + 4 is key 2 tig + 1, and V's B
-//   fragment is read at those keys. Q stays split in registers for the
-//   whole key loop; it is staged once in K's second stage, before that
-//   stage first holds K. Shared memory: two K and two V stages, 68 KB, so
-//   three blocks fit an SM, as do their registers (capped at 168).
+//   fragment is read at those keys. Up to d = 64, Q stays split in
+//   registers for the whole key loop; it is staged once in K's second
+//   stage, before that stage first holds K. Shared memory: two K and two V
+//   stages, 68 KB at d = 64, so three blocks fit an SM, as do their
+//   registers (capped at 168). At d = 128, Q split would take 128 registers
+//   beside 64 of O, so it keeps a shared tile of its own and is split at
+//   each use: 165 KB, one block an SM.
 // wgmma, TMA and warp specialisation are the next step.
 //
 // No atomics: two launches on the same inputs give bit-identical results.
@@ -61,7 +66,7 @@
 // C interface: flash_fwd(q, k, v, out, lse, N, n_heads, L, head_dim, fp32,
 // causal, stream) returns a cudaError_t as int: the launch's
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape this kernel does
-// not take (float32 at d = 128 among them). fp32 selects float32 inputs and
+// not take (float32 at d = 80 among them). fp32 selects float32 inputs and
 // output (else bfloat16); lse may be null.
 
 #include "packed_mha_common.cuh"
@@ -87,29 +92,47 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   attn_fwd_tile<D, false, kCausal, false>(view, L, tile * kAttnRows, score_scale, smem);
 }
 
-constexpr size_t kF32SmemBytes = 4 * static_cast<size_t>(kAttnF32Tile) * sizeof(float);
+// The float32 path holds each warp's 16 Q rows split in registers (D of
+// them) up to D = 64; at D = 128 that would be 128 registers beside 64 of O
+// and 32 of S, so Q stays in a shared tile of its own and is split at each
+// use. Shared memory: two K and two V stages (with Q in K's second stage
+// until it is first filled), 12 KB at D = 8 and 68 KB at D = 64; at
+// D = 128 those and Q's tile, 165 KB, one block an SM.
+template <int D>
+constexpr bool kF32HoldQ = D <= 64;
+template <int D>
+constexpr size_t kF32SmemBytes =
+    (kF32HoldQ<D> ? 4 : 5) * static_cast<size_t>(kAttnF32Tile<D>) * sizeof(float);
+// Blocks an SM the register cap is set for: three up to D = 64 (168
+// registers a thread), one at D = 128, which shared memory allows alone.
+template <int D>
+constexpr int kF32MinBlocks = D <= 64 ? 3 : 1;
 
-// The float32 path: rows q0 .. q0 + 63 (those < L) of one head, in split
-// TF32 on the tensor cores (m16n8k8). Element (t, 2 rr + e) of a 16 x 64
-// accumulator is row row0 + 8 rr and column (key or head column)
-// 8 t + 2 tig + e. Three blocks an SM: under the cap of 168 registers
-// (uncapped it takes 171-174, so two blocks fit) the non-causal mode spills
-// 8 bytes, and both modes ran faster than uncapped when the two were timed
-// in turns on the card.
-template <bool kCausal>
-__global__ void __launch_bounds__(kAttnThreads, 3)
+// The float32 path at head width D: rows q0 .. q0 + 63 (those < L) of one
+// head, in split TF32 on the tensor cores (m16n8k8). Element (t, 2 rr + e)
+// of a 16 x 64 score accumulator (of a 16 x D one) is row row0 + 8 rr and
+// key (head column) 8 t + 2 tig + e. At D = 64, three blocks an SM: under
+// the cap of 168 registers (uncapped it takes 171-174, so two blocks fit)
+// the non-causal mode spills 8 bytes, and both modes ran faster than
+// uncapped when the two were timed in turns on the card.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kAttnThreads, kF32MinBlocks<D>)
 flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
                       float* __restrict__ lse, int L, float score_scale) {
+  static_assert(kAttnF32WidthOk<D>, "float32 head widths are 8, 64 and 128");
+  constexpr int kTile = kAttnF32Tile<D>;
+  constexpr int kN8 = D / 8;             // k8 steps of a row; n8 tiles of O
   extern __shared__ __align__(16) unsigned char smem[];
   float* sk = reinterpret_cast<float*>(smem);  // two stages of kAttnKeys rows
-  float* sv = sk + 2 * kAttnF32Tile;           // likewise
-  float* sq = sk + kAttnF32Tile;               // Q, until K's second stage is first filled
+  float* sv = sk + 2 * kTile;                  // likewise
+  float* sq = kF32HoldQ<D> ? sk + kTile        // Q, until K's second stage is first filled
+                           : sv + 2 * kTile;   // Q, for the whole key loop
 
   const int n_tiles = (L + kAttnRows - 1) / kAttnRows;
   const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x % n_tiles);  // longest first
   const size_t head = blockIdx.x / n_tiles;                              // n * n_heads + h
-  const size_t head_off = head * L * kAttnF32Dim;
+  const size_t head_off = head * L * D;
   const float* qh = q + head_off;
   const float* kh = k + head_off;
   const float* vh = v + head_off;
@@ -118,68 +141,52 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = tid % 32;
   const int g = lane >> 2;              // the accumulator row (and row + 8) of this thread
   const int tig = lane & 3;             // its column pair within each n8 tile
-  const int copy_row = tid >> 4;        // this thread's copies: rows copy_row + 8 i,
-  const int copy_col = (tid & 15) * 4;  // floats copy_col .. + 3
   const int q0 = tile * kAttnRows;
   const int row0 = q0 + warp * 16 + g;  // this thread's query rows: row0 and row0 + 8
   const int kv_end = kCausal ? min(q0 + kAttnRows, L) : L;  // keys this tile may see
   const int n_kv = (kv_end + kAttnKeys - 1) / kAttnKeys;
 
-  stage_tile_f32(qh, q0, L, sq, copy_row, copy_col);
-  stage_tile_f32(kh, 0, L, sk, copy_row, copy_col);
-  stage_tile_f32(vh, 0, L, sv, copy_row, copy_col);
+  stage_tile_f32<D>(qh, q0, L, sq);
+  stage_tile_f32<D>(kh, 0, L, sk);
+  stage_tile_f32<D>(vh, 0, L, sv);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  // The warp's 16 Q rows as split A fragments of the eight k8 steps over the
-  // head columns: matrices (rows 0-7 | 8-15) x (columns 0-3 | 4-7).
-  uint32_t q_hi[8][4], q_lo[8][4];
+  // Held: the warp's 16 Q rows as split A fragments of the kN8 k8 steps.
+  uint32_t q_hi[kF32HoldQ<D> ? kN8 : 1][4], q_lo[kF32HoldQ<D> ? kN8 : 1][4];
+  if constexpr (kF32HoldQ<D>) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, sq + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kAttnF32Stride +
-                       kk * 8 + (lane >> 4) * 4);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), q_hi[kk][e], q_lo[kk][e]);
+    for (int kk = 0; kk < kN8; ++kk) load_a_tf32<D>(q_hi[kk], q_lo[kk], sq, warp * 16, kk);
+    __syncthreads();  // every warp has its Q fragments: K's second stage is free
   }
-  __syncthreads();  // every warp has its Q fragments: K's second stage is free
 
-  float o[8][4];                        // O, 16 x 64: n8 tiles of head columns
+  float o[kN8][4];                      // O, 16 x D: n8 tiles of head columns
   zero_acc(o);
   float row_m[2] = {-INFINITY, -INFINITY};
   float row_l[2] = {0.f, 0.f};          // this thread's part of each row's sum
 
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kAttnKeys;
-    const float* ks = sk + (j & 1) * kAttnF32Tile;
-    const float* vs = sv + (j & 1) * kAttnF32Tile;
+    const float* ks = sk + (j & 1) * kTile;
+    const float* vs = sv + (j & 1) * kTile;
     if (j + 1 < n_kv) {  // the next tile's stage was last read before the previous barrier
       const int next = (j + 1) & 1;
-      stage_tile_f32(kh, k0 + kAttnKeys, L, sk + next * kAttnF32Tile, copy_row, copy_col);
-      stage_tile_f32(vh, k0 + kAttnKeys, L, sv + next * kAttnF32Tile, copy_row, copy_col);
+      stage_tile_f32<D>(kh, k0 + kAttnKeys, L, sk + next * kTile);
+      stage_tile_f32<D>(vh, k0 + kAttnKeys, L, sv + next * kTile);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this thread's pieces of tile j have landed
     __syncthreads();
 
-    // S = Q K^T: n8 tile t holds keys k0 + 8 t .. + 7. One ldmatrix gives the
-    // B fragments of n8 tiles 2 nj and 2 nj + 1 at k8 step kk: matrices
-    // (keys 0-7 | 8-15 of the pair) x (columns 0-3 | 4-7 of the step).
+    // S = Q K^T: n8 tile t holds keys k0 + 8 t .. + 7.
     float s[8][4];
     zero_acc(s);
+    if constexpr (kF32HoldQ<D>) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t b[4], b_hi[4], b_lo[4];
-        ldmatrix_x4(b, ks + (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kAttnF32Stride +
-                           kk * 8 + ((lane >> 3) & 1) * 4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(b[e]), b_hi[e], b_lo[e]);
-        mma_3xtf32(s[2 * nj], q_hi[kk], q_lo[kk], b_hi, b_lo);
-        mma_3xtf32(s[2 * nj + 1], q_hi[kk], q_lo[kk], b_hi + 2, b_lo + 2);
-      }
+      for (int kk = 0; kk < kN8; ++kk) mma_tf32_step_bt<D>(s, q_hi[kk], q_lo[kk], ks, kk);
+    } else {
+      mma_tf32_a_bt<D>(s, sq, warp * 16, ks);
     }
 
     // Scale; mask by index on the diagonal and the last partial tile.
@@ -214,7 +221,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       row_m[rr] = mx;
       row_l[rr] *= alpha;
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
+      for (int t = 0; t < kN8; ++t) {
         o[t][2 * rr] *= alpha;
         o[t][2 * rr + 1] *= alpha;
       }
@@ -228,25 +235,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    // O += P V over the tile's keys, eight at a time: k8 step kk takes P's
-    // n8 tile kk as it lies (A index tig is key 8 kk + 2 tig, tig + 4 is
-    // key 8 kk + 2 tig + 1) and V's rows at those keys, column 8 dj + g.
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t a_hi[4], a_lo[4];
-      split_tf32(s[kk][0], a_hi[0], a_lo[0]);
-      split_tf32(s[kk][2], a_hi[1], a_lo[1]);
-      split_tf32(s[kk][1], a_hi[2], a_lo[2]);
-      split_tf32(s[kk][3], a_hi[3], a_lo[3]);
-      const float* vrow = vs + (8 * kk + 2 * tig) * kAttnF32Stride + g;
-#pragma unroll
-      for (int dj = 0; dj < 8; ++dj) {
-        uint32_t b_hi[2], b_lo[2];
-        split_tf32(vrow[8 * dj], b_hi[0], b_lo[0]);
-        split_tf32(vrow[kAttnF32Stride + 8 * dj], b_hi[1], b_lo[1]);
-        mma_3xtf32(o[dj], a_hi, a_lo, b_hi, b_lo);
-      }
-    }
+    // O += P V over the tile's keys, P as it lies in the accumulators.
+    mma_tf32_c_b<D, D>(o, s, vs, 0);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
@@ -259,14 +249,27 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = row0 + 8 * rr;
     if (qi >= L) continue;
     const float inv = 1.f / row_l[rr];
-    float* orow = out + head_off + static_cast<size_t>(qi) * kAttnF32Dim + 2 * tig;
+    float* orow = out + head_off + static_cast<size_t>(qi) * D + 2 * tig;
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
+    for (int t = 0; t < kN8; ++t) {
       *reinterpret_cast<float2*>(orow + 8 * t) =
           make_float2(o[t][2 * rr] * inv, o[t][2 * rr + 1] * inv);
     }
     if (lse != nullptr && tig == 0) lse[head * L + qi] = row_m[rr] + log2f(row_l[rr]);
   }
+}
+
+// The float32 kernel of the mode at head width D on `stream`.
+template <int D>
+cudaError_t launch_tf32(const float* q, const float* k, const float* v, float* out, float* lse,
+                        unsigned blocks, int L, bool causal, cudaStream_t stream) {
+  const auto kernel = causal ? flash_fwd_tf32_kernel<D, true> : flash_fwd_tf32_kernel<D, false>;
+  constexpr size_t smem = kF32SmemBytes<D>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kAttnThreads, smem, stream>>>(q, k, v, out, lse, L,
+                                                 kLog2e / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
 }
 
 // The bfloat16 kernel of the mode at head width D on `stream`.
@@ -287,7 +290,8 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out, 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                          int n, int n_heads, int L, int head_dim, int fp32, int causal,
                          void* stream) {
-  const bool width_ok = fp32 ? head_dim == kAttnF32Dim : head_dim == 64 || head_dim == 128;
+  const bool width_ok = fp32 ? head_dim == 8 || head_dim == 64 || head_dim == 128
+                             : head_dim == 64 || head_dim == 128;
   if (!width_ok || n <= 0 || L <= 0 || n_heads <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -295,14 +299,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* out,
       static_cast<long long>(n) * n_heads * ((L + kAttnRows - 1) / kAttnRows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fp32) {
-    const auto kernel = causal ? flash_fwd_tf32_kernel<true> : flash_fwd_tf32_kernel<false>;
-    const cudaError_t err = allow_smem(kernel, kF32SmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<static_cast<unsigned>(blocks), kAttnThreads, kF32SmemBytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), L,
-        kLog2e / sqrtf(static_cast<float>(kAttnF32Dim)));
-    return static_cast<int>(cudaGetLastError());
+    const auto run = head_dim == 8 ? launch_tf32<8>
+                     : head_dim == 64 ? launch_tf32<64> : launch_tf32<128>;
+    return static_cast<int>(run(static_cast<const float*>(q), static_cast<const float*>(k),
+                                static_cast<const float*>(v), static_cast<float*>(out),
+                                static_cast<float*>(lse), static_cast<unsigned>(blocks), L,
+                                causal != 0, s));
   }
   const auto run = head_dim == 64 ? launch_bf16<64> : launch_bf16<128>;
   return static_cast<int>(run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),

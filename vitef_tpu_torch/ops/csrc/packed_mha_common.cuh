@@ -8,8 +8,8 @@
 // qkv bias (3E,) added in the kernels and rounded to bfloat16 as the plain
 // PyTorch version rounds qkv + bias. K1-K3 are instantiated for head widths
 // 8 (PatchTST), 64, 80 (ViT-H/14) and 128 (Llama-3.1-8B), each a template argument of
-// their tiles; K4 and K5 for 64 and 128 in bfloat16 and 64 in float32
-// (kAttnF32Dim); K9 for 64 and 128 (csrc/ring_hop.cu).
+// their tiles; K4 and K5 for 64 and 128 in bfloat16 and 8, 64 and 128 in
+// float32 (kAttnF32WidthOk); K9 for 64 and 128 (csrc/ring_hop.cu).
 //
 // Shared here: the bf16 pair load, log2(e) and allow_smem.
 
